@@ -5,25 +5,36 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. build of every kernel of the serving path (K1,
-   romtime_tpu_torch/csrc/windowed_fused.cu) with nvcc for sm_90a;
-3. kernel phase: K1 against its plain PyTorch twin, both on the card, at
-   the fleet's two serving shapes (50 windows × 30 steps at N=32, 150 × 10
-   at N=48; B=2048; paired LU G=5 "sub1"), errors against
-   5e-5·scale, and the kernel's and the twin's ms per sweep;
-4. serving phase: ``solve_batch(mus, mode="probes", probe_reduce="mean")``
-   on the seeded synthetic 50x32 cell (real piston FOM, nx=1000,
-   nt=1500) for five batches of 2048 μ: the K1 launch counter must rise,
-   the outputs must be finite and agree with the same sweep run through
-   the twin; solves/s (prep + sweep, synchronized; median of the five)
-   beside the card name, and the prep/sweep split.
+2. build of every kernel of the serving path with nvcc for sm_90a, one
+   nvcc per source, all at once: K1 (romtime_tpu_torch/csrc/windowed_fused.cu),
+   K2 and K3 (romtime_tpu_torch/csrc/resid_sweep.cu);
+3. kernel phase, each kernel against its plain PyTorch twin, both on the
+   card, at the fleet's two serving shapes (50 windows × 30 steps at N=32,
+   150 × 10 at N=48): K1 over a whole sweep (B=2048, paired LU G=5
+   "sub1"); K2 (B=512 at 50x32, B=128 at 150x48) and K3 (B=2048) over one
+   window launch with step0 > 0 from a nonzero carried state. Errors
+   against 5e-5·scale; ms per call of the kernel and of the twin;
+4. serving phase on the seeded synthetic 50x32 cell (real piston FOM,
+   nx=1000, nt=1500) through ``solve_batch(mus, mode="probes",
+   probe_reduce="mean")``, one stage-2 branch after the other, each with
+   every launch counter set to 0 just before it and read just after:
+   B=2048 (fused K1, one launch per call), B=512 (materialized tables,
+   K2 once per window: 50 per call, K1 unmoved) and B=2048 under
+   ROMTIME_WINDOWED_KERNEL=v2 (K3 once per window). Each branch's outputs
+   must be finite and agree with the same batch through the twins on the
+   card, and K2's and K3's with K1's on the same μ; solves/s per branch
+   (median of its calls, synchronized) beside the card name; where each
+   branch's time goes; each kernel's ms, twin ms and bound on the
+   serving path's own inputs.
 
 Prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports nothing of JAX.
 """
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -32,12 +43,20 @@ from pathlib import Path
 
 import torch
 
-ATOL_REL = 5e-5      # K1 vs twin, relative to the largest |value|
+ATOL_REL = 5e-5      # kernel vs twin, relative to the largest |value|
 SHAPES = ((50, 30, 32), (150, 10, 48))   # (W, width, N)
 B = 2048
+K2_BATCH = {32: 512, 48: 128}            # K2's kernel-phase batch by N
 GROUP = 5
 KERNEL_REPS = 5
-SERVE_REQUESTS = 5
+RESID_REPS = 20
+SERVE_CALLS = {"fused": 5, "matrices": 3, "v2": 3}
+SERVE_BATCH = {"fused": 2048, "matrices": 512, "v2": 2048}
+BRANCH_KERNEL = {"fused": "K1", "matrices": "K2", "v2": "K3"}
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores
+# and HBM3 bandwidth, at the full 700 W power limit.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg):
@@ -53,9 +72,10 @@ def card():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Mean ms per call over ``reps`` calls after one warm-up call."""
-    fn()
+def cuda_ms(fn, reps, warmup=True):
+    """Mean ms per call over ``reps`` calls (after one warm-up call)."""
+    if warmup:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -66,110 +86,369 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps, out
 
 
-def err_and_scale(got, want):
-    scale = max(want.abs().max().item(), 1e-30)
-    return (got - want).abs().max().item(), scale
-
-
 def check(name, got, want):
-    err, scale = err_and_scale(got, want)
+    scale = max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs().max().item()
     ok = err <= ATOL_REL * scale and torch.isfinite(got).all().item()
     print(f"  {name}: max abs err {err:.3e} (scale {scale:.3e}, "
           f"limit {ATOL_REL * scale:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name}: K1 disagrees with its twin")
+        raise AssertionError(f"{name}: kernel disagrees with its reference")
     return err
 
 
-def kernel_phase(k1, kernel_tables, dev, power):
+def check_sweep(label, got, want):
+    (p, s), (tp, ts) = got, want
+    print(label)
+    return max(check("probes", p, tp), check("state", s[[0, 2]], ts[[0, 2]]))
+
+
+# ----------------------------------------------------------------------
+# Work bounds: operations and bytes each kernel's call needs, from its
+# inputs' shapes (no loop of these kernels ends early).
+# ----------------------------------------------------------------------
+def lu_fmas(NP):
+    """FMAs of one lane's pivot-free LU of an NP×NP matrix and its two
+    triangular solves: the least a solve needs (no explicit inverse)."""
+    return sum((NP - k - 1) * (NP - k) for k in range(NP)) + NP * NP
+
+
+def step_fmas(NP, km8, kk8, kf8, with_trilinear, solve):
+    """FMAs of one lane's residual BDF step with each operator formed once:
+    MN = Bm·θm and KL = Bk·θk (NP²·(km8 + kk8)), fN = Bf·θf (NP·kf8), the
+    trilinear NN = T0·pred and dtS (NP³ + NP²), KN, MN·d and dtS·pred
+    (3·NP²), the solve, and the probes (8·NP). K1, K2 and K3 compute this
+    same step; K2 reads MN, KL and fN instead (km8 = kk8 = kf8 = 0)."""
+    tri = NP ** 3 + NP * NP if with_trilinear else 0
+    return (NP * NP * (km8 + kk8) + NP * kf8 + tri + 3 * NP * NP + solve
+            + 8 * NP)
+
+
+def bound(flops, nbytes):
+    """(least ms, what sets it) against the card's FP32 and HBM peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def k1_bound(args, kw):
+    """K1 over a whole sweep. A paired-LU follower step substitutes with
+    its leader's factors, refines once against its own KN and substitutes
+    again (3·NP²) instead of factorizing. The window transfers are two dd
+    matvecs through Tp[w] (~10 operations per entry)."""
+    from romtime_tpu_torch.ops.windowed_fused import step_roles
+
+    TH = args[0]
+    nt, _K8, Bn = TH.shape
+    W, NP = args[6].shape[0], args[6].shape[2]       # VE (W, P, NP)
+    width = nt // W
+    group = kw.get("paired_lu") or 0
+    group = group if group >= 2 and kw["n_real"] > 20 else 0
+    roles = step_roles(kw.get("period") or width, group)
+    solve = sum(3 * NP * NP if r == "follow" else lu_fmas(NP)
+                for r in roles) / len(roles)
+    per_step = step_fmas(NP, kw["km8"], kw["kk8"], kw["kf8"],
+                         kw["with_trilinear"], solve)
+    flops = 2 * Bn * (nt * per_step + W * 2 * 10 * NP * NP)
+    nbytes = 4 * (TH.numel() + sum(a.numel() for a in args[1:8])
+                  + Bn + 2 * 4 * NP * Bn + nt * 8 * Bn)
+    return bound(flops, nbytes)
+
+
+def k2_bound(args, kw):
+    MN, _KL, fN, g = args[:4]
+    nt, NP, _, Bn = MN.shape
+    per_step = step_fmas(NP, 0, 0, 0, kw["with_trilinear"], lu_fmas(NP))
+    flops = 2 * Bn * nt * per_step
+    nbytes = 4 * (2 * MN.numel() + fN.numel() + 2 * g.numel()
+                  + (NP ** 3 if kw["with_trilinear"] else 0) + 8 * NP + Bn
+                  + 2 * 4 * NP * Bn)
+    return bound(flops, nbytes)
+
+
+def k3_bound(args, kw):
+    THm, THk, THf, g, Bm, Bk, Bf = args[:7]
+    nt, km8, Bn = THm.shape
+    kk8, kf8 = THk.shape[1], THf.shape[1]
+    NP = Bf.shape[0]
+    per_step = step_fmas(NP, km8, kk8, kf8, kw["with_trilinear"],
+                         lu_fmas(NP))
+    flops = 2 * Bn * nt * per_step
+    nbytes = 4 * (THm.numel() + THk.numel() + THf.numel() + 2 * g.numel()
+                  + Bm.numel() + Bk.numel() + Bf.numel()
+                  + (NP ** 3 if kw["with_trilinear"] else 0) + 8 * NP + Bn
+                  + 2 * 4 * NP * Bn)
+    return bound(flops, nbytes)
+
+
+# ----------------------------------------------------------------------
+# Kernel phase
+# ----------------------------------------------------------------------
+def kernel_phase(mods, dev, power, errs):
+    k1, rs, synth = mods["k1"], mods["rs"], mods["synth"]
     rows = []
     for W, width, N in SHAPES:
-        args, kw = kernel_tables(N, W, width, B, seed=W, device=dev)
+        args, kw = synth.kernel_tables(N, W, width, B, seed=W, device=dev)
         kw.update(paired_lu=GROUP, paired_mode="sub1")
-        ms, (p, s) = cuda_ms(
-            lambda: k1.online_sweep_windowed_fused(*args, **kw),
-            KERNEL_REPS)
-        plain_ms, (tp, ts) = cuda_ms(
-            lambda: k1.windowed_fused_reference(*args, **kw), 1)
-        print(f"K1 {W}x{N} width={width} B={B} G={GROUP} on {power}:")
-        err = max(check("probes", p, tp),
-                  check("state", s[[0, 2]], ts[[0, 2]]))
-        print(f"  kernel {ms:.3f} ms/sweep, twin {plain_ms:.1f} ms/sweep")
-        rows.append(dict(shape=f"{W}x{N}", ms=ms, plain_ms=plain_ms,
+        ms, got = cuda_ms(lambda: k1.online_sweep_windowed_fused(*args, **kw),
+                          KERNEL_REPS)
+        plain_ms, want = cuda_ms(
+            lambda: k1.windowed_fused_reference(*args, **kw), 1,
+            warmup=False)
+        err = check_sweep(f"K1 {W}x{N} width={width} B={B} G={GROUP} on "
+                          f"{power}:", got, want)
+        errs["K1"].append(err)
+        bms, by = k1_bound(args, kw)
+        print(f"  kernel {ms:.3f} ms/sweep, twin {plain_ms:.1f} ms/sweep, "
+              f"bound {bms:.3f} ms ({by})")
+        rows.append(dict(kernel="K1", shape=f"{W}x{N}", B=B, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          max_abs_err=err))
+        step0 = (W // 2) * width
+        for name, theta, Bk, wrapper, twin, bnd in (
+                ("K2", False, K2_BATCH[N], rs.online_sweep_pallas_v2,
+                 rs.sweep_v2_reference, k2_bound),
+                ("K3", True, B, rs.online_sweep_theta_pallas_v2,
+                 rs.theta_sweep_v2_reference, k3_bound)):
+            args, kw = synth.resid_tables(N, width, Bk, seed=W + 1,
+                                          device=dev, theta=theta,
+                                          step0=step0)
+            ms, got = cuda_ms(lambda: wrapper(*args, **kw), RESID_REPS)
+            plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1,
+                                     warmup=False)
+            err = check_sweep(f"{name} {W}x{N} one window launch "
+                              f"(width={width}, step0={step0}) B={Bk} on "
+                              f"{power}:", got, want)
+            errs[name].append(err)
+            bms, by = bnd(args, kw)
+            print(f"  kernel {ms:.3f} ms/launch, twin {plain_ms:.1f} "
+                  f"ms/launch, bound {bms:.4f} ms ({by})")
+            rows.append(dict(kernel=name, shape=f"{W}x{N}", B=Bk, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             max_abs_err=err))
     return rows
 
 
-def serving_phase(k1, dev, power):
+# ----------------------------------------------------------------------
+# Serving phase
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def twins_in_engine(engine, rs):
+    """The engine's per-window sweeps call the K2/K3 twins instead of the
+    kernels (the comparison run of the serving phase)."""
+    saved = engine.online_sweep_pallas_v2, engine.online_sweep_theta_pallas_v2
+    engine.online_sweep_pallas_v2 = rs.sweep_v2_reference
+    engine.online_sweep_theta_pallas_v2 = rs.theta_sweep_v2_reference
+    try:
+        yield
+    finally:
+        (engine.online_sweep_pallas_v2,
+         engine.online_sweep_theta_pallas_v2) = saved
+
+
+@contextlib.contextmanager
+def branch_scope(branch):
+    """The kernel switch of ``branch`` (the batch size picks between the
+    materialized tables and the θ-streaming kernels)."""
+    saved = os.environ.get("ROMTIME_WINDOWED_KERNEL")
+    if branch == "v2":
+        os.environ["ROMTIME_WINDOWED_KERNEL"] = "v2"
+    else:
+        os.environ.pop("ROMTIME_WINDOWED_KERNEL", None)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("ROMTIME_WINDOWED_KERNEL", None)
+        else:
+            os.environ["ROMTIME_WINDOWED_KERNEL"] = saved
+
+
+def counters(mods):
+    return (mods["k1"].online_sweep_windowed_fused,
+            mods["rs"].online_sweep_pallas_v2,
+            mods["rs"].online_sweep_theta_pallas_v2)
+
+
+def serve_branch(rom, branch, batches, mods, power):
+    """Drive one branch: warm up, zero every launch counter, serve the
+    batches one call at a time (synchronized), read the counters."""
+    from romtime_tpu_torch.rom.engines.windowed_fused import stage2_branch
+
+    W = rom.windows.n_windows
+    nt = int(rom.fom.domain[rom.fom.NT])
+    Bb = len(batches[0])
+    with branch_scope(branch):
+        got = stage2_branch(nt, mods["k1"].pad_dim(rom.N), Bb,
+                            rom.precompute_choice)
+        if got != branch:
+            raise AssertionError(f"B={Bb} routes to {got}, not {branch}")
+        rom.solve_batch(batches[0], probe_reduce="mean")      # warm-up
+        torch.cuda.synchronize()
+        for c in counters(mods):
+            c.launches = 0
+        times, outs = [], []
+        for mus in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(rom.solve_batch(mus, probe_reduce="mean"))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = [c.launches for c in counters(mods)]
+    calls = len(batches)
+    want = {"fused": [calls, 0, 0], "matrices": [0, W * calls, 0],
+            "v2": [0, 0, W * calls]}[branch]
+    seconds = statistics.median(times)
+    print(f"serving, {branch} branch: {calls} calls of {Bb} μ, median "
+          f"{seconds * 1e3:.1f} ms per call (min {min(times) * 1e3:.1f}, "
+          f"max {max(times) * 1e3:.1f}) = {Bb / seconds:.1f} solves/s "
+          f"(prep + sweep + fetch, synchronized) on {power}; launches "
+          f"K1/K2/K3 {launches}")
+    if launches != want:
+        raise AssertionError(f"{branch} branch launched {launches}, "
+                             f"expected {want}")
+    for out in outs:
+        probes, uN = out["probes"], out["uN_final"]
+        if probes.shape != (Bb, 2) or uN.shape != (Bb, rom.N):
+            raise AssertionError(f"unexpected output shapes {probes.shape}, "
+                                 f"{uN.shape}")
+        if not (torch.isfinite(torch.as_tensor(probes)).all()
+                and torch.isfinite(torch.as_tensor(uN)).all()):
+            raise AssertionError("non-finite serving outputs")
+    return launches, outs, dict(
+        B=Bb, calls=calls, solves_per_s=Bb / seconds,
+        serve_ms_median=seconds * 1e3, serve_ms_min=min(times) * 1e3,
+        serve_ms_max=max(times) * 1e3)
+
+
+def served_vs(name, out, probes, state, N, dev):
+    """Served (time-mean probes, uN_final) against a sweep's outputs."""
+    print(name)
+    want_p = probes[:, :2, :].mean(dim=0).T
+    want_u = state[0, :N, :].T
+    return max(check("probes (time mean)",
+                     torch.as_tensor(out["probes"], device=dev), want_p),
+               check("uN_final", torch.as_tensor(out["uN_final"],
+                                                 device=dev), want_u))
+
+
+def serving_phase(mods, dev, power, errs):
+    import romtime_tpu_torch.rom.engines.windowed_fused as engine
     from romtime_tpu_torch.rom.engines.policy import windowed_solve_group
-    from romtime_tpu_torch.rom.engines.windowed_fused import sweep_inputs
-    from romtime_tpu_torch.testing.synthetic import (
-        synthetic_cell,
-        synthetic_mus,
-    )
 
+    k1, rs, synth = mods["k1"], mods["rs"], mods["synth"]
     t0 = time.perf_counter()
-    rom = synthetic_cell(seed=0, device=dev)
-    rom.solve_batch(synthetic_mus(128, seed=0), probe_reduce="mean")  # warm
-    torch.cuda.synchronize()
-    print(f"serving cell 50x32 (nx=1000, nt=1500) ready in "
-          f"{time.perf_counter() - t0:.1f} s; pivot check "
-          f"{rom._pivot_cert:.3g}")
+    rom = synth.synthetic_cell(seed=0, device=dev)
+    tables = rom._windowed_tables()
+    win, fom = rom.windows, rom.fom
+    W = win.n_windows
+    print(f"serving cell 50x32 (nx=1000, nt=1500) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batches = [synth.synthetic_mus(B, seed=1 + r)
+               for r in range(SERVE_CALLS["fused"])]
+    runs, kernels = {}, {}
+    for branch in ("fused", "matrices", "v2"):
+        Bb = SERVE_BATCH[branch]
+        runs[branch] = serve_branch(
+            rom, branch, [mus[:Bb] for mus in batches[:SERVE_CALLS[branch]]],
+            mods, power)
+    print(f"pivot check {rom._pivot_cert:.3g}")
 
-    # The main path: SERVE_REQUESTS batches of B μ each, one at a time.
-    batches = [synthetic_mus(B, seed=1 + r) for r in range(SERVE_REQUESTS)]
-    k1.online_sweep_windowed_fused.launches = 0
-    times = []
-    for mus in batches:
+    # The last batch of each branch again, kernels against twins on the
+    # card, from one prep; then where the branch's time goes.
+    for branch, (_l, outs, info) in runs.items():
+        kname = BRANCH_KERNEL[branch]
+        mus = batches[info["calls"] - 1][:info["B"]]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs = rom.solve_batch(mus, probe_reduce="mean")
+        prepped = rom.prep(mus)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = k1.online_sweep_windowed_fused.launches
-    seconds = statistics.median(times)
-    print(f"serving: {SERVE_REQUESTS} batches of {B} μ, median "
-          f"{seconds * 1e3:.1f} ms per batch (min {min(times) * 1e3:.1f}, "
-          f"max {max(times) * 1e3:.1f}) = {B / seconds:.1f} solves/s "
-          f"(prep + sweep + fetch, synchronized) on {power}; "
-          f"K1 launches {launches}")
-    if launches < SERVE_REQUESTS:
-        raise AssertionError("the serving path did not launch K1")
-    probes, uN = outs["probes"], outs["uN_final"]
-    if probes.shape != (B, 2) or uN.shape != (B, rom.N):
-        raise AssertionError(f"unexpected output shapes {probes.shape}, "
-                             f"{uN.shape}")
-    if not (torch.isfinite(torch.as_tensor(probes)).all()
-            and torch.isfinite(torch.as_tensor(uN)).all()):
-        raise AssertionError("non-finite serving outputs")
+        info["prep_ms"] = (time.perf_counter() - t0) * 1e3
+        (THm, THk, THf, g, b0), kw = engine.window_inputs(fom, win,
+                                                             prepped)
+        if branch == "fused":
+            group, mode = windowed_solve_group()
+            args, kwf = engine.sweep_inputs(fom, win, prepped, tables,
+                                            group, mode)
+            ms, got = cuda_ms(lambda: k1.online_sweep_windowed_fused(
+                *args, **kwf), KERNEL_REPS)
+            plain_ms, want = cuda_ms(lambda: k1.windowed_fused_reference(
+                *args, **kwf), 1, warmup=False)
+            info["sweep_ms"] = ms
+            bms, by = k1_bound(args, kwf)
+            kernels["K1"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=by)
+        else:
+            sweep = (engine.sweep_materialized if branch == "matrices"
+                     else engine.sweep_theta_v2)
+            info["sweep_ms"], got = cuda_ms(
+                lambda: sweep(fom, win, prepped, tables), 3)
+            with twins_in_engine(engine, rs):
+                _ms, want = cuda_ms(lambda: sweep(fom, win, prepped, tables),
+                                    1, warmup=False)
+            # One window launch on the serving inputs (window W/2).
+            w = W // 2
+            a, b = int(win.bounds[w]), int(win.bounds[w + 1])
+            state = THm.new_zeros((4, tables["VE"].shape[2], THm.shape[2]))
+            if branch == "matrices":
+                ops_ms, ops = cuda_ms(lambda: engine.window_operators(
+                    tables, w, THm, THk, THf, a, b), RESID_REPS)
+                info["materialize_ms_per_window"] = ops_ms
+                wargs = (*ops, g[a:b], tables["T0"][w], tables["VE"][w], b0,
+                         state)
+                name, wrapper, twin, bnd = ("K2", rs.online_sweep_pallas_v2,
+                                            rs.sweep_v2_reference, k2_bound)
+            else:
+                wargs = (THm[a:b], THk[a:b], THf[a:b], g[a:b],
+                         tables["Bm"][w], tables["Bk"][w], tables["Bf"][w],
+                         tables["T0"][w], tables["VE"][w], b0, state)
+                name, wrapper, twin, bnd = (
+                    "K3", rs.online_sweep_theta_pallas_v2,
+                    rs.theta_sweep_v2_reference, k3_bound)
+            wkw = dict(kw, step0=a)
+            ms, wgot = cuda_ms(lambda: wrapper(*wargs, **wkw), RESID_REPS)
+            plain_ms, wwant = cuda_ms(lambda: twin(*wargs, **wkw), 1,
+                                      warmup=False)
+            errs[name].append(check_sweep(
+                f"{name} on the serving inputs of window {w} "
+                f"(B={info['B']}):", wgot, wwant))
+            bms, by = bnd(wargs, wkw)
+            kernels[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=by)
+            info["kernel_ms_per_window"] = ms
+        errs[kname].append(check_sweep(
+            f"{branch} branch sweep vs its twins (B={info['B']}):", got,
+            want))
+        errs[kname].append(served_vs(
+            f"{branch} branch served outputs vs its twins' sweep:", outs[-1],
+            *want, rom.N, dev))
+        rest = info["serve_ms_median"] - info["prep_ms"] - info["sweep_ms"]
+        print(f"  breakdown: prep {info['prep_ms']:.1f} ms, sweep "
+              f"{info['sweep_ms']:.1f} ms, the rest (pivot check, probe "
+              f"mean, fetch) {rest:.1f} ms")
+        if branch != "fused":
+            print(f"  per window: {name} {info['kernel_ms_per_window']:.3f}"
+                  f" ms" + (f", materializing MN/KL/fN "
+                            f"{info['materialize_ms_per_window']:.3f} ms"
+                            if branch == "matrices" else "")
+                  + f"; {W} windows")
 
-    # Where the serving time goes (outside the counted run): the θ prep
-    # alone, then the sweep alone on its output.
-    t0 = time.perf_counter()
-    prepped = rom.prep(mus)
-    torch.cuda.synchronize()
-    prep_ms = (time.perf_counter() - t0) * 1e3
-    group, mode = windowed_solve_group()
-    args, kw = sweep_inputs(rom.fom, rom.windows, prepped,
-                            rom._windowed_tables(), group, mode)
-    sweep_ms, _ = cuda_ms(lambda: k1.online_sweep_windowed_fused(*args, **kw),
-                          KERNEL_REPS)
-    print(f"serving breakdown: prep {prep_ms:.1f} ms, K1 sweep "
-          f"{sweep_ms:.1f} ms, the rest (pivot check, probe mean, fetch) "
-          f"{seconds * 1e3 - prep_ms - sweep_ms:.1f} ms")
-
-    # The same batch through the twin, on the card, from the same prep.
-    tp, ts = k1.windowed_fused_reference(*args, **kw)
-    want_p = tp[:, :2, :].mean(dim=0).T
-    want_u = ts[0, :rom.N, :].T
-    print("serving vs twin:")
-    err = max(check("probes (time mean)", torch.as_tensor(probes, device=dev),
-                    want_p),
-              check("uN_final", torch.as_tensor(uN, device=dev), want_u))
-    return launches, err, dict(
-        solves_per_s=B / seconds, serve_ms_median=seconds * 1e3,
-        serve_ms_min=min(times) * 1e3, serve_ms_max=max(times) * 1e3,
-        prep_ms=prep_ms, sweep_ms=sweep_ms)
+    # K2 and K3 against K1 on the same μ (K1's paired-LU tolerance).
+    k1_outs = runs["fused"][1]
+    for branch in ("matrices", "v2"):
+        _l, outs, info = runs[branch]
+        ref = k1_outs[info["calls"] - 1]
+        Bb = info["B"]
+        print(f"{branch} branch vs the fused branch on the same {Bb} μ:")
+        errs[BRANCH_KERNEL[branch]].append(max(
+            check("probes (time mean)", torch.as_tensor(outs[-1]["probes"]),
+                  torch.as_tensor(ref["probes"][:Bb])),
+            check("uN_final", torch.as_tensor(outs[-1]["uN_final"]),
+                  torch.as_tensor(ref["uN_final"][:Bb]))))
+    launches = {"K1": runs["fused"][0][0], "K2": runs["matrices"][0][1],
+                "K3": runs["v2"][0][2]}
+    serving = {branch: info for branch, (_l, _o, info) in runs.items()}
+    return launches, kernels, serving
 
 
 def main():
@@ -178,42 +457,53 @@ def main():
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     try:
+        from romtime_tpu_torch.ops import kernel_build
+        from romtime_tpu_torch.ops import resid_sweep as rs
         from romtime_tpu_torch.ops import windowed_fused as k1
-        from romtime_tpu_torch.testing.synthetic import kernel_tables
+        from romtime_tpu_torch.testing import synthetic as synth
     except ImportError as exc:
         fail(f"the romtime_tpu_torch package is missing beside "
              f"chip_smoke.py ({exc})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
+    mods = {"k1": k1, "rs": rs, "synth": synth}
 
     power = card()
     print(power)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    path, seconds, log = k1.build()
-    print(f"built {path.name} in {seconds:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    t0 = time.perf_counter()
+    built = kernel_build.build_all()
+    print(f"built {len(built)} kernel libraries in parallel in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for src, (path, seconds, log) in built.items():
+        print(f"  {path.name} ({src.name}): {seconds:.1f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    " + line.strip())
 
+    errs = {"K1": [], "K2": [], "K3": []}
     with torch.inference_mode():
-        rows = kernel_phase(k1, kernel_tables, dev, power)
-        launches, serve_err, serving = serving_phase(k1, dev, power)
+        rows = kernel_phase(mods, dev, power, errs)
+        launches, kernels, serving = serving_phase(mods, dev, power, errs)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
-    main_row = rows[0]
-    print(json.dumps({"kernels": [{
-        "name": "windowed_fused",
-        "route": "cuda",
-        "source": "romtime_tpu_torch/csrc/windowed_fused.cu",
-        "replaces": "romtime_tpu/ops/pallas_online.py:1303",
-        "launches": launches,
-        "max_abs_err": max([serve_err] + [r["max_abs_err"] for r in rows]),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-    }], "shapes": rows, "serving": serving, "card": power}))
+    meta = {
+        "K1": ("windowed_fused", "romtime_tpu_torch/csrc/windowed_fused.cu",
+               "romtime_tpu/ops/pallas_online.py:1303"),
+        "K2": ("resid_sweep", "romtime_tpu_torch/csrc/resid_sweep.cu",
+               "romtime_tpu/ops/pallas_online.py:962"),
+        "K3": ("theta_resid_sweep", "romtime_tpu_torch/csrc/resid_sweep.cu",
+               "romtime_tpu/ops/pallas_online.py:1100"),
+    }
+    print(json.dumps({"kernels": [dict(
+        name=meta[k][0], route="cuda", source=meta[k][1],
+        replaces=meta[k][2], launches=launches[k],
+        max_abs_err=max(errs[k]), library_ms=None, **kernels[k])
+        for k in ("K1", "K2", "K3")],
+        "shapes": rows, "serving": serving, "card": power}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -33,8 +33,9 @@ def piston_fom(L0, nx, tf, nt, degree=1, bdf="2", which="rest"):
                                  degrees=int(degree), bdf_scheme=str(bdf))
 
 
-def serving_from_arrays(payload, device="cpu"):
-    """Build the port's serving object from a plain-numpy payload."""
+def serving_from_arrays(payload, device="cuda"):
+    """Build the port's serving object from a plain-numpy payload, serving
+    on ``device`` (the card by default)."""
     missing = [k for k in _FOM_KEYS[:-1] if k not in payload]
     missing += [f"dofs_{n}" for n in THETA_SOURCES
                 if f"dofs_{n}" not in payload]

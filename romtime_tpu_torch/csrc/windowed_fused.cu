@@ -28,35 +28,19 @@
 // - per-lane phases (predictor, LU, substitution, dd update, probes) run
 //   one warp per lane, one row per thread;
 // - plain FP32 FMAs, no tensor cores (no TF32 anywhere).
-// The dd transformations (TwoSum, TwoProduct, the dd matvec) use the
-// __fadd_rn/__fmul_rn intrinsics, which nvcc never contracts into FMAs;
-// TwoProduct's error term is fmaf(a, b, -p).
+// The dd transformations (TwoSum, TwoProduct, the dd matvec; csrc/dd.cuh)
+// use the __fadd_rn/__fmul_rn intrinsics, which nvcc never contracts into
+// FMAs; TwoProduct's error term is fmaf(a, b, -p).
 
 #include <cuda_runtime.h>
+
+#include "dd.cuh"
 
 namespace {
 
 constexpr int PROBE_P = 8;
 constexpr int MAX_ROWS = 2;   // rows per thread in per-lane phases (NP ≤ 64)
 constexpr size_t SMEM_LIMIT = 232448;
-
-__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
-  s = __fadd_rn(a, b);
-  const float ap = __fsub_rn(s, b);
-  const float bp = __fsub_rn(s, ap);
-  e = __fadd_rn(__fsub_rn(a, ap), __fsub_rn(b, bp));
-}
-
-__device__ __forceinline__ void two_prod(float a, float b, float& p, float& e) {
-  p = __fmul_rn(a, b);
-  e = fmaf(a, b, -p);
-}
-
-__device__ __forceinline__ void dd_add(float& ah, float& al, float bh, float bl) {
-  float sh, se;
-  two_sum(ah, bh, sh, se);
-  two_sum(sh, __fadd_rn(__fadd_rn(se, al), bl), ah, al);
-}
 
 // Row i of the dd matvec T·(xh + xl) (ops/compensated.py dd_matvec):
 // 8-column chunks of exact products reduced by a pairwise dd tree.
@@ -234,16 +218,7 @@ windowed_fused_kernel(const Params p) {
           pl[o] = ul[o];
           dv[o] = 0.f;
         } else {
-          float a, e, b, c;
-          two_sum(__fmul_rn(2.f, uh[o]), -u1h[o], a, e);
-          const float plo =
-              __fadd_rn(e, __fsub_rn(__fmul_rn(2.f, ul[o]), u1l[o]));
-          two_sum(a, plo, b, c);
-          ph[o] = b;
-          pl[o] = c;
-          float dh, de;
-          two_sum(u1h[o], -uh[o], dh, de);
-          dv[o] = __fadd_rn(dh, __fadd_rn(de, __fsub_rn(u1l[o], ul[o])));
+          dd_predict(uh[o], ul[o], u1h[o], u1l[o], ph[o], pl[o], dv[o]);
         }
       }
       for (int k = li; k < kmk8; k += 32)
@@ -348,9 +323,8 @@ windowed_fused_kernel(const Params p) {
         // ---- E: u = pred ⊕ δ (dd add), shift history, probes ----
         for (int i = li; i < NP; i += 32) {
           const int o = l * NP + i;
-          float s1, e1, nh, nl;
-          two_sum(ph[o], x[i], s1, e1);
-          two_sum(s1, __fadd_rn(e1, pl[o]), nh, nl);
+          float nh, nl;
+          dd_add_small(ph[o], pl[o], x[i], nh, nl);
           u1h[o] = uh[o];
           u1l[o] = ul[o];
           uh[o] = nh;

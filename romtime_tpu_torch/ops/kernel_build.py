@@ -1,0 +1,107 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` compiles with nvcc for sm_90a into a shared library
+with a plain C interface, loaded with ctypes. A library is keyed by the
+hash of its source, the shared ``csrc/*.cuh`` headers and the flags, and
+lives in :func:`build_dir`; a library already built from the same inputs
+is reused. Nothing is built when the package is imported: the first
+launch builds, and :func:`build_all` starts one nvcc per source, all at
+once (what ``chip_smoke.py`` does first).
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS = {}
+
+
+def build_dir():
+    """Kernel build directory (listed in .gitignore): ``build/kernels``
+    at the root of the checkout, or ``ROMTIME_TORCH_BUILD_DIR``."""
+    env = os.environ.get("ROMTIME_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
+def sources():
+    """Every kernel source of the package."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _library_path(source):
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{source.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(srcs=None):
+    """Compile ``srcs`` (default: every source) in parallel, one nvcc
+    each; returns {source: (library path, seconds, compiler log)}, with 0
+    seconds for a library that was already built. Raises if any build
+    fails."""
+    srcs = [Path(s) for s in (sources() if srcs is None else srcs)]
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    results, running = {}, []
+    for src in srcs:
+        lib = _library_path(src)
+        if lib.exists():
+            log = lib.with_suffix(".log")
+            results[src] = (lib, 0.0, log.read_text() if log.exists() else "")
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((src, lib, tmp, proc, time.perf_counter()))
+    failed = []
+    for src, lib, tmp, proc, t0 in running:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {src}:\n{log}")
+            continue
+        os.replace(tmp, lib)
+        lib.with_suffix(".log").write_text(log)
+        results[src] = (lib, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return results
+
+
+def load(name, bind):
+    """The ctypes library of ``csrc/<name>.cu``, built on first use;
+    ``bind(lib)`` declares its entry points' argtypes and restype."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        src = CSRC / f"{name}.cu"
+        path = build_all([src])[src][0]
+        lib = ctypes.CDLL(str(path))
+        lib.romtime_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.romtime_cuda_error_string.restype = ctypes.c_char_p
+        bind(lib)
+        _LIBS[name] = lib
+    return lib
+
+
+def check_launch(lib, err, what):
+    """Raise with the CUDA error string if a launch returned non-zero."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.romtime_cuda_error_string(err).decode())

@@ -1,0 +1,306 @@
+"""Residual-form per-window serving sweeps: K2 over materialized operator
+tables and K3 over θ streams.
+
+Counterparts of ``romtime_tpu/ops/pallas_online.py``
+``online_sweep_pallas_v2`` (:1048, kernel ``_sweep_kernel_v2`` :962) and
+``online_sweep_theta_pallas_v2`` (:1220, kernel
+``_theta_sweep_kernel_v2`` :1100). This module holds
+
+- the plain PyTorch twins :func:`sweep_v2_reference` and
+  :func:`theta_sweep_v2_reference`, a lane-batched loop of torch ops over
+  :func:`_bdf_step_resid` (``_bdf_step_resid`` :526, op for op);
+- the wrappers :func:`online_sweep_pallas_v2` and
+  :func:`online_sweep_theta_pallas_v2`, which run the twin for CPU tensors
+  and the hand-written CUDA kernel (``csrc/resid_sweep.cu``) for CUDA
+  tensors. There is no fallback between the two.
+
+Per step, for every lane (μ) b:
+
+    pred, d = dd BDF-2 predictor of the double-f32 carry (BDF-1 at global
+              step 0)
+    dtS  = KL + reshape(T0·pred)·dt·b0                (trilinear, optional)
+    KN   = bdf·MN + dtS
+    r0   = MN·d + fN − dtS·pred
+    KN·δ = r0,  u = pred ⊕ δ                          (dd add)
+    probes = VE·u + g
+
+K2 reads MN (nt, NP, NP, B), KL and fN per step; K3 forms MN = Bm·θm,
+KL = Bk·θk and fN = Bf·θf per step. The dd state ``state0`` (4, NP, B)
+comes in and goes out, and ``step0`` (the launch's first global step)
+only selects BDF-1 at global step 0, so per-window launches chain. The
+TPU tiling (128-lane blocks, DMA chunks, the step unroll policy) is not
+carried over.
+"""
+
+import ctypes
+
+import torch
+
+from . import kernel_build
+from .compensated import dd_add_small
+from .windowed_fused import (
+    LU_BLOCK,
+    PROBE_P,
+    _dd_predictor,
+    _no_tf32,
+    lanes_solve,
+    pad_dim,
+)
+
+
+def pad_reduced_tables(MN_tab, KLIN_tab, fN_tab, N, n_pad=None):
+    """(nt, N², B)/(nt, N, B) tables → padded (nt, NP, NP, B)/(nt, NP, B).
+
+    The padded diagonal of KLIN is set to 1, so the padded block of the
+    per-step system matrix is the identity."""
+    NP = n_pad or pad_dim(N)
+    nt, _, B = MN_tab.shape
+
+    def pad_mat(tab, diag):
+        out = tab.new_zeros((nt, NP, NP, B))
+        out[:, :N, :N] = tab.reshape(nt, N, N, B)
+        if diag:
+            pad = torch.arange(N, NP, device=tab.device)
+            out[:, pad, pad] = 1.0
+        return out
+
+    fN_p = fN_tab.new_zeros((nt, NP, B))
+    fN_p[:, :N] = fN_tab
+    return pad_mat(MN_tab, False), pad_mat(KLIN_tab, True), fN_p
+
+
+# ======================================================================
+# Plain PyTorch twins
+# ======================================================================
+def _bdf_step_resid(MN, KL, fN, g, uN, lo, uN1, lo1, step, T0, VE, dtb0,
+                    bdf2, n_real, NP):
+    """One residual-form BDF step on (NP, NP, B) operators; ``dtb0`` is
+    dt·b0 (1, B), or None without the trilinear term."""
+    pred_hi, pred_lo, d, bdf = _dd_predictor(uN, lo, uN1, lo1, step, bdf2)
+    dtS = KL
+    if dtb0 is not None:
+        NN = (T0 @ pred_hi).reshape(NP, NP, -1)
+        dtS = dtS + NN * dtb0
+    KN = bdf * MN + dtS
+    r0 = ((MN * d[None, :, :]).sum(dim=1) + fN
+          - (dtS * pred_hi[None, :, :]).sum(dim=1))
+    delta = lanes_solve(KN, r0, n_real, NP)
+    uN_new, lo_new = dd_add_small(pred_hi, pred_lo, delta)
+    probes = VE @ uN_new + g
+    return uN_new, lo_new, probes
+
+
+def _resid_sweep(operators, nt, g, T0, VE, b0, state0, dt, step0, bdf2,
+                 with_trilinear, n_real):
+    """The twins' step loop; ``operators(s)`` gives step s's (MN, KL,
+    fN)."""
+    NP = VE.shape[1]
+    B = state0.shape[2]
+    if g.is_cuda:
+        _no_tf32()
+    dtb0 = None
+    if with_trilinear:
+        dtb0 = torch.tensor(dt, dtype=g.dtype, device=g.device) * b0
+    probes = g.new_empty((nt, PROBE_P, B))
+    uN, lo, uN1, lo1 = state0[0], state0[1], state0[2], state0[3]
+    for s in range(nt):
+        MN, KL, fN = operators(s)
+        uN_new, lo_new, probes[s] = _bdf_step_resid(
+            MN, KL, fN, g[s], uN, lo, uN1, lo1, int(step0) + s, T0, VE,
+            dtb0, bdf2, n_real, NP)
+        uN1, lo1, uN, lo = uN, lo, uN_new, lo_new
+    return probes, torch.stack([uN, lo, uN1, lo1])
+
+
+def _check_common(nt, g, T0, VE, b0, state0, with_trilinear, n_real):
+    """Shapes shared by K2 and K3; returns (NP, B)."""
+    NP = VE.shape[-1]
+    B = state0.shape[-1]
+    if nt < 1:
+        raise ValueError("a sweep needs at least one step")
+    if VE.shape != (PROBE_P, NP) or NP % LU_BLOCK or NP > 64:
+        raise ValueError(f"VE must be ({PROBE_P}, NP) with NP a multiple of "
+                         f"{LU_BLOCK} and at most 64, got {tuple(VE.shape)}")
+    if g.shape != (nt, PROBE_P, B):
+        raise ValueError(f"g must be ({nt}, {PROBE_P}, {B})")
+    if b0.shape != (1, B) or state0.shape != (4, NP, B):
+        raise ValueError("b0 must be (1, B) and state0 (4, NP, B)")
+    if with_trilinear and T0.shape != (NP * NP, NP):
+        raise ValueError("T0 must be (NP², NP)")
+    if not 1 <= n_real <= NP:
+        raise ValueError(f"n_real {n_real} outside 1..{NP}")
+    return NP, B
+
+
+def _check_v2(MN, KL, fN, g, T0, VE, b0, state0, with_trilinear, n_real):
+    nt = MN.shape[0]
+    NP, B = _check_common(nt, g, T0, VE, b0, state0, with_trilinear, n_real)
+    if (MN.shape != (nt, NP, NP, B) or KL.shape != MN.shape
+            or fN.shape != (nt, NP, B)):
+        raise ValueError("MN/KL must be (nt, NP, NP, B) and fN (nt, NP, B)")
+    return nt, NP, B
+
+
+def _check_theta(THm, THk, THf, g, Bm, Bk, Bf, T0, VE, b0, state0,
+                 with_trilinear, n_real):
+    nt = THm.shape[0]
+    NP, B = _check_common(nt, g, T0, VE, b0, state0, with_trilinear, n_real)
+    km8, kk8, kf8 = THm.shape[1], THk.shape[1], THf.shape[1]
+    for k in (km8, kk8, kf8):
+        if k % 8:
+            raise ValueError("θ table k dims must be 8-aligned (pad with "
+                             "zero rows + zero basis columns)")
+    if (THm.shape != (nt, km8, B) or THk.shape != (nt, kk8, B)
+            or THf.shape != (nt, kf8, B)):
+        raise ValueError("θ tables must be (nt, k8, B)")
+    if (Bm.shape != (NP * NP, km8) or Bk.shape != (NP * NP, kk8)
+            or Bf.shape != (NP, kf8)):
+        raise ValueError("Bm/Bk must be (NP², k8) and Bf (NP, kf8)")
+    return nt, NP, B, km8, kk8, kf8
+
+
+def sweep_v2_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0, *,
+                       dt, step0=0, bdf2=True, with_trilinear=True,
+                       n_real=15):
+    """Plain PyTorch twin of K2; same arguments and results as
+    :func:`online_sweep_pallas_v2`."""
+    nt, _NP, _B = _check_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
+                            with_trilinear, n_real)
+    return _resid_sweep(lambda s: (MN_p[s], KL_p[s], fN_p[s]), nt, g_p,
+                        T0_p, VE_p, b0, state0, dt, step0, bdf2,
+                        with_trilinear, n_real)
+
+
+def theta_sweep_v2_reference(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p,
+                             b0, state0, *, dt, step0=0, bdf2=True,
+                             with_trilinear=True, n_real=15):
+    """Plain PyTorch twin of K3; same arguments and results as
+    :func:`online_sweep_theta_pallas_v2`."""
+    nt, NP, B, *_k = _check_theta(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
+                                  VE_p, b0, state0, with_trilinear, n_real)
+    if THm.is_cuda:
+        _no_tf32()
+
+    def operators(s):
+        return ((Bm @ THm[s]).reshape(NP, NP, B),
+                (Bk @ THk[s]).reshape(NP, NP, B), Bf @ THf[s])
+
+    return _resid_sweep(operators, nt, g_p, T0_p, VE_p, b0, state0, dt,
+                        step0, bdf2, with_trilinear, n_real)
+
+
+# ======================================================================
+# CUDA kernels: bind, launch (built by kernel_build)
+# ======================================================================
+def _bind(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.romtime_resid_sweep.argtypes = (
+        [ptr] * 10 + [i32] * 7 + [ctypes.c_float, ptr])
+    lib.romtime_resid_sweep.restype = i32
+    lib.romtime_theta_resid_sweep.argtypes = (
+        [ptr] * 13 + [i32] * 10 + [ctypes.c_float, ptr])
+    lib.romtime_theta_resid_sweep.restype = i32
+
+
+def _launch(entry, name, tensors, ints, dt, nt, NP, B):
+    """Check the operands, allocate (probes, state) and launch ``entry``
+    of the library on the current stream."""
+    device = tensors[0][1].device
+    for label, t in tensors:
+        if t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"{label} must be float32 on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{label} must be contiguous")
+    _no_tf32()
+    lib = kernel_build.load("resid_sweep", _bind)
+    probes = torch.empty((nt, PROBE_P, B), dtype=torch.float32,
+                         device=device)
+    state = torch.empty((4, NP, B), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(
+            *[t.data_ptr() for _label, t in tensors], probes.data_ptr(),
+            state.data_ptr(), *ints, float(dt), stream)
+    kernel_build.check_launch(lib, err, name)
+    return probes, state
+
+
+def _device_route(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def online_sweep_pallas_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
+                           *, dt, step0=0, bdf2=True, with_trilinear=True,
+                           n_real=15):
+    """Residual-form sweep over materialized per-step operators (K2).
+
+    MN_p, KL_p : (nt, NP, NP, B) mass and dt-scaled stiffness-side
+                 operators (KL carries the identity on the padded diagonal)
+    fN_p       : (nt, NP, B) dt-scaled right-hand side
+    g_p        : (nt, PROBE_P, B) lifting probes
+    T0_p       : (NP², NP) trilinear tensor (ignored without it)
+    VE_p       : (PROBE_P, NP) probe rows;  b0 : (1, B) trilinear coefficient
+    state0     : (4, NP, B) dd carry (uN_hi, uN_lo, uN1_hi, uN1_lo): zeros
+                 for a fresh trajectory, the previous window's when chained
+    step0      : global index of this launch's first step
+
+    Returns (probes (nt, PROBE_P, B), state (4, NP, B)), float32. CPU
+    tensors run the twin; CUDA tensors launch the kernel (and count the
+    launch in ``online_sweep_pallas_v2.launches``)."""
+    kw = dict(dt=dt, step0=step0, bdf2=bdf2, with_trilinear=with_trilinear,
+              n_real=n_real)
+    if _device_route(MN_p) == "cpu":
+        return sweep_v2_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0,
+                                  state0, **kw)
+    nt, NP, B = _check_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
+                          with_trilinear, n_real)
+    if not with_trilinear:
+        T0_p = MN_p.new_zeros((1,))
+    out = _launch(
+        "romtime_resid_sweep", "resid_sweep (K2)",
+        list(zip(("MN", "KL", "fN", "g", "T0", "VE", "b0", "state0"),
+                 (MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0))),
+        (nt, NP, B, n_real, int(step0), int(bool(with_trilinear)),
+         int(bool(bdf2))), dt, nt, NP, B)
+    online_sweep_pallas_v2.launches += 1
+    return out
+
+
+def online_sweep_theta_pallas_v2(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
+                                 VE_p, b0, state0, *, dt, step0=0,
+                                 bdf2=True, with_trilinear=True, n_real=15):
+    """θ-streaming residual-form sweep (K3): as
+    :func:`online_sweep_pallas_v2`, with the step's operators formed in
+    the kernel from
+
+    THm, THk, THf : (nt, km8|kk8|kf8, B) θ streams (8-aligned row counts;
+                    THk ends in the constant-1 row of the padded diagonal)
+    Bm, Bk        : (NP², km8|kk8) per-window combine tensors (dt folded
+                    into Bk);  Bf : (NP, kf8)
+
+    CUDA launches are counted in ``online_sweep_theta_pallas_v2.launches``."""
+    kw = dict(dt=dt, step0=step0, bdf2=bdf2, with_trilinear=with_trilinear,
+              n_real=n_real)
+    if _device_route(THm) == "cpu":
+        return theta_sweep_v2_reference(THm, THk, THf, g_p, Bm, Bk, Bf,
+                                        T0_p, VE_p, b0, state0, **kw)
+    nt, NP, B, km8, kk8, kf8 = _check_theta(
+        THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, state0,
+        with_trilinear, n_real)
+    if not with_trilinear:
+        T0_p = THm.new_zeros((1,))
+    out = _launch(
+        "romtime_theta_resid_sweep", "theta resid_sweep (K3)",
+        list(zip(("THm", "THk", "THf", "g", "Bm", "Bk", "Bf", "T0", "VE",
+                  "b0", "state0"),
+                 (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, state0))),
+        (nt, NP, B, km8, kk8, kf8, n_real, int(step0),
+         int(bool(with_trilinear)), int(bool(bdf2))), dt, nt, NP, B)
+    online_sweep_theta_pallas_v2.launches += 1
+    return out
+
+
+online_sweep_pallas_v2.launches = 0
+online_sweep_theta_pallas_v2.launches = 0

@@ -37,16 +37,10 @@ VMEM residency) is not carried over.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
+from . import kernel_build
 from .compensated import dd_add_small, dd_matvec, two_sum
 
 PROBE_P = 8        # padded probe rows
@@ -338,67 +332,13 @@ def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
 
 
 # ======================================================================
-# CUDA kernel: build, bind, launch
+# CUDA kernel: bind, launch (built by kernel_build)
 # ======================================================================
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "windowed_fused.cu"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_LIB = None
-
-
-def build_dir():
-    """Kernel build directory (listed in .gitignore): ``build/kernels``
-    at the root of the checkout, or ``ROMTIME_TORCH_BUILD_DIR``."""
-    env = os.environ.get("ROMTIME_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[2] / "build" / "kernels"
-
-
-def build():
-    """Compile K1's source with nvcc for sm_90a into a shared library
-    keyed by the source hash; returns (path, seconds, compiler log). A
-    library already built from the same source is reused."""
-    source = _SOURCE
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"{source.stem}-{tag[:16]}.so"
-    log_path = lib_path.with_suffix(".log")
-    if lib_path.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-        return lib_path, 0.0, log
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(source)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {source}:\n{log}")
-    os.replace(tmp, lib_path)
-    log_path.write_text(log)
-    return lib_path, seconds, log
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        path, _s, _log = build()
-        lib = ctypes.CDLL(str(path))
-        ptr = ctypes.c_void_p
-        i32 = ctypes.c_int
-        lib.romtime_windowed_fused.argtypes = (
-            [ptr] * 12 + [i32] * 13 + [ctypes.c_float, ptr])
-        lib.romtime_windowed_fused.restype = i32
-        lib.romtime_cuda_error_string.argtypes = [i32]
-        lib.romtime_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+def _bind(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.romtime_windowed_fused.argtypes = (
+        [ptr] * 12 + [i32] * 13 + [ctypes.c_float, ptr])
+    lib.romtime_windowed_fused.restype = i32
 
 
 def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
@@ -448,7 +388,7 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     _no_tf32()
-    lib = _library()
+    lib = kernel_build.load("windowed_fused", _bind)
     nt, _K8, B = TH.shape
     probes = torch.empty((nt, PROBE_P, B), dtype=torch.float32,
                          device=TH.device)
@@ -463,9 +403,7 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
             W, width, period, NP, B, km8, kk8, kf8, km, kk,
             int(bool(with_trilinear)), int(bool(bdf2)), group,
             float(dt), stream)
-    if err != 0:
-        raise RuntimeError("windowed_fused launch failed: "
-                           + lib.romtime_cuda_error_string(err).decode())
+    kernel_build.check_launch(lib, err, "windowed_fused")
     online_sweep_windowed_fused.launches += 1
     return probes, state
 

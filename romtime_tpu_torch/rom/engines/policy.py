@@ -1,5 +1,12 @@
-"""Serving solve policy (counterpart of the paired-LU and Richardson
-switches of ``romtime_tpu/rom/engines/policy.py``).
+"""Serving policy (counterpart of ``romtime_tpu/rom/engines/policy.py``
+and of the precompute constants of ``romtime_tpu/rom/rom.py:96-98``).
+
+Stage 2 of windowed serving takes one of three branches, as the
+reference's does (``windowed_pallas.py:310-488``): materialized operator
+tables and one K2 launch per window while the tables fit the precompute
+budget (:class:`PrecomputePolicy`), otherwise the θ-streaming sweep that
+``ROMTIME_WINDOWED_KERNEL`` names (:func:`windowed_kernel`): the fused K1
+by default, or a K3 launch per window.
 
 The fused sweep solves each step with a pivot-free LU. By default it
 reuses one factorization per group of ``WINDOWED_PAIRED_LU`` steps
@@ -14,6 +21,35 @@ import os
 WINDOWED_PAIRED_LU = 5
 WINDOWED_PAIRED_MODE = "sub1"
 PORTED_PAIRED_MODES = ("sub1", "off")
+
+
+class PrecomputePolicy:
+    """Matrices-vs-θ byte budget of windowed serving (reference
+    ``SolvePolicyMixin._precompute_choice``, static branch; the measured
+    autotune override, which the hard cap bounds, is not ported yet).
+    The budget stays the reference's 6 GiB so that the port routes as the
+    reference routes, although the card holds 80 GB."""
+
+    ONLINE_PRECOMPUTE = "matrices"
+    ONLINE_PRECOMPUTE_BUDGET = 6 * 1024**3       # bytes
+    # Inert until the autotune override is ported: in the reference it
+    # only bounds that override, and nothing in the port reads it yet.
+    ONLINE_PRECOMPUTE_HARD_CAP = 12 * 1024**3    # bytes
+
+    def precompute_choice(self, mat_bytes):
+        """True → materialize the operator time tables (``mat_bytes`` of
+        them) and sweep with K2."""
+        return (self.ONLINE_PRECOMPUTE == "matrices"
+                and mat_bytes <= self.ONLINE_PRECOMPUTE_BUDGET)
+
+
+def windowed_kernel():
+    """θ-streaming kernel generation, read from ``ROMTIME_WINDOWED_KERNEL``
+    as the reference reads it: ``"fused"`` (the default, K1) or, for any
+    other value, ``"v2"`` (K3 launches per window)."""
+    if os.environ.get("ROMTIME_WINDOWED_KERNEL", "fused") == "fused":
+        return "fused"
+    return "v2"
 
 
 def windowed_paired_lu():

@@ -1,4 +1,4 @@
-"""Fused windowed serving engine (counterpart of
+"""Windowed serving engine (counterpart of
 ``romtime_tpu/rom/engines/windowed_pallas.py``).
 
 Two stages, as in the reference:
@@ -10,20 +10,32 @@ Two stages, as in the reference:
    coefficient ``b0`` and, with a dilation law, the per-lane dilation and
    its extrapolation flag (``:263-308``). Plain torch on the device,
    chunked over time to bound memory.
-2. :func:`windowed_sweep` (``:429-451``, the fused dispatch) runs the
-   whole trajectory through K1 (``ops/windowed_fused.py``).
+2. :func:`windowed_sweep` (``:310-488``) takes the reference's branch:
+   materialized per-window operator tables and one K2 launch per window
+   when the tables fit the precompute budget (:func:`sweep_materialized`),
+   else the fused K1 over all windows (:func:`sweep_fused`, the default)
+   or, under ``ROMTIME_WINDOWED_KERNEL=v2``, one K3 launch per window
+   (:func:`sweep_theta_v2`). Between per-window launches the dd carry is
+   re-expressed through the window transfer with a double-word matvec.
 """
 
 import numpy as np
 import torch
 
 from ...conventions import BDF
+from ...ops.compensated import dd_matvec
+from ...ops.resid_sweep import (
+    online_sweep_pallas_v2,
+    online_sweep_theta_pallas_v2,
+)
 from ...ops.windowed_fused import (
     PROBE_P,
+    _no_tf32,
     online_sweep_windowed_fused,
     pad_dim,
 )
 from ..registration import GUARD_FACTOR, _feature_value
+from .policy import windowed_kernel, windowed_solve_group
 
 MASS, RHS = "mass", "rhs_vec"
 
@@ -40,10 +52,14 @@ def stiffness_side(sources):
 def windowed_tables(win, dt, stiff_names, device):
     """Stacked per-window constants (float32 on ``device``).
 
-    Bmk (W, kfold, NP²) folded [Bm | Bk | T0], BmF/BkF (W, NP, k·NP)
-    factored tensors, BfT (W, kf8, NP), TQ (W, NP, NP²), VE (W, 8, NP),
-    Tp (W, NP, NP) with Tp[0] = I; the θ row extents km8/kk8/kf8; and
-    the dilation law's coefficients and guard when one is attached."""
+    For K2/K3 (reference layouts, ``windowed_pallas.py:130-134``): Bm
+    (W, NP², km8), Bk (W, NP², kk8) with the padded-diagonal identity
+    column, Bf (W, NP, kf8), T0 (W, NP², NP), T (W, N, N) with T[0] = I.
+    For K1: Bmk (W, kfold, NP²) folded [Bm | Bk | T0], BmF/BkF
+    (W, NP, k·NP) factored tensors, BfT (W, kf8, NP), TQ (W, NP, NP²),
+    Tp (W, NP, NP) = T zero-padded. Both: VE (W, 8, NP), the θ row extents
+    km8/kk8/kf8, and the dilation law's coefficients and guard when one is
+    attached."""
     N = win.N
     NP = pad_dim(N)
     W = win.n_windows
@@ -96,6 +112,8 @@ def windowed_tables(win, dt, stiff_names, device):
 
     tbl = {
         "km8": km8, "kk8": kk8, "kf8": kf8,
+        "Bm": dev(Bm), "Bk": dev(Bk), "Bf": dev(Bf), "T0": dev(T0),
+        "T": dev(T),
         "Bmk": dev(Bmk.transpose(0, 2, 1)),
         "BmF": dev(BmF.transpose(0, 2, 1)),
         "BkF": dev(BkF.transpose(0, 2, 1)),
@@ -268,13 +286,36 @@ def certify_pivot_free(tables, prepped, N):
     return worst
 
 
+def window_width(win):
+    """The common step count of the windows: every branch needs equal
+    widths (reference ``:339-343``)."""
+    widths = np.diff(np.asarray(win.bounds))
+    if len(set(widths.tolist())) != 1:
+        raise ValueError("windowed serving needs equal window widths")
+    return int(widths[0])
+
+
+def materialized_bytes(nt, NP, B):
+    """Bytes of the whole sweep's MN and KL time tables, the quantity the
+    precompute budget is held against (reference ``:361``)."""
+    return 2 * nt * NP * NP * B * 4
+
+
+def stage2_branch(nt, NP, B, precompute_choice):
+    """The reference's stage-2 routing: ``"matrices"`` when
+    ``precompute_choice`` accepts the materialized tables' bytes, else
+    :func:`~romtime_tpu_torch.rom.engines.policy.windowed_kernel`
+    (``"fused"`` or ``"v2"``)."""
+    if precompute_choice(materialized_bytes(nt, NP, B)):
+        return "matrices"
+    return windowed_kernel()
+
+
 def sweep_inputs(fom, win, prepped, tables, group, mode):
     """(args, kwargs) of the K1 call for a prepped batch: the merged θ
     table [THm | THk | THf | g], the stacked constants, b0 and a fresh
     dd carry."""
-    widths = np.diff(np.asarray(win.bounds))
-    if len(set(widths.tolist())) != 1:
-        raise ValueError("fused windowed serving needs equal window widths")
+    width = window_width(win)
     NP = pad_dim(win.N)
     B = prepped["THm"].shape[2]
     TH = torch.cat([prepped["THm"], prepped["THk"], prepped["THf"],
@@ -283,7 +324,7 @@ def sweep_inputs(fom, win, prepped, tables, group, mode):
     args = (TH, tables["Bmk"], tables["BmF"], tables["BkF"], tables["BfT"],
             tables["TQ"], tables["VE"], tables["Tp"],
             prepped["b0"].to(torch.float32).contiguous(), state0)
-    kw = dict(widths=tuple(int(x) for x in widths), dt=float(fom.dt),
+    kw = dict(widths=(width,) * win.n_windows, dt=float(fom.dt),
               bdf2=fom.BDF_SCHEME == BDF.TWO,
               with_trilinear=win.trilinear is not None, n_real=win.N,
               km8=tables["km8"], kk8=tables["kk8"], kf8=tables["kf8"],
@@ -291,13 +332,110 @@ def sweep_inputs(fom, win, prepped, tables, group, mode):
     return args, kw
 
 
-def windowed_sweep(fom, win, prepped, tables, group, mode):
-    """Stage 2: the fused K1 sweep over all windows. Returns (nt, …, B)
-    tensors: t, probes (nt, 2, B), uN_final (N, B) and ``dil``/``dil_oor``
-    when the prep produced them."""
+def sweep_fused(fom, win, prepped, tables):
+    """Fused branch (reference ``:429-451``): one K1 launch over all
+    windows, with the paired-LU solve policy. Returns (probes
+    (nt, 8, B), state (4, NP, B))."""
+    group, mode = windowed_solve_group()
     args, kw = sweep_inputs(fom, win, prepped, tables, group, mode)
-    probes, state = online_sweep_windowed_fused(*args, **kw)
+    return online_sweep_windowed_fused(*args, **kw)
+
+
+def window_inputs(fom, win, prepped):
+    """float32 θ tables, probes and b0 of a prepped batch, and the
+    per-window kernels' keywords."""
+    ops = [prepped[k].to(torch.float32).contiguous()
+           for k in ("THm", "THk", "THf", "g", "b0")]
+    kw = dict(dt=float(fom.dt), bdf2=fom.BDF_SCHEME == BDF.TWO,
+              with_trilinear=win.trilinear is not None, n_real=win.N)
+    return ops, kw
+
+
+def _transfer(state, T):
+    """Window-boundary transfer of the dd carry through T (N, N), both
+    BDF registers, padded entries zero (reference ``transfer_state``,
+    ``:364-377``). The two registers go through one dd matvec side by
+    side (it works column by column, so the result is the same): the
+    matvec is a few hundred small elementwise launches."""
+    N = T.shape[0]
+    B = state.shape[2]
+    hi, lo = dd_matvec(T, torch.cat([state[0, :N], state[2, :N]], dim=1),
+                       torch.cat([state[1, :N], state[3, :N]], dim=1))
+    out = torch.zeros_like(state)
+    out[0, :N], out[2, :N] = hi[:, :B], hi[:, B:]
+    out[1, :N], out[3, :N] = lo[:, :B], lo[:, B:]
+    return out
+
+
+def window_operators(tables, w, THm, THk, THf, a, b):
+    """Window w's materialized operators for steps a..b−1: MN, KL
+    (b−a, NP, NP, B) and fN (b−a, NP, B), plain products of its combine
+    tensors with its θ rows (the reference leaves them to XLA outside any
+    kernel)."""
+    NP = tables["VE"].shape[2]
+    B = THm.shape[2]
+    MN, KL = (torch.einsum("nk,tkB->tnB", tables[key][w], th[a:b])
+              .reshape(b - a, NP, NP, B).contiguous()
+              for key, th in (("Bm", THm), ("Bk", THk)))
+    fN = torch.einsum("nk,tkB->tnB", tables["Bf"][w], THf[a:b]).contiguous()
+    return MN, KL, fN
+
+
+def sweep_materialized(fom, win, prepped, tables):
+    """Materialized branch (reference ``:381-414``): per window w, the dd
+    transfer through T[w] (w > 0), the window's MN, KL and fN by a plain
+    product of the combine tensors with its θ rows, and one K2 launch
+    with step0 = bounds[w]."""
+    (THm, THk, THf, g, b0), kw = window_inputs(fom, win, prepped)
+    NP = pad_dim(win.N)
+    B = THm.shape[2]
+    if THm.is_cuda:
+        _no_tf32()
+    state = THm.new_zeros((4, NP, B))
+    parts = []
+    for w in range(win.n_windows):
+        a, b = int(win.bounds[w]), int(win.bounds[w + 1])
+        if w > 0:
+            state = _transfer(state, tables["T"][w])
+        MN, KL, fN = window_operators(tables, w, THm, THk, THf, a, b)
+        probes_w, state = online_sweep_pallas_v2(
+            MN, KL, fN, g[a:b], tables["T0"][w], tables["VE"][w], b0,
+            state, step0=a, **kw)
+        parts.append(probes_w)
+    return torch.cat(parts), state
+
+
+def sweep_theta_v2(fom, win, prepped, tables):
+    """v2 branch (reference ``:453-488``): per window w, the dd transfer
+    through T[w] (T[0] = I included) and one K3 launch with
+    step0 = w·width."""
+    (THm, THk, THf, g, b0), kw = window_inputs(fom, win, prepped)
+    width = window_width(win)
+    NP = pad_dim(win.N)
+    state = THm.new_zeros((4, NP, THm.shape[2]))
+    parts = []
+    for w in range(win.n_windows):
+        a, b = w * width, (w + 1) * width
+        state = _transfer(state, tables["T"][w])
+        probes_w, state = online_sweep_theta_pallas_v2(
+            THm[a:b], THk[a:b], THf[a:b], g[a:b], tables["Bm"][w],
+            tables["Bk"][w], tables["Bf"][w], tables["T0"][w],
+            tables["VE"][w], b0, state, step0=a, **kw)
+        parts.append(probes_w)
+    return torch.cat(parts), state
+
+
+def windowed_sweep(fom, win, prepped, tables, precompute_choice):
+    """Stage 2 through the branch :func:`stage2_branch` picks. Returns
+    (nt, …, B) tensors: t, probes (nt, 2, B), uN_final (N, B) and
+    ``dil``/``dil_oor`` when the prep produced them."""
+    window_width(win)
     THm = prepped["THm"]
+    nt, _k, B = THm.shape
+    branch = stage2_branch(nt, pad_dim(win.N), B, precompute_choice)
+    sweep = {"matrices": sweep_materialized, "fused": sweep_fused,
+             "v2": sweep_theta_v2}[branch]
+    probes, state = sweep(fom, win, prepped, tables)
     dil = prepped.get("dil")
     out = {"t": time_grid(fom, dil, THm.dtype, THm.device),
            "probes": probes[:, :2, :], "uN_final": state[0, :win.N, :]}

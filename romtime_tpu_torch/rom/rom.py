@@ -18,7 +18,7 @@ from ..deim import (
     DiscreteEmpiricalInterpolation,
     MatrixDiscreteEmpiricalInterpolation,
 )
-from .engines.policy import windowed_solve_group
+from .engines.policy import PrecomputePolicy
 from .engines.windowed_fused import (
     certify_pivot_free,
     windowed_prep,
@@ -50,14 +50,15 @@ def make_reductors(fom, dofs):
     }
 
 
-class RomConstructorNonlinear:
-    """Windowed piston serving on one device.
+class RomConstructorNonlinear(PrecomputePolicy):
+    """Windowed piston serving on one device (the card unless ``device``
+    says otherwise).
 
     ``reductors`` maps every θ source name of :data:`THETA_SOURCES` to a
     DEIM reductor bound to ``fom``; ``windows`` is the active
     :class:`~romtime_tpu_torch.rom.windowed.WindowedServing`."""
 
-    def __init__(self, fom, reductors, windows, device="cpu"):
+    def __init__(self, fom, reductors, windows, device="cuda"):
         missing = set(THETA_SOURCES) - set(reductors)
         if missing:
             raise ValueError(f"missing θ sources: {sorted(missing)}")
@@ -102,7 +103,11 @@ class RomConstructorNonlinear:
 
     def solve_batch(self, mus, step=Stage.ONLINE, mode="probes",
                     probe_reduce=None):
-        """Serve a μ batch: θ prep, then one fused K1 sweep.
+        """Serve a μ batch: θ prep, then the stage-2 sweep the reference
+        would take (``engines/windowed_fused.windowed_sweep``: K2 per
+        window while the operator tables fit the precompute budget, else
+        the fused K1 or, under ``ROMTIME_WINDOWED_KERNEL=v2``, K3 per
+        window).
 
         Returns batch-first numpy arrays: ``t``, ``probes`` (B, nt, 2) —
         or (B, 2) / (B, nt//k, 2) with ``probe_reduce`` "mean" / k —
@@ -114,14 +119,12 @@ class RomConstructorNonlinear:
                 f"mode {mode!r} is not ported; serving runs mode='probes'")
         if self.windows is None:
             raise ValueError("no windowed serving configuration attached")
-        group, paired_mode = windowed_solve_group()
-
         tables = self._windowed_tables()
         prepped = self.prep(mus)
         if self._pivot_cert is None:
             self._pivot_cert = certify_pivot_free(tables, prepped, self.N)
         outs = windowed_sweep(self.fom, self.windows, prepped, tables,
-                              group, paired_mode)
+                              self.precompute_choice)
         if probe_reduce is not None:
             outs["probes"] = self._reduce_probes(outs["probes"],
                                                  probe_reduce)

@@ -1,6 +1,6 @@
 """Seeded synthetic serving data for the port (the analog of random-init
-weights): K1 kernel tables at serving shapes, and a whole serving cell on
-the real piston FOM.
+weights): K1, K2 and K3 kernel inputs at serving shapes, and a whole
+serving cell on the real piston FOM.
 
 The synthetic cell has the flagship active-cell shape (W=50 windows of
 30 steps, N=32 per window) on the flagship FOM (nx=1000, nt=1500, tf=1.0,
@@ -40,8 +40,8 @@ def mu_center():
     return {k: 0.5 * (lo + hi) for k, (lo, hi) in MU_BOX.items()}
 
 
-def kernel_tables(N, W, width, B, seed=0, device="cpu", with_trilinear=True,
-                  bdf2=True):
+def kernel_tables(N, W, width, B, seed=0, device="cuda",
+                  with_trilinear=True, bdf2=True):
     """K1 inputs in the reference layouts on ``device`` (float32):
     the recipe of tests/test_pallas_online.py ``_windowed_synthetic`` with
     θ streams damped to a smooth ~0.5%-per-step drift (the paired-LU
@@ -113,6 +113,70 @@ def kernel_tables(N, W, width, B, seed=0, device="cpu", with_trilinear=True,
     return args, kw
 
 
+def resid_tables(N, nt, B, seed=0, device="cuda", theta=False,
+                 with_trilinear=True, bdf2=True, step0=0):
+    """Inputs of one K2 (``theta=False``) or K3 (``theta=True``) launch of
+    ``nt`` steps from global step ``step0``, in the reference layouts on
+    ``device`` (float32). The recipe of tests/test_pallas_online.py
+    ``test_theta_v2_fori_steps_blocked_gj`` (K = bdf·M + dt·S diagonally
+    dominant), with the serving cell's θ row extents (km8=8, kk8=32,
+    kf8=8) and the padded identity on a constant-1 θk row; K2 gets the
+    same operators materialized (MN = Bm·θm, KL = Bk·θk, fN = Bf·θf).
+    With ``step0 > 0`` the carry is a nonzero dd state, as a chained
+    launch receives it. Returns (args tuple, keyword dict)."""
+    rng = np.random.default_rng(seed)
+    km8, kk8, kf8 = 8, 32, 8
+    NP = pad_dim(N)
+    dt = 1.0 / (step0 + nt)
+    idx, pad = np.arange(N), np.arange(N, NP)
+
+    thm = 0.1 * rng.normal(size=(nt, km8, B))
+    thm[:, 0] = 1.0 + 0.05 * rng.normal(size=(nt, B))
+    thk = 0.1 * rng.normal(size=(nt, kk8, B))
+    thk[:, 0] = 1.0 + 0.05 * rng.normal(size=(nt, B))
+    thk[:, -1] = 1.0
+    thf = rng.normal(size=(nt, kf8, B))
+    g = np.zeros((nt, PROBE_P, B))
+    g[:, :2] = 0.01 * rng.normal(size=(nt, 2, B))
+    Bm = np.zeros((NP, NP, km8))
+    Bm[:N, :N] = 0.02 * rng.normal(size=(N, N, km8))
+    Bm[idx, idx, 0] += 1.0
+    Bk = np.zeros((NP, NP, kk8))
+    Bk[:N, :N, :-1] = 0.01 * dt * rng.normal(size=(N, N, kk8 - 1))
+    Bk[idx, idx, 0] += 2.0 * dt
+    Bk[pad, pad, -1] = 1.0
+    Bf = np.zeros((NP, kf8))
+    Bf[:N] = 0.1 * dt * rng.normal(size=(N, kf8))
+    T0 = np.zeros((NP, NP, NP))
+    T0[:N, :N, :N] = 0.02 * rng.normal(size=(N, N, N))
+    VE = np.zeros((PROBE_P, NP))
+    VE[:2, :N] = rng.normal(size=(2, N))
+    b0 = 1.0 + 0.1 * rng.normal(size=(1, B))
+    state0 = np.zeros((4, NP, B))
+    if step0 > 0:
+        u = 0.1 * rng.normal(size=(N, B))
+        for r, v in ((0, u), (2, u - 1e-3 * rng.normal(size=(N, B)))):
+            hi = v.astype(np.float32)
+            state0[r, :N] = hi
+            state0[r + 1, :N] = (v - hi).astype(np.float32)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=device)
+
+    Bm, Bk = dev(Bm.reshape(NP * NP, km8)), dev(Bk.reshape(NP * NP, kk8))
+    THm, THk, THf, Bf = dev(thm), dev(thk), dev(thf), dev(Bf)
+    tail = (dev(T0.reshape(NP * NP, NP)), dev(VE), dev(b0), dev(state0))
+    kw = dict(dt=dt, step0=step0, bdf2=bdf2, with_trilinear=with_trilinear,
+              n_real=N)
+    if theta:
+        return (THm, THk, THf, dev(g), Bm, Bk, Bf) + tail, kw
+    MN, KL = (torch.einsum("nk,tkB->tnB", C, th).reshape(nt, NP, NP, B)
+              .contiguous() for C, th in ((Bm, THm), (Bk, THk)))
+    fN = torch.einsum("nk,tkB->tnB", Bf, THf).contiguous()
+    return (MN, KL, fN, dev(g)) + tail, kw
+
+
 def _draw_dofs(rng, nh, k, matrix):
     rows = rng.choice(np.arange(1, nh - 1), size=k, replace=False)
     if not matrix:
@@ -123,7 +187,7 @@ def _draw_dofs(rng, nh, k, matrix):
 
 
 def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
-                   k=8, device="cpu"):
+                   k=8, device="cuda"):
     """A seeded serving cell on the real piston FOM (see module doc)."""
     rng = np.random.default_rng(seed)
     fom = piston_fom(L0=1.0, nx=nx, tf=tf, nt=nt)

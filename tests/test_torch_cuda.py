@@ -1,7 +1,7 @@
-"""K1 on the card against its plain PyTorch twin on the card. Needs a
-CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
-on a machine without it (tests/conftest.py imports JAX, hence
-``--noconftest``):
+"""K1, K2 and K3 on the card against their plain PyTorch twins on the
+card. Needs a CUDA device and nvcc; skips without a device. Imports no
+JAX, so it runs on a machine without it (tests/conftest.py imports JAX,
+hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -9,8 +9,9 @@ on a machine without it (tests/conftest.py imports JAX, hence
 import pytest
 import torch
 
+from romtime_tpu_torch.ops import resid_sweep as rs
 from romtime_tpu_torch.ops import windowed_fused as k1
-from romtime_tpu_torch.testing.synthetic import kernel_tables
+from romtime_tpu_torch.testing.synthetic import kernel_tables, resid_tables
 
 #: (N, W, width, B, paired-LU group, options): Gauss-Jordan-sized and
 #: blocked-LU sizes, a ragged lane tile (B not a multiple of the tile),
@@ -34,6 +35,37 @@ def test_cuda_kernel_matches_twin(N, W, width, B, group, options):
     got_p, got_s = k1.online_sweep_windowed_fused(*args, **kw)
     torch.cuda.synchronize()
     assert k1.online_sweep_windowed_fused.launches == n0 + 1
+    assert torch.isfinite(got_p).all() and torch.isfinite(got_s).all()
+    scale = twin_p.abs().max().item()
+    assert (got_p - twin_p).abs().max().item() <= 5e-5 * scale
+    sscale = twin_s[[0, 2]].abs().max().item()
+    assert (got_s - twin_s)[[0, 2]].abs().max().item() <= 5e-5 * sscale
+
+
+#: (N, nt, B, step0, options) for K2 and K3: Gauss-Jordan and blocked-LU
+#: sizes, ragged batches (B not a multiple of any lane tile), a chained
+#: launch (step0 > 0 from a nonzero carry), no trilinear term, BDF-1.
+RESID_CASES = [(12, 8, 130, 0, {}), (24, 8, 67, 0, {}), (32, 30, 512, 30, {}),
+               (48, 10, 40, 20, {}), (24, 8, 64, 8, {"with_trilinear": False}),
+               (16, 8, 64, 0, {"bdf2": False}), (12, 6, 5, 3, {})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta", [False, True], ids=["k2", "k3"])
+@pytest.mark.parametrize("N,nt,B,step0,options", RESID_CASES)
+def test_cuda_resid_kernels_match_twins(N, nt, B, step0, options, theta):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = resid_tables(N, nt, B, seed=N + step0, device="cuda",
+                            theta=theta, step0=step0, **options)
+    wrapper, twin = ((rs.online_sweep_theta_pallas_v2,
+                      rs.theta_sweep_v2_reference) if theta else
+                     (rs.online_sweep_pallas_v2, rs.sweep_v2_reference))
+    twin_p, twin_s = twin(*args, **kw)
+    n0 = wrapper.launches
+    got_p, got_s = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
     assert torch.isfinite(got_p).all() and torch.isfinite(got_s).all()
     scale = twin_p.abs().max().item()
     assert (got_p - twin_p).abs().max().item() <= 5e-5 * scale

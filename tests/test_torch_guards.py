@@ -63,3 +63,22 @@ def test_chip_smoke_alone_fails(tmp_path):
     proc = _run(["chip_smoke.py"], tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["RomConstructorNonlinear",
+                                   "serving_from_arrays", "synthetic_cell",
+                                   "kernel_tables", "resid_tables"])
+def test_entry_points_default_to_the_card(entry):
+    """An entry point called without device= runs on the card (or fails
+    without one); the CPU is only ever asked for."""
+    import inspect
+
+    from romtime_tpu_torch import RomConstructorNonlinear, serving_from_arrays
+    from romtime_tpu_torch.testing import synthetic
+
+    fn = {"RomConstructorNonlinear": RomConstructorNonlinear,
+          "serving_from_arrays": serving_from_arrays,
+          "synthetic_cell": synthetic.synthetic_cell,
+          "kernel_tables": synthetic.kernel_tables,
+          "resid_tables": synthetic.resid_tables}[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -3,12 +3,15 @@ real JAX-built piston cell (the small windowed pipeline of
 tests/conftest.py: nx=150, nt=96, W=4 windows of N=12).
 
 The reference serves through ``solve_batch(mode="probes",
-engine="windowed-pallas")`` in f32 with the fused kernel in interpret
-mode (tests/test_windowed.py:97-125 setup); the port serves the same
+engine="windowed-pallas")`` in f32 with its kernels in interpret mode
+(tests/test_windowed.py:97-125 setup); the port serves the same
 configuration carried across as numpy (romtime_tpu_torch.convert), its
-K1 twin on the CPU. Tolerances are the reference test's: probes
-5e-6·scale, uN_final 5e-5; the prep tables match to 1e-5 of each θ row's
-max (f32 assembly in a different op order)."""
+kernel twins on the CPU. Each stage-2 branch is compared: the
+materialized one under the default precompute budget (K2), and with the
+budget at 0 the fused K1 and the v2 per-window K3. Tolerances are the
+reference test's: probes 5e-6·scale, uN_final 5e-5; the prep tables
+match to 1e-5 of each θ row's max (f32 assembly in a different op
+order)."""
 
 import numpy as np
 import pytest
@@ -22,8 +25,10 @@ from romtime_tpu_torch import serving_from_arrays, serving_to_arrays
 from romtime_tpu_torch.rom.registration import DilationLaw
 from romtime_tpu_torch.rom.windowed import WindowedServing
 from torch_parity import (
+    BRANCHES,
     clear_serving_caches,
     payload_from_rom,
+    port_branch,
     reference_prep,
     reference_solve,
 )
@@ -86,7 +91,7 @@ def _mus(B, seed=0):
 def registered(piston_cell):
     """The same law attached to both sides (reference and port)."""
     rom, payload = piston_cell
-    port = serving_from_arrays(payload)
+    port = serving_from_arrays(payload, device="cpu")
     ref_law = RefDilationLaw.from_payload(**LAW_PAYLOAD)
     port.windows.dilation = DilationLaw.from_payload(**LAW_PAYLOAD)
     port._set_serving_windows(port.windows)
@@ -122,7 +127,7 @@ def _assert_serving_close(got, ref):
 def test_tables_match_reference(piston_cell):
     """Stacked per-window constants: same layouts, identical values."""
     rom, payload = piston_cell
-    port = serving_from_arrays(payload)
+    port = serving_from_arrays(payload, device="cpu")
     ref_tables, _ = reference_prep(rom, _mus(4))
     tables = port._windowed_tables()
     for key in ("Bmk", "BmF", "BkF", "BfT", "TQ", "VE", "Tp"):
@@ -137,8 +142,8 @@ def test_prep_tables_match_reference(piston_cell):
     rom, payload = piston_cell
     mus = _mus(16, seed=1)
     _, ref = reference_prep(rom, mus)
-    got = {k: v.numpy() for k, v in serving_from_arrays(payload)
-           .prep(mus).items()}
+    port = serving_from_arrays(payload, device="cpu")
+    got = {k: v.numpy() for k, v in port.prep(mus).items()}
     assert set(got) == set(ref)
     for key in ("THm", "THk", "THf", "g"):
         _assert_rows_close(got[key], ref[key], key)
@@ -146,15 +151,97 @@ def test_prep_tables_match_reference(piston_cell):
 
 
 def test_solve_batch_matches_reference(piston_cell):
-    """The slice end to end: 128 distinct μ through the reference's fused
-    windowed serving and through the port's solve_batch."""
+    """The slice end to end: 128 distinct μ through the reference's
+    windowed serving and through the port's solve_batch, both under the
+    default precompute budget (the materialized branch, K2)."""
     rom, payload = piston_cell
     mus = _mus(128, seed=2)
     ref = reference_solve(rom, mus)
-    got = serving_from_arrays(payload).solve_batch(mus)
+    got = serving_from_arrays(payload, device="cpu").solve_batch(mus)
     assert set(got) == set(ref)
     np.testing.assert_allclose(got["t"], ref["t"], rtol=1e-6)
     _assert_serving_close(got, ref)
+
+
+@pytest.mark.parametrize("branch", ["fused", "v2"])
+def test_solve_batch_branch_matches_reference(piston_cell, monkeypatch,
+                                              branch):
+    """The θ-streaming branches (precompute budget 0 on both sides): the
+    fused K1, and v2 with a K3 launch per window."""
+    rom, payload = piston_cell
+    mus = _mus(128, seed=10)
+    port = port_branch(serving_from_arrays(payload, device="cpu"), branch,
+                       monkeypatch)
+    got = port.solve_batch(mus)
+    ref = reference_solve(rom, mus, branch=branch)
+    assert set(got) == set(ref)
+    _assert_serving_close(got, ref)
+
+
+#: (B, budget, ROMTIME_WINDOWED_KERNEL, branch) on the parity cell
+#: (nt=96, NP=16): the tables of B lanes take 2·96·16²·B·4 bytes.
+ROUTES = [(16, None, None, "matrices"), (16, 0, None, "fused"),
+          (16, 0, "fused", "fused"), (16, 0, "v2", "v2"),
+          (16, 0, "other", "v2"), (16, 3145728, "v2", "matrices"),
+          (16, 3145727, None, "fused"), (17, 3145728, None, "fused")]
+
+
+@pytest.mark.parametrize("B,budget,env,branch", ROUTES)
+def test_stage2_routing(piston_cell, monkeypatch, B, budget, env, branch):
+    """solve_batch calls the sweep of the reference's branch for (B,
+    budget, ROMTIME_WINDOWED_KERNEL), seen through spies on the engine
+    module."""
+    from romtime_tpu_torch.rom.engines import windowed_fused as engine
+
+    _rom, payload = piston_cell
+    port = serving_from_arrays(payload, device="cpu")
+    if budget is not None:
+        port.ONLINE_PRECOMPUTE_BUDGET = budget
+    if env is None:
+        monkeypatch.delenv("ROMTIME_WINDOWED_KERNEL", raising=False)
+    else:
+        monkeypatch.setenv("ROMTIME_WINDOWED_KERNEL", env)
+    calls = []
+
+    def spy(name):
+        def sweep(fom, win, prepped, tables):
+            calls.append(name)
+            nt, _k, b = prepped["THm"].shape
+            NP = tables["VE"].shape[2]
+            return torch.zeros((nt, 8, b)), torch.zeros((4, NP, b))
+        return sweep
+
+    for name in BRANCHES:
+        attr = {"matrices": "sweep_materialized", "fused": "sweep_fused",
+                "v2": "sweep_theta_v2"}[name]
+        monkeypatch.setattr(engine, attr, spy(name))
+    out = port.solve_batch(_mus(B, seed=11))
+    assert calls == [branch]
+    assert out["probes"].shape == (B, 96, 2)
+
+
+def test_fleet_shape_routing():
+    """At the 50x32 fleet shape (nt=1500, NP=32) the reference's 6 GiB
+    budget takes B=512 to the materialized tables and B=1024 to θ."""
+    from romtime_tpu_torch.rom.engines.policy import PrecomputePolicy
+    from romtime_tpu_torch.rom.engines.windowed_fused import stage2_branch
+
+    choose = PrecomputePolicy().precompute_choice
+    assert stage2_branch(1500, 32, 512, choose) == "matrices"
+    assert stage2_branch(1500, 32, 1024, choose) == "fused"
+    assert PrecomputePolicy.ONLINE_PRECOMPUTE_BUDGET == 6 * 1024**3
+
+
+def test_default_device_is_the_card(piston_cell):
+    """Without device=, serving runs on the card: with none, it fails
+    loudly instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _rom, payload = piston_cell
+    port = serving_from_arrays(payload)
+    assert port.device == torch.device("cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        port.solve_batch(_mus(2))
 
 
 def test_registered_prep_matches_reference(registered):
@@ -186,7 +273,7 @@ def test_registered_solve_batch_matches_reference(registered):
 
 def test_probe_reduce(piston_cell):
     _rom, payload = piston_cell
-    port = serving_from_arrays(payload)
+    port = serving_from_arrays(payload, device="cpu")
     mus = _mus(8, seed=5)
     full = port.solve_batch(mus)["probes"]                   # (B, nt, 2)
     mean = port.solve_batch(mus, probe_reduce="mean")["probes"]
@@ -244,7 +331,7 @@ def src_arrays(ref_win):
 
 def test_payload_roundtrip(piston_cell):
     _rom, payload = piston_cell
-    back = serving_to_arrays(serving_from_arrays(payload))
+    back = serving_to_arrays(serving_from_arrays(payload, device="cpu"))
     assert set(back) == set(payload)
     for key in payload:
         np.testing.assert_array_equal(back[key], payload[key], err_msg=key)
@@ -254,7 +341,7 @@ def test_empty_entries_raise(piston_cell):
     """Serving never assembles the full band: an empty entry list
     raises (the reference would fall back to a banded operator)."""
     _rom, payload = piston_cell
-    fom = serving_from_arrays(payload).fom
+    fom = serving_from_arrays(payload, device="cpu").fom
     mu = {k: torch.tensor([v]) for k, v in _mus(1)[0].items()}
     with pytest.raises(ValueError, match="entry"):
         fom.assemble_mass(mu, torch.tensor(0.1), entries=[])
@@ -266,10 +353,14 @@ def test_empty_entries_raise(piston_cell):
                                        ("ROMTIME_PAIRED_MODE", "warm1")])
 def test_unported_solver_options_raise(piston_cell, monkeypatch, env,
                                        value):
+    """The fused branch's solve options that are not ported raise (the
+    other branches do not read them)."""
     _rom, payload = piston_cell
     monkeypatch.setenv(env, value)
+    port = port_branch(serving_from_arrays(payload, device="cpu"), "fused",
+                       monkeypatch)
     with pytest.raises(NotImplementedError):
-        serving_from_arrays(payload).solve_batch(_mus(2))
+        port.solve_batch(_mus(2))
 
 
 def test_entry_assembly_matches_reference(piston_cell):
@@ -280,7 +371,7 @@ def test_entry_assembly_matches_reference(piston_cell):
     from romtime_tpu_torch.dtypes import compute_dtype_scope
 
     rom, payload = piston_cell
-    port = serving_from_arrays(payload)
+    port = serving_from_arrays(payload, device="cpu")
     mu = _mus(1, seed=6)[0]
     t = 0.37
     ref_mu = {k: jnp.asarray(v) for k, v in mu.items()}
@@ -309,7 +400,7 @@ def test_trilinear_entries_match_reference(piston_cell):
 
     rom, payload = piston_cell
     ref_red = rom.mdeim_Nh
-    port = serving_from_arrays(payload)
+    port = serving_from_arrays(payload, device="cpu")
     red = MatrixDiscreteEmpiricalInterpolationNonlinear(
         assemble=port.fom.assemble_trilinear, dofs=ref_red.dofs)
     mu = _mus(1, seed=8)[0]
@@ -356,7 +447,7 @@ def test_piston_mach_number(piston_cell):
     from romtime_tpu.rom.rom import RomConstructorNonlinear as Ref
 
     _rom, payload = piston_cell
-    port = serving_from_arrays(payload)
+    port = serving_from_arrays(payload, device="cpu")
     mu = _mus(1, seed=7)[0]
     assert port.compute_piston_mach_number(mu) == \
         Ref.compute_piston_mach_number(mu)
@@ -371,14 +462,16 @@ def test_synthetic_cell_serves_and_round_trips():
         synthetic_mus,
     )
 
-    rom = synthetic_cell(seed=3, nx=100, nt=60, n_windows=2, N=24, k=4)
+    rom = synthetic_cell(seed=3, nx=100, nt=60, n_windows=2, N=24, k=4,
+                         device="cpu")
     mus = synthetic_mus(8, seed=4)
     out = rom.solve_batch(mus, probe_reduce="mean")
     assert out["probes"].shape == (8, 2) and out["uN_final"].shape == (8, 24)
     assert np.isfinite(out["probes"]).all()
     assert np.isfinite(out["uN_final"]).all()
     assert rom._pivot_cert >= 1e-3
-    again = serving_from_arrays(serving_to_arrays(rom)).solve_batch(
+    again = serving_from_arrays(serving_to_arrays(rom),
+                                device="cpu").solve_batch(
         mus, probe_reduce="mean")
     for key in out:
         np.testing.assert_array_equal(again[key], out[key])

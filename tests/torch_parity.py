@@ -1,6 +1,6 @@
 """Test-side helpers shared by the port's parity tests (not collected):
 carry a JAX-built serving configuration across to the PyTorch port, and
-run the reference's fused windowed serving the way
+run the reference's windowed serving on each stage-2 branch the way
 tests/test_windowed.py runs it."""
 
 import contextlib
@@ -43,19 +43,30 @@ def clear_serving_caches(rom):
     rom._windowed_pallas_tbl = None
 
 
+#: Stage-2 branches of windowed serving (rom/engines/windowed_pallas.py
+#: :310-488): "matrices" keeps the precompute budget as it is (the tables
+#: of a test batch fit it), "fused" and "v2" zero it and set
+#: ROMTIME_WINDOWED_KERNEL.
+BRANCHES = ("matrices", "fused", "v2")
+
+
 @contextlib.contextmanager
-def reference_serving(rom):
-    """f32 serving scope of the reference's fused windowed path:
-    ROMTIME_WINDOWED_KERNEL=fused, ROMTIME_SOLVE_ITERS=0 (LU), θ-streaming
-    branch forced by a zero precompute budget (tests/test_windowed.py)."""
+def reference_serving(rom, branch="matrices"):
+    """f32 serving scope of the reference's windowed-pallas engine on
+    ``branch``, with ROMTIME_SOLVE_ITERS=0 (LU) as tests/test_windowed.py
+    runs it."""
+    if branch not in BRANCHES:
+        raise ValueError(f"unknown branch {branch!r}")
     saved = {k: os.environ.get(k) for k in ("ROMTIME_WINDOWED_KERNEL",
                                             "ROMTIME_SOLVE_ITERS")}
     budget = type(rom).ONLINE_PRECOMPUTE_BUDGET
-    os.environ["ROMTIME_WINDOWED_KERNEL"] = "fused"
     os.environ["ROMTIME_SOLVE_ITERS"] = "0"
+    if branch != "matrices":
+        os.environ["ROMTIME_WINDOWED_KERNEL"] = branch
     clear_serving_caches(rom)
     try:
-        type(rom).ONLINE_PRECOMPUTE_BUDGET = 0
+        if branch != "matrices":
+            type(rom).ONLINE_PRECOMPUTE_BUDGET = 0
         with compute_dtype_scope(jnp.float32):
             yield
     finally:
@@ -68,11 +79,20 @@ def reference_serving(rom):
                 os.environ[k] = v
 
 
-def reference_solve(rom, mus, probe_reduce=None):
-    with reference_serving(rom):
+def reference_solve(rom, mus, probe_reduce=None, branch="matrices"):
+    with reference_serving(rom, branch):
         return rom.solve_batch(mus, step=Stage.ONLINE, mode="probes",
                                engine="windowed-pallas",
                                probe_reduce=probe_reduce)
+
+
+def port_branch(port, branch, monkeypatch):
+    """Put the port's serving object on ``branch`` (the budget on the
+    instance, the kernel switch through ``monkeypatch``)."""
+    if branch != "matrices":
+        port.ONLINE_PRECOMPUTE_BUDGET = 0
+        monkeypatch.setenv("ROMTIME_WINDOWED_KERNEL", branch)
+    return port
 
 
 def reference_prep(rom, mus):
