@@ -5,31 +5,43 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. build of every kernel of the serving path with nvcc for sm_90a, one
+2. build of every kernel of the serving paths with nvcc for sm_90a, one
    nvcc per source, all at once: K1 (romtime_tpu_torch/csrc/windowed_fused.cu),
-   K2 and K3 (romtime_tpu_torch/csrc/resid_sweep.cu);
+   K2 and K3 (romtime_tpu_torch/csrc/resid_sweep.cu), K4 and K5
+   (romtime_tpu_torch/csrc/global_sweep.cu);
 3. kernel phase, each kernel against its plain PyTorch twin, both on the
-   card, at the fleet's two serving shapes (50 windows × 30 steps at N=32,
-   150 × 10 at N=48): K1 over a whole sweep (B=2048, paired LU G=5
-   "sub1"); K2 (B=512 at 50x32, B=128 at 150x48) and K3 (B=2048) over one
-   window launch with step0 > 0 from a nonzero carried state. Errors
-   against 5e-5·scale; ms per call of the kernel and of the twin;
-4. serving phase on the seeded synthetic 50x32 cell (real piston FOM,
-   nx=1000, nt=1500) through ``solve_batch(mus, mode="probes",
+   card: K1-K3 at the fleet's two windowed serving shapes (50 windows ×
+   30 steps at N=32, 150 × 10 at N=48): K1 over a whole sweep (B=2048,
+   paired LU G=5 "sub1"); K2 (B=512 at 50x32, B=128 at 150x48) and K3
+   (B=2048) over one window launch with step0 > 0 from a nonzero carried
+   state; K4 and K5 over a whole global sweep (nt=1500): K4 at N=15 and
+   K5 at N=20 (B=2048, the throughput ROM and S-ROM), each also at N=9
+   with BDF-1 and no trilinear term, and at B=1000 (not a multiple of
+   128). Errors against 5e-5·scale; ms per call of the kernel and of the
+   twin, and the bound;
+4. windowed serving phase on the seeded synthetic 50x32 cell (real piston
+   FOM, nx=1000, nt=1500) through ``solve_batch(mus, mode="probes",
    probe_reduce="mean")``, one stage-2 branch after the other, each with
    every launch counter set to 0 just before it and read just after:
    B=2048 (fused K1, one launch per call), B=512 (materialized tables,
-   K2 once per window: 50 per call, K1 unmoved) and B=2048 under
+   K2 once per window: 50 per call) and B=2048 under
    ROMTIME_WINDOWED_KERNEL=v2 (K3 once per window). Each branch's outputs
    must be finite and agree with the same batch through the twins on the
-   card, and K2's and K3's with K1's on the same μ; solves/s per branch
-   (median of its calls, synchronized) beside the card name; where each
-   branch's time goes; each kernel's ms, twin ms and bound on the
-   serving path's own inputs.
+   card, and K2's and K3's with K1's on the same μ;
+5. global serving phase (``engine="pallas"``) on the seeded synthetic
+   global cells (same FOM), the same way: N=15 at B=2048 (materialized
+   tables, one K4 launch per call), the same cell with the precompute
+   budget at 0 (one K5 launch per call; its outputs within 3e-6·scale of
+   K4's on the same μ) and N=20 at B=2048 (K5 by the budget alone);
+6. one measured precompute autotune on the N=15 global cell at B=2048
+   (record written under build/).
 
-Prints a JSON line of per-kernel results, then, as the last line,
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero before printing any result. Imports nothing of JAX.
+Every serving branch reports solves/s (median of its calls, synchronized)
+beside the card name, where its time goes, and each kernel's ms, twin ms
+and bound on the serving path's own inputs. Prints a JSON line of
+per-kernel results, then, as the last line, ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits non-zero before printing any
+result. Imports nothing of JAX.
 """
 
 import contextlib
@@ -53,6 +65,18 @@ RESID_REPS = 20
 SERVE_CALLS = {"fused": 5, "matrices": 3, "v2": 3}
 SERVE_BATCH = {"fused": 2048, "matrices": 512, "v2": 2048}
 BRANCH_KERNEL = {"fused": "K1", "matrices": "K2", "v2": "K3"}
+KERNELS = ("K1", "K2", "K3", "K4", "K5")
+GLOBAL_NT = 1500
+GLOBAL_CALLS = 3
+GLOBAL_REPS = 3
+#: (kernel, N, B, options) of the global kernel phase.
+NO_TRI_BDF1 = {"bdf2": False, "with_trilinear": False}
+GLOBAL_SHAPES = (("K4", 15, 2048, {}), ("K5", 20, 2048, {}),
+                 ("K4", 9, 2048, NO_TRI_BDF1), ("K5", 9, 2048, NO_TRI_BDF1),
+                 ("K4", 15, 1000, {}), ("K5", 20, 1000, {}))
+#: The reference's own limit between its K5 and K4 branches
+#: (tests/test_rom.py:226-227).
+THETA_VS_TABLES_REL = 3e-6
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores
 # and HBM3 bandwidth, at the full 700 W power limit.
 PEAK_FLOPS = 67e12
@@ -86,12 +110,12 @@ def cuda_ms(fn, reps, warmup=True):
     return start.elapsed_time(stop) / reps, out
 
 
-def check(name, got, want):
+def check(name, got, want, rel=ATOL_REL):
     scale = max(want.abs().max().item(), 1e-30)
     err = (got - want).abs().max().item()
-    ok = err <= ATOL_REL * scale and torch.isfinite(got).all().item()
+    ok = err <= rel * scale and torch.isfinite(got).all().item()
     print(f"  {name}: max abs err {err:.3e} (scale {scale:.3e}, "
-          f"limit {ATOL_REL * scale:.3e}) {'ok' if ok else 'FAIL'}")
+          f"limit {rel * scale:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its reference")
     return err
@@ -103,9 +127,20 @@ def check_sweep(label, got, want):
     return max(check("probes", p, tp), check("state", s[[0, 2]], ts[[0, 2]]))
 
 
+def check_global(label, got, want):
+    """A global sweep (probes, uN) against its twin's; the padded probe
+    rows must be exact zeros."""
+    (p, u), (tp, tu) = got, want
+    print(label)
+    if p[:, 2:].abs().max().item() != 0.0:
+        raise AssertionError(f"{label} padded probe rows are not zero")
+    return max(check("probes", p, tp), check("uN", u, tu))
+
+
 # ----------------------------------------------------------------------
 # Work bounds: operations and bytes each kernel's call needs, from its
-# inputs' shapes (no loop of these kernels ends early).
+# inputs' shapes and the θ rows its constants use (no loop of these
+# kernels ends early).
 # ----------------------------------------------------------------------
 def lu_fmas(NP):
     """FMAs of one lane's pivot-free LU of an NP×NP matrix and its two
@@ -113,14 +148,30 @@ def lu_fmas(NP):
     return sum((NP - k - 1) * (NP - k) for k in range(NP)) + NP * NP
 
 
-def step_fmas(NP, km8, kk8, kf8, with_trilinear, solve):
-    """FMAs of one lane's residual BDF step with each operator formed once:
-    MN = Bm·θm and KL = Bk·θk (NP²·(km8 + kk8)), fN = Bf·θf (NP·kf8), the
-    trilinear NN = T0·pred and dtS (NP³ + NP²), KN, MN·d and dtS·pred
-    (3·NP²), the solve, and the probes (8·NP). K1, K2 and K3 compute this
-    same step; K2 reads MN, KL and fN instead (km8 = kk8 = kf8 = 0)."""
+def live_rows(table, NP, n):
+    """θ rows that a constant table (θ on its last axis; its rows the NP²
+    entries (i, j) of MN or KL, or the NP entries of fN) feeds into the
+    real n×n block (the n real rows of fN). A θ row whose column is zero
+    there is no work: a row that pads the extent to a multiple of 8, or
+    the constant-1 row that carries only the padded diagonal. The windowed
+    kernels count the whole padded block (n = NP, see step_fmas)."""
+    k = table.shape[-1]
+    if table.shape[-2] == NP * NP:
+        t = table.reshape(-1, NP, NP, k)[:, :n, :n]
+    else:
+        t = table.reshape(-1, NP, k)[:, :n]
+    return int((t != 0).reshape(-1, k).any(dim=0).sum())
+
+
+def step_fmas(NP, km, kk, kf, with_trilinear, solve):
+    """FMAs of one lane's residual BDF step with each operator formed once
+    from its live θ rows (live_rows): MN = Bm·θm and KL = Bk·θk
+    (NP²·(km + kk)), fN = Bf·θf (NP·kf), the trilinear NN = T0·pred and
+    dtS (NP³ + NP²), KN, MN·d and dtS·pred (3·NP²), the solve, and the
+    probes (8·NP). K1, K2 and K3 compute this same step; K2 reads MN, KL
+    and fN instead (km = kk = kf = 0)."""
     tri = NP ** 3 + NP * NP if with_trilinear else 0
-    return (NP * NP * (km8 + kk8) + NP * kf8 + tri + 3 * NP * NP + solve
+    return (NP * NP * (km + kk) + NP * kf + tri + 3 * NP * NP + solve
             + 8 * NP)
 
 
@@ -138,7 +189,7 @@ def k1_bound(args, kw):
     matvecs through Tp[w] (~10 operations per entry)."""
     from romtime_tpu_torch.ops.windowed_fused import step_roles
 
-    TH = args[0]
+    TH, Bmk, BfT = args[0], args[1], args[4]
     nt, _K8, Bn = TH.shape
     W, NP = args[6].shape[0], args[6].shape[2]       # VE (W, P, NP)
     width = nt // W
@@ -147,8 +198,11 @@ def k1_bound(args, kw):
     roles = step_roles(kw.get("period") or width, group)
     solve = sum(3 * NP * NP if r == "follow" else lu_fmas(NP)
                 for r in roles) / len(roles)
-    per_step = step_fmas(NP, kw["km8"], kw["kk8"], kw["kf8"],
-                         kw["with_trilinear"], solve)
+    km8, kk8 = kw["km8"], kw["kk8"]                  # Bmk (W, kfold, NP²)
+    per_step = step_fmas(
+        NP, live_rows(Bmk[:, :km8].transpose(1, 2), NP, NP),
+        live_rows(Bmk[:, km8:km8 + kk8].transpose(1, 2), NP, NP),
+        live_rows(BfT.transpose(1, 2), NP, NP), kw["with_trilinear"], solve)
     flops = 2 * Bn * (nt * per_step + W * 2 * 10 * NP * NP)
     nbytes = 4 * (TH.numel() + sum(a.numel() for a in args[1:8])
                   + Bn + 2 * 4 * NP * Bn + nt * 8 * Bn)
@@ -168,10 +222,10 @@ def k2_bound(args, kw):
 
 def k3_bound(args, kw):
     THm, THk, THf, g, Bm, Bk, Bf = args[:7]
-    nt, km8, Bn = THm.shape
-    kk8, kf8 = THk.shape[1], THf.shape[1]
+    nt, _km8, Bn = THm.shape
     NP = Bf.shape[0]
-    per_step = step_fmas(NP, km8, kk8, kf8, kw["with_trilinear"],
+    per_step = step_fmas(NP, live_rows(Bm, NP, NP), live_rows(Bk, NP, NP),
+                         live_rows(Bf, NP, NP), kw["with_trilinear"],
                          lu_fmas(NP))
     flops = 2 * Bn * nt * per_step
     nbytes = 4 * (THm.numel() + THk.numel() + THf.numel() + 2 * g.numel()
@@ -179,6 +233,54 @@ def k3_bound(args, kw):
                   + (NP ** 3 if kw["with_trilinear"] else 0) + 8 * NP + Bn
                   + 2 * 4 * NP * Bn)
     return bound(flops, nbytes)
+
+
+def global_step_fmas(n, km, kk, kf, with_trilinear):
+    """FMAs of one lane's plain-f32 global BDF step on n real rows (the
+    padded rows and columns hold zeros and the identity, no work): the
+    operators MN = Bm·θm, KL = Bk·θk (n²·(km + kk)) and fN = Bf·θf (n·kf)
+    over their live θ rows (live_rows) when they are formed, the
+    trilinear NN = T0·u* (n³) and its scaled add (n²), KN and the
+    MN·combo product (2·n²), a solve (LU and its two substitutions) and
+    the two real probe rows (2·n). K4 reads MN, KL and fN instead
+    (km = kk = kf = 0)."""
+    tri = n ** 3 + n * n if with_trilinear else 0
+    return (n * n * (km + kk) + n * kf + tri + 2 * n * n + lu_fmas(n)
+            + 2 * n)
+
+
+def k4_bound(args, kw):
+    MN, _KL, fN, g = args[:4]
+    nt, NP, _, Bn = MN.shape
+    per_step = global_step_fmas(kw["n_real"], 0, 0, 0, kw["with_trilinear"])
+    flops = 2 * Bn * nt * per_step
+    nbytes = 4 * (2 * MN.numel() + fN.numel() + 2 * g.numel()
+                  + (NP ** 3 if kw["with_trilinear"] else 0) + 8 * NP + Bn
+                  + NP * Bn)
+    return bound(flops, nbytes)
+
+
+def k5_bound(args, kw):
+    THm, THk, THf, g, Bm, Bk, Bf = args[:7]
+    nt, _km8, Bn = THm.shape
+    NP = Bf.shape[0]
+    n = kw["n_real"]
+    per_step = global_step_fmas(n, live_rows(Bm, NP, n), live_rows(Bk, NP, n),
+                                live_rows(Bf, NP, n), kw["with_trilinear"])
+    flops = 2 * Bn * nt * per_step
+    nbytes = 4 * (THm.numel() + THk.numel() + THf.numel() + 2 * g.numel()
+                  + Bm.numel() + Bk.numel() + Bf.numel()
+                  + (NP ** 3 if kw["with_trilinear"] else 0) + 8 * NP + Bn
+                  + NP * Bn)
+    return bound(flops, nbytes)
+
+
+def global_kernel(mods, name):
+    """(wrapper, twin, bound) of K4 or K5."""
+    gs = mods["gs"]
+    if name == "K4":
+        return gs.online_sweep_pallas, gs.sweep_reference, k4_bound
+    return gs.online_sweep_theta_pallas, gs.theta_sweep_reference, k5_bound
 
 
 # ----------------------------------------------------------------------
@@ -229,6 +331,30 @@ def kernel_phase(mods, dev, power, errs):
     return rows
 
 
+def global_kernel_phase(mods, dev, power, errs):
+    synth = mods["synth"]
+    rows = []
+    for name, N, Bn, options in GLOBAL_SHAPES:
+        wrapper, twin, bnd = global_kernel(mods, name)
+        args, kw = synth.global_tables(N, GLOBAL_NT, Bn, seed=N, device=dev,
+                                       theta=name == "K5", **options)
+        ms, got = cuda_ms(lambda: wrapper(*args, **kw), GLOBAL_REPS)
+        plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1, warmup=False)
+        label = ", BDF-1 without the trilinear term" if options else ""
+        err = check_global(f"{name} N={N} nt={GLOBAL_NT} B={Bn}{label} on "
+                           f"{power}:", got, want)
+        errs[name].append(err)
+        bms, by = bnd(args, kw)
+        print(f"  kernel {ms:.3f} ms/sweep, twin {plain_ms:.1f} ms/sweep, "
+              f"bound {bms:.4f} ms ({by})")
+        rows.append(dict(kernel=name, shape=f"N{N}", B=Bn, options=options,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         max_abs_err=err))
+        del args, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ----------------------------------------------------------------------
 # Serving phase
 # ----------------------------------------------------------------------
@@ -265,9 +391,48 @@ def branch_scope(branch):
 
 
 def counters(mods):
+    """The launch counters of K1-K5, in that order."""
     return (mods["k1"].online_sweep_windowed_fused,
             mods["rs"].online_sweep_pallas_v2,
-            mods["rs"].online_sweep_theta_pallas_v2)
+            mods["rs"].online_sweep_theta_pallas_v2,
+            mods["gs"].online_sweep_pallas,
+            mods["gs"].online_sweep_theta_pallas)
+
+
+def serve_calls(rom, batches, mods, engine):
+    """Warm up, zero every launch counter, serve the batches one call at
+    a time (synchronized), read the counters: (launches, outputs, call
+    seconds)."""
+    rom.solve_batch(batches[0], engine=engine, probe_reduce="mean")
+    torch.cuda.synchronize()
+    for c in counters(mods):
+        c.launches = 0
+    times, outs = [], []
+    for mus in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(rom.solve_batch(mus, engine=engine, probe_reduce="mean"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return [c.launches for c in counters(mods)], outs, times
+
+
+def check_served(outs, Bb, N):
+    for out in outs:
+        probes, uN = out["probes"], out["uN_final"]
+        if probes.shape != (Bb, 2) or uN.shape != (Bb, N):
+            raise AssertionError(f"unexpected output shapes {probes.shape}, "
+                                 f"{uN.shape}")
+        if not (torch.isfinite(torch.as_tensor(probes)).all()
+                and torch.isfinite(torch.as_tensor(uN)).all()):
+            raise AssertionError("non-finite serving outputs")
+
+
+def call_info(Bb, times):
+    seconds = statistics.median(times)
+    return dict(B=Bb, calls=len(times), solves_per_s=Bb / seconds,
+                serve_ms_median=seconds * 1e3, serve_ms_min=min(times) * 1e3,
+                serve_ms_max=max(times) * 1e3)
 
 
 def serve_branch(rom, branch, batches, mods, power):
@@ -283,49 +448,30 @@ def serve_branch(rom, branch, batches, mods, power):
                             rom.precompute_choice)
         if got != branch:
             raise AssertionError(f"B={Bb} routes to {got}, not {branch}")
-        rom.solve_batch(batches[0], probe_reduce="mean")      # warm-up
-        torch.cuda.synchronize()
-        for c in counters(mods):
-            c.launches = 0
-        times, outs = [], []
-        for mus in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs.append(rom.solve_batch(mus, probe_reduce="mean"))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        launches = [c.launches for c in counters(mods)]
+        launches, outs, times = serve_calls(rom, batches, mods,
+                                            "windowed-pallas")
     calls = len(batches)
-    want = {"fused": [calls, 0, 0], "matrices": [0, W * calls, 0],
-            "v2": [0, 0, W * calls]}[branch]
-    seconds = statistics.median(times)
+    want = {"fused": [calls, 0, 0, 0, 0], "matrices": [0, W * calls, 0, 0, 0],
+            "v2": [0, 0, W * calls, 0, 0]}[branch]
+    info = call_info(Bb, times)
     print(f"serving, {branch} branch: {calls} calls of {Bb} μ, median "
-          f"{seconds * 1e3:.1f} ms per call (min {min(times) * 1e3:.1f}, "
-          f"max {max(times) * 1e3:.1f}) = {Bb / seconds:.1f} solves/s "
-          f"(prep + sweep + fetch, synchronized) on {power}; launches "
-          f"K1/K2/K3 {launches}")
+          f"{info['serve_ms_median']:.1f} ms per call (min "
+          f"{info['serve_ms_min']:.1f}, max {info['serve_ms_max']:.1f}) = "
+          f"{info['solves_per_s']:.1f} solves/s (prep + sweep + fetch, "
+          f"synchronized) on {power}; launches K1-K5 {launches}")
     if launches != want:
         raise AssertionError(f"{branch} branch launched {launches}, "
                              f"expected {want}")
-    for out in outs:
-        probes, uN = out["probes"], out["uN_final"]
-        if probes.shape != (Bb, 2) or uN.shape != (Bb, rom.N):
-            raise AssertionError(f"unexpected output shapes {probes.shape}, "
-                                 f"{uN.shape}")
-        if not (torch.isfinite(torch.as_tensor(probes)).all()
-                and torch.isfinite(torch.as_tensor(uN)).all()):
-            raise AssertionError("non-finite serving outputs")
-    return launches, outs, dict(
-        B=Bb, calls=calls, solves_per_s=Bb / seconds,
-        serve_ms_median=seconds * 1e3, serve_ms_min=min(times) * 1e3,
-        serve_ms_max=max(times) * 1e3)
+    check_served(outs, Bb, rom.N)
+    return launches, outs, info
 
 
-def served_vs(name, out, probes, state, N, dev):
-    """Served (time-mean probes, uN_final) against a sweep's outputs."""
+def served_vs(name, out, probes, uN, N, dev):
+    """Served (time-mean probes, uN_final) against a sweep's outputs
+    (probes (nt, 8, B), uN (NP, B))."""
     print(name)
     want_p = probes[:, :2, :].mean(dim=0).T
-    want_u = state[0, :N, :].T
+    want_u = uN[:N, :].T
     return max(check("probes (time mean)",
                      torch.as_tensor(out["probes"], device=dev), want_p),
                check("uN_final", torch.as_tensor(out["uN_final"],
@@ -421,7 +567,7 @@ def serving_phase(mods, dev, power, errs):
             want))
         errs[kname].append(served_vs(
             f"{branch} branch served outputs vs its twins' sweep:", outs[-1],
-            *want, rom.N, dev))
+            want[0], want[1][0], rom.N, dev))
         rest = info["serve_ms_median"] - info["prep_ms"] - info["sweep_ms"]
         print(f"  breakdown: prep {info['prep_ms']:.1f} ms, sweep "
               f"{info['sweep_ms']:.1f} ms, the rest (pivot check, probe "
@@ -451,12 +597,143 @@ def serving_phase(mods, dev, power, errs):
     return launches, kernels, serving
 
 
+def serve_global(rom, label, batches, mods, power, kernel):
+    """Drive one global branch (``engine="pallas"``) as
+    :func:`serve_branch` drives a windowed one: one launch of ``kernel``
+    per call and no other launch."""
+    Bb = len(batches[0])
+    launches, outs, times = serve_calls(rom, batches, mods, "pallas")
+    calls = len(batches)
+    want = [0, 0, 0, calls, 0] if kernel == "K4" else [0, 0, 0, 0, calls]
+    info = call_info(Bb, times)
+    print(f"global serving, {label}: {calls} calls of {Bb} μ, median "
+          f"{info['serve_ms_median']:.1f} ms per call (min "
+          f"{info['serve_ms_min']:.1f}, max {info['serve_ms_max']:.1f}) = "
+          f"{info['solves_per_s']:.1f} solves/s (prep + sweep + fetch, "
+          f"synchronized) on {power}; launches K1-K5 {launches}")
+    if launches != want:
+        raise AssertionError(f"{label} launched {launches}, expected {want}")
+    check_served(outs, Bb, rom.N)
+    return launches, outs, info
+
+
+def global_serving_phase(mods, dev, power, errs):
+    """Global serving on the synthetic N=15 and N=20 cells: K4, K5 with
+    the budget at 0, K5 by the budget; then each branch's last batch again
+    with the kernel against its twin on the serving inputs, and where its
+    time goes."""
+    import romtime_tpu_torch.rom.engines.global_fused as engine
+    from romtime_tpu_torch.rom.engines.policy import PrecomputePolicy
+
+    synth = mods["synth"]
+    batches = [synth.synthetic_mus(B, seed=11 + r)
+               for r in range(GLOBAL_CALLS)]
+    cells = {}
+    for N in (15, 20):
+        t0 = time.perf_counter()
+        cells[N] = synth.synthetic_global_cell(N=N, seed=N, device=dev)
+        print(f"global cell N={N} (nx=1000, nt={GLOBAL_NT}) built in "
+              f"{time.perf_counter() - t0:.1f} s")
+    runs, kernels = {}, {}
+    for label, N, budget, kname in (
+            ("K4 branch (N=15)", 15, None, "K4"),
+            ("K5 branch, budget 0 (N=15)", 15, 0, "K5"),
+            ("K5 branch (N=20)", 20, None, "K5")):
+        rom = cells[N]
+        rom.ONLINE_PRECOMPUTE_BUDGET = (
+            PrecomputePolicy.ONLINE_PRECOMPUTE_BUDGET if budget is None
+            else budget)
+        branch = engine.global_branch(GLOBAL_NT, mods["k1"].pad_dim(N), B,
+                                      rom.precompute_choice)
+        if branch != ("matrices" if kname == "K4" else "thetas"):
+            raise AssertionError(f"{label}: B={B} routes to {branch}")
+        launches, outs, info = serve_global(rom, label, batches, mods, power,
+                                            kname)
+        print(f"  pivot check {rom._global_pivot_cert:.3g}")
+
+        # The last batch again: prep, kernel and twin on its inputs.
+        mus = batches[-1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepped = rom.prep(mus, engine="pallas")
+        torch.cuda.synchronize()
+        info["prep_ms"] = (time.perf_counter() - t0) * 1e3
+        tables = rom._global_serving_tables()
+        gsv = rom.global_serving
+        (THm, THk, THf, g, b0), kw = engine.window_inputs(rom.fom, gsv,
+                                                          prepped)
+        info["materialize_ms"] = 0.0
+        if kname == "K4":
+            info["materialize_ms"], ops = cuda_ms(
+                lambda: engine.window_operators(tables, 0, THm, THk, THf, 0,
+                                                GLOBAL_NT), GLOBAL_REPS)
+            args = (*ops, g, tables["T0"][0], tables["VE"][0], b0)
+        else:
+            args = (THm, THk, THf, g, tables["Bm"][0], tables["Bk"][0],
+                    tables["Bf"][0], tables["T0"][0], tables["VE"][0], b0)
+        wrapper, twin, bnd = global_kernel(mods, kname)
+        ms, got = cuda_ms(lambda: wrapper(*args, **kw), GLOBAL_REPS)
+        plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1, warmup=False)
+        errs[kname].append(check_global(
+            f"{kname} on the serving inputs of the {label} (B={B}):", got,
+            want))
+        errs[kname].append(served_vs(
+            f"{label} served outputs vs the twin's sweep:", outs[-1],
+            want[0], want[1], N, dev))
+        bms, by = bnd(args, kw)
+        info.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by)
+        print(f"  {kname} {ms:.3f} ms/sweep, twin {plain_ms:.1f} ms/sweep, "
+              f"bound {bms:.4f} ms ({by})")
+        rest = (info["serve_ms_median"] - info["prep_ms"]
+                - info["materialize_ms"] - ms)
+        print(f"  breakdown: prep {info['prep_ms']:.1f} ms, materializing "
+              f"MN/KL/fN {info['materialize_ms']:.1f} ms, {kname} "
+              f"{ms:.1f} ms, the rest (pivot check, probe mean, fetch) "
+              f"{rest:.1f} ms")
+        runs[label] = (launches, outs, info)
+        if label != "K5 branch, budget 0 (N=15)":
+            kernels[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                  bound_by=by,
+                                  launches=launches[KERNELS.index(kname)])
+        del args, got, want, prepped
+        torch.cuda.empty_cache()
+    cells[15].ONLINE_PRECOMPUTE_BUDGET = (
+        PrecomputePolicy.ONLINE_PRECOMPUTE_BUDGET)
+
+    # K5 against K4 on the same μ, at the reference's own limit.
+    print("K5 branch (budget 0) vs the K4 branch on the same μ (N=15):")
+    k4_out = runs["K4 branch (N=15)"][1][-1]
+    k5_out = runs["K5 branch, budget 0 (N=15)"][1][-1]
+    errs["K5"].append(max(
+        check("probes (time mean)", torch.as_tensor(k5_out["probes"]),
+              torch.as_tensor(k4_out["probes"]), rel=THETA_VS_TABLES_REL),
+        check("uN_final", torch.as_tensor(k5_out["uN_final"]),
+              torch.as_tensor(k4_out["uN_final"]), rel=THETA_VS_TABLES_REL)))
+    serving = {label: info for label, (_l, _o, info) in runs.items()}
+    return kernels, serving, cells[15], batches[0]
+
+
+def autotune_phase(rom, mus, repo, power):
+    """One measured precompute autotune; the record goes under build/."""
+    path = repo / "build" / "autotune_smoke.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    rec = rom.autotune_online_precompute(mus, n_rep=2, path=str(path))
+    rom._set_precompute_override(None)
+    print(f"autotune on the global N=15 cell at B={len(mus)} on {power}: "
+          f"{json.dumps(rec)}")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     try:
+        from romtime_tpu_torch.ops import global_sweep as gs
         from romtime_tpu_torch.ops import kernel_build
         from romtime_tpu_torch.ops import resid_sweep as rs
         from romtime_tpu_torch.ops import windowed_fused as k1
@@ -467,7 +744,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
-    mods = {"k1": k1, "rs": rs, "synth": synth}
+    mods = {"k1": k1, "rs": rs, "gs": gs, "synth": synth}
 
     power = card()
     print(power)
@@ -483,10 +760,18 @@ def main():
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
 
-    errs = {"K1": [], "K2": [], "K3": []}
+    errs = {k: [] for k in KERNELS}
     with torch.inference_mode():
         rows = kernel_phase(mods, dev, power, errs)
+        rows += global_kernel_phase(mods, dev, power, errs)
         launches, kernels, serving = serving_phase(mods, dev, power, errs)
+        gkernels, gserving, rom15, mus = global_serving_phase(mods, dev,
+                                                              power, errs)
+        autotune = autotune_phase(rom15, mus, repo, power)
+    for k, v in gkernels.items():
+        launches[k] = v.pop("launches")
+        kernels[k] = v
+    serving.update(gserving)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -497,13 +782,18 @@ def main():
                "romtime_tpu/ops/pallas_online.py:962"),
         "K3": ("theta_resid_sweep", "romtime_tpu_torch/csrc/resid_sweep.cu",
                "romtime_tpu/ops/pallas_online.py:1100"),
+        "K4": ("global_sweep", "romtime_tpu_torch/csrc/global_sweep.cu",
+               "romtime_tpu/ops/pallas_online.py:184"),
+        "K5": ("theta_global_sweep", "romtime_tpu_torch/csrc/global_sweep.cu",
+               "romtime_tpu/ops/pallas_online.py:320"),
     }
     print(json.dumps({"kernels": [dict(
         name=meta[k][0], route="cuda", source=meta[k][1],
         replaces=meta[k][2], launches=launches[k],
         max_abs_err=max(errs[k]), library_ms=None, **kernels[k])
-        for k in ("K1", "K2", "K3")],
-        "shapes": rows, "serving": serving, "card": power}))
+        for k in KERNELS],
+        "shapes": rows, "serving": serving, "autotune": autotune,
+        "card": power}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,20 +1,35 @@
 """PyTorch + CUDA port of ``romtime_tpu`` for NVIDIA Hopper (H100).
 
-First slice: windowed piston probe serving. The offline build stays in
-the JAX package; serving configurations are carried across as numpy
-(``convert.serving_from_arrays``). The serving sweep runs the hand-written
-CUDA kernel K1 (``csrc/windowed_fused.cu``) for CUDA tensors and its
-plain PyTorch twin for CPU tensors. Importing the package loads torch and
-numpy only; the kernel is built at its first launch.
+Piston probe serving, windowed (``engine="windowed-pallas"``) and on the
+global basis (``engine="pallas"``). The offline build stays in the JAX
+package; serving configurations are carried across as numpy
+(``convert.serving_from_arrays``, ``convert.global_serving_from_arrays``).
+The serving sweeps run the hand-written CUDA kernels K1-K5
+(``csrc/*.cu``) for CUDA tensors and their plain PyTorch twins for CPU
+tensors. Importing the package loads torch and numpy only; a kernel is
+built at its first launch.
 """
 
-from .convert import serving_from_arrays, serving_to_arrays
-from .rom import DilationLaw, RomConstructorNonlinear, WindowedServing
+from .convert import (
+    global_serving_from_arrays,
+    global_serving_to_arrays,
+    serving_from_arrays,
+    serving_to_arrays,
+)
+from .rom import (
+    DilationLaw,
+    GlobalServing,
+    RomConstructorNonlinear,
+    WindowedServing,
+)
 
 __all__ = [
     "DilationLaw",
+    "GlobalServing",
     "RomConstructorNonlinear",
     "WindowedServing",
+    "global_serving_from_arrays",
+    "global_serving_to_arrays",
     "serving_from_arrays",
     "serving_to_arrays",
 ]

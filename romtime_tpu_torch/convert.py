@@ -2,9 +2,14 @@
 
 A serving configuration travels as a flat ``dict[str, np.ndarray]``:
 
-- the :class:`~romtime_tpu_torch.rom.windowed.WindowedServing` npz keys
-  (``bounds``, ``Vs``, ``transfers``, ``combine_<source>``,
-  ``trilinear``, ``dilation_*``);
+- windowed: the :class:`~romtime_tpu_torch.rom.windowed.WindowedServing`
+  npz keys (``bounds``, ``Vs``, ``transfers``, ``combine_<source>``
+  (W, n_out, k), ``trilinear`` (W, N², N), ``dilation_*``);
+- global: the :class:`~romtime_tpu_torch.rom.GlobalServing` keys
+  (``basis`` (nh, N), ``combine_<source>`` (n_out, k), the reductor's
+  folded V·(PᵀU)⁻¹, and ``trilinear`` (N², N), the exact trilinear state
+  table, which the port does not build: its banded assembly is offline
+  work that stays in the JAX package);
 - ``dofs_<source>`` for every θ source: the reductor's interpolation
   entries, (k, 2) for MDEIM, (k, 1) for DEIM;
 - the FOM configuration: ``fom_L0``, ``fom_nx``, ``fom_tf``, ``fom_nt``,
@@ -18,6 +23,7 @@ import numpy as np
 
 from .fom import OneDimensionalBurgers
 from .problems import define_piston_problem
+from .rom.engines.global_fused import GlobalServing
 from .rom.rom import THETA_SOURCES, RomConstructorNonlinear, make_reductors
 from .rom.windowed import WindowedServing
 
@@ -33,9 +39,8 @@ def piston_fom(L0, nx, tf, nt, degree=1, bdf="2", which="rest"):
                                  degrees=int(degree), bdf_scheme=str(bdf))
 
 
-def serving_from_arrays(payload, device="cuda"):
-    """Build the port's serving object from a plain-numpy payload, serving
-    on ``device`` (the card by default)."""
+def _fom_and_reductors(payload):
+    """The FOM and the serving reductors of a payload."""
     missing = [k for k in _FOM_KEYS[:-1] if k not in payload]
     missing += [f"dofs_{n}" for n in THETA_SOURCES
                 if f"dofs_{n}" not in payload]
@@ -49,18 +54,38 @@ def serving_from_arrays(payload, device="cuda"):
     )
     reductors = make_reductors(
         fom, {n: np.asarray(payload[f"dofs_{n}"]) for n in THETA_SOURCES})
-    win = WindowedServing.from_arrays(
-        {k: v for k, v in payload.items()
-         if not k.startswith(("dofs_", "fom_"))})
+    return fom, reductors
+
+
+def _serving_arrays(payload):
+    return {k: v for k, v in payload.items()
+            if not k.startswith(("dofs_", "fom_"))}
+
+
+def serving_from_arrays(payload, device="cuda"):
+    """Build the port's windowed serving object from a plain-numpy
+    payload, serving on ``device`` (the card by default)."""
+    fom, reductors = _fom_and_reductors(payload)
+    win = WindowedServing.from_arrays(_serving_arrays(payload))
     return RomConstructorNonlinear(fom, reductors, win, device=device)
 
 
-def serving_to_arrays(rom, which="rest"):
-    """Inverse of :func:`serving_from_arrays`."""
+def global_serving_from_arrays(payload, device="cuda"):
+    """Build the port's global-basis serving object (``engine="pallas"``)
+    from a plain-numpy payload, serving on ``device`` (the card by
+    default)."""
+    if "basis" not in payload:
+        raise KeyError("global serving payload lacks 'basis'")
+    fom, reductors = _fom_and_reductors(payload)
+    gs = GlobalServing.from_arrays(_serving_arrays(payload))
+    return RomConstructorNonlinear(fom, reductors, device=device,
+                                   global_serving=gs)
+
+
+def _fom_and_dofs_arrays(rom, which):
     fom = rom.fom
-    payload = rom.windows.to_arrays()
-    for name, red in rom._theta_sources().items():
-        payload[f"dofs_{name}"] = red.dofs_array()
+    payload = {f"dofs_{name}": red.dofs_array()
+               for name, red in rom._theta_sources().items()}
     payload.update(
         fom_L0=np.float64(fom.domain[fom.L0]), fom_nx=np.int64(fom.mesh.nx),
         fom_tf=np.float64(fom.domain[fom.T]),
@@ -69,3 +94,14 @@ def serving_to_arrays(rom, which="rest"):
         fom_bdf=np.array(fom.BDF_SCHEME), fom_which=np.array(which),
     )
     return payload
+
+
+def serving_to_arrays(rom, which="rest"):
+    """Inverse of :func:`serving_from_arrays`."""
+    return dict(rom.windows.to_arrays(), **_fom_and_dofs_arrays(rom, which))
+
+
+def global_serving_to_arrays(rom, which="rest"):
+    """Inverse of :func:`global_serving_from_arrays`."""
+    return dict(rom.global_serving.to_arrays(),
+                **_fom_and_dofs_arrays(rom, which))

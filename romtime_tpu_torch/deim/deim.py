@@ -2,8 +2,9 @@
 ``romtime_tpu/deim/deim.py``).
 
 Serving needs only the interpolation dofs and the gathered assembly at
-them (``_entries_traced``, reference ``deim.py:422``): the folded combine
-tensors of the windowed serving configuration act on those raw entries.
+them (``_entries_traced``, reference ``deim.py:422``; ``_thetas_traced``
+in the global engine): the folded combine tensors of the serving
+configurations act on those raw entries.
 Training (tree walk, greedy selection) stays in the JAX package; a
 reductor here is built from the dofs it selected.
 """
@@ -41,3 +42,12 @@ class DiscreteEmpiricalInterpolation:
         """Gathered local assembly at the interpolation dofs:
         (k, *batch) for μ/t tensors of batch shape ``batch``."""
         return self.assemble(mu=mu, t=t, entries=self.dofs)
+
+    def _thetas_traced(self, mu, t):
+        """θ(μ, t) of the global serving engine: the reference's f32
+        folded form (``deim.py:428-437``), i.e. the raw gathered entries,
+        which pair with the folded combine V·(PᵀU)⁻¹ that the global
+        serving payload carries. The reference's other form, the PᵀU
+        solve, serves only its float64 engines (lanes, vmap), which are
+        not ported; a reductor here holds no PᵀU."""
+        return self._entries_traced(mu, t)

@@ -18,6 +18,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -105,3 +107,34 @@ def check_launch(lib, err, what):
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
                            + lib.romtime_cuda_error_string(err).decode())
+
+
+def device_route(t):
+    """"cpu" (a wrapper runs its twin) or "cuda" (it launches its kernel);
+    raises for any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def launch(name, bind, entry, label, tensors, ints, dt, out_shapes):
+    """Check the operands (float32, contiguous, on one device), allocate
+    float32 outputs of ``out_shapes`` and launch ``entry`` of the library
+    of ``csrc/<name>.cu`` on the current stream with (operand pointers,
+    output pointers, ``ints``, ``dt``, stream). Returns the outputs."""
+    device = tensors[0][1].device
+    for arg, t in tensors:
+        if t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"{arg} must be float32 on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+    lib = load(name, bind)
+    outs = [torch.empty(shape, dtype=torch.float32, device=device)
+            for shape in out_shapes]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(
+            *[t.data_ptr() for _arg, t in tensors],
+            *[o.data_ptr() for o in outs], *ints, float(dt), stream)
+    check_launch(lib, err, label)
+    return tuple(outs)

@@ -113,9 +113,10 @@ def _resid_sweep(operators, nt, g, T0, VE, b0, state0, dt, step0, bdf2,
 
 
 def _check_common(nt, g, T0, VE, b0, state0, with_trilinear, n_real):
-    """Shapes shared by K2 and K3; returns (NP, B)."""
+    """Shapes shared by K2-K5 (K4 and K5 carry no state: ``state0`` is
+    None); returns (NP, B)."""
     NP = VE.shape[-1]
-    B = state0.shape[-1]
+    B = g.shape[-1]
     if nt < 1:
         raise ValueError("a sweep needs at least one step")
     if VE.shape != (PROBE_P, NP) or NP % LU_BLOCK or NP > 64:
@@ -123,8 +124,10 @@ def _check_common(nt, g, T0, VE, b0, state0, with_trilinear, n_real):
                          f"{LU_BLOCK} and at most 64, got {tuple(VE.shape)}")
     if g.shape != (nt, PROBE_P, B):
         raise ValueError(f"g must be ({nt}, {PROBE_P}, {B})")
-    if b0.shape != (1, B) or state0.shape != (4, NP, B):
-        raise ValueError("b0 must be (1, B) and state0 (4, NP, B)")
+    if b0.shape != (1, B):
+        raise ValueError("b0 must be (1, B)")
+    if state0 is not None and state0.shape != (4, NP, B):
+        raise ValueError("state0 must be (4, NP, B)")
     if with_trilinear and T0.shape != (NP * NP, NP):
         raise ValueError("T0 must be (NP², NP)")
     if not 1 <= n_real <= NP:
@@ -202,35 +205,6 @@ def _bind(lib):
     lib.romtime_theta_resid_sweep.restype = i32
 
 
-def _launch(entry, name, tensors, ints, dt, nt, NP, B):
-    """Check the operands, allocate (probes, state) and launch ``entry``
-    of the library on the current stream."""
-    device = tensors[0][1].device
-    for label, t in tensors:
-        if t.dtype != torch.float32 or t.device != device:
-            raise ValueError(f"{label} must be float32 on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{label} must be contiguous")
-    _no_tf32()
-    lib = kernel_build.load("resid_sweep", _bind)
-    probes = torch.empty((nt, PROBE_P, B), dtype=torch.float32,
-                         device=device)
-    state = torch.empty((4, NP, B), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(lib, entry)(
-            *[t.data_ptr() for _label, t in tensors], probes.data_ptr(),
-            state.data_ptr(), *ints, float(dt), stream)
-    kernel_build.check_launch(lib, err, name)
-    return probes, state
-
-
-def _device_route(t):
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
-
-
 def online_sweep_pallas_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
                            *, dt, step0=0, bdf2=True, with_trilinear=True,
                            n_real=15):
@@ -251,19 +225,19 @@ def online_sweep_pallas_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
     launch in ``online_sweep_pallas_v2.launches``)."""
     kw = dict(dt=dt, step0=step0, bdf2=bdf2, with_trilinear=with_trilinear,
               n_real=n_real)
-    if _device_route(MN_p) == "cpu":
+    if kernel_build.device_route(MN_p) == "cpu":
         return sweep_v2_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0,
                                   state0, **kw)
     nt, NP, B = _check_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
                           with_trilinear, n_real)
     if not with_trilinear:
         T0_p = MN_p.new_zeros((1,))
-    out = _launch(
-        "romtime_resid_sweep", "resid_sweep (K2)",
+    out = kernel_build.launch(
+        "resid_sweep", _bind, "romtime_resid_sweep", "resid_sweep (K2)",
         list(zip(("MN", "KL", "fN", "g", "T0", "VE", "b0", "state0"),
                  (MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0))),
         (nt, NP, B, n_real, int(step0), int(bool(with_trilinear)),
-         int(bool(bdf2))), dt, nt, NP, B)
+         int(bool(bdf2))), dt, [(nt, PROBE_P, B), (4, NP, B)])
     online_sweep_pallas_v2.launches += 1
     return out
 
@@ -283,7 +257,7 @@ def online_sweep_theta_pallas_v2(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
     CUDA launches are counted in ``online_sweep_theta_pallas_v2.launches``."""
     kw = dict(dt=dt, step0=step0, bdf2=bdf2, with_trilinear=with_trilinear,
               n_real=n_real)
-    if _device_route(THm) == "cpu":
+    if kernel_build.device_route(THm) == "cpu":
         return theta_sweep_v2_reference(THm, THk, THf, g_p, Bm, Bk, Bf,
                                         T0_p, VE_p, b0, state0, **kw)
     nt, NP, B, km8, kk8, kf8 = _check_theta(
@@ -291,13 +265,15 @@ def online_sweep_theta_pallas_v2(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
         with_trilinear, n_real)
     if not with_trilinear:
         T0_p = THm.new_zeros((1,))
-    out = _launch(
-        "romtime_theta_resid_sweep", "theta resid_sweep (K3)",
+    out = kernel_build.launch(
+        "resid_sweep", _bind, "romtime_theta_resid_sweep",
+        "theta resid_sweep (K3)",
         list(zip(("THm", "THk", "THf", "g", "Bm", "Bk", "Bf", "T0", "VE",
                   "b0", "state0"),
                  (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, state0))),
         (nt, NP, B, km8, kk8, kf8, n_real, int(step0),
-         int(bool(with_trilinear)), int(bool(bdf2))), dt, nt, NP, B)
+         int(bool(with_trilinear)), int(bool(bdf2))), dt,
+        [(nt, PROBE_P, B), (4, NP, B)])
     online_sweep_theta_pallas_v2.launches += 1
     return out
 

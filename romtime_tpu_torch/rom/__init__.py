@@ -1,5 +1,7 @@
+from .engines.global_fused import GlobalServing
 from .registration import DilationLaw
 from .rom import RomConstructorNonlinear
 from .windowed import WindowedServing
 
-__all__ = ["DilationLaw", "RomConstructorNonlinear", "WindowedServing"]
+__all__ = ["DilationLaw", "GlobalServing", "RomConstructorNonlinear",
+           "WindowedServing"]

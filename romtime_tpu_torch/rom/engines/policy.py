@@ -6,7 +6,8 @@ reference's does (``windowed_pallas.py:310-488``): materialized operator
 tables and one K2 launch per window while the tables fit the precompute
 budget (:class:`PrecomputePolicy`), otherwise the θ-streaming sweep that
 ``ROMTIME_WINDOWED_KERNEL`` names (:func:`windowed_kernel`): the fused K1
-by default, or a K3 launch per window.
+by default, or a K3 launch per window. The global engine takes K4 over
+materialized tables or K5 on the same test.
 
 The fused sweep solves each step with a pivot-free LU. By default it
 reuses one factorization per group of ``WINDOWED_PAIRED_LU`` steps
@@ -24,21 +25,25 @@ PORTED_PAIRED_MODES = ("sub1", "off")
 
 
 class PrecomputePolicy:
-    """Matrices-vs-θ byte budget of windowed serving (reference
-    ``SolvePolicyMixin._precompute_choice``, static branch; the measured
-    autotune override, which the hard cap bounds, is not ported yet).
-    The budget stays the reference's 6 GiB so that the port routes as the
+    """Matrices-vs-θ choice of the serving engines (reference
+    ``SolvePolicyMixin._precompute_choice``): the measured override that
+    ``autotune_online_precompute`` or ``load_autotune`` pins wins, bounded
+    by the hard cap; otherwise the static byte budget. The budget and the
+    cap stay the reference's 6 and 12 GiB so that the port routes as the
     reference routes, although the card holds 80 GB."""
 
     ONLINE_PRECOMPUTE = "matrices"
     ONLINE_PRECOMPUTE_BUDGET = 6 * 1024**3       # bytes
-    # Inert until the autotune override is ported: in the reference it
-    # only bounds that override, and nothing in the port reads it yet.
     ONLINE_PRECOMPUTE_HARD_CAP = 12 * 1024**3    # bytes
+    _precompute_override = None                  # "matrices" | "thetas"
 
     def precompute_choice(self, mat_bytes):
         """True → materialize the operator time tables (``mat_bytes`` of
-        them) and sweep with K2."""
+        them) and sweep over them (K2 per window, or K4)."""
+        override = self._precompute_override
+        if override is not None:
+            return (override == "matrices"
+                    and mat_bytes <= self.ONLINE_PRECOMPUTE_HARD_CAP)
         return (self.ONLINE_PRECOMPUTE == "matrices"
                 and mat_bytes <= self.ONLINE_PRECOMPUTE_BUDGET)
 

@@ -301,12 +301,19 @@ def materialized_bytes(nt, NP, B):
     return 2 * nt * NP * NP * B * 4
 
 
+def materialize(nt, NP, B, precompute_choice):
+    """The reference's budget test, shared by the windowed and the global
+    engine: whether ``precompute_choice`` accepts the materialized tables'
+    bytes. Each engine picks its own θ-streaming kernel when it does not."""
+    return precompute_choice(materialized_bytes(nt, NP, B))
+
+
 def stage2_branch(nt, NP, B, precompute_choice):
     """The reference's stage-2 routing: ``"matrices"`` when
-    ``precompute_choice`` accepts the materialized tables' bytes, else
+    :func:`materialize` holds, else
     :func:`~romtime_tpu_torch.rom.engines.policy.windowed_kernel`
     (``"fused"`` or ``"v2"``)."""
-    if precompute_choice(materialized_bytes(nt, NP, B)):
+    if materialize(nt, NP, B, precompute_choice):
         return "matrices"
     return windowed_kernel()
 

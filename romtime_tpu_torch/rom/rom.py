@@ -1,11 +1,12 @@
 """Piston ROM serving (counterpart of the serving path of
 ``romtime_tpu/rom/rom.py``: ``RomConstructorNonlinear.solve_batch`` with
-``mode="probes"`` on windowed serving, i.e. the ``"windowed-pallas"``
-engine).
+``mode="probes"`` on windowed serving, the ``"windowed-pallas"`` engine,
+and on the global basis, the ``"pallas"`` engine).
 
-The offline build (POD, DEIM training, window construction) stays in the
-JAX package; a serving object here is made from its artifacts
-(``convert.serving_from_arrays``) or from a seeded synthetic cell
+The offline build (POD, DEIM training, window construction, the
+trilinear state table) stays in the JAX package; a serving object here is
+made from its artifacts (``convert.serving_from_arrays``,
+``convert.global_serving_from_arrays``) or from a seeded synthetic cell
 (``testing.synthetic``).
 """
 
@@ -13,10 +14,17 @@ import numpy as np
 import torch
 
 from ..conventions import PistonParameters, Stage
-from ..dtypes import asarray
+from ..dtypes import asarray, compute_dtype
 from ..deim import (
     DiscreteEmpiricalInterpolation,
     MatrixDiscreteEmpiricalInterpolation,
+)
+from .engines.autotune import AutotuneMixin
+from .engines.global_fused import (
+    global_prep,
+    global_sweep,
+    global_tables,
+    supported,
 )
 from .engines.policy import PrecomputePolicy
 from .engines.windowed_fused import (
@@ -50,26 +58,40 @@ def make_reductors(fom, dofs):
     }
 
 
-class RomConstructorNonlinear(PrecomputePolicy):
-    """Windowed piston serving on one device (the card unless ``device``
-    says otherwise).
+class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy):
+    """Piston serving on one device (the card unless ``device`` says
+    otherwise).
 
     ``reductors`` maps every θ source name of :data:`THETA_SOURCES` to a
     DEIM reductor bound to ``fom``; ``windows`` is the active
-    :class:`~romtime_tpu_torch.rom.windowed.WindowedServing`."""
+    :class:`~romtime_tpu_torch.rom.windowed.WindowedServing` and
+    ``global_serving`` the global-basis
+    :class:`~romtime_tpu_torch.rom.engines.global_fused.GlobalServing`:
+    one of them, or both (windows then serve by default, as in the
+    reference)."""
 
-    def __init__(self, fom, reductors, windows, device="cuda"):
+    def __init__(self, fom, reductors, windows=None, device="cuda",
+                 global_serving=None):
         missing = set(THETA_SOURCES) - set(reductors)
         if missing:
             raise ValueError(f"missing θ sources: {sorted(missing)}")
+        if windows is None and global_serving is None:
+            raise ValueError("a serving object needs windows or a global "
+                             "serving configuration")
         self.fom = fom
         self.reductors = dict(reductors)
         self.device = torch.device(device)
+        self.global_serving = global_serving
+        self._global_tables = None
+        self._global_pivot_cert = None
         self._set_serving_windows(windows)
 
     @property
     def N(self):
-        return self.windows.N
+        """The windows' N with windows attached, else the global N."""
+        if self.windows is not None:
+            return self.windows.N
+        return self.global_serving.N
 
     def _theta_sources(self):
         """name → reductor, in the reference's source order."""
@@ -89,6 +111,14 @@ class RomConstructorNonlinear(PrecomputePolicy):
                 stiffness_side(self._theta_sources()), self.device)
         return self._tables
 
+    def _global_serving_tables(self):
+        if self._global_tables is None:
+            self._global_tables = global_tables(
+                self.global_serving, int(self.fom.domain[self.fom.NT]),
+                self.fom.dt, stiffness_side(self._theta_sources()),
+                self.device)
+        return self._global_tables
+
     def _mu_batch(self, mus):
         """(B,) tensors per μ name, in the active compute dtype (float32
         serving; float64 under ``compute_dtype_scope`` for checks)."""
@@ -96,18 +126,72 @@ class RomConstructorNonlinear(PrecomputePolicy):
         return {k: asarray([float(mu[k]) for mu in mus], device=self.device)
                 for k in names}
 
-    def prep(self, mus):
-        """Stage 1 for a list of μ dicts: the θ/probe tables on device."""
+    def prep(self, mus, engine="windowed-pallas"):
+        """Stage 1 of ``engine`` for a list of μ dicts: the θ/probe tables
+        on the device."""
+        mu = self._mu_batch(mus)
+        if engine == "pallas":
+            return global_prep(self.fom, self._theta_sources(),
+                               self.global_serving,
+                               self._global_serving_tables(), mu)
         return windowed_prep(self.fom, self._theta_sources(), self.windows,
-                             self._windowed_tables(), self._mu_batch(mus))
+                             self._windowed_tables(), mu)
 
-    def solve_batch(self, mus, step=Stage.ONLINE, mode="probes",
+    def _resolve_engine(self, mode, B):
+        """The reference's engine choice (``rom.py:1262-1267``): windows
+        attached → ``"windowed-pallas"``; the global engine's gate holds →
+        ``"pallas"``. Where the reference would take its lanes (or vmap)
+        engine, which is not ported, this raises."""
+        if self.windows is not None and mode == "probes":
+            return "windowed-pallas"
+        gs = self.global_serving
+        if (mode == "probes" and gs is not None
+                and supported(B, gs.N, compute_dtype(),
+                              gs.trilinear is not None)):
+            return "pallas"
+        raise NotImplementedError(
+            f"mode {mode!r} at B={B} in {compute_dtype()} takes the "
+            f"reference's lanes engine (vmap without hyper-reduction), "
+            f"which is not ported (ROADMAP Queue 1, item 7)")
+
+    def _serve(self, mus, engine):
+        """Stages 1 and 2 of ``engine`` on the device: (nt, …, B) tensors
+        (the pivot-free check runs once per configuration first)."""
+        if engine == "windowed-pallas":
+            if self.windows is None:
+                raise ValueError("no windowed serving configuration "
+                                 "attached")
+            tables = self._windowed_tables()
+            prepped = self.prep(mus)
+            if self._pivot_cert is None:
+                self._pivot_cert = certify_pivot_free(tables, prepped,
+                                                      self.windows.N)
+            return windowed_sweep(self.fom, self.windows, prepped, tables,
+                                  self.precompute_choice)
+        if engine == "pallas":
+            gs = self.global_serving
+            if gs is None:
+                raise ValueError("no global serving configuration attached")
+            tables = self._global_serving_tables()
+            prepped = self.prep(mus, engine="pallas")
+            if self._global_pivot_cert is None:
+                self._global_pivot_cert = certify_pivot_free(tables,
+                                                             prepped, gs.N)
+            return global_sweep(self.fom, gs, prepped, tables,
+                                self.precompute_choice)
+        raise NotImplementedError(
+            f"engine {engine!r} is not ported (ported: 'windowed-pallas', "
+            f"'pallas')")
+
+    def solve_batch(self, mus, step=Stage.ONLINE, mode="probes", engine=None,
                     probe_reduce=None):
-        """Serve a μ batch: θ prep, then the stage-2 sweep the reference
-        would take (``engines/windowed_fused.windowed_sweep``: K2 per
-        window while the operator tables fit the precompute budget, else
-        the fused K1 or, under ``ROMTIME_WINDOWED_KERNEL=v2``, K3 per
-        window).
+        """Serve a μ batch on ``engine`` (default: :meth:`_resolve_engine`):
+        θ prep, then the stage-2 sweep the reference would take. Windowed
+        (``engines/windowed_fused.windowed_sweep``): K2 per window while
+        the operator tables fit the precompute budget, else the fused K1
+        or, under ``ROMTIME_WINDOWED_KERNEL=v2``, K3 per window. Global
+        (``engines/global_fused.global_sweep``): K4 over the materialized
+        tables on the same test, else K5.
 
         Returns batch-first numpy arrays: ``t``, ``probes`` (B, nt, 2) —
         or (B, 2) / (B, nt//k, 2) with ``probe_reduce`` "mean" / k —
@@ -117,14 +201,9 @@ class RomConstructorNonlinear(PrecomputePolicy):
         if mode != "probes":
             raise NotImplementedError(
                 f"mode {mode!r} is not ported; serving runs mode='probes'")
-        if self.windows is None:
-            raise ValueError("no windowed serving configuration attached")
-        tables = self._windowed_tables()
-        prepped = self.prep(mus)
-        if self._pivot_cert is None:
-            self._pivot_cert = certify_pivot_free(tables, prepped, self.N)
-        outs = windowed_sweep(self.fom, self.windows, prepped, tables,
-                              self.precompute_choice)
+        if engine is None:
+            engine = self._resolve_engine(mode, len(mus))
+        outs = self._serve(mus, engine)
         if probe_reduce is not None:
             outs["probes"] = self._reduce_probes(outs["probes"],
                                                  probe_reduce)

@@ -1,6 +1,6 @@
 """Seeded synthetic serving data for the port (the analog of random-init
-weights): K1, K2 and K3 kernel inputs at serving shapes, and a whole
-serving cell on the real piston FOM.
+weights): K1-K5 kernel inputs at serving shapes, and whole serving cells
+(windowed, and on a global basis) on the real piston FOM.
 
 The synthetic cell has the flagship active-cell shape (W=50 windows of
 30 steps, N=32 per window) on the flagship FOM (nx=1000, nt=1500, tf=1.0,
@@ -20,6 +20,7 @@ import torch
 from ..convert import piston_fom
 from ..dtypes import compute_dtype_scope
 from ..ops.windowed_fused import PROBE_P, pad_dim
+from ..rom.engines.global_fused import GlobalServing
 from ..rom.engines.windowed_fused import time_grid
 from ..rom.rom import THETA_SOURCES, RomConstructorNonlinear, make_reductors
 from ..rom.windowed import WindowedServing
@@ -186,10 +187,9 @@ def _draw_dofs(rng, nh, k, matrix):
     return np.stack([rows, cols], axis=1)
 
 
-def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
-                   k=8, device="cuda"):
-    """A seeded serving cell on the real piston FOM (see module doc)."""
-    rng = np.random.default_rng(seed)
+def _cell_parts(rng, nx, nt, tf, W, N, k):
+    """FOM, reductors and (W, n_out, k) combines of a seeded cell (see
+    the module doc), drawn from ``rng``."""
     fom = piston_fom(L0=1.0, nx=nx, tf=tf, nt=nt)
     nh = fom.mesh.nh
     dofs = {name: _draw_dofs(rng, nh, k, matrix=name != "rhs_vec")
@@ -205,7 +205,6 @@ def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
                   .clamp(min=1e-300).numpy()
                   for name, red in reductors.items()}
 
-    W = n_windows
     idx = np.arange(N)
     combines = {}
     for name in THETA_SOURCES:
@@ -220,6 +219,17 @@ def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
         elif name == "stiffness":
             C[:, idx, idx, 0] += 2.0
         combines[name] = (C * inv).reshape(W, N * N, k)
+    return fom, reductors, combines
+
+
+def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
+                   k=8, device="cuda"):
+    """A seeded windowed serving cell on the real piston FOM (see module
+    doc)."""
+    rng = np.random.default_rng(seed)
+    W = n_windows
+    fom, reductors, combines = _cell_parts(rng, nx, nt, tf, W, N, k)
+    nh = fom.mesh.nh
     Vs = np.zeros((W, nh, N))
     Vs[:, [0, -1], :] = rng.normal(size=(W, 2, N))
     transfers = np.stack([np.linalg.qr(rng.normal(size=(N, N)))[0]
@@ -230,3 +240,84 @@ def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
         trilinear=0.02 * rng.normal(size=(W, N * N, N)),
     )
     return RomConstructorNonlinear(fom, reductors, win, device=device)
+
+
+def synthetic_global_cell(N=15, k=8, nx=1000, nt=1500, seed=0,
+                          device="cuda"):
+    """A seeded global-basis serving cell (``engine="pallas"``) on the
+    real piston FOM: the one-window case of :func:`synthetic_cell`'s
+    recipe, with the global basis's end rows and the trilinear state
+    table drawn from the seed."""
+    rng = np.random.default_rng(seed)
+    fom, reductors, combines = _cell_parts(rng, nx, nt, 1.0, 1, N, k)
+    basis = np.zeros((fom.mesh.nh, N))
+    basis[[0, -1], :] = rng.normal(size=(2, N))
+    gs = GlobalServing(basis=basis,
+                       combines={n: C[0] for n, C in combines.items()},
+                       trilinear=0.02 * rng.normal(size=(N * N, N)))
+    return RomConstructorNonlinear(fom, reductors, device=device,
+                                   global_serving=gs)
+
+
+def global_tables(N, nt, B, seed=0, device="cuda", theta=False,
+                  with_trilinear=True, bdf2=True):
+    """Inputs of one K4 (``theta=False``) or K5 (``theta=True``) sweep in
+    the reference layouts on ``device`` (float32). The recipe of
+    tests/test_pallas_online.py ``_synthetic`` (MN ≈ I + noise,
+    KL ≈ (2·I + noise)·dt, fN ≈ 0.1·dt·noise, T0 = 0.05·noise,
+    b0 ≈ 1 + noise), in the θ-factored form of :func:`resid_tables`
+    (km8=8, kk8=32, kf8=8, the padded identity on a constant-1 θk row),
+    since full-size tables cannot be factored at k = N² as that test
+    does; K4 gets the same operators materialized (MN = Bm·θm,
+    KL = Bk·θk, fN = Bf·θf). The θ streams are drawn on ``device``.
+    Returns (args tuple, keyword dict)."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    km8, kk8, kf8 = 8, 32, 8
+    NP = pad_dim(N)
+    dt = 1.0 / nt
+    idx, pad = np.arange(N), np.arange(N, NP)
+
+    def noise(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    THm = 0.1 * noise(nt, km8, B)
+    THm[:, 0] = 1.0 + 0.05 * noise(nt, B)
+    THk = 0.1 * noise(nt, kk8, B)
+    THk[:, 0] = 1.0 + 0.05 * noise(nt, B)
+    THk[:, -1] = 1.0
+    THf = noise(nt, kf8, B)
+    g = torch.zeros((nt, PROBE_P, B), device=device)
+    g[:, :2] = 0.01 * noise(nt, 2, B)
+    # Noise shrinks as 1/sqrt(N) past N=15 (the recipe's largest N), so
+    # that MN stays diagonally dominant near the top of the gate (N=64).
+    damp = 1.0 / max(1.0, np.sqrt(N / 15))
+    Bm = np.zeros((NP, NP, km8))
+    Bm[:N, :N] = 0.05 * damp * rng.normal(size=(N, N, km8))
+    Bm[idx, idx, 0] += 1.0
+    Bk = np.zeros((NP, NP, kk8))
+    Bk[:N, :N, :-1] = 0.02 * damp * dt * rng.normal(size=(N, N, kk8 - 1))
+    Bk[idx, idx, 0] += 2.0 * dt
+    Bk[pad, pad, -1] = 1.0
+    Bf = np.zeros((NP, kf8))
+    Bf[:N] = 0.1 * dt * rng.normal(size=(N, kf8))
+    T0 = np.zeros((NP, NP, NP))
+    T0[:N, :N, :N] = 0.05 * damp * rng.normal(size=(N, N, N))
+    VE = np.zeros((PROBE_P, NP))
+    VE[:2, :N] = rng.normal(size=(2, N))
+    b0 = 1.0 + 0.1 * rng.normal(size=(1, B))
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=device)
+
+    Bm, Bk = dev(Bm.reshape(NP * NP, km8)), dev(Bk.reshape(NP * NP, kk8))
+    Bf = dev(Bf)
+    tail = (dev(T0.reshape(NP * NP, NP)), dev(VE), dev(b0))
+    kw = dict(dt=dt, bdf2=bdf2, with_trilinear=with_trilinear, n_real=N)
+    if theta:
+        return (THm, THk, THf, g, Bm, Bk, Bf) + tail, kw
+    MN, KL = (torch.einsum("nk,tkB->tnB", C, th).reshape(nt, NP, NP, B)
+              .contiguous() for C, th in ((Bm, THm), (Bk, THk)))
+    fN = torch.einsum("nk,tkB->tnB", Bf, THf).contiguous()
+    return (MN, KL, fN, g) + tail, kw

@@ -1,6 +1,6 @@
-"""K1, K2 and K3 on the card against their plain PyTorch twins on the
-card. Needs a CUDA device and nvcc; skips without a device. Imports no
-JAX, so it runs on a machine without it (tests/conftest.py imports JAX,
+"""K1-K5 on the card against their plain PyTorch twins on the card.
+Needs a CUDA device and nvcc; skips without a device. Imports no JAX, so
+it runs on a machine without it (tests/conftest.py imports JAX,
 hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -9,9 +9,14 @@ hence ``--noconftest``):
 import pytest
 import torch
 
+from romtime_tpu_torch.ops import global_sweep as gs
 from romtime_tpu_torch.ops import resid_sweep as rs
 from romtime_tpu_torch.ops import windowed_fused as k1
-from romtime_tpu_torch.testing.synthetic import kernel_tables, resid_tables
+from romtime_tpu_torch.testing.synthetic import (
+    global_tables,
+    kernel_tables,
+    resid_tables,
+)
 
 #: (N, W, width, B, paired-LU group, options): Gauss-Jordan-sized and
 #: blocked-LU sizes, a ragged lane tile (B not a multiple of the tile),
@@ -71,3 +76,54 @@ def test_cuda_resid_kernels_match_twins(N, nt, B, step0, options, theta):
     assert (got_p - twin_p).abs().max().item() <= 5e-5 * scale
     sscale = twin_s[[0, 2]].abs().max().item()
     assert (got_s - twin_s)[[0, 2]].abs().max().item() <= 5e-5 * sscale
+
+
+#: (N, nt, B, options) for K4 and K5: N=9 (BDF-1 without the trilinear
+#: term, the heat-family case, as well as BDF-2 with it), N=15 and N=20
+#: (the throughput ROM and S-ROM), a batch that is not a multiple of 128
+#: (nor of any lane tile), and N=60 (NP=64, the top of the gate).
+NO_TRI_BDF1 = {"bdf2": False, "with_trilinear": False}
+GLOBAL_CASES = [(9, 16, 128, {}), (9, 16, 128, NO_TRI_BDF1),
+                (15, 24, 256, {}), (15, 24, 256, NO_TRI_BDF1),
+                (20, 24, 130, {}), (20, 24, 130, NO_TRI_BDF1),
+                (60, 8, 40, {})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta", [False, True], ids=["k4", "k5"])
+@pytest.mark.parametrize("N,nt,B,options", GLOBAL_CASES)
+def test_cuda_global_kernels_match_twins(N, nt, B, options, theta):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = global_tables(N, nt, B, seed=N, device="cuda", theta=theta,
+                             **options)
+    wrapper, twin = ((gs.online_sweep_theta_pallas,
+                      gs.theta_sweep_reference) if theta else
+                     (gs.online_sweep_pallas, gs.sweep_reference))
+    twin_p, twin_u = twin(*args, **kw)
+    n0 = wrapper.launches
+    got_p, got_u = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    assert torch.isfinite(got_p).all() and torch.isfinite(got_u).all()
+    scale = twin_p.abs().max().item()
+    assert (got_p - twin_p).abs().max().item() <= 5e-5 * scale
+    uscale = twin_u.abs().max().item()
+    assert (got_u - twin_u).abs().max().item() <= 5e-5 * uscale
+    assert got_p[:, 2:].abs().max().item() == 0.0
+    assert got_u[N:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta", [False, True], ids=["k4", "k5"])
+def test_cuda_global_wrappers_refuse_np_above_64(theta):
+    """NP=72 is past what the kernels hold: the wrapper raises before any
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = global_tables(68, 2, 8, device="cuda", theta=theta)
+    wrapper = gs.online_sweep_theta_pallas if theta else gs.online_sweep_pallas
+    n0 = wrapper.launches
+    with pytest.raises(ValueError, match="at most 64"):
+        wrapper(*args, **kw)
+    assert wrapper.launches == n0

@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import _piston_windowed_setup
 from romtime_tpu.conventions import StorageNames
 from romtime_tpu.rom.registration import DilationLaw as RefDilationLaw
 from romtime_tpu.rom.windowed import WindowedServing as RefWindowedServing
@@ -26,6 +25,7 @@ from romtime_tpu_torch.rom.registration import DilationLaw
 from romtime_tpu_torch.rom.windowed import WindowedServing
 from torch_parity import (
     BRANCHES,
+    build_piston_hrom,
     clear_serving_caches,
     payload_from_rom,
     port_branch,
@@ -44,40 +44,12 @@ LAW_PAYLOAD = dict(
 )
 
 
-def _numpy_svd(a, full_matrices=False):
-    return tuple(np.linalg.svd(np.asarray(a), full_matrices=full_matrices))
-
-
 @pytest.fixture(scope="module")
 def piston_cell(tmp_path_factory):
     """The conftest windowed piston pipeline, built with the POD's SVD
-    routed through numpy: the jax CPU SVD returns NaN spectra on some
-    exactly-rank-1 snapshot matrices (ROADMAP Queue 3), which leaves an
-    MDEIM without dofs."""
-    import jax.numpy as jnp
-
-    from romtime_tpu.conventions import Stage
-    from romtime_tpu.rom.hrom import HyperReducedPiston
-
-    workdir = tmp_path_factory.mktemp("torch_piston")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jnp.linalg, "svd", _numpy_svd)
-        mp.chdir(workdir)
-        hrom = HyperReducedPiston(**_piston_windowed_setup(),
-                                  rnd=np.random.RandomState(0))
-        hrom.setup()
-        hrom.setup_hyperreduction()
-        hrom.run_offline_rom()
-        hrom.run_offline_hyperreduction(
-            mu_space=hrom.mu_space[Stage.OFFLINE], evaluate=False)
-        hrom.project_reductors()
-        hrom.build_windowed_serving(n_windows=4, num_basis=12,
-                                    srom_extra=4)
-    rom = hrom.rom
-    for name, (red, _fb) in rom._theta_sources().items():
-        assert red.dofs, f"reference {name} reductor has no dofs"
-    payload = payload_from_rom(rom)
-    return rom, payload
+    routed through numpy (torch_parity.build_piston_hrom)."""
+    rom = build_piston_hrom(tmp_path_factory.mktemp("torch_piston")).rom
+    return rom, payload_from_rom(rom)
 
 
 def _mus(B, seed=0):

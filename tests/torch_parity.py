@@ -1,7 +1,7 @@
 """Test-side helpers shared by the port's parity tests (not collected):
-carry a JAX-built serving configuration across to the PyTorch port, and
-run the reference's windowed serving on each stage-2 branch the way
-tests/test_windowed.py runs it."""
+build the JAX piston cell, carry a JAX-built serving configuration across
+to the PyTorch port, and run the reference's windowed serving on each
+stage-2 branch the way tests/test_windowed.py runs it."""
 
 import contextlib
 import io
@@ -13,6 +13,69 @@ import numpy as np
 from romtime_tpu.conventions import Stage
 from romtime_tpu.dtypes import compute_dtype_scope
 
+#: The reference's trained reductors (HyperReducedPiston
+#: attributes) whose POD spectra a parity cell must have finite.
+TRAINED_REDUCTORS = ("deim_rhs", "mdeim_mass", "mdeim_stiffness",
+                     "mdeim_convection", "mdeim_trilinear_lifting")
+
+
+def _numpy_svd(a, full_matrices=False):
+    return tuple(np.linalg.svd(np.asarray(a), full_matrices=full_matrices))
+
+
+def build_piston_hrom(workdir):
+    """The conftest windowed piston pipeline (nx=150, nt=96, W=4 windows
+    of N=12 beside the global basis), built in ``workdir`` with the POD's
+    SVD routed through numpy: the jax CPU SVD returns NaN spectra on some
+    exactly-rank-1 snapshot matrices under threaded OpenBLAS (ROADMAP
+    Queue 3), which leaves an MDEIM without dofs. Asserts that every
+    trained reductor has finite spectra and every serving reductor dofs."""
+    import pytest
+    from conftest import _piston_windowed_setup
+
+    from romtime_tpu.rom.hrom import HyperReducedPiston
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnp.linalg, "svd", _numpy_svd)
+        mp.chdir(workdir)
+        hrom = HyperReducedPiston(**_piston_windowed_setup(),
+                                  rnd=np.random.RandomState(0))
+        hrom.setup()
+        hrom.setup_hyperreduction()
+        hrom.run_offline_rom()
+        hrom.run_offline_hyperreduction(
+            mu_space=hrom.mu_space[Stage.OFFLINE], evaluate=False)
+        hrom.project_reductors()
+        hrom.build_windowed_serving(n_windows=4, num_basis=12,
+                                    srom_extra=4)
+    for name in TRAINED_REDUCTORS:
+        sigmas = getattr(hrom, name).sigmas
+        assert sigmas is not None and np.isfinite(np.asarray(sigmas)).all(), (
+            f"reference {name} has non-finite spectra")
+    rom = hrom.rom
+    serving = dict(rom._theta_sources(), trilinear=(rom.mdeim_Nh, None))
+    for name, (red, _fb) in serving.items():
+        assert red.dofs, f"reference {name} reductor has no dofs"
+    return hrom
+
+
+def fom_payload(rom, which="rest"):
+    """The ``fom_*`` keys of a payload."""
+    fom = rom.fom
+    return dict(
+        fom_L0=np.float64(fom.domain[fom.L0]),
+        fom_nx=np.int64(fom.domain[fom.NX]),
+        fom_tf=np.float64(fom.domain[fom.T]),
+        fom_nt=np.int64(fom.domain[fom.NT]),
+        fom_degree=np.int64(fom.mesh.degree),
+        fom_bdf=np.array(fom.BDF_SCHEME), fom_which=np.array(which),
+    )
+
+
+def _dofs_payload(rom):
+    return {f"dofs_{name}": np.asarray(red.dofs, np.int64).reshape(
+        len(red.dofs), -1) for name, (red, _fb) in rom._theta_sources().items()}
+
 
 def payload_from_rom(rom, which="rest"):
     """The port's serving payload (romtime_tpu_torch.convert) from a JAX
@@ -22,18 +85,20 @@ def payload_from_rom(rom, which="rest"):
     buf.seek(0)
     with np.load(buf) as data:
         payload = {k: data[k] for k in data.files}
+    payload.update(_dofs_payload(rom), **fom_payload(rom, which))
+    return payload
+
+
+def global_payload_from_rom(rom, which="rest"):
+    """The port's global serving payload (romtime_tpu_torch.convert) from
+    a JAX ``RomConstructorNonlinear``: its basis, each reductor's folded
+    combine V·(PᵀU)⁻¹ on the ROM basis and the trilinear state table."""
+    basis = np.asarray(rom.basis)
+    payload = dict(_dofs_payload(rom), **fom_payload(rom, which))
+    payload["basis"] = basis
     for name, (red, _fb) in rom._theta_sources().items():
-        payload[f"dofs_{name}"] = np.asarray(red.dofs, np.int64).reshape(
-            len(red.dofs), -1)
-    fom = rom.fom
-    payload.update(
-        fom_L0=np.float64(fom.domain[fom.L0]),
-        fom_nx=np.int64(fom.domain[fom.NX]),
-        fom_tf=np.float64(fom.domain[fom.T]),
-        fom_nt=np.int64(fom.domain[fom.NT]),
-        fom_degree=np.int64(fom.mesh.degree),
-        fom_bdf=np.array(fom.BDF_SCHEME), fom_which=np.array(which),
-    )
+        payload[f"combine_{name}"] = np.asarray(red._combine_matrix(red.ROM))
+    payload["trilinear"] = np.asarray(rom._trilinear_state_table(basis))
     return payload
 
 
