@@ -11,8 +11,10 @@ Phases, in order; any failure raises and exits non-zero:
    (romtime_tpu_torch/csrc/global_sweep.cu);
 3. kernel phase, each kernel against its plain PyTorch twin, both on the
    card: K1-K3 at the fleet's two windowed serving shapes (50 windows ×
-   30 steps at N=32, 150 × 10 at N=48): K1 over a whole sweep (B=2048,
-   paired LU G=5 "sub1"); K2 (B=512 at 50x32, B=128 at 150x48) and K3
+   30 steps at N=32, 150 × 10 at N=48): K1 over a whole sweep (B=2048),
+   once with paired LU G=5 "sub1" and once with the Richardson solve
+   (solve_iters=5) on the same damped tables; K2 (B=512 at 50x32, B=128
+   at 150x48) and K3
    (B=2048) over one window launch with step0 > 0 from a nonzero carried
    state; K4 and K5 over a whole global sweep (nt=1500): K4 at N=15 and
    K5 at N=20 (B=2048, the throughput ROM and S-ROM), each also at N=9
@@ -23,11 +25,17 @@ Phases, in order; any failure raises and exits non-zero:
    FOM, nx=1000, nt=1500) through ``solve_batch(mus, mode="probes",
    probe_reduce="mean")``, one stage-2 branch after the other, each with
    every launch counter set to 0 just before it and read just after:
-   B=2048 (fused K1, one launch per call), B=512 (materialized tables,
-   K2 once per window: 50 per call) and B=2048 under
-   ROMTIME_WINDOWED_KERNEL=v2 (K3 once per window). Each branch's outputs
+   B=2048 (fused K1 with the LU schedule, one launch per call), B=512
+   (materialized tables, K2 once per window: 50 per call), B=2048 under
+   ROMTIME_WINDOWED_KERNEL=v2 (K3 once per window) and B=2048 on the
+   fused branch with ``WINDOWED_SOLVE_ITERS = 5`` on the instance (K1
+   with the Richardson solve, one launch per call). Each branch's outputs
    must be finite and agree with the same batch through the twins on the
-   card, and K2's and K3's with K1's on the same μ;
+   card, K2's and K3's with K1's on the same μ, and the Richardson
+   branch's with the LU schedule's within the reference's 1e-3·scale
+   (tests/test_pallas_online.py:664-665). The solve policy's own decision
+   and measured ρ for the cell are printed; the pivot-free guard prints
+   "skipped (no global basis)" there and cond₂ on the global cells;
 5. global serving phase (``engine="pallas"``) on the seeded synthetic
    global cells (same FOM), the same way: N=15 at B=2048 (materialized
    tables, one K4 launch per call), the same cell with the precompute
@@ -56,15 +64,24 @@ from pathlib import Path
 import torch
 
 ATOL_REL = 5e-5      # kernel vs twin, relative to the largest |value|
+#: Richardson against the LU schedule, relative to the largest |value|:
+#: the reference's own limit (tests/test_pallas_online.py:664-665).
+RICHARDSON_VS_LU_REL = 1e-3
 SHAPES = ((50, 30, 32), (150, 10, 48))   # (W, width, N)
 B = 2048
 K2_BATCH = {32: 512, 48: 128}            # K2's kernel-phase batch by N
 GROUP = 5
+RICH_ITERS = 5                           # Richardson iterations (perf cap)
 KERNEL_REPS = 5
 RESID_REPS = 20
-SERVE_CALLS = {"fused": 5, "matrices": 3, "v2": 3}
-SERVE_BATCH = {"fused": 2048, "matrices": 512, "v2": 2048}
-BRANCH_KERNEL = {"fused": "K1", "matrices": "K2", "v2": "K3"}
+#: Serving runs of the windowed cell: run → (stage-2 branch, calls, batch,
+#: WINDOWED_SOLVE_ITERS on the instance).
+SERVE_RUNS = {"fused": ("fused", 5, 2048, None),
+              "matrices": ("matrices", 3, 512, None),
+              "v2": ("v2", 3, 2048, None),
+              "richardson": ("fused", 5, 2048, RICH_ITERS)}
+BRANCH_KERNEL = {"fused": "K1", "matrices": "K2", "v2": "K3",
+                 "richardson": "K1"}
 KERNELS = ("K1", "K2", "K3", "K4", "K5")
 GLOBAL_NT = 1500
 GLOBAL_CALLS = 3
@@ -185,25 +202,35 @@ def bound(flops, nbytes):
 def k1_bound(args, kw):
     """K1 over a whole sweep. A paired-LU follower step substitutes with
     its leader's factors, refines once against its own KN and substitutes
-    again (3·NP²) instead of factorizing. The window transfers are two dd
-    matvecs through Tp[w] (~10 operations per entry)."""
+    again (3·NP²) instead of factorizing. The Richardson solve
+    (``solve_iters`` = n) takes 2n NP² matvecs per step, and per window
+    K̄'s build from the live θ rows and the trilinear block, its inverse
+    (NP³, the least an inversion needs) and the δ transfer (NP²). The
+    window transfers are two dd matvecs through Tp[w] (~10 operations per
+    entry)."""
     from romtime_tpu_torch.ops.windowed_fused import step_roles
 
     TH, Bmk, BfT = args[0], args[1], args[4]
     nt, _K8, Bn = TH.shape
     W, NP = args[6].shape[0], args[6].shape[2]       # VE (W, P, NP)
     width = nt // W
+    iters = kw.get("solve_iters")
     group = kw.get("paired_lu") or 0
     group = group if group >= 2 and kw["n_real"] > 20 else 0
     roles = step_roles(kw.get("period") or width, group)
     solve = sum(3 * NP * NP if r == "follow" else lu_fmas(NP)
                 for r in roles) / len(roles)
     km8, kk8 = kw["km8"], kw["kk8"]                  # Bmk (W, kfold, NP²)
-    per_step = step_fmas(
-        NP, live_rows(Bmk[:, :km8].transpose(1, 2), NP, NP),
-        live_rows(Bmk[:, km8:km8 + kk8].transpose(1, 2), NP, NP),
-        live_rows(BfT.transpose(1, 2), NP, NP), kw["with_trilinear"], solve)
-    flops = 2 * Bn * (nt * per_step + W * 2 * 10 * NP * NP)
+    km = live_rows(Bmk[:, :km8].transpose(1, 2), NP, NP)
+    kk = live_rows(Bmk[:, km8:km8 + kk8].transpose(1, 2), NP, NP)
+    per_window = 2 * 10 * NP * NP
+    if iters:
+        solve = 2 * iters * NP * NP
+        tri = NP if kw["with_trilinear"] else 0
+        per_window += NP * NP * (km + kk + tri) + NP ** 3 + NP * NP
+    per_step = step_fmas(NP, km, kk, live_rows(BfT.transpose(1, 2), NP, NP),
+                         kw["with_trilinear"], solve)
+    flops = 2 * Bn * (nt * per_step + W * per_window)
     nbytes = 4 * (TH.numel() + sum(a.numel() for a in args[1:8])
                   + Bn + 2 * 4 * NP * Bn + nt * 8 * Bn)
     return bound(flops, nbytes)
@@ -286,7 +313,7 @@ def global_kernel(mods, name):
 # ----------------------------------------------------------------------
 # Kernel phase
 # ----------------------------------------------------------------------
-def kernel_phase(mods, dev, power, errs):
+def kernel_phase(mods, dev, power, errs, rich_errs):
     k1, rs, synth = mods["k1"], mods["rs"], mods["synth"]
     rows = []
     for W, width, N in SHAPES:
@@ -306,6 +333,29 @@ def kernel_phase(mods, dev, power, errs):
         rows.append(dict(kernel="K1", shape=f"{W}x{N}", B=B, ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          max_abs_err=err))
+        lu_ms, lu_probes = ms, got[0]
+        kwr = dict(kw, solve_iters=RICH_ITERS)
+        ms, got = cuda_ms(
+            lambda: k1.online_sweep_windowed_fused(*args, **kwr), KERNEL_REPS)
+        plain_ms, want = cuda_ms(
+            lambda: k1.windowed_fused_reference(*args, **kwr), 1,
+            warmup=False)
+        err = check_sweep(f"K1 {W}x{N} width={width} B={B} Richardson "
+                          f"solve_iters={RICH_ITERS} on {power}:", got, want)
+        errs["K1"].append(err)
+        rich_errs.append(err)
+        bms, by = k1_bound(args, kwr)
+        gap = ((got[0] - lu_probes).abs().max()
+               / lu_probes.abs().max()).item()
+        print(f"  kernel {ms:.3f} ms/sweep ({ms / lu_ms:.3f}× the LU "
+              f"schedule's {lu_ms:.3f} in this call), twin {plain_ms:.1f} "
+              f"ms/sweep, bound {bms:.3f} ms ({by}); probes differ from "
+              f"the LU schedule's by {gap:.3e} of their scale")
+        rows.append(dict(kernel="K1", solve=f"richardson{RICH_ITERS}",
+                         shape=f"{W}x{N}", B=B, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, max_abs_err=err,
+                         vs_lu_rel=gap))
+        del got, want, lu_probes
         step0 = (W // 2) * width
         for name, theta, Bk, wrapper, twin, bnd in (
                 ("K2", False, K2_BATCH[N], rs.online_sweep_pallas_v2,
@@ -401,20 +451,25 @@ def counters(mods):
 
 def serve_calls(rom, batches, mods, engine):
     """Warm up, zero every launch counter, serve the batches one call at
-    a time (synchronized), read the counters: (launches, outputs, call
-    seconds)."""
-    rom.solve_batch(batches[0], engine=engine, probe_reduce="mean")
+    a time (synchronized), read the counters: (launches of K1-K5, K1
+    launches with the Richardson solve, outputs, call seconds)."""
+    k1 = mods["k1"].online_sweep_windowed_fused
+    rom.solve_batch(batches[0], mode="probes", engine=engine,
+                    probe_reduce="mean")
     torch.cuda.synchronize()
     for c in counters(mods):
         c.launches = 0
+    k1.richardson_launches = 0
     times, outs = [], []
     for mus in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs.append(rom.solve_batch(mus, engine=engine, probe_reduce="mean"))
+        outs.append(rom.solve_batch(mus, mode="probes", engine=engine,
+                                    probe_reduce="mean"))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return [c.launches for c in counters(mods)], outs, times
+    return ([c.launches for c in counters(mods)], k1.richardson_launches,
+            outs, times)
 
 
 def check_served(outs, Bb, N):
@@ -435,11 +490,14 @@ def call_info(Bb, times):
                 serve_ms_max=max(times) * 1e3)
 
 
-def serve_branch(rom, branch, batches, mods, power):
-    """Drive one branch: warm up, zero every launch counter, serve the
+def serve_branch(rom, run, batches, mods, power):
+    """Drive one serving run of :data:`SERVE_RUNS`: its solve setting on
+    the instance, then warm up, zero every launch counter, serve the
     batches one call at a time (synchronized), read the counters."""
     from romtime_tpu_torch.rom.engines.windowed_fused import stage2_branch
 
+    branch, _calls, _B, iters = SERVE_RUNS[run]
+    rom.WINDOWED_SOLVE_ITERS = iters
     W = rom.windows.n_windows
     nt = int(rom.fom.domain[rom.fom.NT])
     Bb = len(batches[0])
@@ -448,20 +506,23 @@ def serve_branch(rom, branch, batches, mods, power):
                             rom.precompute_choice)
         if got != branch:
             raise AssertionError(f"B={Bb} routes to {got}, not {branch}")
-        launches, outs, times = serve_calls(rom, batches, mods,
-                                            "windowed-pallas")
+        launches, rich, outs, times = serve_calls(rom, batches, mods,
+                                                  "windowed-pallas")
     calls = len(batches)
     want = {"fused": [calls, 0, 0, 0, 0], "matrices": [0, W * calls, 0, 0, 0],
             "v2": [0, 0, W * calls, 0, 0]}[branch]
+    want_rich = calls if iters else 0
     info = call_info(Bb, times)
-    print(f"serving, {branch} branch: {calls} calls of {Bb} μ, median "
+    print(f"serving, {run} run ({branch} branch, solve_iters {iters}): "
+          f"{calls} calls of {Bb} μ, median "
           f"{info['serve_ms_median']:.1f} ms per call (min "
           f"{info['serve_ms_min']:.1f}, max {info['serve_ms_max']:.1f}) = "
           f"{info['solves_per_s']:.1f} solves/s (prep + sweep + fetch, "
-          f"synchronized) on {power}; launches K1-K5 {launches}")
-    if launches != want:
-        raise AssertionError(f"{branch} branch launched {launches}, "
-                             f"expected {want}")
+          f"synchronized) on {power}; launches K1-K5 {launches}, K1 with "
+          f"Richardson {rich}")
+    if launches != want or rich != want_rich:
+        raise AssertionError(f"{run} run launched {launches} (Richardson "
+                             f"{rich}), expected {want} ({want_rich})")
     check_served(outs, Bb, rom.N)
     return launches, outs, info
 
@@ -478,9 +539,17 @@ def served_vs(name, out, probes, uN, N, dev):
                                                  device=dev), want_u))
 
 
-def serving_phase(mods, dev, power, errs):
+def pivot_line(rom):
+    """The pivot-free guard's result on a served cell."""
+    if rom.global_serving is None:
+        return "pivot-free guard: skipped (no global basis)"
+    return (f"pivot-free guard: cond2(K_N) = {rom._pivot_cert:.6g} over the "
+            f"μ-box corners and center at 4 times (limit "
+            f"{rom.PIVOT_FREE_COND_BOUND:.0e}/1.3)")
+
+
+def serving_phase(mods, dev, power, errs, rich_errs):
     import romtime_tpu_torch.rom.engines.windowed_fused as engine
-    from romtime_tpu_torch.rom.engines.policy import windowed_solve_group
 
     k1, rs, synth = mods["k1"], mods["rs"], mods["synth"]
     t0 = time.perf_counter()
@@ -490,20 +559,27 @@ def serving_phase(mods, dev, power, errs):
     W = win.n_windows
     print(f"serving cell 50x32 (nx=1000, nt=1500) built in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rom.WINDOWED_SOLVE_ITERS = "auto"
+    decision = rom._windowed_solve_iters()
+    rho = win._auto_iters_rho_value
+    print(f"solve policy on the 50x32 cell: measured ρ = {rho:.6g} → "
+          f"{'LU' if decision is None else f'{decision} Richardson iterations'}"
+          f" ({time.perf_counter() - t0:.1f} s on the host, float64)")
     batches = [synth.synthetic_mus(B, seed=1 + r)
-               for r in range(SERVE_CALLS["fused"])]
+               for r in range(max(c for _b, c, _n, _i in SERVE_RUNS.values()))]
     runs, kernels = {}, {}
-    for branch in ("fused", "matrices", "v2"):
-        Bb = SERVE_BATCH[branch]
-        runs[branch] = serve_branch(
-            rom, branch, [mus[:Bb] for mus in batches[:SERVE_CALLS[branch]]],
-            mods, power)
-    print(f"pivot check {rom._pivot_cert:.3g}")
+    for run, (_branch, calls, Bb, _iters) in SERVE_RUNS.items():
+        runs[run] = serve_branch(
+            rom, run, [mus[:Bb] for mus in batches[:calls]], mods, power)
+    print(pivot_line(rom))
 
-    # The last batch of each branch again, kernels against twins on the
-    # card, from one prep; then where the branch's time goes.
-    for branch, (_l, outs, info) in runs.items():
-        kname = BRANCH_KERNEL[branch]
+    # The last batch of each run again, kernels against twins on the
+    # card, from one prep; then where the run's time goes.
+    for run, (_l, outs, info) in runs.items():
+        branch, _calls, _Bb, iters = SERVE_RUNS[run]
+        rom.WINDOWED_SOLVE_ITERS = iters
+        kname = BRANCH_KERNEL[run]
         mus = batches[info["calls"] - 1][:info["B"]]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -513,17 +589,20 @@ def serving_phase(mods, dev, power, errs):
         (THm, THk, THf, g, b0), kw = engine.window_inputs(fom, win,
                                                              prepped)
         if branch == "fused":
-            group, mode = windowed_solve_group()
             args, kwf = engine.sweep_inputs(fom, win, prepped, tables,
-                                            group, mode)
+                                            rom.windowed_solve())
             ms, got = cuda_ms(lambda: k1.online_sweep_windowed_fused(
                 *args, **kwf), KERNEL_REPS)
             plain_ms, want = cuda_ms(lambda: k1.windowed_fused_reference(
                 *args, **kwf), 1, warmup=False)
             info["sweep_ms"] = ms
             bms, by = k1_bound(args, kwf)
-            kernels["K1"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                 bound_by=by)
+            print(f"  K1 on the serving inputs (solve_iters "
+                  f"{kwf['solve_iters']}, period {kwf['period']}): {ms:.3f} "
+                  f"ms/sweep, twin {plain_ms:.1f} ms/sweep, bound {bms:.3f} "
+                  f"ms ({by}) on {power}")
+            kernels[run] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                bound_by=by)
         else:
             sweep = (engine.sweep_materialized if branch == "matrices"
                      else engine.sweep_theta_v2)
@@ -562,16 +641,17 @@ def serving_phase(mods, dev, power, errs):
             kernels[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                  bound_by=by)
             info["kernel_ms_per_window"] = ms
-        errs[kname].append(check_sweep(
-            f"{branch} branch sweep vs its twins (B={info['B']}):", got,
-            want))
-        errs[kname].append(served_vs(
-            f"{branch} branch served outputs vs its twins' sweep:", outs[-1],
-            want[0], want[1][0], rom.N, dev))
+        run_errs = [check_sweep(
+            f"{run} run sweep vs its twins (B={info['B']}):", got, want),
+            served_vs(f"{run} run served outputs vs its twins' sweep:",
+                      outs[-1], want[0], want[1][0], rom.N, dev)]
+        errs[kname] += run_errs
+        if iters:
+            rich_errs += run_errs
         rest = info["serve_ms_median"] - info["prep_ms"] - info["sweep_ms"]
         print(f"  breakdown: prep {info['prep_ms']:.1f} ms, sweep "
-              f"{info['sweep_ms']:.1f} ms, the rest (pivot check, probe "
-              f"mean, fetch) {rest:.1f} ms")
+              f"{info['sweep_ms']:.1f} ms, the rest (probe mean, fetch) "
+              f"{rest:.1f} ms")
         if branch != "fused":
             print(f"  per window: {name} {info['kernel_ms_per_window']:.3f}"
                   f" ms" + (f", materializing MN/KL/fN "
@@ -579,21 +659,30 @@ def serving_phase(mods, dev, power, errs):
                             if branch == "matrices" else "")
                   + f"; {W} windows")
 
-    # K2 and K3 against K1 on the same μ (K1's paired-LU tolerance).
+    # K2 and K3 against K1 on the same μ (K1's paired-LU tolerance), and
+    # the Richardson run against the LU schedule (the reference's limit).
     k1_outs = runs["fused"][1]
-    for branch in ("matrices", "v2"):
-        _l, outs, info = runs[branch]
+    for run, rel in (("matrices", ATOL_REL), ("v2", ATOL_REL),
+                     ("richardson", RICHARDSON_VS_LU_REL)):
+        _l, outs, info = runs[run]
         ref = k1_outs[info["calls"] - 1]
         Bb = info["B"]
-        print(f"{branch} branch vs the fused branch on the same {Bb} μ:")
-        errs[BRANCH_KERNEL[branch]].append(max(
+        print(f"{run} run vs the fused LU run on the same {Bb} μ:")
+        err = max(
             check("probes (time mean)", torch.as_tensor(outs[-1]["probes"]),
-                  torch.as_tensor(ref["probes"][:Bb])),
+                  torch.as_tensor(ref["probes"][:Bb]), rel=rel),
             check("uN_final", torch.as_tensor(outs[-1]["uN_final"]),
-                  torch.as_tensor(ref["uN_final"][:Bb]))))
+                  torch.as_tensor(ref["uN_final"][:Bb]), rel=rel))
+        if run != "richardson":      # another solve, not a kernel error
+            errs[BRANCH_KERNEL[run]].append(err)
+    rom.WINDOWED_SOLVE_ITERS = "auto"
     launches = {"K1": runs["fused"][0][0], "K2": runs["matrices"][0][1],
-                "K3": runs["v2"][0][2]}
-    serving = {branch: info for branch, (_l, _o, info) in runs.items()}
+                "K3": runs["v2"][0][2],
+                "K1_richardson": runs["richardson"][0][0]}
+    serving = {run: info for run, (_l, _o, info) in runs.items()}
+    serving["policy"] = dict(rho=rho, solve_iters=decision)
+    kernels["K1"] = dict(kernels.pop("fused"), **{
+        f"richardson_{k}": v for k, v in kernels.pop("richardson").items()})
     return launches, kernels, serving
 
 
@@ -602,7 +691,7 @@ def serve_global(rom, label, batches, mods, power, kernel):
     :func:`serve_branch` drives a windowed one: one launch of ``kernel``
     per call and no other launch."""
     Bb = len(batches[0])
-    launches, outs, times = serve_calls(rom, batches, mods, "pallas")
+    launches, _rich, outs, times = serve_calls(rom, batches, mods, "pallas")
     calls = len(batches)
     want = [0, 0, 0, calls, 0] if kernel == "K4" else [0, 0, 0, 0, calls]
     info = call_info(Bb, times)
@@ -649,7 +738,7 @@ def global_serving_phase(mods, dev, power, errs):
             raise AssertionError(f"{label}: B={B} routes to {branch}")
         launches, outs, info = serve_global(rom, label, batches, mods, power,
                                             kname)
-        print(f"  pivot check {rom._global_pivot_cert:.3g}")
+        print(f"  {pivot_line(rom)}")
 
         # The last batch again: prep, kernel and twin on its inputs.
         mus = batches[-1]
@@ -689,7 +778,7 @@ def global_serving_phase(mods, dev, power, errs):
                 - info["materialize_ms"] - ms)
         print(f"  breakdown: prep {info['prep_ms']:.1f} ms, materializing "
               f"MN/KL/fN {info['materialize_ms']:.1f} ms, {kname} "
-              f"{ms:.1f} ms, the rest (pivot check, probe mean, fetch) "
+              f"{ms:.1f} ms, the rest (probe mean, fetch) "
               f"{rest:.1f} ms")
         runs[label] = (launches, outs, info)
         if label != "K5 branch, budget 0 (N=15)":
@@ -762,9 +851,11 @@ def main():
 
     errs = {k: [] for k in KERNELS}
     with torch.inference_mode():
-        rows = kernel_phase(mods, dev, power, errs)
+        rich_errs = []
+        rows = kernel_phase(mods, dev, power, errs, rich_errs)
         rows += global_kernel_phase(mods, dev, power, errs)
-        launches, kernels, serving = serving_phase(mods, dev, power, errs)
+        launches, kernels, serving = serving_phase(mods, dev, power, errs,
+                                                   rich_errs)
         gkernels, gserving, rom15, mus = global_serving_phase(mods, dev,
                                                               power, errs)
         autotune = autotune_phase(rom15, mus, repo, power)
@@ -787,6 +878,8 @@ def main():
         "K5": ("theta_global_sweep", "romtime_tpu_torch/csrc/global_sweep.cu",
                "romtime_tpu/ops/pallas_online.py:320"),
     }
+    kernels["K1"].update(richardson_launches=launches.pop("K1_richardson"),
+                         richardson_max_abs_err=max(rich_errs))
     print(json.dumps({"kernels": [dict(
         name=meta[k][0], route="cuda", source=meta[k][1],
         replaces=meta[k][2], launches=launches[k],

@@ -4,7 +4,10 @@ A serving configuration travels as a flat ``dict[str, np.ndarray]``:
 
 - windowed: the :class:`~romtime_tpu_torch.rom.windowed.WindowedServing`
   npz keys (``bounds``, ``Vs``, ``transfers``, ``combine_<source>``
-  (W, n_out, k), ``trilinear`` (W, N², N), ``dilation_*``);
+  (W, n_out, k), ``trilinear`` (W, N², N), ``dilation_*``), and
+  optionally the global configuration below under a ``global_`` prefix
+  (the reference's windowed instance keeps its global basis and
+  reductors beside the windows; the pivot-free guard runs on them);
 - global: the :class:`~romtime_tpu_torch.rom.GlobalServing` keys
   (``basis`` (nh, N), ``combine_<source>`` (n_out, k), the reductor's
   folded V·(PᵀU)⁻¹, and ``trilinear`` (N², N), the exact trilinear state
@@ -12,6 +15,9 @@ A serving configuration travels as a flat ``dict[str, np.ndarray]``:
   work that stays in the JAX package);
 - ``dofs_<source>`` for every θ source: the reductor's interpolation
   entries, (k, 2) for MDEIM, (k, 1) for DEIM;
+- ``grid_<name>`` for every μ parameter: its box (lo, hi), in the
+  serving object's parameter order (the guard and the solve policy
+  probe the box's corners);
 - the FOM configuration: ``fom_L0``, ``fom_nx``, ``fom_tf``, ``fom_nt``,
   ``fom_degree``, ``fom_bdf`` and the piston regime ``fom_which``.
 
@@ -29,6 +35,7 @@ from .rom.windowed import WindowedServing
 
 _FOM_KEYS = ("fom_L0", "fom_nx", "fom_tf", "fom_nt", "fom_degree",
              "fom_bdf", "fom_which")
+_GLOBAL = "global_"
 
 
 def piston_fom(L0, nx, tf, nt, degree=1, bdf="2", which="rest"):
@@ -57,17 +64,33 @@ def _fom_and_reductors(payload):
     return fom, reductors
 
 
+def _grid(payload):
+    """The μ box, name → (lo, hi), from the ``grid_<name>`` keys."""
+    grid = {k[len("grid_"):]: tuple(float(v) for v in np.asarray(payload[k]))
+            for k in payload if k.startswith("grid_")}
+    if not grid:
+        raise KeyError("serving payload lacks the μ box: one "
+                       "'grid_<name>' key, (lo, hi), per μ parameter")
+    return grid
+
+
 def _serving_arrays(payload):
     return {k: v for k, v in payload.items()
-            if not k.startswith(("dofs_", "fom_"))}
+            if not k.startswith(("dofs_", "fom_", "grid_", _GLOBAL))}
 
 
 def serving_from_arrays(payload, device="cuda"):
     """Build the port's windowed serving object from a plain-numpy
-    payload, serving on ``device`` (the card by default)."""
+    payload, serving on ``device`` (the card by default); the global
+    configuration rides along when the payload has ``global_`` keys."""
     fom, reductors = _fom_and_reductors(payload)
+    grid = _grid(payload)
     win = WindowedServing.from_arrays(_serving_arrays(payload))
-    return RomConstructorNonlinear(fom, reductors, win, device=device)
+    glob = {k[len(_GLOBAL):]: v for k, v in payload.items()
+            if k.startswith(_GLOBAL)}
+    gs = GlobalServing.from_arrays(glob) if glob else None
+    return RomConstructorNonlinear(fom, reductors, win, device=device,
+                                   global_serving=gs, grid=grid)
 
 
 def global_serving_from_arrays(payload, device="cuda"):
@@ -77,15 +100,18 @@ def global_serving_from_arrays(payload, device="cuda"):
     if "basis" not in payload:
         raise KeyError("global serving payload lacks 'basis'")
     fom, reductors = _fom_and_reductors(payload)
+    grid = _grid(payload)
     gs = GlobalServing.from_arrays(_serving_arrays(payload))
     return RomConstructorNonlinear(fom, reductors, device=device,
-                                   global_serving=gs)
+                                   global_serving=gs, grid=grid)
 
 
 def _fom_and_dofs_arrays(rom, which):
     fom = rom.fom
     payload = {f"dofs_{name}": red.dofs_array()
                for name, red in rom._theta_sources().items()}
+    payload.update({f"grid_{k}": np.array(box, np.float64)
+                    for k, box in rom.grid.items()})
     payload.update(
         fom_L0=np.float64(fom.domain[fom.L0]), fom_nx=np.int64(fom.mesh.nx),
         fom_tf=np.float64(fom.domain[fom.T]),
@@ -98,7 +124,11 @@ def _fom_and_dofs_arrays(rom, which):
 
 def serving_to_arrays(rom, which="rest"):
     """Inverse of :func:`serving_from_arrays`."""
-    return dict(rom.windows.to_arrays(), **_fom_and_dofs_arrays(rom, which))
+    payload = dict(rom.windows.to_arrays(), **_fom_and_dofs_arrays(rom, which))
+    if rom.global_serving is not None:
+        payload.update({_GLOBAL + k: v for k, v in
+                        rom.global_serving.to_arrays().items()})
+    return payload
 
 
 def global_serving_to_arrays(rom, which="rest"):

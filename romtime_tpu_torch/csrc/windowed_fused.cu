@@ -6,7 +6,8 @@
 // state carry, dd boundary transfers, merged solve-matrix product,
 // θ-factored residual, quadratic-form trilinear term, pivot-free LU with
 // optional paired-LU reuse ("sub1": leader factorizes, followers
-// substitute and refine once), probes per step.
+// substitute and refine once) or, with solve_iters > 0, the per-window
+// Richardson solve (_lanes_invert / _richardson_solve), probes per step.
 //
 // What bounds it on this card: per step and lane, building the solve
 // matrix KN = Bmk·rhs (NP²·kfold FMAs, kfold = km8+kk8+NP) and the
@@ -27,6 +28,15 @@
 //   (Bmk for 50 windows is ~15 MB) stay resident in the 50 MB L2;
 // - per-lane phases (predictor, LU, substitution, dd update, probes) run
 //   one warp per lane, one row per thread;
+// - Richardson (solve_iters > 0): at each window start the block builds
+//   K̄ = Bmk·[THbar_w; dt·b0·u] with the same block phase as KN, into the
+//   follower's matrix slot, and each warp inverts its lane's K̄ in place
+//   by Gauss-Jordan on [K̄ | I] with the identity in the factor slot, which
+//   then holds K̄⁻¹ for the window. Each step writes its KN into the
+//   follower slot and runs solve_iters pairs of row-per-thread matvecs
+//   (δ ← δ + K̄⁻¹(r0 − KN·δ)) from the previous step's δ, which crosses a
+//   window boundary through T_w as a plain f32 matvec (one more TL×NP
+//   vector of shared memory);
 // - plain FP32 FMAs, no tensor cores (no TF32 anywhere).
 // The dd transformations (TwoSum, TwoProduct, the dd matvec; csrc/dd.cuh)
 // use the __fadd_rn/__fmul_rn intrinsics, which nvcc never contracts into
@@ -78,9 +88,11 @@ struct Params {
   const float* Tp;     // (W, NP, NP)
   const float* b0;     // (1, B)
   const float* state0; // (4, NP, B)
+  const float* THbar;  // (W, km8 + kk8, B), read only with solve_iters > 0
   float* probes;       // (nt, PROBE_P, B)
   float* state;        // (4, NP, B)
-  int W, width, period, NP, B, km8, kk8, kf8, km, kk, with_tri, bdf2, group;
+  int W, width, period, NP, B, km8, kk8, kf8, km, kk, with_tri, bdf2, group,
+      solve_iters;
   float dt;
 };
 
@@ -130,6 +142,64 @@ __device__ void lu_solve(const float* A, int NP, int lda, float* x, int li) {
   }
 }
 
+// rr = r − K·x, row per thread (one warp per lane).
+__device__ void residual(const float* K, const float* x, const float* r,
+                         float* rr, int NP, int lda, int li) {
+  for (int i = li; i < NP; i += 32) {
+    float acc = 0.f;
+    for (int j = 0; j < NP; ++j) acc = fmaf(K[i * lda + j], x[j], acc);
+    rr[i] = __fsub_rn(r[i], acc);
+  }
+}
+
+// dst[t] = Bmk·rhs[:, t] for the TL lanes of the tile (block phase): the
+// solve matrix of each lane, each thread owning whole entries (i, j) and
+// keeping the TL lanes in registers.
+template <int TL>
+__device__ void build_matrix(const float* __restrict__ Bmk, const float* rhs,
+                             float* dst, int NP, int kfold, int tid) {
+  const int NP2 = NP * NP, lda = NP + 1, mat = NP * lda;
+  for (int ij = tid; ij < NP2; ij += TL * 32) {
+    float acc[TL];
+#pragma unroll
+    for (int t = 0; t < TL; ++t) acc[t] = 0.f;
+    for (int k = 0; k < kfold; ++k) {
+      const float b = __ldg(&Bmk[(size_t)k * NP2 + ij]);
+#pragma unroll
+      for (int t = 0; t < TL; ++t) acc[t] = fmaf(b, rhs[k * TL + t], acc[t]);
+    }
+    const int i = ij / NP, j = ij - i * NP;
+#pragma unroll
+    for (int t = 0; t < TL; ++t) dst[t * mat + i * lda + j] = acc[t];
+  }
+}
+
+// [A | R] ← Gauss-Jordan over all NP pivots, no pivoting, one warp per
+// lane (thread li owning rows li, li+32): with R = I on entry, R = A⁻¹ on
+// exit (ops/windowed_fused.py lanes_invert: every row but k loses
+// A[i,k]·(row k · 1/A[k,k]), then row k is scaled).
+__device__ void gj_invert(float* A, float* R, int NP, int lda, int li) {
+  for (int k = 0; k < NP; ++k) {
+    const float inv = 1.0f / A[k * lda + k];
+    for (int i = li; i < NP; i += 32) {
+      if (i == k) continue;
+      const float c = A[i * lda + k];
+      for (int j = 0; j < NP; ++j)
+        A[i * lda + j] = fmaf(-c, __fmul_rn(A[k * lda + j], inv), A[i * lda + j]);
+      for (int j = 0; j < NP; ++j)
+        R[i * lda + j] = fmaf(-c, __fmul_rn(R[k * lda + j], inv), R[i * lda + j]);
+    }
+    __syncwarp();
+    if ((k & 31) == li) {
+      for (int j = 0; j < NP; ++j) {
+        A[k * lda + j] = __fmul_rn(A[k * lda + j], inv);
+        R[k * lda + j] = __fmul_rn(R[k * lda + j], inv);
+      }
+    }
+    __syncwarp();
+  }
+}
+
 template <int TL>
 __global__ void __launch_bounds__(TL * 32)
 windowed_fused_kernel(const Params p) {
@@ -141,8 +211,8 @@ windowed_fused_kernel(const Params p) {
   const int kfold = kmk8 + (p.with_tri ? NP : 0);
   const int off_f = kmk8, off_g = kmk8 + p.kf8;
 
-  float* F = smem;                    // TL × mat: KN / leader's LU factors
-  float* Kc = F + TL * mat;           // TL × mat: follower's own KN
+  float* F = smem;                    // TL × mat: KN / LU factors / K̄⁻¹
+  float* Kc = F + TL * mat;           // TL × mat: follower's own KN / K̄
   float* vec = Kc + TL * mat;
   float* uh = vec;                    // each TL × NP
   float* ul = uh + TL * NP;
@@ -155,7 +225,8 @@ windowed_fused_kernel(const Params p) {
   float* xv = r0 + TL * NP;
   float* rv = xv + TL * NP;
   float* trip = rv + TL * NP;
-  float* rhs = trip + TL * NP;        // kfold × TL
+  float* dp = trip + TL * NP;         // previous step's δ (Richardson)
+  float* rhs = dp + TL * NP;          // kfold × TL
   float* dtb0 = rhs + kfold * TL;     // TL
 
   const int tid = threadIdx.x;
@@ -172,6 +243,7 @@ windowed_fused_kernel(const Params p) {
     ul[l * NP + i] = p.state0[(1 * NP + i) * B + glc];
     u1h[l * NP + i] = p.state0[(2 * NP + i) * B + glc];
     u1l[l * NP + i] = p.state0[(3 * NP + i) * B + glc];
+    dp[l * NP + i] = 0.f;
   }
   if (li == 0) dtb0[l] = __fmul_rn(p.dt, p.b0[glc]);
   __syncthreads();
@@ -203,6 +275,37 @@ windowed_fused_kernel(const Params p) {
     const float* TQ = p.TQ + (size_t)w * NP * NP2;
     const float* VE = p.VE + (size_t)w * PROBE_P * NP;
 
+    // ---- Richardson window start: δ_prev through T_w, K̄ → Kc, K̄⁻¹ → F ----
+    if (p.solve_iters > 0) {
+      const float* T = p.Tp + (size_t)w * NP2;
+      float dn[MAX_ROWS];
+      int r = 0;
+      for (int i = li; i < NP; i += 32, ++r) {
+        float acc = 0.f;
+        for (int j = 0; j < NP; ++j)
+          acc = fmaf(__ldg(&T[i * NP + j]), dp[l * NP + j], acc);
+        dn[r] = acc;
+      }
+      __syncwarp();
+      r = 0;
+      for (int i = li; i < NP; i += 32, ++r) dp[l * NP + i] = dn[r];
+      const float* thb = p.THbar + (size_t)w * kmk8 * B;
+      for (int k = li; k < kmk8; k += 32)
+        rhs[k * TL + l] = __ldg(&thb[(size_t)k * B + glc]);
+      if (p.with_tri)
+        for (int j = li; j < NP; j += 32)
+          rhs[(kmk8 + j) * TL + l] = __fmul_rn(uh[l * NP + j], dtb0[l]);
+      for (int ij = li; ij < NP2; ij += 32) {
+        const int i = ij / NP, j = ij - i * NP;
+        F[l * mat + i * lda + j] = i == j ? 1.f : 0.f;
+      }
+      __syncthreads();
+      build_matrix<TL>(Bmk, rhs, Kc, NP, kfold, tid);
+      __syncthreads();
+      gj_invert(Kc + l * mat, F + l * mat, NP, lda, li);
+      __syncthreads();
+    }
+
     for (int s = 0; s < p.width; ++s) {
       const int step = w * p.width + s;
       const int role = step_role(s % p.period, p.period, p.group);
@@ -232,20 +335,8 @@ windowed_fused_kernel(const Params p) {
 
       // ---- B (block): solve matrix KN = Bmk·rhs, quadratic form ----
       {
-        float* dst = role == 2 ? Kc : F;
-        for (int ij = tid; ij < NP2; ij += nthreads) {
-          float acc[TL];
-#pragma unroll
-          for (int t = 0; t < TL; ++t) acc[t] = 0.f;
-          for (int k = 0; k < kfold; ++k) {
-            const float b = __ldg(&Bmk[(size_t)k * NP2 + ij]);
-#pragma unroll
-            for (int t = 0; t < TL; ++t) acc[t] = fmaf(b, rhs[k * TL + t], acc[t]);
-          }
-          const int i = ij / NP, j = ij - i * NP;
-#pragma unroll
-          for (int t = 0; t < TL; ++t) dst[t * mat + i * lda + j] = acc[t];
-        }
+        build_matrix<TL>(Bmk, rhs, (role == 2 || p.solve_iters > 0) ? Kc : F,
+                         NP, kfold, tid);
         if (p.with_tri) {
           // trip[i] = (Σ_jk TQ[i, jk]·pred_j·pred_k)·dt·b0, a warp per row.
           for (int i = l; i < NP; i += TL) {
@@ -301,23 +392,37 @@ windowed_fused_kernel(const Params p) {
       {
         float* A = F + l * mat;
         float* x = xv + l * NP;
-        for (int i = li; i < NP; i += 32) x[i] = r0[l * NP + i];
-        __syncwarp();
-        if (role != 2) lu_factor(A, NP, lda, li);
-        lu_solve(A, NP, lda, x, li);
-        if (role == 2) {
-          // One refinement against this step's own KN.
-          const float* K = Kc + l * mat;
-          float* rr = rv + l * NP;
-          for (int i = li; i < NP; i += 32) {
-            float acc = 0.f;
-            for (int j = 0; j < NP; ++j) acc = fmaf(K[i * lda + j], x[j], acc);
-            rr[i] = __fsub_rn(r0[l * NP + i], acc);
+        const float* K = Kc + l * mat;
+        float* rr = rv + l * NP;
+        if (p.solve_iters > 0) {
+          // Richardson from the previous δ: δ ← δ + K̄⁻¹(r0 − KN·δ).
+          float* d = dp + l * NP;
+          for (int i = li; i < NP; i += 32) x[i] = d[i];
+          __syncwarp();
+          for (int it = 0; it < p.solve_iters; ++it) {
+            residual(K, x, r0 + l * NP, rr, NP, lda, li);
+            __syncwarp();
+            for (int i = li; i < NP; i += 32) {
+              float acc = 0.f;
+              for (int j = 0; j < NP; ++j) acc = fmaf(A[i * lda + j], rr[j], acc);
+              x[i] = __fadd_rn(x[i], acc);
+            }
+            __syncwarp();
           }
+          for (int i = li; i < NP; i += 32) d[i] = x[i];
+        } else {
+          for (int i = li; i < NP; i += 32) x[i] = r0[l * NP + i];
           __syncwarp();
-          lu_solve(A, NP, lda, rr, li);
-          for (int i = li; i < NP; i += 32) x[i] = __fadd_rn(x[i], rr[i]);
-          __syncwarp();
+          if (role != 2) lu_factor(A, NP, lda, li);
+          lu_solve(A, NP, lda, x, li);
+          if (role == 2) {
+            // One refinement against this step's own KN.
+            residual(K, x, r0 + l * NP, rr, NP, lda, li);
+            __syncwarp();
+            lu_solve(A, NP, lda, rr, li);
+            for (int i = li; i < NP; i += 32) x[i] = __fadd_rn(x[i], rr[i]);
+            __syncwarp();
+          }
         }
 
         // ---- E: u = pred ⊕ δ (dd add), shift history, probes ----
@@ -355,7 +460,7 @@ windowed_fused_kernel(const Params p) {
 
 size_t smem_bytes(int TL, int NP, int kfold) {
   const size_t mat = (size_t)NP * (NP + 1);
-  return sizeof(float) * (2 * TL * mat + 11 * (size_t)TL * NP
+  return sizeof(float) * (2 * TL * mat + 12 * (size_t)TL * NP
                           + (size_t)kfold * TL + TL);
 }
 
@@ -379,15 +484,17 @@ extern "C" {
 int romtime_windowed_fused(const float* TH, const float* Bmk, const float* BmF,
                            const float* BkF, const float* Bf, const float* TQ,
                            const float* VE, const float* Tp, const float* b0,
-                           const float* state0, float* probes, float* state,
+                           const float* state0, const float* THbar,
+                           float* probes, float* state,
                            int W, int width, int period, int NP, int B,
                            int km8, int kk8, int kf8, int km, int kk,
-                           int with_tri, int bdf2, int group, float dt,
-                           void* stream) {
-  Params p{TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, probes, state,
-           W, width, period, NP, B, km8, kk8, kf8, km, kk, with_tri, bdf2,
-           group, dt};
-  if (NP > 32 * MAX_ROWS || NP % 8 != 0 || B < 1) return (int)cudaErrorInvalidValue;
+                           int with_tri, int bdf2, int group, int solve_iters,
+                           float dt, void* stream) {
+  Params p{TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, THbar, probes,
+           state, W, width, period, NP, B, km8, kk8, kf8, km, kk, with_tri,
+           bdf2, solve_iters > 0 ? 0 : group, solve_iters, dt};
+  if (NP > 32 * MAX_ROWS || NP % 8 != 0 || B < 1 || solve_iters < 0)
+    return (int)cudaErrorInvalidValue;
   const int kfold = km8 + kk8 + (with_tri ? NP : 0);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (smem_bytes(16, NP, kfold) <= SMEM_LIMIT) return launch<16>(p, smem_bytes(16, NP, kfold), s);

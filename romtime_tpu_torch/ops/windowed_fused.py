@@ -7,7 +7,8 @@ Counterpart of ``romtime_tpu/ops/pallas_online.py``
 
 - the plain PyTorch twin (:func:`windowed_fused_reference`), a lane-batched
   loop of torch ops that mirrors ``_bdf_step_merged``, ``_lanes_solve``,
-  ``_lanes_solve_panels`` and ``_panels_substitute`` op for op;
+  ``_lanes_solve_panels``, ``_panels_substitute``, ``_lanes_invert`` and
+  ``_richardson_solve`` op for op;
 - the wrapper :func:`online_sweep_windowed_fused`, which runs the twin for
   CPU tensors and the hand-written CUDA kernel (``csrc/windowed_fused.cu``)
   for CUDA tensors. There is no fallback between the two.
@@ -29,6 +30,14 @@ schedule period starts with two full-LU steps, then groups of G steps in
 which the leader factorizes and the G−1 followers solve with the
 leader's factors plus one refinement against their own KN; a remainder
 takes the per-step LU.
+
+With ``solve_iters`` set, the Richardson solve replaces the LU (and the
+paired LU): at each window start K̄ = Bmk · [THbar_w; dt·b0·u] is built
+from the window-mean θ rows ``THbar`` (bdf folded into the mass rows)
+and the carry after the boundary transfer, and inverted once; each step
+then runs ``solve_iters`` preconditioned iterations warm-started from the
+previous step's δ, which crosses window boundaries through T_w as a
+plain f32 matvec.
 
 Table layouts are the reference's (padded NP = ``pad_dim(N)``, 8-aligned
 θ row blocks ``[θm | θk…,1 | θf | g]``), because they are part of what
@@ -80,6 +89,47 @@ def _dd_predictor(uN, lo, uN1, lo1, step, bdf2):
 def lanes_matvec(A, x):
     """(NP, NP, B) · (NP, B) lane-batched matvec."""
     return (A * x[None, :, :]).sum(dim=1)
+
+
+def lanes_invert(K, NP):
+    """Inverse of a (NP, NP, B) lane block: unrolled pivot-free
+    Gauss-Jordan over all NP pivots of the augmented [K | I] (the padded
+    diagonal is the identity, so the padded block inverts to I)."""
+    eye = torch.eye(NP, dtype=K.dtype, device=K.device)[:, :, None]
+    A = torch.cat([K, eye.expand(NP, NP, K.shape[2])], dim=1)
+    for k in range(NP):
+        inv = 1.0 / A[k, k]
+        row = A[k] * inv[None, :]
+        colk = A[:, k, :]
+        A = A - colk[:, None, :] * row[None, :, :]
+        A[k] = row
+    return A[:, NP:, :]
+
+
+def richardson_solve(KN, Kinv, r0, iters, delta0=None):
+    """KN·δ = r0 by Richardson iteration preconditioned with K̄⁻¹: the
+    warm start δ = δ₀ + K̄⁻¹(r0 − KN·δ₀) (δ = K̄⁻¹r0 cold), then
+    ``iters`` − 1 refinements."""
+    if delta0 is None:
+        delta = lanes_matvec(Kinv, r0)
+    else:
+        delta = delta0 + lanes_matvec(Kinv, r0 - lanes_matvec(KN, delta0))
+    for _ in range(iters - 1):
+        resid = r0 - lanes_matvec(KN, delta)
+        delta = delta + lanes_matvec(Kinv, resid)
+    return delta
+
+
+def window_mean_theta(TH, W, km8, kk8, bdf2):
+    """THbar (W, km8 + kk8, B): the per-window mean of the θm and θk rows
+    of the merged table, bdf (1.5 for BDF-2) folded into the mass rows,
+    as the reference's wrapper builds it outside its kernel."""
+    nt, K8, B = TH.shape
+    kmk8 = km8 + kk8
+    THbar = TH.reshape(W, nt // W, K8, B)[:, :, :kmk8, :].mean(dim=1)
+    scale = torch.ones((kmk8, 1), dtype=TH.dtype, device=TH.device)
+    scale[:km8] = 1.5 if bdf2 else 1.0
+    return (THbar * scale[None]).contiguous()
 
 
 def _gauss_jordan(KN, r0, n_real):
@@ -179,8 +229,10 @@ def panels_substitute(panels, r, NP):
 
 def _bdf_step_merged(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
                      VE, dtb0, bdf2, n_real, NP, km8, kk8, kf8,
-                     panels=None, save_panels=False):
-    """One merged-dot residual-form BDF step (``_bdf_step_merged``)."""
+                     panels=None, save_panels=False, Kinv=None,
+                     solve_iters=None, dprev=None):
+    """One merged-dot residual-form BDF step (``_bdf_step_merged``).
+    Returns (u_hi, u_lo, probes, δ, panels)."""
     kmk8 = km8 + kk8
     B = tts.shape[1]
     pred_hi, pred_lo, d, bdf = _dd_predictor(uN, lo, uN1, lo1, step, bdf2)
@@ -208,7 +260,9 @@ def _bdf_step_merged(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
     r0 = MNd + fN - KLp - trip
 
     out_panels = None
-    if panels is not None:
+    if solve_iters is not None and Kinv is not None:
+        delta = richardson_solve(KN, Kinv, r0, solve_iters, delta0=dprev)
+    elif panels is not None:
         # sub1 follower: substitute with the leader's panels, refine once
         # against this step's own KN.
         delta = panels_substitute(panels, r0, NP)
@@ -220,7 +274,7 @@ def _bdf_step_merged(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
         delta = lanes_solve(KN, r0, n_real, NP)
     uN_new, lo_new = dd_add_small(pred_hi, pred_lo, delta)
     probes = VE @ uN_new + tts[kmk8 + kf8:kmk8 + kf8 + PROBE_P]
-    return uN_new, lo_new, probes, out_panels
+    return uN_new, lo_new, probes, delta, out_panels
 
 
 def step_roles(period, group):
@@ -241,9 +295,11 @@ def step_roles(period, group):
 
 def _check_args(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, widths,
                 with_trilinear, km8, kk8, kf8, paired_lu, paired_mode,
-                period):
+                period, n_real, solve_iters):
     """Validate shapes/options; returns (W, width, NP, km, kk, period,
-    group)."""
+    group). The group is 0 (per-step solves) at N ≤ GJ_FORI_MIN, where
+    the reference's Gauss-Jordan ignores paired LU, and under the
+    Richardson solve, which takes precedence over it."""
     W = Bmk.shape[0]
     NP = VE.shape[2]
     nt, K8, B = TH.shape
@@ -278,36 +334,41 @@ def _check_args(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, widths,
                          "only 'sub1'")
     if paired_lu is not None and paired_lu < 0:
         raise ValueError("paired_lu must be None, 0 or a group size ≥ 2")
+    if solve_iters is not None and int(solve_iters) < 1:
+        raise ValueError("solve_iters must be None (LU) or ≥ 1")
     period = width if period is None else int(period)
     if period < 1 or width % period:
         raise ValueError(f"period {period} must divide the window width "
                          f"{width}")
-    # Panel reuse only pays above the blocked-LU threshold (reference:
-    # the small-N Gauss-Jordan path ignores paired_lu).
     group = paired_lu if (paired_lu and paired_lu >= 2) else 0
+    if n_real <= GJ_FORI_MIN or solve_iters is not None:
+        group = 0
     return W, width, NP, km, kk, period, group
 
 
 def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
                              *, widths, dt, bdf2=True, with_trilinear=True,
                              n_real, km8, kk8, kf8, paired_lu=None,
-                             paired_mode="sub1", period=None):
+                             paired_mode="sub1", period=None,
+                             solve_iters=None):
     """Plain PyTorch twin of K1; same arguments and results as
     :func:`online_sweep_windowed_fused`."""
     W, width, NP, _km, _kk, period, group = _check_args(
         TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, widths,
-        with_trilinear, km8, kk8, kf8, paired_lu, paired_mode, period)
-    if n_real <= GJ_FORI_MIN:
-        group = 0
+        with_trilinear, km8, kk8, kf8, paired_lu, paired_mode, period,
+        n_real, solve_iters)
     if TH.is_cuda:
         _no_tf32()
     nt, _K8, B = TH.shape
     dt_c = torch.tensor(dt, dtype=TH.dtype, device=TH.device)
     dtb0 = dt_c * b0 if with_trilinear else None
     roles = step_roles(period, group)
+    THbar = (window_mean_theta(TH, W, km8, kk8, bdf2)
+             if solve_iters is not None else None)
 
     probes = TH.new_empty((nt, PROBE_P, B))
     uN, lo, uN1, lo1 = state0[0], state0[1], state0[2], state0[3]
+    dprev = torch.zeros_like(uN)
     for w in range(W):
         T = Tp[w]
         uN, lo = dd_matvec(T, uN, lo)
@@ -315,15 +376,23 @@ def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
         consts = (Bmk[w].T, BmF[w].T, BkF[w].T, Bf[w].T)
         TQ_w = TQ[w] if with_trilinear else None
         VE_w = VE[w]
+        Kinv = None
+        if solve_iters is not None:
+            dprev = T @ dprev
+            thb = THbar[w]
+            if with_trilinear:
+                thb = torch.cat([thb, uN * dtb0], dim=0)
+            Kinv = lanes_invert((consts[0] @ thb).reshape(NP, NP, B), NP)
         pan = None
         for s in range(width):
             step = w * width + s
             role = roles[s % period]
-            uN_new, lo_new, probes[step], out_pan = _bdf_step_merged(
+            uN_new, lo_new, probes[step], dprev, out_pan = _bdf_step_merged(
                 TH[step], *consts, uN, lo, uN1, lo1, step, TQ_w, VE_w,
                 dtb0, bdf2, n_real, NP, km8, kk8, kf8,
                 panels=pan if role == "follow" else None,
-                save_panels=role == "lead",
+                save_panels=role == "lead", Kinv=Kinv,
+                solve_iters=solve_iters, dprev=dprev,
             )
             if role == "lead":
                 pan = out_pan
@@ -337,7 +406,7 @@ def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
 def _bind(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.romtime_windowed_fused.argtypes = (
-        [ptr] * 12 + [i32] * 13 + [ctypes.c_float, ptr])
+        [ptr] * 13 + [i32] * 14 + [ctypes.c_float, ptr])
     lib.romtime_windowed_fused.restype = i32
 
 
@@ -345,7 +414,7 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
                                 state0, *, widths, dt, bdf2=True,
                                 with_trilinear=True, n_real, km8, kk8, kf8,
                                 paired_lu=None, paired_mode="sub1",
-                                period=None):
+                                period=None, solve_iters=None):
     """Whole-trajectory windowed serving sweep (K1).
 
     TH     : (nt, K8, B) merged θ table [θm | θk…,1 | θf | g] (8-aligned
@@ -360,29 +429,33 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
     b0     : (1, B) trilinear coefficient;  state0 : (4, NP, B) dd carry
     widths : W equal window step counts
     period : steps per grouping period (default: one window)
+    solve_iters : Richardson iterations per step (None: the LU schedule)
 
     Returns (probes (nt, PROBE_P, B), state (4, NP, B)), float32. CPU
     tensors run the twin; CUDA tensors launch the kernel (and count the
-    launch in ``online_sweep_windowed_fused.launches``)."""
+    launch in ``online_sweep_windowed_fused.launches``, a launch with the
+    Richardson solve also in ``.richardson_launches``)."""
     args = (TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0)
     kw = dict(widths=widths, dt=dt, bdf2=bdf2,
               with_trilinear=with_trilinear, n_real=n_real, km8=km8,
               kk8=kk8, kf8=kf8, paired_lu=paired_lu,
-              paired_mode=paired_mode, period=period)
+              paired_mode=paired_mode, period=period,
+              solve_iters=solve_iters)
     if TH.device.type == "cpu":
         return windowed_fused_reference(*args, **kw)
     if TH.device.type != "cuda":
         raise ValueError(f"unsupported device {TH.device}")
     W, width, NP, km, kk, period, group = _check_args(
         *args, widths, with_trilinear, km8, kk8, kf8, paired_lu,
-        paired_mode, period)
-    if n_real <= GJ_FORI_MIN:
-        group = 0
+        paired_mode, period, n_real, solve_iters)
     if not with_trilinear:
         TQ = TH.new_zeros((1,))
+    THbar = (window_mean_theta(TH, W, km8, kk8, bdf2)
+             if solve_iters is not None else TH.new_zeros((1,)))
     for name, t in zip(("TH", "Bmk", "BmF", "BkF", "Bf", "TQ", "VE", "Tp",
-                        "b0", "state0"), (TH, Bmk, BmF, BkF, Bf, TQ, VE,
-                                          Tp, b0, state0)):
+                        "b0", "state0", "THbar"),
+                       (TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
+                        THbar)):
         if t.dtype != torch.float32 or t.device != TH.device:
             raise ValueError(f"{name} must be float32 on {TH.device}")
         if not t.is_contiguous():
@@ -398,14 +471,17 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
         err = lib.romtime_windowed_fused(
             TH.data_ptr(), Bmk.data_ptr(), BmF.data_ptr(), BkF.data_ptr(),
             Bf.data_ptr(), TQ.data_ptr(), VE.data_ptr(), Tp.data_ptr(),
-            b0.data_ptr(), state0.data_ptr(), probes.data_ptr(),
-            state.data_ptr(),
+            b0.data_ptr(), state0.data_ptr(), THbar.data_ptr(),
+            probes.data_ptr(), state.data_ptr(),
             W, width, period, NP, B, km8, kk8, kf8, km, kk,
             int(bool(with_trilinear)), int(bool(bdf2)), group,
-            float(dt), stream)
+            int(solve_iters or 0), float(dt), stream)
     kernel_build.check_launch(lib, err, "windowed_fused")
     online_sweep_windowed_fused.launches += 1
+    if solve_iters is not None:
+        online_sweep_windowed_fused.richardson_launches += 1
     return probes, state
 
 
 online_sweep_windowed_fused.launches = 0
+online_sweep_windowed_fused.richardson_launches = 0

@@ -9,19 +9,29 @@ budget (:class:`PrecomputePolicy`), otherwise the θ-streaming sweep that
 by default, or a K3 launch per window. The global engine takes K4 over
 materialized tables or K5 on the same test.
 
-The fused sweep solves each step with a pivot-free LU. By default it
-reuses one factorization per group of ``WINDOWED_PAIRED_LU`` steps
-(mode ``"sub1"``: the followers substitute with the leader's factors and
-refine once against their own matrix). Richardson iteration and the
-other follower modes are not ported: asking for them raises instead of
-being ignored.
+The fused sweep's solve (:class:`SolvePolicy`) is the reference's: the
+per-window Richardson solve when the measured within-window contraction
+reaches the f32 band in few enough iterations (``WINDOWED_SOLVE_ITERS =
+"auto"``), else the pivot-free LU, reusing one factorization per group
+of ``WINDOWED_PAIRED_LU`` steps (mode ``"sub1"``: the followers
+substitute with the leader's factors and refine once against their own
+matrix). The other follower modes are not ported: asking for them raises
+instead of being ignored.
 """
 
+import itertools
 import os
+
+import numpy as np
+import torch
+
+from ...dtypes import compute_dtype_scope
 
 WINDOWED_PAIRED_LU = 5
 WINDOWED_PAIRED_MODE = "sub1"
 PORTED_PAIRED_MODES = ("sub1", "off")
+
+_UNSET = object()
 
 
 class PrecomputePolicy:
@@ -77,21 +87,138 @@ def windowed_paired_mode():
     return mode
 
 
-def windowed_solve_iters():
-    """Richardson iterations: not ported. ``ROMTIME_SOLVE_ITERS`` > 0
-    raises; unset or 0 selects the LU (None)."""
-    env = os.environ.get("ROMTIME_SOLVE_ITERS")
-    if env is not None and env != "" and int(env) > 0:
-        raise NotImplementedError(
-            "Richardson solve (ROMTIME_SOLVE_ITERS > 0) is not ported; "
-            "unset it or set 0 for the LU")
-    return None
+def paired_lu_period(width, K8, n_real):
+    """Steps per paired-LU schedule period: the reference's kernel chunk
+    ``_fused_chunk`` (``pallas_online.py:1591-1602``), the largest divisor
+    of the window width within min(75, its 44 MiB θ-slot budget,
+    60 above N=20 else ⌊1152/N⌋). Each period opens with two full LUs, so
+    the rule fixes which steps refactorize, and the port keeps it."""
+    slot_cap = max(1, (44 * 1024 * 1024) // (2 * K8 * 128 * 4))
+    compile_cap = 60 if n_real > 20 else max(1, 1152 // max(n_real, 1))
+    cap = min(75, slot_cap, compile_cap)
+    for c in range(min(cap, width), 0, -1):
+        if width % c == 0:
+            return c
+    return 1
 
 
-def windowed_solve_group():
-    """(group, mode) for the fused sweep: group None means per-step LU."""
-    windowed_solve_iters()
-    mode = windowed_paired_mode()
-    if mode == "off":
-        return None, "sub1"
-    return windowed_paired_lu(), mode
+def box_corners(grid):
+    """The distinct corners of the μ box ``grid`` (name → (lo, hi)), in
+    the reference's ``itertools.product`` order."""
+    corners = []
+    for vals in itertools.product(*[(float(min(b)), float(max(b)))
+                                    for b in grid.values()]):
+        mu = dict(zip(grid.keys(), vals))
+        if mu not in corners:
+            corners.append(mu)
+    return corners
+
+
+class SolvePolicy:
+    """The fused sweep's per-step solve (reference ``SolvePolicyMixin``,
+    ``policy.py:64-274``). Class attributes an instance may override:
+
+    - ``WINDOWED_SOLVE_ITERS``: ``"auto"`` (measure ρ, below), an
+      iteration count, or None (the LU); ``ROMTIME_SOLVE_ITERS`` overrides
+      (0 → LU, n → n);
+    - ``WINDOWED_SOLVE_ITERS_CAP`` (accuracy) and
+      ``WINDOWED_SOLVE_ITERS_PERF_CAP`` (the reference's measured
+      crossover against the LU): "auto" takes the LU above the smaller.
+
+    Needs ``self.fom``, ``self.grid`` (name → (lo, hi)), ``self.windows``
+    and ``self._theta_sources()``."""
+
+    WINDOWED_SOLVE_ITERS = "auto"
+    WINDOWED_SOLVE_ITERS_CAP = 12
+    WINDOWED_SOLVE_ITERS_PERF_CAP = 5
+
+    def windowed_solve(self):
+        """(solve_iters, paired-LU group, mode) of the fused sweep: with
+        Richardson iterations the group is unused (Richardson takes
+        precedence, reference ``pallas_online.py:1489``); group None means
+        the per-step LU."""
+        mode = windowed_paired_mode()
+        iters = self._windowed_solve_iters()
+        if mode == "off":
+            return iters, None, "sub1"
+        return iters, windowed_paired_lu(), mode
+
+    def _windowed_solve_iters(self):
+        env = os.environ.get("ROMTIME_SOLVE_ITERS")
+        if env is not None and env != "":
+            n = int(env)
+            return n if n > 0 else None
+        setting = self.WINDOWED_SOLVE_ITERS
+        if setting == "auto":
+            return self._auto_solve_iters()
+        return setting
+
+    def _auto_solve_iters(self):
+        """The measured Richardson iteration count of the active windows,
+        or None (→ LU). The reference's μ-local fleet branch (the worst
+        case over the active cell's (W, N) group, ``policy.py:160-185``)
+        waits for the port's fleet container (ROADMAP Queue 1, item 1):
+        here the active windows decide alone."""
+        win = self.windows
+        if win is None:
+            return None
+        return self._auto_iters_for(win)
+
+    def _auto_iters_for(self, win):
+        """ρ = max ‖I − K̄_w⁻¹K(μ, t)‖₂ over the μ-box corners and the
+        window ends (:meth:`_auto_iters_rho`), then ρ_eff = min(1.3ρ + 0.02,
+        0.999) and ⌈log 3e-8 / log ρ_eff⌉ iterations, or None above
+        min(cap, perf cap). Memoized on the windows object, with ρ beside
+        it (``win._auto_iters_rho_value``)."""
+        memo = getattr(win, "_auto_iters_memo", _UNSET)
+        if memo is not _UNSET:
+            return memo
+        if self.grid is None:
+            raise ValueError("the auto solve policy needs the μ box "
+                             "(grid) of the serving configuration")
+        fom = self.fom
+        sources = self._theta_sources()
+        stiff = [n for n in sources if n not in ("mass", "rhs_vec")]
+        rho = self._auto_iters_rho(
+            box_corners(self.grid)[:8], np.asarray(win.bounds), sources,
+            stiff, float(fom.dt), win.n_windows, win.N, win)
+        rho_eff = min(rho * 1.3 + 0.02, 0.999)
+        iters = int(np.ceil(np.log(3e-8) / np.log(rho_eff)))
+        cap = min(self.WINDOWED_SOLVE_ITERS_CAP,
+                  self.WINDOWED_SOLVE_ITERS_PERF_CAP)
+        result = iters if iters <= cap else None
+        win._auto_iters_memo = result
+        win._auto_iters_rho_value = rho
+        return result
+
+    def _auto_iters_rho(self, corners, bounds, sources, stiff, dt, W, N,
+                        win):
+        """Eager float64 probe on the CPU (as the reference pins it): at
+        each corner and each window of ``range(0, W, max(1, W // 4))``,
+        K̄ is the mean of the linear step matrix 1.5·M + dt·S at the window's
+        first and last steps, and ρ the largest ‖I − K̄⁻¹K‖₂ at those two
+        steps."""
+        rho = 0.0
+        with compute_dtype_scope(torch.float64):
+            for mu_c in corners:
+                mu_b = {k: torch.tensor([v], dtype=torch.float64)
+                        for k, v in mu_c.items()}
+
+                def K_at(w, step, mu_b=mu_b):
+                    t = torch.tensor((step + 1) * dt, dtype=torch.float64)
+                    K = 1.5 * (sources["mass"]._entries_traced(mu_b, t)
+                               .numpy()[:, 0]
+                               @ np.asarray(win.combines["mass"][w]).T)
+                    for nm in stiff:
+                        K = K + dt * (sources[nm]._entries_traced(mu_b, t)
+                                      .numpy()[:, 0]
+                                      @ np.asarray(win.combines[nm][w]).T)
+                    return K.reshape(N, N)
+
+                for w in range(0, W, max(1, W // 4)):
+                    a, b = int(bounds[w]), int(bounds[w + 1]) - 1
+                    Kinv = np.linalg.inv(0.5 * (K_at(w, a) + K_at(w, b)))
+                    for s in (a, b):
+                        M = np.eye(N) - Kinv @ K_at(w, s)
+                        rho = max(rho, float(np.linalg.norm(M, 2)))
+        return rho

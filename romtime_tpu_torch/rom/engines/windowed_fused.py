@@ -13,8 +13,10 @@ Two stages, as in the reference:
 2. :func:`windowed_sweep` (``:310-488``) takes the reference's branch:
    materialized per-window operator tables and one K2 launch per window
    when the tables fit the precompute budget (:func:`sweep_materialized`),
-   else the fused K1 over all windows (:func:`sweep_fused`, the default)
-   or, under ``ROMTIME_WINDOWED_KERNEL=v2``, one K3 launch per window
+   else the fused K1 over all windows (:func:`sweep_fused`, the default;
+   its solve, the per-window Richardson or the paired LU, from the
+   serving object's :class:`~.policy.SolvePolicy`) or, under
+   ``ROMTIME_WINDOWED_KERNEL=v2``, one K3 launch per window
    (:func:`sweep_theta_v2`). Between per-window launches the dd carry is
    re-expressed through the window transfer with a double-word matvec.
 """
@@ -35,7 +37,7 @@ from ...ops.windowed_fused import (
     pad_dim,
 )
 from ..registration import GUARD_FACTOR, _feature_value
-from .policy import windowed_kernel, windowed_solve_group
+from .policy import paired_lu_period, windowed_kernel
 
 MASS, RHS = "mass", "rhs_vec"
 
@@ -249,43 +251,6 @@ def windowed_prep(fom, sources, win, tables, mu):
     return out
 
 
-#: Lanes and pivot/row floor of the pivot-free LU check.
-PIVOT_CHECK_LANES = (0, -1)
-PIVOT_FLOOR = 1e-3
-
-
-def certify_pivot_free(tables, prepped, N):
-    """Pivot-free LU safety check before any launch: the unpivoted LU of
-    the window-entry solve matrix (state-free part bdf·MN + dt·S) of the
-    first and last lane, in float64, must keep every pivot above
-    PIVOT_FLOOR × its row's largest entry. Returns the smallest such
-    ratio; raises below it."""
-    Bmk = tables["Bmk"].double().cpu()
-    W = Bmk.shape[0]
-    NP = tables["VE"].shape[2]
-    km8, kk8 = tables["km8"], tables["kk8"]
-    nt = prepped["THm"].shape[0]
-    width = nt // W
-    worst = np.inf
-    for w in range(W):
-        step = w * width
-        bdf = 1.0 if step == 0 else 1.5
-        th = torch.cat([prepped["THm"][step] * bdf, prepped["THk"][step]],
-                       dim=0)[:, list(PIVOT_CHECK_LANES)].double().cpu()
-        K = (Bmk[w, :km8 + kk8].T @ th).reshape(NP, NP, -1)
-        for b in range(K.shape[2]):
-            A = K[:N, :N, b].numpy().copy()
-            for k in range(N):
-                ratio = abs(A[k, k]) / max(np.abs(A[k]).max(), 1e-300)
-                worst = min(worst, ratio)
-                A[k + 1:] -= np.outer(A[k + 1:, k] / A[k, k], A[k])
-    if not np.isfinite(worst) or worst < PIVOT_FLOOR:
-        raise ValueError(
-            f"serving solve matrices are not safe for the pivot-free LU "
-            f"(smallest pivot/row ratio {worst:.3g} < {PIVOT_FLOOR})")
-    return worst
-
-
 def window_width(win):
     """The common step count of the windows: every branch needs equal
     widths (reference ``:339-343``)."""
@@ -318,10 +283,12 @@ def stage2_branch(nt, NP, B, precompute_choice):
     return windowed_kernel()
 
 
-def sweep_inputs(fom, win, prepped, tables, group, mode):
+def sweep_inputs(fom, win, prepped, tables, solve):
     """(args, kwargs) of the K1 call for a prepped batch: the merged θ
-    table [THm | THk | THf | g], the stacked constants, b0 and a fresh
-    dd carry."""
+    table [THm | THk | THf | g], the stacked constants, b0, a fresh dd
+    carry, and the solve (``solve`` = (solve_iters, paired-LU group,
+    mode)) with the reference's paired-LU period."""
+    solve_iters, group, mode = solve
     width = window_width(win)
     NP = pad_dim(win.N)
     B = prepped["THm"].shape[2]
@@ -335,16 +302,16 @@ def sweep_inputs(fom, win, prepped, tables, group, mode):
               bdf2=fom.BDF_SCHEME == BDF.TWO,
               with_trilinear=win.trilinear is not None, n_real=win.N,
               km8=tables["km8"], kk8=tables["kk8"], kf8=tables["kf8"],
-              paired_lu=group, paired_mode=mode)
+              paired_lu=group, paired_mode=mode, solve_iters=solve_iters,
+              period=paired_lu_period(width, TH.shape[1], win.N))
     return args, kw
 
 
-def sweep_fused(fom, win, prepped, tables):
+def sweep_fused(fom, win, prepped, tables, solve):
     """Fused branch (reference ``:429-451``): one K1 launch over all
-    windows, with the paired-LU solve policy. Returns (probes
+    windows with ``solve`` (:func:`sweep_inputs`). Returns (probes
     (nt, 8, B), state (4, NP, B))."""
-    group, mode = windowed_solve_group()
-    args, kw = sweep_inputs(fom, win, prepped, tables, group, mode)
+    args, kw = sweep_inputs(fom, win, prepped, tables, solve)
     return online_sweep_windowed_fused(*args, **kw)
 
 
@@ -432,17 +399,23 @@ def sweep_theta_v2(fom, win, prepped, tables):
     return torch.cat(parts), state
 
 
-def windowed_sweep(fom, win, prepped, tables, precompute_choice):
-    """Stage 2 through the branch :func:`stage2_branch` picks. Returns
-    (nt, …, B) tensors: t, probes (nt, 2, B), uN_final (N, B) and
-    ``dil``/``dil_oor`` when the prep produced them."""
+def windowed_sweep(fom, win, prepped, tables, policy):
+    """Stage 2 through the branch :func:`stage2_branch` picks with
+    ``policy.precompute_choice``; the fused branch solves as
+    ``policy.windowed_solve()`` says. Returns (nt, …, B) tensors: t,
+    probes (nt, 2, B), uN_final (N, B) and ``dil``/``dil_oor`` when the
+    prep produced them."""
     window_width(win)
     THm = prepped["THm"]
     nt, _k, B = THm.shape
-    branch = stage2_branch(nt, pad_dim(win.N), B, precompute_choice)
-    sweep = {"matrices": sweep_materialized, "fused": sweep_fused,
-             "v2": sweep_theta_v2}[branch]
-    probes, state = sweep(fom, win, prepped, tables)
+    branch = stage2_branch(nt, pad_dim(win.N), B, policy.precompute_choice)
+    if branch == "fused":
+        probes, state = sweep_fused(fom, win, prepped, tables,
+                                    policy.windowed_solve())
+    else:
+        sweep = {"matrices": sweep_materialized,
+                 "v2": sweep_theta_v2}[branch]
+        probes, state = sweep(fom, win, prepped, tables)
     dil = prepped.get("dil")
     out = {"t": time_grid(fom, dil, THm.dtype, THm.device),
            "probes": probes[:, :2, :], "uN_final": state[0, :win.N, :]}

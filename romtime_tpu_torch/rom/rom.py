@@ -1,7 +1,8 @@
 """Piston ROM serving (counterpart of the serving path of
 ``romtime_tpu/rom/rom.py``: ``RomConstructorNonlinear.solve_batch`` with
 ``mode="probes"`` on windowed serving, the ``"windowed-pallas"`` engine,
-and on the global basis, the ``"pallas"`` engine).
+and on the global basis, the ``"pallas"`` engine, behind the reference's
+pivot-free guard ``certify_pivot_free``).
 
 The offline build (POD, DEIM training, window construction, the
 trilinear state table) stays in the JAX package; a serving object here is
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from ..conventions import PistonParameters, Stage
-from ..dtypes import asarray, compute_dtype
+from ..dtypes import asarray, compute_dtype, compute_dtype_scope
 from ..deim import (
     DiscreteEmpiricalInterpolation,
     MatrixDiscreteEmpiricalInterpolation,
@@ -26,9 +27,8 @@ from .engines.global_fused import (
     global_tables,
     supported,
 )
-from .engines.policy import PrecomputePolicy
+from .engines.policy import PrecomputePolicy, SolvePolicy, box_corners
 from .engines.windowed_fused import (
-    certify_pivot_free,
     windowed_prep,
     windowed_sweep,
     windowed_tables,
@@ -58,7 +58,7 @@ def make_reductors(fom, dofs):
     }
 
 
-class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy):
+class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
     """Piston serving on one device (the card unless ``device`` says
     otherwise).
 
@@ -68,10 +68,19 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy):
     ``global_serving`` the global-basis
     :class:`~romtime_tpu_torch.rom.engines.global_fused.GlobalServing`:
     one of them, or both (windows then serve by default, as in the
-    reference)."""
+    reference, and the global basis carries the pivot-free guard).
+    ``grid`` is the μ box, name → (lo, hi), that the guard and the auto
+    solve policy probe."""
+
+    # The online engines eliminate without pivoting, justified by the
+    # M-dominance of K_N = bdf·M_N + dt·S_N; the certifiable proxy is
+    # cond₂(K_N) ≤ PIVOT_FREE_COND_BOUND over the μ box (reference
+    # rom.py:842-859). "auto": certify once per instance; "off": skip.
+    PIVOT_FREE_COND_BOUND = 1e4
+    PIVOT_GUARD = "auto"
 
     def __init__(self, fom, reductors, windows=None, device="cuda",
-                 global_serving=None):
+                 global_serving=None, grid=None):
         missing = set(THETA_SOURCES) - set(reductors)
         if missing:
             raise ValueError(f"missing θ sources: {sorted(missing)}")
@@ -82,8 +91,10 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy):
         self.reductors = dict(reductors)
         self.device = torch.device(device)
         self.global_serving = global_serving
+        self.grid = None if grid is None else {
+            k: (float(lo), float(hi)) for k, (lo, hi) in grid.items()}
         self._global_tables = None
-        self._global_pivot_cert = None
+        self._pivot_cert = None
         self._set_serving_windows(windows)
 
     @property
@@ -99,10 +110,77 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy):
 
     def _set_serving_windows(self, win):
         """Swap the active windowed serving tables (the cached device
-        tables and the pivot check belong to the old ones)."""
+        tables belong to the old ones; the pivot-free certificate belongs
+        to the global basis and stays)."""
         self.windows = win
         self._tables = None
-        self._pivot_cert = None
+
+    def _guard_parts(self, mu, t):
+        """(M_N, dt·S_N) of the global basis at (μ, t) and the zero state,
+        float64 numpy: each operator is its folded combine times its θ
+        (the reference's ``assemble_*``), S_N = A_N + C_N + N̂_N (the
+        trilinear term vanishes at the zero state, rom.py:1589-1634)."""
+        gs = self.global_serving
+        N = gs.N
+        with compute_dtype_scope(torch.float64):
+            mu_b = {k: torch.tensor([float(v)], dtype=torch.float64)
+                    for k, v in mu.items()}
+            t_b = torch.tensor(float(t), dtype=torch.float64)
+
+            def op(name):
+                theta = self.reductors[name]._thetas_traced(mu_b, t_b)
+                return (np.asarray(gs.combines[name], np.float64)
+                        @ theta.numpy()[:, 0]).reshape(N, N)
+
+            MN = op("mass")
+            S = sum(op(n) for n in stiffness_side(THETA_SOURCES))
+        return MN, float(self.fom.dt) * S
+
+    def certify_pivot_free(self, time_probes=4, bound=None, margin=1.3):
+        """Sweep cond₂(1.5·M_N + dt·S_N) of the global basis over the
+        μ-box corners (the first 8) and center at ``time_probes`` times in
+        [dt, tf]; return the largest. Raises ValueError above
+        ``bound/margin`` (the zero-state probe misses the trilinear
+        term, hence the margin). Reference ``rom.py:861-933``."""
+        bound = self.PIVOT_FREE_COND_BOUND if bound is None else bound
+        fom = self.fom
+        dt = float(fom.dt)
+        tf = float(fom.domain[fom.NT]) * dt
+        if self.grid is not None:
+            center = {k: 0.5 * (float(min(b)) + float(max(b)))
+                      for k, b in self.grid.items()}
+            probes = box_corners(self.grid)[:8] + [center]
+        elif getattr(fom, "mu", None):
+            probes = [dict(fom.mu)]
+        else:
+            self._pivot_cert = 0.0
+            return 0.0
+        cond_max, arg = 0.0, None
+        for mu_c in probes:
+            for t in np.linspace(dt, tf, time_probes):
+                MN, dtS = self._guard_parts(mu_c, float(t))
+                c = float(np.linalg.cond(1.5 * MN + dtS, 2))
+                if c > cond_max:
+                    cond_max, arg = c, (mu_c, float(t))
+        self._pivot_cert = cond_max
+        if cond_max > bound / margin:
+            raise ValueError(
+                f"pivot-free online solve refused: cond2(K_N) = "
+                f"{cond_max:.3e} at mu={arg[0]}, t={arg[1]:.4g} exceeds "
+                f"PIVOT_FREE_COND_BOUND/margin = {bound:.1e}/{margin} — "
+                "the unpivoted elimination's growth is no longer "
+                "certified O(1) for this operator family. Reduce dt, "
+                "re-scale the operators, or set PIVOT_GUARD='off' to "
+                "accept uncertified serving numerics.")
+        return cond_max
+
+    def _ensure_pivot_free_certified(self):
+        """Run the conditioning sweep once per instance (``"auto"``);
+        skipped with ``PIVOT_GUARD = "off"`` or without a global basis."""
+        if self.PIVOT_GUARD == "off" or self.global_serving is None:
+            return
+        if self._pivot_cert is None:
+            self.certify_pivot_free()
 
     def _windowed_tables(self):
         if self._tables is None:
@@ -152,46 +230,45 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy):
         raise NotImplementedError(
             f"mode {mode!r} at B={B} in {compute_dtype()} takes the "
             f"reference's lanes engine (vmap without hyper-reduction), "
-            f"which is not ported (ROADMAP Queue 1, item 7)")
+            f"which is not ported (ROADMAP Queue 1, item 3)")
 
     def _serve(self, mus, engine):
         """Stages 1 and 2 of ``engine`` on the device: (nt, …, B) tensors
-        (the pivot-free check runs once per configuration first)."""
+        (the pivot-free guard runs once per instance first)."""
         if engine == "windowed-pallas":
             if self.windows is None:
                 raise ValueError("no windowed serving configuration "
                                  "attached")
+            self._ensure_pivot_free_certified()
             tables = self._windowed_tables()
             prepped = self.prep(mus)
-            if self._pivot_cert is None:
-                self._pivot_cert = certify_pivot_free(tables, prepped,
-                                                      self.windows.N)
             return windowed_sweep(self.fom, self.windows, prepped, tables,
-                                  self.precompute_choice)
+                                  self)
         if engine == "pallas":
             gs = self.global_serving
             if gs is None:
                 raise ValueError("no global serving configuration attached")
+            self._ensure_pivot_free_certified()
             tables = self._global_serving_tables()
             prepped = self.prep(mus, engine="pallas")
-            if self._global_pivot_cert is None:
-                self._global_pivot_cert = certify_pivot_free(tables,
-                                                             prepped, gs.N)
             return global_sweep(self.fom, gs, prepped, tables,
                                 self.precompute_choice)
         raise NotImplementedError(
             f"engine {engine!r} is not ported (ported: 'windowed-pallas', "
             f"'pallas')")
 
-    def solve_batch(self, mus, step=Stage.ONLINE, mode="probes", engine=None,
+    def solve_batch(self, mus, step=Stage.ONLINE, mode="reduced", engine=None,
                     probe_reduce=None):
         """Serve a μ batch on ``engine`` (default: :meth:`_resolve_engine`):
         θ prep, then the stage-2 sweep the reference would take. Windowed
         (``engines/windowed_fused.windowed_sweep``): K2 per window while
         the operator tables fit the precompute budget, else the fused K1
-        or, under ``ROMTIME_WINDOWED_KERNEL=v2``, K3 per window. Global
+        (its solve from :class:`SolvePolicy`) or, under
+        ``ROMTIME_WINDOWED_KERNEL=v2``, K3 per window. Global
         (``engines/global_fused.global_sweep``): K4 over the materialized
-        tables on the same test, else K5.
+        tables on the same test, else K5. Only ``mode="probes"`` is
+        ported: the reference's default ``"reduced"`` (and ``"full"``)
+        run its lanes engine, and raise ``NotImplementedError`` here.
 
         Returns batch-first numpy arrays: ``t``, ``probes`` (B, nt, 2) —
         or (B, 2) / (B, nt//k, 2) with ``probe_reduce`` "mean" / k —
@@ -200,7 +277,9 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy):
         the μ it served."""
         if mode != "probes":
             raise NotImplementedError(
-                f"mode {mode!r} is not ported; serving runs mode='probes'")
+                f"mode {mode!r} runs the reference's lanes engine, which is "
+                f"not ported (ROADMAP Queue 1, item 3); serving runs "
+                f"mode='probes'")
         if engine is None:
             engine = self._resolve_engine(mode, len(mus))
         outs = self._serve(mus, engine)

@@ -11,7 +11,9 @@ scaled by 1/max_t|θ_k(μ_center, t)|, the mass combine carries the
 identity on its first (diagonal, positive) dof, the stiffness combine
 carries 2·I on its first (diagonal) dof, and the remaining combines are
 small noise. That keeps K = bdf·M + dt·S diagonally dominant, the regime
-of the pivot-free LU (``certify_pivot_free`` checks it before a sweep).
+of the pivot-free LU (``certify_pivot_free`` checks it on a global basis
+before the first sweep; the windowed cell carries none, so its check is
+skipped, as the reference skips it).
 """
 
 import numpy as np
@@ -25,7 +27,9 @@ from ..rom.engines.windowed_fused import time_grid
 from ..rom.rom import THETA_SOURCES, RomConstructorNonlinear, make_reductors
 from ..rom.windowed import WindowedServing
 
-#: The μ box of the flagship benchmark (a0, ω, δ; α and γ fixed).
+#: The μ box of the flagship benchmark (a0, ω, δ; α and γ fixed): the
+#: ``grid`` of the synthetic serving objects (the pivot-free guard and the
+#: auto solve policy probe its corners).
 MU_BOX = {"a0": (8.0, 10.0), "omega": (15.0, 20.0), "delta": (0.1, 0.15),
           "alpha": (1e-6, 1e-6), "gamma": (1.4, 1.4)}
 
@@ -239,7 +243,8 @@ def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
         transfers=transfers, combines=combines,
         trilinear=0.02 * rng.normal(size=(W, N * N, N)),
     )
-    return RomConstructorNonlinear(fom, reductors, win, device=device)
+    return RomConstructorNonlinear(fom, reductors, win, device=device,
+                                   grid=MU_BOX)
 
 
 def synthetic_global_cell(N=15, k=8, nx=1000, nt=1500, seed=0,
@@ -256,7 +261,7 @@ def synthetic_global_cell(N=15, k=8, nx=1000, nt=1500, seed=0,
                        combines={n: C[0] for n, C in combines.items()},
                        trilinear=0.02 * rng.normal(size=(N * N, N)))
     return RomConstructorNonlinear(fom, reductors, device=device,
-                                   global_serving=gs)
+                                   global_serving=gs, grid=MU_BOX)
 
 
 def global_tables(N, nt, B, seed=0, device="cuda", theta=False,

@@ -47,6 +47,34 @@ def test_cuda_kernel_matches_twin(N, W, width, B, group, options):
     assert (got_s - twin_s)[[0, 2]].abs().max().item() <= 5e-5 * sscale
 
 
+#: (N, W, width, B, solve_iters) of K1's Richardson solve: Gauss-Jordan-
+#: and blocked-LU-sized N (paired LU G=5 requested: Richardson takes
+#: precedence), a ragged lane tile, on the damped tables of kernel_tables.
+RICHARDSON_CASES = [(12, 3, 8, 128, 3), (12, 3, 8, 130, 6),
+                    (24, 3, 8, 128, 3), (24, 3, 8, 67, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,W,width,B,iters", RICHARDSON_CASES)
+def test_cuda_kernel_richardson_matches_twin(N, W, width, B, iters):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = kernel_tables(N, W, width, B, seed=N + iters, device="cuda")
+    kw.update(paired_lu=5, solve_iters=iters)
+    twin_p, twin_s = k1.windowed_fused_reference(*args, **kw)
+    n0 = k1.online_sweep_windowed_fused.launches
+    r0 = k1.online_sweep_windowed_fused.richardson_launches
+    got_p, got_s = k1.online_sweep_windowed_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert k1.online_sweep_windowed_fused.launches == n0 + 1
+    assert k1.online_sweep_windowed_fused.richardson_launches == r0 + 1
+    assert torch.isfinite(got_p).all() and torch.isfinite(got_s).all()
+    scale = twin_p.abs().max().item()
+    assert (got_p - twin_p).abs().max().item() <= 5e-5 * scale
+    sscale = twin_s[[0, 2]].abs().max().item()
+    assert (got_s - twin_s)[[0, 2]].abs().max().item() <= 5e-5 * sscale
+
+
 #: (N, nt, B, step0, options) for K2 and K3: Gauss-Jordan and blocked-LU
 #: sizes, ragged batches (B not a multiple of any lane tile), a chained
 #: launch (step0 > 0 from a nonzero carry), no trilinear term, BDF-1.

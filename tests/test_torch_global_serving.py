@@ -29,7 +29,11 @@ from romtime_tpu_torch import (
 from romtime_tpu_torch.dtypes import compute_dtype_scope as port_dtype_scope
 from romtime_tpu_torch.rom.engines import global_fused as engine
 from romtime_tpu_torch.rom.engines.windowed_fused import materialized_bytes
-from torch_parity import build_piston_hrom, global_payload_from_rom
+from torch_parity import (
+    build_piston_hrom,
+    global_payload_from_rom,
+    piston_mus,
+)
 
 N_GLOBAL = 15
 B = 128
@@ -41,13 +45,6 @@ REDUCTORS = ((OperatorType.MASS, "mdeim_Mh"),
              (OperatorType.CONVECTION, "mdeim_Ch"),
              (OperatorType.NONLINEAR_LIFTING, "mdeim_Nh_hat"),
              (OperatorType.TRILINEAR, "mdeim_Nh"))
-
-
-def _mus(n, seed=0):
-    rng = np.random.default_rng(seed)
-    return [dict(a0=rng.uniform(8.0, 10.0), omega=rng.uniform(15.0, 20.0),
-                 delta=rng.uniform(0.1, 0.15), alpha=1e-6, gamma=1.4)
-            for _ in range(n)]
 
 
 def _reference_solve(rom, mus, budget=None):
@@ -78,7 +75,7 @@ def global_cell(tmp_path_factory):
         rom.add_hyper_reductor(getattr(full, attr), which)
     rom.project_reductors()
     payload = global_payload_from_rom(rom)
-    mus = _mus(B, seed=2)
+    mus = piston_mus(B, seed=2)
     ref = {"matrices": _reference_solve(rom, mus),
            "thetas": _reference_solve(rom, mus, budget=0)}
     for out in ref.values():
@@ -94,7 +91,7 @@ def _port(payload):
 def test_solve_batch_pallas_engine_matches_reference(global_cell):
     """The K4 branch (the default budget holds the tables of B=128)."""
     _rom, payload, mus, ref = global_cell
-    got = _port(payload).solve_batch(mus, engine="pallas")
+    got = _port(payload).solve_batch(mus, mode="probes", engine="pallas")
     want = ref["matrices"]
     assert set(got) == set(want)
     assert got["probes"].shape == want["probes"].shape == (B, 96, 2)
@@ -115,9 +112,9 @@ def test_theta_branch_matches_reference_and_k4(global_cell):
     branch and against the port's own K4 branch."""
     _rom, payload, mus, ref = global_cell
     port = _port(payload)
-    k4 = port.solve_batch(mus)
+    k4 = port.solve_batch(mus, mode="probes")
     port.ONLINE_PRECOMPUTE_BUDGET = 0
-    k5 = port.solve_batch(mus)
+    k5 = port.solve_batch(mus, mode="probes")
     for name, want in (("reference K5", ref["thetas"]), ("port K4", k4)):
         scale = max(np.abs(want["probes"]).max(), 1e-6)
         err = np.abs(k5["probes"] - want["probes"]).max()
@@ -162,7 +159,7 @@ def test_global_routing(global_cell, monkeypatch, B_, budget, override, cap,
 
     monkeypatch.setattr(engine, "sweep_materialized", spy("matrices"))
     monkeypatch.setattr(engine, "sweep_theta", spy("thetas"))
-    out = port.solve_batch(_mus(B_, seed=11))
+    out = port.solve_batch(piston_mus(B_, seed=11), mode="probes")
     assert calls == [branch]
     assert out["probes"].shape == (B_, 96, 2)
     assert out["uN_final"].shape == (B_, N_GLOBAL)
@@ -180,15 +177,15 @@ def test_engine_gate(global_cell):
         assert rom._resolve_engine("probes", 100) == "lanes"
     assert port._resolve_engine("probes", 128) == "pallas"
     with pytest.raises(NotImplementedError, match="lanes"):
-        port.solve_batch(_mus(100))
+        port.solve_batch(piston_mus(100), mode="probes")
     with port_dtype_scope(torch.float64):
         with pytest.raises(NotImplementedError, match="lanes"):
-            port.solve_batch(_mus(128))
-    out = port.solve_batch(_mus(100), engine="pallas")
+            port.solve_batch(piston_mus(128), mode="probes")
+    out = port.solve_batch(piston_mus(100), mode="probes", engine="pallas")
     assert out["probes"].shape == (100, 96, 2)
     assert np.isfinite(out["probes"]).all()
     with pytest.raises(NotImplementedError, match="not ported"):
-        port.solve_batch(_mus(128), engine="lanes")
+        port.solve_batch(piston_mus(128), mode="probes", engine="lanes")
 
 
 def test_autotune_online_precompute(global_cell, tmp_path):
@@ -197,7 +194,7 @@ def test_autotune_online_precompute(global_cell, tmp_path):
     again, and an unmeasured configuration stays on the static policy."""
     _rom, payload, _mus_, _ref = global_cell
     port = _port(payload)
-    mus = _mus(B, seed=4)
+    mus = piston_mus(B, seed=4)
     path = str(tmp_path / "autotune.json")
     rec = port.autotune_online_precompute(mus, n_rep=2, path=path)
     assert rec["winner"] in ("matrices", "thetas")
@@ -229,7 +226,7 @@ def test_autotune_restores_override_on_failure(global_cell, monkeypatch,
 
     monkeypatch.setattr(engine, "sweep_materialized", broken)
     with pytest.raises(RuntimeError, match="variant failed"):
-        port.autotune_online_precompute(_mus(B), n_rep=1,
+        port.autotune_online_precompute(piston_mus(B), n_rep=1,
                                         path=str(tmp_path / "a.json"))
     assert port._precompute_override == "thetas"
     assert not (tmp_path / "a.json").exists()
@@ -243,7 +240,7 @@ def test_autotune_file_shared(global_cell, tmp_path, writer):
     rom, payload, _mus_, _ref = global_cell
     port = _port(payload)
     path = str(tmp_path / "autotune.json")
-    mus = _mus(B, seed=5)
+    mus = piston_mus(B, seed=5)
     try:
         with compute_dtype_scope(jnp.float32):
             if writer == "port":
@@ -273,7 +270,7 @@ def test_thetas_match_reference(global_cell):
     different op order)."""
     rom, payload, _mus_, _ref = global_cell
     port = _port(payload)
-    mu = _mus(1, seed=6)[0]
+    mu = piston_mus(1, seed=6)[0]
     t = 0.37
     with compute_dtype_scope(jnp.float32):
         for name, red in port._theta_sources().items():
@@ -301,8 +298,8 @@ def test_payload_roundtrip(global_cell):
 
 def test_synthetic_global_cell_serves():
     """The seeded global cell that chip_smoke.py serves on the card, at a
-    CPU size: the budget routes it, both branches agree, the pivot check
-    passes."""
+    CPU size: the budget routes it, both branches agree, the pivot-free
+    guard certifies cond₂(K_N) inside its bound."""
     from romtime_tpu_torch.testing.synthetic import (
         synthetic_global_cell,
         synthetic_mus,
@@ -310,13 +307,13 @@ def test_synthetic_global_cell_serves():
 
     rom = synthetic_global_cell(N=15, nx=100, nt=60, seed=3, device="cpu")
     mus = synthetic_mus(128, seed=4)
-    out = rom.solve_batch(mus, probe_reduce="mean")
+    out = rom.solve_batch(mus, mode="probes", probe_reduce="mean")
     assert out["probes"].shape == (128, 2)
     assert out["uN_final"].shape == (128, 15)
     assert np.isfinite(out["probes"]).all()
-    assert rom._global_pivot_cert >= 1e-3
+    assert 1.0 <= rom._pivot_cert <= rom.PIVOT_FREE_COND_BOUND / 1.3
     rom.ONLINE_PRECOMPUTE_BUDGET = 0
-    theta = rom.solve_batch(mus, probe_reduce="mean")
+    theta = rom.solve_batch(mus, mode="probes", probe_reduce="mean")
     scale = np.abs(out["probes"]).max()
     np.testing.assert_allclose(theta["probes"], out["probes"], rtol=0,
                                atol=3e-6 * scale)

@@ -25,9 +25,11 @@ from romtime_tpu_torch.rom.registration import DilationLaw
 from romtime_tpu_torch.rom.windowed import WindowedServing
 from torch_parity import (
     BRANCHES,
+    assert_served_close,
     build_piston_hrom,
     clear_serving_caches,
     payload_from_rom,
+    piston_mus,
     port_branch,
     reference_prep,
     reference_solve,
@@ -50,13 +52,6 @@ def piston_cell(tmp_path_factory):
     routed through numpy (torch_parity.build_piston_hrom)."""
     rom = build_piston_hrom(tmp_path_factory.mktemp("torch_piston")).rom
     return rom, payload_from_rom(rom)
-
-
-def _mus(B, seed=0):
-    rng = np.random.default_rng(seed)
-    return [dict(a0=rng.uniform(8.0, 10.0), omega=rng.uniform(15.0, 20.0),
-                 delta=rng.uniform(0.1, 0.15), alpha=1e-6, gamma=1.4)
-            for _ in range(B)]
 
 
 @pytest.fixture
@@ -85,22 +80,11 @@ def _assert_rows_close(got, want, name, rtol=1e-5):
         name, float((err / np.maximum(scale, 1e-30)).max()))
 
 
-def _assert_serving_close(got, ref):
-    assert np.isfinite(ref["probes"]).all()
-    assert np.isfinite(ref["uN_final"]).all()
-    assert got["probes"].shape == ref["probes"].shape
-    scale = max(np.abs(ref["probes"]).max(), 1e-3)
-    np.testing.assert_allclose(got["probes"], ref["probes"], rtol=0,
-                               atol=5e-6 * scale)
-    np.testing.assert_allclose(got["uN_final"], ref["uN_final"], rtol=0,
-                               atol=5e-5)
-
-
 def test_tables_match_reference(piston_cell):
     """Stacked per-window constants: same layouts, identical values."""
     rom, payload = piston_cell
     port = serving_from_arrays(payload, device="cpu")
-    ref_tables, _ = reference_prep(rom, _mus(4))
+    ref_tables, _ = reference_prep(rom, piston_mus(4))
     tables = port._windowed_tables()
     for key in ("Bmk", "BmF", "BkF", "BfT", "TQ", "VE", "Tp"):
         np.testing.assert_array_equal(tables[key].numpy(), ref_tables[key],
@@ -112,7 +96,7 @@ def test_tables_match_reference(piston_cell):
 
 def test_prep_tables_match_reference(piston_cell):
     rom, payload = piston_cell
-    mus = _mus(16, seed=1)
+    mus = piston_mus(16, seed=1)
     _, ref = reference_prep(rom, mus)
     port = serving_from_arrays(payload, device="cpu")
     got = {k: v.numpy() for k, v in port.prep(mus).items()}
@@ -127,12 +111,13 @@ def test_solve_batch_matches_reference(piston_cell):
     windowed serving and through the port's solve_batch, both under the
     default precompute budget (the materialized branch, K2)."""
     rom, payload = piston_cell
-    mus = _mus(128, seed=2)
+    mus = piston_mus(128, seed=2)
     ref = reference_solve(rom, mus)
-    got = serving_from_arrays(payload, device="cpu").solve_batch(mus)
+    got = serving_from_arrays(payload, device="cpu").solve_batch(
+        mus, mode="probes")
     assert set(got) == set(ref)
     np.testing.assert_allclose(got["t"], ref["t"], rtol=1e-6)
-    _assert_serving_close(got, ref)
+    assert_served_close(got, ref)
 
 
 @pytest.mark.parametrize("branch", ["fused", "v2"])
@@ -141,13 +126,13 @@ def test_solve_batch_branch_matches_reference(piston_cell, monkeypatch,
     """The θ-streaming branches (precompute budget 0 on both sides): the
     fused K1, and v2 with a K3 launch per window."""
     rom, payload = piston_cell
-    mus = _mus(128, seed=10)
+    mus = piston_mus(128, seed=10)
     port = port_branch(serving_from_arrays(payload, device="cpu"), branch,
                        monkeypatch)
-    got = port.solve_batch(mus)
+    got = port.solve_batch(mus, mode="probes")
     ref = reference_solve(rom, mus, branch=branch)
     assert set(got) == set(ref)
-    _assert_serving_close(got, ref)
+    assert_served_close(got, ref)
 
 
 #: (B, budget, ROMTIME_WINDOWED_KERNEL, branch) on the parity cell
@@ -176,7 +161,7 @@ def test_stage2_routing(piston_cell, monkeypatch, B, budget, env, branch):
     calls = []
 
     def spy(name):
-        def sweep(fom, win, prepped, tables):
+        def sweep(fom, win, prepped, tables, *_solve):
             calls.append(name)
             nt, _k, b = prepped["THm"].shape
             NP = tables["VE"].shape[2]
@@ -187,7 +172,7 @@ def test_stage2_routing(piston_cell, monkeypatch, B, budget, env, branch):
         attr = {"matrices": "sweep_materialized", "fused": "sweep_fused",
                 "v2": "sweep_theta_v2"}[name]
         monkeypatch.setattr(engine, attr, spy(name))
-    out = port.solve_batch(_mus(B, seed=11))
+    out = port.solve_batch(piston_mus(B, seed=11), mode="probes")
     assert calls == [branch]
     assert out["probes"].shape == (B, 96, 2)
 
@@ -213,12 +198,12 @@ def test_default_device_is_the_card(piston_cell):
     port = serving_from_arrays(payload)
     assert port.device == torch.device("cuda")
     with pytest.raises((RuntimeError, AssertionError)):
-        port.solve_batch(_mus(2))
+        port.solve_batch(piston_mus(2), mode="probes")
 
 
 def test_registered_prep_matches_reference(registered):
     rom, port = registered
-    mus = _mus(32, seed=3)
+    mus = piston_mus(32, seed=3)
     _, ref = reference_prep(rom, mus)
     got = {k: v.numpy() for k, v in port.prep(mus).items()}
     assert set(got) == set(ref) >= {"dil", "dil_oor"}
@@ -232,30 +217,31 @@ def test_registered_prep_matches_reference(registered):
 
 def test_registered_solve_batch_matches_reference(registered):
     rom, port = registered
-    mus = _mus(128, seed=4)
+    mus = piston_mus(128, seed=4)
     with torch.no_grad():
-        got = port.solve_batch(mus)
+        got = port.solve_batch(mus, mode="probes")
     ref = reference_solve(rom, mus)
     assert set(got) == set(ref)
     np.testing.assert_allclose(got["dil"], ref["dil"], rtol=1e-6)
     np.testing.assert_array_equal(got["dil_oor"], ref["dil_oor"])
     np.testing.assert_allclose(got["t"], ref["t"], rtol=1e-6)
-    _assert_serving_close(got, ref)
+    assert_served_close(got, ref)
 
 
 def test_probe_reduce(piston_cell):
     _rom, payload = piston_cell
     port = serving_from_arrays(payload, device="cpu")
-    mus = _mus(8, seed=5)
-    full = port.solve_batch(mus)["probes"]                   # (B, nt, 2)
-    mean = port.solve_batch(mus, probe_reduce="mean")["probes"]
+    mus = piston_mus(8, seed=5)
+    full = port.solve_batch(mus, mode="probes")["probes"]    # (B, nt, 2)
+    mean = port.solve_batch(mus, mode="probes",
+                            probe_reduce="mean")["probes"]
     # f32 time average in another summation order than numpy's.
     np.testing.assert_allclose(mean, full.mean(axis=1), rtol=0,
                                atol=1e-6 * np.abs(full).max())
-    every3 = port.solve_batch(mus, probe_reduce=3)["probes"]
+    every3 = port.solve_batch(mus, mode="probes", probe_reduce=3)["probes"]
     np.testing.assert_array_equal(every3, full[:, 2::3])
     with pytest.raises(ValueError):
-        port.solve_batch(mus, probe_reduce="max")
+        port.solve_batch(mus, mode="probes", probe_reduce="max")
 
 
 @pytest.mark.parametrize("direction", ["reference_to_port",
@@ -314,25 +300,26 @@ def test_empty_entries_raise(piston_cell):
     raises (the reference would fall back to a banded operator)."""
     _rom, payload = piston_cell
     fom = serving_from_arrays(payload, device="cpu").fom
-    mu = {k: torch.tensor([v]) for k, v in _mus(1)[0].items()}
+    mu = {k: torch.tensor([v]) for k, v in piston_mus(1)[0].items()}
     with pytest.raises(ValueError, match="entry"):
         fom.assemble_mass(mu, torch.tensor(0.1), entries=[])
     with pytest.raises(ValueError, match="entry"):
         fom.assemble_rhs(mu, torch.tensor(0.1), entries=None)
 
 
-@pytest.mark.parametrize("env,value", [("ROMTIME_SOLVE_ITERS", "4"),
+@pytest.mark.parametrize("env,value", [("ROMTIME_PAIRED_MODE", "inv1"),
                                        ("ROMTIME_PAIRED_MODE", "warm1")])
 def test_unported_solver_options_raise(piston_cell, monkeypatch, env,
                                        value):
-    """The fused branch's solve options that are not ported raise (the
-    other branches do not read them)."""
+    """The fused branch's solve options that are not ported (the
+    follower modes other than sub1) raise (the other branches do not
+    read them)."""
     _rom, payload = piston_cell
     monkeypatch.setenv(env, value)
     port = port_branch(serving_from_arrays(payload, device="cpu"), "fused",
                        monkeypatch)
     with pytest.raises(NotImplementedError):
-        port.solve_batch(_mus(2))
+        port.solve_batch(piston_mus(2), mode="probes")
 
 
 def test_entry_assembly_matches_reference(piston_cell):
@@ -344,7 +331,7 @@ def test_entry_assembly_matches_reference(piston_cell):
 
     rom, payload = piston_cell
     port = serving_from_arrays(payload, device="cpu")
-    mu = _mus(1, seed=6)[0]
+    mu = piston_mus(1, seed=6)[0]
     t = 0.37
     ref_mu = {k: jnp.asarray(v) for k, v in mu.items()}
     with compute_dtype_scope(torch.float64):
@@ -375,7 +362,7 @@ def test_trilinear_entries_match_reference(piston_cell):
     port = serving_from_arrays(payload, device="cpu")
     red = MatrixDiscreteEmpiricalInterpolationNonlinear(
         assemble=port.fom.assemble_trilinear, dofs=ref_red.dofs)
-    mu = _mus(1, seed=8)[0]
+    mu = piston_mus(1, seed=8)[0]
     u = np.random.default_rng(8).normal(size=port.fom.mesh.nh)
     want = np.asarray(ref_red.assemble(
         mu={k: jnp.asarray(v) for k, v in mu.items()}, t=jnp.asarray(0.21),
@@ -393,7 +380,7 @@ def test_dilation_law_evaluation_matches_reference():
     """Law prediction, guard distance and flag on a μ batch, float64."""
     import jax.numpy as jnp
 
-    mus = _mus(64, seed=9)
+    mus = piston_mus(64, seed=9)
     names = ("a0", "delta*omega*a0^-1", "omega^2")
     payload = dict(LAW_PAYLOAD, names=np.array(names),
                    coef=np.array([0.9, 0.01, 0.3, -1e-4]),
@@ -420,15 +407,16 @@ def test_piston_mach_number(piston_cell):
 
     _rom, payload = piston_cell
     port = serving_from_arrays(payload, device="cpu")
-    mu = _mus(1, seed=7)[0]
+    mu = piston_mus(1, seed=7)[0]
     assert port.compute_piston_mach_number(mu) == \
         Ref.compute_piston_mach_number(mu)
 
 
 def test_synthetic_cell_serves_and_round_trips():
     """The seeded synthetic cell that chip_smoke.py serves on the card, at
-    a CPU size: finite outputs of the served shapes, a passing pivot-free
-    check, and identical serving after a trip through the payload."""
+    a CPU size: finite outputs of the served shapes, the pivot-free guard
+    skipped (the cell carries no global basis, as the reference skips
+    it), and identical serving after a trip through the payload."""
     from romtime_tpu_torch.testing.synthetic import (
         synthetic_cell,
         synthetic_mus,
@@ -437,13 +425,13 @@ def test_synthetic_cell_serves_and_round_trips():
     rom = synthetic_cell(seed=3, nx=100, nt=60, n_windows=2, N=24, k=4,
                          device="cpu")
     mus = synthetic_mus(8, seed=4)
-    out = rom.solve_batch(mus, probe_reduce="mean")
+    out = rom.solve_batch(mus, mode="probes", probe_reduce="mean")
     assert out["probes"].shape == (8, 2) and out["uN_final"].shape == (8, 24)
     assert np.isfinite(out["probes"]).all()
     assert np.isfinite(out["uN_final"]).all()
-    assert rom._pivot_cert >= 1e-3
+    assert rom.global_serving is None and rom._pivot_cert is None
     again = serving_from_arrays(serving_to_arrays(rom),
                                 device="cpu").solve_batch(
-        mus, probe_reduce="mean")
+        mus, mode="probes", probe_reduce="mean")
     for key in out:
         np.testing.assert_array_equal(again[key], out[key])

@@ -59,6 +59,27 @@ def build_piston_hrom(workdir):
     return hrom
 
 
+def piston_mus(B, seed=0):
+    """B μ dicts drawn from the piston box (a0, ω, δ; α, γ fixed)."""
+    rng = np.random.default_rng(seed)
+    return [dict(a0=rng.uniform(8.0, 10.0), omega=rng.uniform(15.0, 20.0),
+                 delta=rng.uniform(0.1, 0.15), alpha=1e-6, gamma=1.4)
+            for _ in range(B)]
+
+
+def assert_served_close(got, ref):
+    """Windowed serving parity at tests/test_windowed.py:121-125's
+    limits: probes 5e-6·scale, uN_final 5e-5."""
+    assert np.isfinite(ref["probes"]).all()
+    assert np.isfinite(ref["uN_final"]).all()
+    assert got["probes"].shape == ref["probes"].shape
+    scale = max(np.abs(ref["probes"]).max(), 1e-3)
+    np.testing.assert_allclose(got["probes"], ref["probes"], rtol=0,
+                               atol=5e-6 * scale)
+    np.testing.assert_allclose(got["uN_final"], ref["uN_final"], rtol=0,
+                               atol=5e-5)
+
+
 def fom_payload(rom, which="rest"):
     """The ``fom_*`` keys of a payload."""
     fom = rom.fom
@@ -77,15 +98,40 @@ def _dofs_payload(rom):
         len(red.dofs), -1) for name, (red, _fb) in rom._theta_sources().items()}
 
 
+def grid_payload(rom):
+    """The ``grid_<name>`` keys: the reference's μ box, (min, max) of each
+    distribution's support, in its grid order."""
+    return {f"grid_{k}": np.array([float(min(d.support())),
+                                   float(max(d.support()))])
+            for k, d in rom.grid.items()}
+
+
+def _global_arrays(rom, with_trilinear=True):
+    """Basis, each reductor's folded combine V·(PᵀU)⁻¹ on the ROM basis
+    and (optionally) the trilinear state table."""
+    basis = np.asarray(rom.basis)
+    out = {"basis": basis}
+    for name, (red, _fb) in rom._theta_sources().items():
+        out[f"combine_{name}"] = np.asarray(red._combine_matrix(red.ROM))
+    if with_trilinear:
+        out["trilinear"] = np.asarray(rom._trilinear_state_table(basis))
+    return out
+
+
 def payload_from_rom(rom, which="rest"):
     """The port's serving payload (romtime_tpu_torch.convert) from a JAX
-    ``RomConstructorNonlinear`` with windowed serving attached."""
+    ``RomConstructorNonlinear`` with windowed serving attached, its global
+    basis and combines under the ``global_`` prefix (the pivot-free guard
+    runs on them; no trilinear table, which the guard does not read)."""
     buf = io.BytesIO()
     rom.windows.dump(buf)
     buf.seek(0)
     with np.load(buf) as data:
         payload = {k: data[k] for k in data.files}
-    payload.update(_dofs_payload(rom), **fom_payload(rom, which))
+    payload.update(_dofs_payload(rom), **fom_payload(rom, which),
+                   **grid_payload(rom))
+    payload.update({f"global_{k}": v for k, v in
+                    _global_arrays(rom, with_trilinear=False).items()})
     return payload
 
 
@@ -93,13 +139,8 @@ def global_payload_from_rom(rom, which="rest"):
     """The port's global serving payload (romtime_tpu_torch.convert) from
     a JAX ``RomConstructorNonlinear``: its basis, each reductor's folded
     combine V·(PᵀU)⁻¹ on the ROM basis and the trilinear state table."""
-    basis = np.asarray(rom.basis)
-    payload = dict(_dofs_payload(rom), **fom_payload(rom, which))
-    payload["basis"] = basis
-    for name, (red, _fb) in rom._theta_sources().items():
-        payload[f"combine_{name}"] = np.asarray(red._combine_matrix(red.ROM))
-    payload["trilinear"] = np.asarray(rom._trilinear_state_table(basis))
-    return payload
+    return dict(_dofs_payload(rom), **fom_payload(rom, which),
+                **grid_payload(rom), **_global_arrays(rom))
 
 
 def clear_serving_caches(rom):
@@ -116,16 +157,19 @@ BRANCHES = ("matrices", "fused", "v2")
 
 
 @contextlib.contextmanager
-def reference_serving(rom, branch="matrices"):
+def reference_serving(rom, branch="matrices", solve_iters="0"):
     """f32 serving scope of the reference's windowed-pallas engine on
-    ``branch``, with ROMTIME_SOLVE_ITERS=0 (LU) as tests/test_windowed.py
-    runs it."""
+    ``branch``, with ROMTIME_SOLVE_ITERS=``solve_iters`` ("0": the LU, as
+    tests/test_windowed.py runs it; None: unset, the auto policy)."""
     if branch not in BRANCHES:
         raise ValueError(f"unknown branch {branch!r}")
     saved = {k: os.environ.get(k) for k in ("ROMTIME_WINDOWED_KERNEL",
                                             "ROMTIME_SOLVE_ITERS")}
     budget = type(rom).ONLINE_PRECOMPUTE_BUDGET
-    os.environ["ROMTIME_SOLVE_ITERS"] = "0"
+    if solve_iters is None:
+        os.environ.pop("ROMTIME_SOLVE_ITERS", None)
+    else:
+        os.environ["ROMTIME_SOLVE_ITERS"] = solve_iters
     if branch != "matrices":
         os.environ["ROMTIME_WINDOWED_KERNEL"] = branch
     clear_serving_caches(rom)
@@ -144,8 +188,9 @@ def reference_serving(rom, branch="matrices"):
                 os.environ[k] = v
 
 
-def reference_solve(rom, mus, probe_reduce=None, branch="matrices"):
-    with reference_serving(rom, branch):
+def reference_solve(rom, mus, probe_reduce=None, branch="matrices",
+                    solve_iters="0"):
+    with reference_serving(rom, branch, solve_iters):
         return rom.solve_batch(mus, step=Stage.ONLINE, mode="probes",
                                engine="windowed-pallas",
                                probe_reduce=probe_reduce)
