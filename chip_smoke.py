@@ -21,7 +21,15 @@ Phases, in order; any failure raises and exits non-zero:
    with BDF-1 and no trilinear term, and at B=1000 (not a multiple of
    128). Errors against 5e-5·scale; ms per call of the kernel and of the
    twin, and the bound;
-4. windowed serving phase on the seeded synthetic 50x32 cell (real piston
+4. K1 options phase, at both windowed shapes (B=2048) on the same
+   tables: the cost ledger (romtime_tpu_torch/kernel_ledger.py: every
+   ablated variant with the LU schedule and with Richardson, and the
+   derived components), then each paired-LU follower mode (warm1, warm2,
+   warmx, inv1, inv2; G=5) over a whole sweep with its ms, bound and
+   probe gap to the per-step LU and to sub1, and each mode and each
+   ablation (with both solves) against its twin on the first 4 windows
+   (5e-5·scale);
+5. windowed serving phase on the seeded synthetic 50x32 cell (real piston
    FOM, nx=1000, nt=1500) through ``solve_batch(mus, mode="probes",
    probe_reduce="mean")``, one stage-2 branch after the other, each with
    every launch counter set to 0 just before it and read just after:
@@ -36,20 +44,20 @@ Phases, in order; any failure raises and exits non-zero:
    (tests/test_pallas_online.py:664-665). The solve policy's own decision
    and measured ρ for the cell are printed; the pivot-free guard prints
    "skipped (no global basis)" there and cond₂ on the global cells;
-5. global serving phase (``engine="pallas"``) on the seeded synthetic
+6. global serving phase (``engine="pallas"``) on the seeded synthetic
    global cells (same FOM), the same way: N=15 at B=2048 (materialized
    tables, one K4 launch per call), the same cell with the precompute
    budget at 0 (one K5 launch per call; its outputs within 3e-6·scale of
    K4's on the same μ) and N=20 at B=2048 (K5 by the budget alone);
-6. one measured precompute autotune on the N=15 global cell at B=2048
+7. one measured precompute autotune on the N=15 global cell at B=2048
    (record written under build/).
 
 Every serving branch reports solves/s (median of its calls, synchronized)
 beside the card name, where its time goes, and each kernel's ms, twin ms
 and bound on the serving path's own inputs. Prints a JSON line of
-per-kernel results, then, as the last line, ``{"ok": true, "device":
-{...}}``. Without a CUDA device it exits non-zero before printing any
-result. Imports nothing of JAX.
+per-kernel results (K1's with its modes, ablations and ledger), then, as
+the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device
+it exits non-zero before printing any result. Imports nothing of JAX.
 """
 
 import contextlib
@@ -74,6 +82,9 @@ GROUP = 5
 RICH_ITERS = 5                           # Richardson iterations (perf cap)
 KERNEL_REPS = 5
 RESID_REPS = 20
+MODE_REPS = 3        # K1 options phase: timed calls per follower mode
+LEDGER_REPS = 3      # calls per ledger variant (median)
+OPTION_WINDOWS = 4   # windows of the option-vs-twin comparisons
 #: Serving runs of the windowed cell: run → (stage-2 branch, calls, batch,
 #: WINDOWED_SOLVE_ITERS on the instance).
 SERVE_RUNS = {"fused": ("fused", 5, 2048, None),
@@ -199,10 +210,27 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
+#: NP² multiples of a paired-LU follower's solve, by mode: one
+#: substitution is NP² (forward and back), one residual matvec NP².
+FOLLOWER_NP2 = {"sub1": 3, "warm1": 2, "warm2": 4, "warmx": 2, "inv1": 3,
+                "inv2": 5}
+
+
+def solve_fmas(role, mode, NP):
+    """FMAs of one lane's solve in a step of ``role`` under paired-LU
+    ``mode``: a follower per :data:`FOLLOWER_NP2` (a warmx follower also
+    forms 2·δₙ₋₁ − δₙ₋₂, NP), an inv leader's inversion and matvec
+    (NP³ + NP²), otherwise an LU with its substitutions."""
+    if role == "follow":
+        return FOLLOWER_NP2[mode] * NP * NP + (NP if mode == "warmx" else 0)
+    if role == "lead" and mode in ("inv1", "inv2"):
+        return NP ** 3 + NP * NP
+    return lu_fmas(NP)
+
+
 def k1_bound(args, kw):
-    """K1 over a whole sweep. A paired-LU follower step substitutes with
-    its leader's factors, refines once against its own KN and substitutes
-    again (3·NP²) instead of factorizing. The Richardson solve
+    """K1 over a whole sweep. A paired-LU step solves as
+    :func:`solve_fmas` counts for its role and mode. The Richardson solve
     (``solve_iters`` = n) takes 2n NP² matvecs per step, and per window
     K̄'s build from the live θ rows and the trilinear block, its inverse
     (NP³, the least an inversion needs) and the δ transfer (NP²). The
@@ -217,13 +245,15 @@ def k1_bound(args, kw):
     iters = kw.get("solve_iters")
     group = kw.get("paired_lu") or 0
     group = group if group >= 2 and kw["n_real"] > 20 else 0
+    mode = kw.get("paired_mode", "sub1")
     roles = step_roles(kw.get("period") or width, group)
-    solve = sum(3 * NP * NP if r == "follow" else lu_fmas(NP)
-                for r in roles) / len(roles)
+    solve = sum(solve_fmas(r, mode, NP) for r in roles) / len(roles)
     km8, kk8 = kw["km8"], kw["kk8"]                  # Bmk (W, kfold, NP²)
     km = live_rows(Bmk[:, :km8].transpose(1, 2), NP, NP)
     kk = live_rows(Bmk[:, km8:km8 + kk8].transpose(1, 2), NP, NP)
     per_window = 2 * 10 * NP * NP
+    if group and mode in ("warm1", "warm2", "warmx"):     # δ transfers
+        per_window += NP * NP * (2 if mode == "warmx" else 1)
     if iters:
         solve = 2 * iters * NP * NP
         tri = NP if kw["with_trilinear"] else 0
@@ -379,6 +409,79 @@ def kernel_phase(mods, dev, power, errs, rich_errs):
                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                              max_abs_err=err))
     return rows
+
+
+def first_windows(args, kw, n):
+    """K1's inputs cut to their first ``n`` windows."""
+    width = kw["widths"][0]
+    return ((args[0][:n * width], *(a[:n] for a in args[1:8]), args[8],
+             args[9]), dict(kw, widths=(width,) * n))
+
+
+def k1_options_phase(mods, dev, power):
+    """Every paired-LU follower mode and every ablation of K1, at both
+    windowed shapes on the kernel-phase tables: each mode's time, bound
+    and probe gap to the per-step LU and to sub1 over a whole sweep; each
+    mode and each ablation (with the LU schedule and with Richardson)
+    against its twin on the first OPTION_WINDOWS windows; the cost ledger
+    (romtime_tpu_torch/kernel_ledger.py). Returns (modes, ablations,
+    ledgers)."""
+    from romtime_tpu_torch.kernel_ledger import kernel_ledger, ledger_lines
+
+    k1, synth = mods["k1"], mods["synth"]
+    wrapper, twin = k1.online_sweep_windowed_fused, k1.windowed_fused_reference
+    modes, ablations, ledgers = [], [], {}
+    for W, width, N in SHAPES:
+        shape = f"{W}x{N}"
+        args, kw = synth.kernel_tables(N, W, width, B, seed=W, device=dev)
+        tri_off = synth.kernel_tables(N, W, width, B, seed=W, device=dev,
+                                      with_trilinear=False)
+        t0 = time.perf_counter()
+        ledger = kernel_ledger(args, kw, no_trilinear=tri_off,
+                               reps=LEDGER_REPS)
+        del tri_off
+        print(f"K1 cost ledger {shape} width={width} B={B} on {power} "
+              f"({time.perf_counter() - t0:.1f} s):")
+        for line in ledger_lines(ledger, B):
+            print("  " + line)
+        ledgers[shape] = ledger
+
+        lu_p = wrapper(*args, **dict(kw, paired_lu=None))[0]
+        sub1_p = wrapper(*args, **dict(kw, paired_lu=GROUP))[0]
+        scale = lu_p.abs().max().item()
+        lu_ms = ledger["lu"]["ms_per_sweep"]["full"]
+        for mode in k1.PAIRED_MODES[1:]:
+            kwm = dict(kw, paired_lu=GROUP, paired_mode=mode)
+            ms, got = cuda_ms(lambda: wrapper(*args, **kwm), MODE_REPS)
+            gap_lu = (got[0] - lu_p).abs().max().item() / scale
+            gap_sub1 = (got[0] - sub1_p).abs().max().item() / scale
+            bms, by = k1_bound(args, kwm)
+            del got
+            a4, kw4 = first_windows(args, kwm, OPTION_WINDOWS)
+            err = check_sweep(f"K1 {shape} {mode} G={GROUP}, first "
+                              f"{OPTION_WINDOWS} windows vs twin:",
+                              wrapper(*a4, **kw4), twin(*a4, **kw4))
+            print(f"  {mode}: {ms:.3f} ms/sweep ({ms / lu_ms:.3f}× the "
+                  f"per-step LU's {lu_ms:.3f}), bound {bms:.3f} ms ({by}); "
+                  f"probes differ from the per-step LU's by {gap_lu:.3e} "
+                  f"and from sub1's by {gap_sub1:.3e} of their scale")
+            modes.append(dict(shape=shape, mode=mode, group=GROUP, ms=ms,
+                              bound_ms=bms, bound_by=by, max_abs_err=err,
+                              gap_vs_lu_rel=gap_lu, gap_vs_sub1_rel=gap_sub1))
+        del lu_p, sub1_p
+        for ablate in k1.ABLATE_MODES:
+            for iters in (None, RICH_ITERS):
+                a4, kw4 = first_windows(args, dict(
+                    kw, ablate=ablate, solve_iters=iters), OPTION_WINDOWS)
+                err = check_sweep(f"K1 {shape} ablate={ablate} solve_iters="
+                                  f"{iters}, first {OPTION_WINDOWS} windows "
+                                  f"vs twin:", wrapper(*a4, **kw4),
+                                  twin(*a4, **kw4))
+                ablations.append(dict(shape=shape, ablate=ablate,
+                                      solve_iters=iters, max_abs_err=err))
+        del args
+        torch.cuda.empty_cache()
+    return modes, ablations, ledgers
 
 
 def global_kernel_phase(mods, dev, power, errs):
@@ -853,6 +956,7 @@ def main():
     with torch.inference_mode():
         rich_errs = []
         rows = kernel_phase(mods, dev, power, errs, rich_errs)
+        modes, ablations, ledgers = k1_options_phase(mods, dev, power)
         rows += global_kernel_phase(mods, dev, power, errs)
         launches, kernels, serving = serving_phase(mods, dev, power, errs,
                                                    rich_errs)
@@ -879,7 +983,8 @@ def main():
                "romtime_tpu/ops/pallas_online.py:320"),
     }
     kernels["K1"].update(richardson_launches=launches.pop("K1_richardson"),
-                         richardson_max_abs_err=max(rich_errs))
+                         richardson_max_abs_err=max(rich_errs), modes=modes,
+                         ablate=ablations, ledger=ledgers)
     print(json.dumps({"kernels": [dict(
         name=meta[k][0], route="cuda", source=meta[k][1],
         replaces=meta[k][2], launches=launches[k],

@@ -1,0 +1,137 @@
+"""Measured per-component cost ledger of K1 (the fused windowed sweep) on
+the card.
+
+Counterpart of ``scripts/kernel_ledger.py`` and of the ledger in
+``bench.py`` (:876-959): the kernel runs on the same inputs with one piece
+of its work taken out at a time (``ablate``), and the differences of the
+sweep times are the pieces' costs. Each variant is timed with CUDA events
+around single calls, the median of ``reps`` calls after one warm-up (the
+reference's chained-marginal protocol existed only because its TPU
+backend did not block on a result; a CUDA event does).
+
+Variants with the LU schedule: ``full`` (per-step LU), ``full_paired5``
+(paired LU G=5, ``sub1``), ``no_solve``, ``no_dots``, ``no_boundary``,
+``empty`` and ``no_trilinear`` (on tables built without the trilinear
+term); with the Richardson solve: ``full``, ``no_solve``, ``no_dots``,
+``no_boundary``, ``empty``. The components, in µs per step of the whole
+batch and clamped at 0 as ``bench.py`` clamps them: θ dots = full −
+no_dots, solve = full − no_solve, trilinear = full − no_trilinear (LU
+only), boundary dd = full − no_boundary, floor = empty. ``bench.py``'s
+four keys come from the ``full_paired5`` row (the serving solve), as its
+ablations time the served engine's paired setting.
+
+Used from ``chip_smoke.py``. It raises on a CPU tensor: there is no
+ledger of the twin.
+"""
+
+import statistics
+
+import torch
+
+from .ops.windowed_fused import online_sweep_windowed_fused
+
+GROUP = 5
+SOLVE_ITERS = 5
+#: (variant, K1 options) with the LU schedule; "no_trilinear" runs the
+#: unablated kernel on the tables built without the trilinear term.
+LU_VARIANTS = (("full", {}),
+               ("full_paired5", {"paired_lu": GROUP}),
+               ("no_solve", {"ablate": "no_solve"}),
+               ("no_dots", {"ablate": "no_dots"}),
+               ("no_boundary", {"ablate": "no_boundary"}),
+               ("empty", {"ablate": "empty"}),
+               ("no_trilinear", {}))
+RICHARDSON_VARIANTS = tuple((name, dict(opts, solve_iters=SOLVE_ITERS))
+                            for name, opts in LU_VARIANTS
+                            if name in ("full", "no_solve", "no_dots",
+                                        "no_boundary", "empty"))
+#: (component, the variant that leaves it out).
+COMPONENTS = (("theta_dots", "no_dots"), ("solve", "no_solve"),
+              ("trilinear", "no_trilinear"), ("boundary_dd", "no_boundary"))
+
+
+def time_sweep(args, kw, reps):
+    """Median ms of ``reps`` K1 calls after one warm-up call, each call
+    between two CUDA events."""
+    online_sweep_windowed_fused(*args, **kw)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        online_sweep_windowed_fused(*args, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def _solve_ledger(variants, args, kw, no_trilinear, reps):
+    nt = args[0].shape[0]
+    ms = {}
+    for name, opts in variants:
+        if name == "no_trilinear":
+            if no_trilinear is None:
+                continue
+            a, k = no_trilinear
+        else:
+            a, k = args, kw
+        ms[name] = time_sweep(a, dict(k, **opts), reps)
+    us = {name: t * 1e3 / nt for name, t in ms.items()}
+    components = {part: max(us["full"] - us[key], 0.0)
+                  for part, key in COMPONENTS if key in us}
+    components["floor"] = max(us["empty"], 0.0)
+    return {"ms_per_sweep": ms, "us_per_step": us,
+            "components_us_per_step": components}
+
+
+def kernel_ledger(args, kw, no_trilinear=None, reps=3):
+    """The ledger of K1 on ``args``/``kw`` (its inputs and options as
+    :func:`~romtime_tpu_torch.ops.windowed_fused.online_sweep_windowed_fused`
+    takes them; the solve options in ``kw`` are replaced by each
+    variant's). ``no_trilinear`` is the (args, kw) pair of the same inputs
+    built without the trilinear term, or None to skip that row. Returns
+    {"lu": ..., "richardson": ..., "bench": ...}: per solve the ms per
+    sweep and µs per step of each variant and the derived components;
+    ``bench`` holds ``bench.py``'s four ledger keys."""
+    for a in (args, no_trilinear[0] if no_trilinear else args):
+        if not a[0].is_cuda:
+            raise ValueError("the kernel ledger times K1 on a CUDA device; "
+                             f"got a tensor on {a[0].device}")
+    base = dict(kw, paired_lu=None, paired_mode="sub1", solve_iters=None,
+                ablate=None)
+    tri = None
+    if no_trilinear is not None:
+        tri = (no_trilinear[0], dict(no_trilinear[1], **{
+            k: base[k] for k in ("paired_lu", "paired_mode", "solve_iters",
+                                 "ablate")}))
+    lu = _solve_ledger(LU_VARIANTS, args, base, tri, reps)
+    rich = _solve_ledger(RICHARDSON_VARIANTS, args, base, None, reps)
+    us = lu["us_per_step"]
+    full = us["full_paired5"]
+    bench = {
+        "full_us_per_step": full,
+        "solve_us_per_step": max(full - us["no_solve"], 0.0),
+        "overhead_us_per_step": max(us["empty"], 0.0),
+        "dd_transfer_frac": max(full - us["no_boundary"], 0.0)
+        / max(full, 1e-9),
+    }
+    return {"lu": lu, "richardson": rich, "bench": bench}
+
+
+def ledger_lines(ledger, B):
+    """Printable lines of :func:`kernel_ledger`'s result, in the layout of
+    ``scripts/kernel_ledger.py``."""
+    lines = []
+    for solve in ("lu", "richardson"):
+        part = ledger[solve]
+        for name, ms in part["ms_per_sweep"].items():
+            lines.append(f"[ledger] {solve:10s} {name:13s} {ms:9.3f} "
+                         f"ms/sweep {part['us_per_step'][name]:8.2f} us/step")
+        lines.append(f"[ledger] {solve:10s} derived (us/step, whole batch "
+                     f"B={B}): " + ", ".join(
+                         f"{k} {v:.2f}" for k, v in
+                         part["components_us_per_step"].items()))
+    lines.append("[ledger] bench.py keys (full_paired5 row): " + ", ".join(
+        f"{k} {v:.4g}" for k, v in ledger["bench"].items()))
+    return lines

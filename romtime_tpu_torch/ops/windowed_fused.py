@@ -25,19 +25,36 @@ Per step, for every lane (μ) b:
 and at each window boundary the carry is re-expressed through T_w with a
 double-word matvec. The solve is pivot-free (K = bdf·M + dt·S is
 diagonally dominant at serving step sizes; the padded diagonal is the
-identity). With paired LU (group G ≥ 2, mode ``sub1``, N > 20) each
-schedule period starts with two full-LU steps, then groups of G steps in
-which the leader factorizes and the G−1 followers solve with the
-leader's factors plus one refinement against their own KN; a remainder
-takes the per-step LU.
+identity). With paired LU (group G ≥ 2, N > 20) each schedule period
+starts with two full-LU steps, then groups of G steps in which the
+leader factorizes and the G−1 followers reuse its factors; a remainder
+takes the per-step LU. The follower mode (:data:`PAIRED_MODES`) says how:
+
+- ``sub1``: substitute r0 with the leader's factors, refine once against
+  this step's own KN;
+- ``warm1`` / ``warm2``: start from the previous step's δ, then one or two
+  rounds of "residual against this KN, substitute";
+- ``warmx``: start from 2·δₙ₋₁ − δₙ₋₂, then one round;
+- ``inv1`` / ``inv2``: the leader inverts its KN (Gauss-Jordan) and solves
+  by one matvec; its followers run 2 or 3 Richardson iterations with
+  that inverse from a cold start.
 
 With ``solve_iters`` set, the Richardson solve replaces the LU (and the
 paired LU): at each window start K̄ = Bmk · [THbar_w; dt·b0·u] is built
 from the window-mean θ rows ``THbar`` (bdf folded into the mass rows)
 and the carry after the boundary transfer, and inverted once; each step
 then runs ``solve_iters`` preconditioned iterations warm-started from the
-previous step's δ, which crosses window boundaries through T_w as a
-plain f32 matvec.
+previous step's δ. The previous δ (and δₙ₋₂ under ``warmx``) crosses
+window boundaries through T_w as a plain f32 matvec.
+
+``ablate`` (:data:`ABLATE_MODES`) takes one piece of the work out, for
+the per-component cost ledger (``romtime_tpu_torch/kernel_ledger.py``);
+any ablation turns the paired LU off. ``empty`` keeps the loop, the θ
+reads and the probe stores only (probes = g, u ← 0.99·u + θ row 0, no K̄);
+``no_dots`` replaces every per-step table product by the per-window
+constants KN0 = Bmk·1 and fN0 = Bf·1 (the solve, predictor, dd add and
+probes stay); ``no_solve`` takes δ = r0; ``no_boundary`` skips every
+window transfer.
 
 Table layouts are the reference's (padded NP = ``pad_dim(N)``, 8-aligned
 θ row blocks ``[θm | θk…,1 | θf | g]``), because they are part of what
@@ -55,6 +72,10 @@ from .compensated import dd_add_small, dd_matvec, two_sum
 PROBE_P = 8        # padded probe rows
 GJ_FORI_MIN = 20   # above this N the solve is the blocked LU
 LU_BLOCK = 8       # pivot block of the blocked LU
+#: Paired-LU follower modes, in the kernel's numbering.
+PAIRED_MODES = ("sub1", "warm1", "warm2", "warmx", "inv1", "inv2")
+#: ``ablate`` values after None, in the kernel's numbering (1-4).
+ABLATE_MODES = ("empty", "no_dots", "no_solve", "no_boundary")
 
 
 def pad_dim(n):
@@ -227,10 +248,32 @@ def panels_substitute(panels, r, NP):
     return _back_substitute(ys, panels)
 
 
+def _follower_solve(KN, panels, r0, NP, mode, dprev, dprev2):
+    """A paired-LU follower's solve with its leader's ``panels`` (the LU
+    panels, or K⁻¹ under ``inv1``/``inv2``), as ``_bdf_step_merged``
+    solves it (:928-945)."""
+    if mode in ("inv1", "inv2"):
+        return richardson_solve(KN, panels, r0, 2 if mode == "inv1" else 3)
+    if mode == "sub1":
+        delta = panels_substitute(panels, r0, NP)
+        rounds = 1
+    elif mode == "warmx":
+        delta = 2.0 * dprev - dprev2
+        rounds = 1
+    else:
+        delta = dprev
+        rounds = 1 if mode == "warm1" else 2
+    for _ in range(rounds):
+        resid = r0 - lanes_matvec(KN, delta)
+        delta = delta + panels_substitute(panels, resid, NP)
+    return delta
+
+
 def _bdf_step_merged(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
                      VE, dtb0, bdf2, n_real, NP, km8, kk8, kf8,
                      panels=None, save_panels=False, Kinv=None,
-                     solve_iters=None, dprev=None):
+                     solve_iters=None, dprev=None, paired_mode="sub1",
+                     dprev2=None, skip_solve=False):
     """One merged-dot residual-form BDF step (``_bdf_step_merged``).
     Returns (u_hi, u_lo, probes, δ, panels)."""
     kmk8 = km8 + kk8
@@ -260,14 +303,16 @@ def _bdf_step_merged(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
     r0 = MNd + fN - KLp - trip
 
     out_panels = None
-    if solve_iters is not None and Kinv is not None:
+    if skip_solve:
+        delta = r0
+    elif solve_iters is not None and Kinv is not None:
         delta = richardson_solve(KN, Kinv, r0, solve_iters, delta0=dprev)
     elif panels is not None:
-        # sub1 follower: substitute with the leader's panels, refine once
-        # against this step's own KN.
-        delta = panels_substitute(panels, r0, NP)
-        resid = r0 - lanes_matvec(KN, delta)
-        delta = delta + panels_substitute(panels, resid, NP)
+        delta = _follower_solve(KN, panels, r0, NP, paired_mode, dprev,
+                                dprev2)
+    elif save_panels and paired_mode in ("inv1", "inv2"):
+        out_panels = lanes_invert(KN, NP)
+        delta = lanes_matvec(out_panels, r0)
     elif save_panels:
         delta, out_panels = lanes_solve_panels(KN, r0, NP)
     else:
@@ -295,11 +340,11 @@ def step_roles(period, group):
 
 def _check_args(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, widths,
                 with_trilinear, km8, kk8, kf8, paired_lu, paired_mode,
-                period, n_real, solve_iters):
+                period, n_real, solve_iters, ablate):
     """Validate shapes/options; returns (W, width, NP, km, kk, period,
     group). The group is 0 (per-step solves) at N ≤ GJ_FORI_MIN, where
-    the reference's Gauss-Jordan ignores paired LU, and under the
-    Richardson solve, which takes precedence over it."""
+    the reference's Gauss-Jordan ignores paired LU, under the Richardson
+    solve, which takes precedence over it, and under any ablation."""
     W = Bmk.shape[0]
     NP = VE.shape[2]
     nt, K8, B = TH.shape
@@ -329,9 +374,12 @@ def _check_args(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, widths,
         raise ValueError("TQ must be (W, NP, NP²)")
     if b0.shape != (1, B) or state0.shape != (4, NP, B):
         raise ValueError("b0 must be (1, B) and state0 (4, NP, B)")
-    if paired_lu and paired_mode != "sub1":
-        raise ValueError(f"paired-LU mode {paired_mode!r} is not ported; "
-                         "only 'sub1'")
+    if paired_mode not in PAIRED_MODES:
+        raise ValueError(f"unknown paired-LU mode {paired_mode!r}; the "
+                         f"modes are {', '.join(PAIRED_MODES)}")
+    if ablate is not None and ablate not in ABLATE_MODES:
+        raise ValueError(f"unknown ablate {ablate!r}; None or one of "
+                         f"{', '.join(ABLATE_MODES)}")
     if paired_lu is not None and paired_lu < 0:
         raise ValueError("paired_lu must be None, 0 or a group size ≥ 2")
     if solve_iters is not None and int(solve_iters) < 1:
@@ -341,7 +389,8 @@ def _check_args(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, widths,
         raise ValueError(f"period {period} must divide the window width "
                          f"{width}")
     group = paired_lu if (paired_lu and paired_lu >= 2) else 0
-    if n_real <= GJ_FORI_MIN or solve_iters is not None:
+    if (n_real <= GJ_FORI_MIN or solve_iters is not None
+            or ablate is not None):
         group = 0
     return W, width, NP, km, kk, period, group
 
@@ -350,52 +399,91 @@ def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
                              *, widths, dt, bdf2=True, with_trilinear=True,
                              n_real, km8, kk8, kf8, paired_lu=None,
                              paired_mode="sub1", period=None,
-                             solve_iters=None):
+                             solve_iters=None, ablate=None):
     """Plain PyTorch twin of K1; same arguments and results as
     :func:`online_sweep_windowed_fused`."""
     W, width, NP, _km, _kk, period, group = _check_args(
         TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, widths,
         with_trilinear, km8, kk8, kf8, paired_lu, paired_mode, period,
-        n_real, solve_iters)
+        n_real, solve_iters, ablate)
     if TH.is_cuda:
         _no_tf32()
     nt, _K8, B = TH.shape
+    kmk8 = km8 + kk8
+    off_g = kmk8 + kf8
     dt_c = torch.tensor(dt, dtype=TH.dtype, device=TH.device)
     dtb0 = dt_c * b0 if with_trilinear else None
     roles = step_roles(period, group)
     THbar = (window_mean_theta(TH, W, km8, kk8, bdf2)
              if solve_iters is not None else None)
+    # δ crosses window boundaries where a later step starts from it.
+    carry_delta = solve_iters is not None or (
+        group and paired_mode in ("warm1", "warm2", "warmx"))
 
     probes = TH.new_empty((nt, PROBE_P, B))
     uN, lo, uN1, lo1 = state0[0], state0[1], state0[2], state0[3]
     dprev = torch.zeros_like(uN)
+    dprev2 = (torch.zeros_like(uN) if group and paired_mode == "warmx"
+              else None)
     for w in range(W):
         T = Tp[w]
-        uN, lo = dd_matvec(T, uN, lo)
-        uN1, lo1 = dd_matvec(T, uN1, lo1)
+        if ablate != "no_boundary":
+            uN, lo = dd_matvec(T, uN, lo)
+            uN1, lo1 = dd_matvec(T, uN1, lo1)
+            if carry_delta:
+                dprev = T @ dprev
+                if dprev2 is not None:
+                    dprev2 = T @ dprev2
         consts = (Bmk[w].T, BmF[w].T, BkF[w].T, Bf[w].T)
         TQ_w = TQ[w] if with_trilinear else None
         VE_w = VE[w]
         Kinv = None
-        if solve_iters is not None:
-            dprev = T @ dprev
+        if solve_iters is not None and ablate != "empty":
             thb = THbar[w]
             if with_trilinear:
                 thb = torch.cat([thb, uN * dtb0], dim=0)
             Kinv = lanes_invert((consts[0] @ thb).reshape(NP, NP, B), NP)
+        if ablate == "no_dots":
+            KN0 = (consts[0] @ TH.new_ones((Bmk.shape[1], B))).reshape(
+                NP, NP, B)
+            fN0 = consts[3] @ TH.new_ones((kf8, B))
         pan = None
         for s in range(width):
             step = w * width + s
+            tts = TH[step]
+            g = tts[off_g:off_g + PROBE_P]
+            if ablate == "empty":
+                probes[step] = g
+                uN1, uN = uN, uN * 0.99 + tts[0][None, :]
+                continue
+            if ablate == "no_dots":
+                pred_hi, pred_lo, _d, _bdf = _dd_predictor(
+                    uN, lo, uN1, lo1, step, bdf2)
+                if solve_iters is not None:
+                    delta = richardson_solve(KN0, Kinv, fN0, solve_iters,
+                                             delta0=dprev)
+                else:
+                    delta = lanes_solve(KN0, fN0, n_real, NP)
+                uN_new, lo_new = dd_add_small(pred_hi, pred_lo, delta)
+                probes[step] = VE_w @ uN_new + g
+                dprev = delta
+                uN1, lo1, uN, lo = uN, lo, uN_new, lo_new
+                continue
             role = roles[s % period]
-            uN_new, lo_new, probes[step], dprev, out_pan = _bdf_step_merged(
-                TH[step], *consts, uN, lo, uN1, lo1, step, TQ_w, VE_w,
+            uN_new, lo_new, probes[step], delta, out_pan = _bdf_step_merged(
+                tts, *consts, uN, lo, uN1, lo1, step, TQ_w, VE_w,
                 dtb0, bdf2, n_real, NP, km8, kk8, kf8,
                 panels=pan if role == "follow" else None,
                 save_panels=role == "lead", Kinv=Kinv,
                 solve_iters=solve_iters, dprev=dprev,
+                paired_mode=paired_mode, dprev2=dprev2,
+                skip_solve=ablate == "no_solve",
             )
             if role == "lead":
                 pan = out_pan
+            if dprev2 is not None:
+                dprev2 = dprev
+            dprev = delta
             uN1, lo1, uN, lo = uN, lo, uN_new, lo_new
     return probes, torch.stack([uN, lo, uN1, lo1])
 
@@ -406,7 +494,7 @@ def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
 def _bind(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.romtime_windowed_fused.argtypes = (
-        [ptr] * 13 + [i32] * 14 + [ctypes.c_float, ptr])
+        [ptr] * 13 + [i32] * 16 + [ctypes.c_float, ptr])
     lib.romtime_windowed_fused.restype = i32
 
 
@@ -414,7 +502,7 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
                                 state0, *, widths, dt, bdf2=True,
                                 with_trilinear=True, n_real, km8, kk8, kf8,
                                 paired_lu=None, paired_mode="sub1",
-                                period=None, solve_iters=None):
+                                period=None, solve_iters=None, ablate=None):
     """Whole-trajectory windowed serving sweep (K1).
 
     TH     : (nt, K8, B) merged θ table [θm | θk…,1 | θf | g] (8-aligned
@@ -428,8 +516,11 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
     VE     : (W, PROBE_P, NP) probe rows;  Tp : (W, NP, NP), Tp[0] = I
     b0     : (1, B) trilinear coefficient;  state0 : (4, NP, B) dd carry
     widths : W equal window step counts
+    paired_lu : paired-LU group G ≥ 2 (None or 0: the per-step LU)
+    paired_mode : follower mode, one of :data:`PAIRED_MODES`
     period : steps per grouping period (default: one window)
     solve_iters : Richardson iterations per step (None: the LU schedule)
+    ablate : None, or one of :data:`ABLATE_MODES` (the cost ledger)
 
     Returns (probes (nt, PROBE_P, B), state (4, NP, B)), float32. CPU
     tensors run the twin; CUDA tensors launch the kernel (and count the
@@ -440,14 +531,14 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
               with_trilinear=with_trilinear, n_real=n_real, km8=km8,
               kk8=kk8, kf8=kf8, paired_lu=paired_lu,
               paired_mode=paired_mode, period=period,
-              solve_iters=solve_iters)
+              solve_iters=solve_iters, ablate=ablate)
     if TH.device.type == "cpu":
         return windowed_fused_reference(*args, **kw)
     if TH.device.type != "cuda":
         raise ValueError(f"unsupported device {TH.device}")
     W, width, NP, km, kk, period, group = _check_args(
         *args, widths, with_trilinear, km8, kk8, kf8, paired_lu,
-        paired_mode, period, n_real, solve_iters)
+        paired_mode, period, n_real, solve_iters, ablate)
     if not with_trilinear:
         TQ = TH.new_zeros((1,))
     THbar = (window_mean_theta(TH, W, km8, kk8, bdf2)
@@ -475,7 +566,9 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
             probes.data_ptr(), state.data_ptr(),
             W, width, period, NP, B, km8, kk8, kf8, km, kk,
             int(bool(with_trilinear)), int(bool(bdf2)), group,
-            int(solve_iters or 0), float(dt), stream)
+            PAIRED_MODES.index(paired_mode), int(solve_iters or 0),
+            0 if ablate is None else 1 + ABLATE_MODES.index(ablate),
+            float(dt), stream)
     kernel_build.check_launch(lib, err, "windowed_fused")
     online_sweep_windowed_fused.launches += 1
     if solve_iters is not None:

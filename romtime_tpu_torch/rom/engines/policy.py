@@ -13,10 +13,13 @@ The fused sweep's solve (:class:`SolvePolicy`) is the reference's: the
 per-window Richardson solve when the measured within-window contraction
 reaches the f32 band in few enough iterations (``WINDOWED_SOLVE_ITERS =
 "auto"``), else the pivot-free LU, reusing one factorization per group
-of ``WINDOWED_PAIRED_LU`` steps (mode ``"sub1"``: the followers
-substitute with the leader's factors and refine once against their own
-matrix). The other follower modes are not ported: asking for them raises
-instead of being ignored.
+of ``WINDOWED_PAIRED_LU`` steps. ``ROMTIME_PAIRED_MODE`` picks how the
+followers reuse it, one of the reference's six modes (``"sub1"`` by
+default: substitute with the leader's factors and refine once against
+their own matrix; ``ops/windowed_fused.py`` describes the others). An
+unknown mode raises ``ValueError``, where the reference would serve
+``"sub1"`` without a word. ``ROMTIME_PAIRED_LU=0`` gives the per-step LU
+in both packages.
 """
 
 import itertools
@@ -26,10 +29,10 @@ import numpy as np
 import torch
 
 from ...dtypes import compute_dtype_scope
+from ...ops.windowed_fused import PAIRED_MODES
 
 WINDOWED_PAIRED_LU = 5
 WINDOWED_PAIRED_MODE = "sub1"
-PORTED_PAIRED_MODES = ("sub1", "off")
 
 _UNSET = object()
 
@@ -77,13 +80,13 @@ def windowed_paired_lu():
 
 
 def windowed_paired_mode():
-    """Follower mode; ``ROMTIME_PAIRED_MODE`` overrides. Raises for a
-    mode this port does not have."""
+    """Follower mode; ``ROMTIME_PAIRED_MODE`` overrides. Raises
+    ``ValueError`` for a mode that is not one of the six."""
     mode = os.environ.get("ROMTIME_PAIRED_MODE", WINDOWED_PAIRED_MODE)
-    if mode not in PORTED_PAIRED_MODES:
-        raise NotImplementedError(
-            f"paired-LU follower mode {mode!r} is not ported "
-            f"(ported: {', '.join(PORTED_PAIRED_MODES)})")
+    if mode not in PAIRED_MODES:
+        raise ValueError(f"unknown paired-LU follower mode {mode!r} "
+                         f"(ROMTIME_PAIRED_MODE); the modes are "
+                         f"{', '.join(PAIRED_MODES)}")
     return mode
 
 
@@ -137,11 +140,8 @@ class SolvePolicy:
         Richardson iterations the group is unused (Richardson takes
         precedence, reference ``pallas_online.py:1489``); group None means
         the per-step LU."""
-        mode = windowed_paired_mode()
-        iters = self._windowed_solve_iters()
-        if mode == "off":
-            return iters, None, "sub1"
-        return iters, windowed_paired_lu(), mode
+        return (self._windowed_solve_iters(), windowed_paired_lu(),
+                windowed_paired_mode())
 
     def _windowed_solve_iters(self):
         env = os.environ.get("ROMTIME_SOLVE_ITERS")

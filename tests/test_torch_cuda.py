@@ -75,6 +75,54 @@ def test_cuda_kernel_richardson_matches_twin(N, W, width, B, iters):
     assert (got_s - twin_s)[[0, 2]].abs().max().item() <= 5e-5 * sscale
 
 
+def _k1_matches_twin(args, kw):
+    twin_p, twin_s = k1.windowed_fused_reference(*args, **kw)
+    n0 = k1.online_sweep_windowed_fused.launches
+    got_p, got_s = k1.online_sweep_windowed_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert k1.online_sweep_windowed_fused.launches == n0 + 1
+    assert torch.isfinite(got_p).all() and torch.isfinite(got_s).all()
+    scale = twin_p.abs().max().item()
+    assert (got_p - twin_p).abs().max().item() <= 5e-5 * scale
+    sscale = twin_s[[0, 2]].abs().max().item()
+    assert (got_s - twin_s)[[0, 2]].abs().max().item() <= 5e-5 * sscale
+
+
+#: (N, W, width, B, group, mode): every paired-LU follower mode at G=3
+#: and G=5 (width ≥ G+2, so followers run), a ragged lane tile, and
+#: NP=48 (8-lane tiles, two rows a thread).
+MODE_CASES = ([(24, 3, 8, 128, 3, m) for m in k1.PAIRED_MODES[1:]]
+              + [(24, 3, 8, 67, 5, m) for m in k1.PAIRED_MODES[1:]]
+              + [(48, 2, 10, 40, 3, "warmx"), (48, 2, 10, 40, 3, "inv2")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,W,width,B,group,mode", MODE_CASES)
+def test_cuda_kernel_follower_modes_match_twin(N, W, width, B, group, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = kernel_tables(N, W, width, B, seed=N + group, device="cuda")
+    kw.update(paired_lu=group, paired_mode=mode)
+    _k1_matches_twin(args, kw)
+
+
+#: (N, B, ablate, solve_iters): each ablation with the LU schedule and
+#: with the Richardson solve, at a Gauss-Jordan size with a ragged batch
+#: and at the 50x32 fleet width.
+ABLATE_CASES = [(N, Bn, ablate, iters) for ablate in k1.ABLATE_MODES
+                for iters in (None, 5) for N, Bn in ((12, 130), (32, 67))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,B,ablate,iters", ABLATE_CASES)
+def test_cuda_kernel_ablate_matches_twin(N, B, ablate, iters):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = kernel_tables(N, 3, 8, B, seed=N, device="cuda")
+    kw.update(paired_lu=5, ablate=ablate, solve_iters=iters)
+    _k1_matches_twin(args, kw)
+
+
 #: (N, nt, B, step0, options) for K2 and K3: Gauss-Jordan and blocked-LU
 #: sizes, ragged batches (B not a multiple of any lane tile), a chained
 #: launch (step0 > 0 from a nonzero carry), no trilinear term, BDF-1.

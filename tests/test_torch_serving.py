@@ -307,18 +307,69 @@ def test_empty_entries_raise(piston_cell):
         fom.assemble_rhs(mu, torch.tensor(0.1), entries=None)
 
 
+def _served_with_env(piston_cell, monkeypatch, env, value, seed):
+    """The fused branch served by the port and by the reference under
+    ``env=value`` (the LU schedule: ROMTIME_SOLVE_ITERS=0 on both
+    sides), with a spy on the K1 wrapper the engine calls. Returns the
+    solve keywords that reached it."""
+    from romtime_tpu_torch.rom.engines import windowed_fused as engine
+
+    rom, payload = piston_cell
+    monkeypatch.setenv(env, value)
+    monkeypatch.setenv("ROMTIME_SOLVE_ITERS", "0")
+    seen = []
+    wrapper = engine.online_sweep_windowed_fused
+
+    def spy(*args, **kw):
+        seen.append({k: kw[k] for k in ("paired_lu", "paired_mode",
+                                        "solve_iters")})
+        return wrapper(*args, **kw)
+
+    monkeypatch.setattr(engine, "online_sweep_windowed_fused", spy)
+    port = port_branch(serving_from_arrays(payload, device="cpu"), "fused",
+                       monkeypatch)
+    mus = piston_mus(128, seed=seed)
+    got = port.solve_batch(mus, mode="probes")
+    ref = reference_solve(rom, mus, branch="fused")
+    assert set(got) == set(ref)
+    assert_served_close(got, ref)
+    assert len(seen) == 1
+    return seen[0]
+
+
 @pytest.mark.parametrize("env,value", [("ROMTIME_PAIRED_MODE", "inv1"),
                                        ("ROMTIME_PAIRED_MODE", "warm1")])
 def test_unported_solver_options_raise(piston_cell, monkeypatch, env,
                                        value):
-    """The fused branch's solve options that are not ported (the
-    follower modes other than sub1) raise (the other branches do not
-    read them)."""
+    """The follower modes (once refused here) serve: the fused branch
+    under ROMTIME_PAIRED_MODE matches the reference under the same
+    setting, and the mode reaches the K1 wrapper. The cell's N=12 runs
+    the Gauss-Jordan solve, where both packages turn pairing off; the
+    kernel-level tests (test_torch_follower_modes.py) carry the modes'
+    numerics."""
+    seen = _served_with_env(piston_cell, monkeypatch, env, value, seed=12)
+    assert seen == {"paired_lu": 5, "paired_mode": value,
+                    "solve_iters": None}
+
+
+def test_paired_lu_zero_serves_per_step_lu(piston_cell, monkeypatch):
+    """ROMTIME_PAIRED_LU=0 is the per-step LU in both packages (the
+    port's own ROMTIME_PAIRED_MODE=off is gone: the reference read "off"
+    as sub1 and paired)."""
+    seen = _served_with_env(piston_cell, monkeypatch, "ROMTIME_PAIRED_LU",
+                            "0", seed=13)
+    assert seen == {"paired_lu": None, "paired_mode": "sub1",
+                    "solve_iters": None}
+
+
+def test_unknown_paired_mode_raises(piston_cell, monkeypatch):
+    """An unknown ROMTIME_PAIRED_MODE raises and names the six modes,
+    where the reference serves sub1 without a word."""
     _rom, payload = piston_cell
-    monkeypatch.setenv(env, value)
+    monkeypatch.setenv("ROMTIME_PAIRED_MODE", "off")
     port = port_branch(serving_from_arrays(payload, device="cpu"), "fused",
                        monkeypatch)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="sub1, warm1, warm2, warmx"):
         port.solve_batch(piston_mus(2), mode="probes")
 
 

@@ -11,7 +11,8 @@ _windowed_synthetic), at the reference tests' tolerances:
   leader/follower group really runs;
 - the solve pieces against test_lanes_solve_panels_and_substitute.
 
-The CUDA kernel itself is held against the twin on the card
+The other follower modes are in tests/test_torch_follower_modes.py, the
+``ablate`` variants in tests/test_torch_ablate.py. The CUDA kernel itself is held against the twin on the card
 (tests/test_torch_cuda.py, marked ``cuda``; chip_smoke.py runs the same
 comparison at serving shapes)."""
 
@@ -166,9 +167,15 @@ def test_gauss_jordan_matches_reference_small_n():
 def test_wrapper_rejects_bad_options():
     args, kw = _tables(24, seed=13)
     targs = [torch.from_numpy(a) for a in args]
-    with pytest.raises(ValueError, match="not ported"):
-        k1.online_sweep_windowed_fused(*targs, **kw, paired_lu=5,
-                                       paired_mode="warm1")
+    # An unknown follower mode raises and names the six (the reference
+    # would serve "sub1" instead), with or without a paired group.
+    for group in (5, None):
+        with pytest.raises(ValueError, match="sub1, warm1, warm2, warmx, "
+                                             "inv1, inv2"):
+            k1.online_sweep_windowed_fused(*targs, **kw, paired_lu=group,
+                                           paired_mode="off")
+    with pytest.raises(ValueError, match="no_boundary"):
+        k1.online_sweep_windowed_fused(*targs, **kw, ablate="no_trilinear")
     with pytest.raises(ValueError, match="divide"):
         k1.online_sweep_windowed_fused(*targs, **kw, period=3)
     with pytest.raises(ValueError, match="k offsets"):
