@@ -6,34 +6,43 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every kernel of the serving paths with nvcc for sm_90a, one
-   nvcc per source, all at once: K1 (romtime_tpu_torch/csrc/windowed_fused.cu),
-   K2 and K3 (romtime_tpu_torch/csrc/resid_sweep.cu), K4 and K5
-   (romtime_tpu_torch/csrc/global_sweep.cu);
+   nvcc per source, all at once: K1's serving design
+   (romtime_tpu_torch/csrc/windowed_serving.cu) and its first design
+   (romtime_tpu_torch/csrc/windowed_fused.cu), K2 and K3
+   (romtime_tpu_torch/csrc/resid_sweep.cu), K4 and K5
+   (romtime_tpu_torch/csrc/global_sweep.cu); each instantiation's
+   registers and spills (``-Xptxas -v``): the serving design must not
+   spill;
 3. kernel phase, each kernel against its plain PyTorch twin, both on the
    card: K1-K3 at the fleet's two windowed serving shapes (50 windows ×
-   30 steps at N=32, 150 × 10 at N=48): K1 over a whole sweep (B=2048),
-   once with paired LU G=5 "sub1" and once with the Richardson solve
-   (solve_iters=5) on the same damped tables; K2 (B=512 at 50x32, B=128
-   at 150x48) and K3
-   (B=2048) over one window launch with step0 > 0 from a nonzero carried
-   state; K4 and K5 over a whole global sweep (nt=1500): K4 at N=15 and
-   K5 at N=20 (B=2048, the throughput ROM and S-ROM), each also at N=9
-   with BDF-1 and no trilinear term, and at B=1000 (not a multiple of
-   128). Errors against 5e-5·scale; ms per call of the kernel and of the
-   twin, and the bound;
-4. K1 options phase, at both windowed shapes (B=2048) on the same
-   tables: the cost ledger (romtime_tpu_torch/kernel_ledger.py: every
-   ablated variant with the LU schedule and with Richardson, and the
-   derived components), then each paired-LU follower mode (warm1, warm2,
-   warmx, inv1, inv2; G=5) over a whole sweep with its ms, bound and
-   probe gap to the per-step LU and to sub1, and each mode and each
-   ablation (with both solves) against its twin on the first 4 windows
-   (5e-5·scale);
+   30 steps at N=32, 150 × 10 at N=48): K1 (B=2048) with paired LU G=5
+   "sub1", the per-step LU and the Richardson solve (solve_iters=5) on
+   the same damped tables, each timed on both designs in turns (first,
+   serving, serving, first), the serving design held against the first
+   over the whole sweep, against the twin on the first 4 windows and,
+   for sub1 and Richardson, over the whole sweep; then the serving
+   design's phase clocks (its CLOCKED instantiation beside the plain
+   one; shares reported where the totals agree within 3%); K2 (B=512 at
+   50x32, B=128 at 150x48) and K3 (B=2048) over one window launch with
+   step0 > 0 from a nonzero carried state; K4 and K5 over a whole global
+   sweep (nt=1500): K4 at N=15 and K5 at N=20 (B=2048, the throughput
+   ROM and S-ROM), each also at N=9 with BDF-1 and no trilinear term,
+   and at B=1000 (not a multiple of 128). Errors against 5e-5·scale; ms
+   per call of the kernel and of the twin, and the bound;
+4. K1 options phase (the first design), at both windowed shapes
+   (B=2048) on the same tables: the first design's cost ledger
+   (romtime_tpu_torch/kernel_ledger.py: every ablated variant with the
+   LU schedule and with Richardson, and the derived components), then
+   each paired-LU follower mode (warm1, warm2, warmx, inv1, inv2; G=5)
+   over a whole sweep with its ms, bound and probe gap to the per-step
+   LU and to sub1, and each mode and each ablation (with both solves)
+   against its twin on the first 4 windows (5e-5·scale);
 5. windowed serving phase on the seeded synthetic 50x32 cell (real piston
    FOM, nx=1000, nt=1500) through ``solve_batch(mus, mode="probes",
    probe_reduce="mean")``, one stage-2 branch after the other, each with
    every launch counter set to 0 just before it and read just after:
-   B=2048 (fused K1 with the LU schedule, one launch per call), B=512
+   B=2048 (fused K1 with the LU schedule, one launch of the serving
+   design per call and none of the first), B=512
    (materialized tables, K2 once per window: 50 per call), B=2048 under
    ROMTIME_WINDOWED_KERNEL=v2 (K3 once per window) and B=2048 on the
    fused branch with ``WINDOWED_SOLVE_ITERS = 5`` on the instance (K1
@@ -54,8 +63,10 @@ Phases, in order; any failure raises and exits non-zero:
 
 Every serving branch reports solves/s (median of its calls, synchronized)
 beside the card name, where its time goes, and each kernel's ms, twin ms
-and bound on the serving path's own inputs. Prints a JSON line of
-per-kernel results (K1's with its modes, ablations and ledger), then, as
+and bound on the serving path's own inputs (K1's on both designs, in
+turns). Prints a JSON line of per-kernel results (K1's serving design
+with the first design's time, the phase shares, the register and spill
+report, and the first design's modes, ablations and ledger), then, as
 the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -80,6 +91,11 @@ B = 2048
 K2_BATCH = {32: 512, 48: 128}            # K2's kernel-phase batch by N
 GROUP = 5
 RICH_ITERS = 5                           # Richardson iterations (perf cap)
+#: K1's solves in the kernel phase, each timed on both designs in turns.
+K1_SOLVES = (("sub1", {"paired_lu": GROUP, "paired_mode": "sub1"}),
+             ("lu", {"paired_lu": None}),
+             ("richardson", {"paired_lu": GROUP, "solve_iters": RICH_ITERS}))
+K1_TURN_REPS = 2     # calls per turn (first, serving, serving, first)
 KERNEL_REPS = 5
 RESID_REPS = 20
 MODE_REPS = 3        # K1 options phase: timed calls per follower mode
@@ -343,49 +359,82 @@ def global_kernel(mods, name):
 # ----------------------------------------------------------------------
 # Kernel phase
 # ----------------------------------------------------------------------
+def first_windows(args, kw, n):
+    """K1's inputs cut to their first ``n`` windows."""
+    width = kw["widths"][0]
+    return ((args[0][:n * width], *(a[:n] for a in args[1:8]), args[8],
+             args[9]), dict(kw, widths=(width,) * n))
+
+
+def k1_turns(k1, args, kw, reps):
+    """K1's first and serving designs on the same inputs in turns (first,
+    serving, serving, first): (serving ms, first ms, serving's outputs,
+    the first's outputs), each ms the mean of its two turns."""
+    first = lambda: k1._first_design_sweep(*args, **kw)    # noqa: E731
+    new = lambda: k1.online_sweep_windowed_fused(*args, **kw)  # noqa: E731
+    f1, _ = cuda_ms(first, reps)
+    n1, got = cuda_ms(new, reps)
+    n2, _ = cuda_ms(new, reps, warmup=False)
+    f2, ref = cuda_ms(first, reps, warmup=False)
+    return (n1 + n2) / 2, (f1 + f2) / 2, got, ref
+
+
 def kernel_phase(mods, dev, power, errs, rich_errs):
+    from romtime_tpu_torch.kernel_ledger import phase_split, split_lines
+
     k1, rs, synth = mods["k1"], mods["rs"], mods["synth"]
-    rows = []
+    rows, splits = [], {}
     for W, width, N in SHAPES:
+        shape = f"{W}x{N}"
         args, kw = synth.kernel_tables(N, W, width, B, seed=W, device=dev)
-        kw.update(paired_lu=GROUP, paired_mode="sub1")
-        ms, got = cuda_ms(lambda: k1.online_sweep_windowed_fused(*args, **kw),
-                          KERNEL_REPS)
-        plain_ms, want = cuda_ms(
-            lambda: k1.windowed_fused_reference(*args, **kw), 1,
-            warmup=False)
-        err = check_sweep(f"K1 {W}x{N} width={width} B={B} G={GROUP} on "
-                          f"{power}:", got, want)
-        errs["K1"].append(err)
-        bms, by = k1_bound(args, kw)
-        print(f"  kernel {ms:.3f} ms/sweep, twin {plain_ms:.1f} ms/sweep, "
-              f"bound {bms:.3f} ms ({by})")
-        rows.append(dict(kernel="K1", shape=f"{W}x{N}", B=B, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         max_abs_err=err))
-        lu_ms, lu_probes = ms, got[0]
-        kwr = dict(kw, solve_iters=RICH_ITERS)
-        ms, got = cuda_ms(
-            lambda: k1.online_sweep_windowed_fused(*args, **kwr), KERNEL_REPS)
-        plain_ms, want = cuda_ms(
-            lambda: k1.windowed_fused_reference(*args, **kwr), 1,
-            warmup=False)
-        err = check_sweep(f"K1 {W}x{N} width={width} B={B} Richardson "
-                          f"solve_iters={RICH_ITERS} on {power}:", got, want)
-        errs["K1"].append(err)
-        rich_errs.append(err)
-        bms, by = k1_bound(args, kwr)
-        gap = ((got[0] - lu_probes).abs().max()
-               / lu_probes.abs().max()).item()
-        print(f"  kernel {ms:.3f} ms/sweep ({ms / lu_ms:.3f}× the LU "
-              f"schedule's {lu_ms:.3f} in this call), twin {plain_ms:.1f} "
-              f"ms/sweep, bound {bms:.3f} ms ({by}); probes differ from "
-              f"the LU schedule's by {gap:.3e} of their scale")
-        rows.append(dict(kernel="K1", solve=f"richardson{RICH_ITERS}",
-                         shape=f"{W}x{N}", B=B, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bms, bound_by=by, max_abs_err=err,
-                         vs_lu_rel=gap))
-        del got, want, lu_probes
+        lu_ms = lu_probes = None
+        for solve, opts in K1_SOLVES:
+            kws = dict(kw, **opts)
+            label = (f"K1 {shape} width={width} B={B} {solve} on {power}")
+            ms, first_ms, got, ref = k1_turns(k1, args, kws, K1_TURN_REPS)
+            err = check_sweep(f"{label}, serving design vs the first design "
+                              f"(whole sweep):", got, ref)
+            a4, kw4 = first_windows(args, kws, OPTION_WINDOWS)
+            err = max(err, check_sweep(
+                f"{label}, serving design vs twin (first {OPTION_WINDOWS} "
+                f"windows):", k1.online_sweep_windowed_fused(*a4, **kw4),
+                k1.windowed_fused_reference(*a4, **kw4)))
+            row = dict(kernel="K1", solve=solve, shape=shape, B=B, ms=ms,
+                       first_design_ms=first_ms)
+            if solve != "lu":
+                # The twin over the whole sweep (its time is plain_ms).
+                row["plain_ms"], want = cuda_ms(
+                    lambda: k1.windowed_fused_reference(*args, **kws), 1,
+                    warmup=False)
+                err = max(err, check_sweep(f"{label}, serving design vs "
+                                           f"twin (whole sweep):", got, want))
+                del want
+            errs["K1"].append(err)
+            if solve == "richardson":
+                rich_errs.append(err)
+            bms, by = k1_bound(args, kws)
+            row.update(bound_ms=bms, bound_by=by, max_abs_err=err)
+            extra = ""
+            if solve == "lu":
+                lu_ms, lu_probes = ms, got[0]
+            elif solve == "richardson":
+                row["vs_lu_rel"] = ((got[0] - lu_probes).abs().max()
+                                    / lu_probes.abs().max()).item()
+                extra = (f"; {ms / lu_ms:.3f}× the per-step LU's "
+                         f"{lu_ms:.3f}; probes differ from the per-step "
+                         f"LU's by {row['vs_lu_rel']:.3e} of their scale")
+            print(f"  serving design {ms:.3f} ms/sweep, first design "
+                  f"{first_ms:.3f} ({first_ms / ms:.2f}×), "
+                  + (f"twin {row['plain_ms']:.1f}, " if "plain_ms" in row
+                     else "") + f"bound {bms:.3f} ms ({by}){extra}")
+            rows.append(row)
+            del got, ref
+        split = phase_split(args, kw, reps=K1_TURN_REPS)
+        print(f"K1 serving design phase clocks {shape} B={B} on {power}:")
+        for line in split_lines(split):
+            print("  " + line)
+        splits[shape] = split
+        del lu_probes
         step0 = (W // 2) * width
         for name, theta, Bk, wrapper, twin, bnd in (
                 ("K2", False, K2_BATCH[N], rs.online_sweep_pallas_v2,
@@ -408,14 +457,7 @@ def kernel_phase(mods, dev, power, errs, rich_errs):
             rows.append(dict(kernel=name, shape=f"{W}x{N}", B=Bk, ms=ms,
                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                              max_abs_err=err))
-    return rows
-
-
-def first_windows(args, kw, n):
-    """K1's inputs cut to their first ``n`` windows."""
-    width = kw["widths"][0]
-    return ((args[0][:n * width], *(a[:n] for a in args[1:8]), args[8],
-             args[9]), dict(kw, widths=(width,) * n))
+    return rows, splits
 
 
 def k1_options_phase(mods, dev, power):
@@ -554,8 +596,9 @@ def counters(mods):
 
 def serve_calls(rom, batches, mods, engine):
     """Warm up, zero every launch counter, serve the batches one call at
-    a time (synchronized), read the counters: (launches of K1-K5, K1
-    launches with the Richardson solve, outputs, call seconds)."""
+    a time (synchronized), read the counters: (launches of K1-K5, K1's
+    (Richardson, serving design, first design) launches, outputs, call
+    seconds)."""
     k1 = mods["k1"].online_sweep_windowed_fused
     rom.solve_batch(batches[0], mode="probes", engine=engine,
                     probe_reduce="mean")
@@ -563,6 +606,7 @@ def serve_calls(rom, batches, mods, engine):
     for c in counters(mods):
         c.launches = 0
     k1.richardson_launches = 0
+    k1.serving_launches = k1.first_design_launches = 0
     times, outs = [], []
     for mus in batches:
         torch.cuda.synchronize()
@@ -571,8 +615,9 @@ def serve_calls(rom, batches, mods, engine):
                                     probe_reduce="mean"))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return ([c.launches for c in counters(mods)], k1.richardson_launches,
-            outs, times)
+    return ([c.launches for c in counters(mods)],
+            (k1.richardson_launches, k1.serving_launches,
+             k1.first_design_launches), outs, times)
 
 
 def check_served(outs, Bb, N):
@@ -609,23 +654,24 @@ def serve_branch(rom, run, batches, mods, power):
                             rom.precompute_choice)
         if got != branch:
             raise AssertionError(f"B={Bb} routes to {got}, not {branch}")
-        launches, rich, outs, times = serve_calls(rom, batches, mods,
-                                                  "windowed-pallas")
+        launches, k1_counts, outs, times = serve_calls(
+            rom, batches, mods, "windowed-pallas")
     calls = len(batches)
     want = {"fused": [calls, 0, 0, 0, 0], "matrices": [0, W * calls, 0, 0, 0],
             "v2": [0, 0, W * calls, 0, 0]}[branch]
-    want_rich = calls if iters else 0
+    # K1's fused runs launch the serving design only.
+    want_k1 = (calls if iters else 0, want[0], 0)
     info = call_info(Bb, times)
     print(f"serving, {run} run ({branch} branch, solve_iters {iters}): "
           f"{calls} calls of {Bb} μ, median "
           f"{info['serve_ms_median']:.1f} ms per call (min "
           f"{info['serve_ms_min']:.1f}, max {info['serve_ms_max']:.1f}) = "
           f"{info['solves_per_s']:.1f} solves/s (prep + sweep + fetch, "
-          f"synchronized) on {power}; launches K1-K5 {launches}, K1 with "
-          f"Richardson {rich}")
-    if launches != want or rich != want_rich:
-        raise AssertionError(f"{run} run launched {launches} (Richardson "
-                             f"{rich}), expected {want} ({want_rich})")
+          f"synchronized) on {power}; launches K1-K5 {launches}, K1 "
+          f"(Richardson, serving design, first design) {k1_counts}")
+    if launches != want or tuple(k1_counts) != want_k1:
+        raise AssertionError(f"{run} run launched {launches} (K1 "
+                             f"{k1_counts}), expected {want} ({want_k1})")
     check_served(outs, Bb, rom.N)
     return launches, outs, info
 
@@ -694,18 +740,22 @@ def serving_phase(mods, dev, power, errs, rich_errs):
         if branch == "fused":
             args, kwf = engine.sweep_inputs(fom, win, prepped, tables,
                                             rom.windowed_solve())
-            ms, got = cuda_ms(lambda: k1.online_sweep_windowed_fused(
-                *args, **kwf), KERNEL_REPS)
+            ms, first_ms, got, ref = k1_turns(k1, args, kwf, KERNEL_REPS)
+            errs["K1"].append(check_sweep(
+                f"{run} run: K1's serving design vs its first design on the "
+                f"serving inputs:", got, ref))
+            del ref
             plain_ms, want = cuda_ms(lambda: k1.windowed_fused_reference(
                 *args, **kwf), 1, warmup=False)
             info["sweep_ms"] = ms
             bms, by = k1_bound(args, kwf)
             print(f"  K1 on the serving inputs (solve_iters "
-                  f"{kwf['solve_iters']}, period {kwf['period']}): {ms:.3f} "
-                  f"ms/sweep, twin {plain_ms:.1f} ms/sweep, bound {bms:.3f} "
-                  f"ms ({by}) on {power}")
-            kernels[run] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                bound_by=by)
+                  f"{kwf['solve_iters']}, period {kwf['period']}): serving "
+                  f"design {ms:.3f} ms/sweep, first design {first_ms:.3f} "
+                  f"(in turns), twin {plain_ms:.1f} ms/sweep, bound "
+                  f"{bms:.3f} ms ({by}) on {power}")
+            kernels[run] = dict(ms=ms, first_design_ms=first_ms,
+                                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
         else:
             sweep = (engine.sweep_materialized if branch == "matrices"
                      else engine.sweep_theta_v2)
@@ -946,16 +996,24 @@ def main():
     built = kernel_build.build_all()
     print(f"built {len(built)} kernel libraries in parallel in "
           f"{time.perf_counter() - t0:.1f} s")
+    ptxas = {}
     for src, (path, seconds, log) in built.items():
         print(f"  {path.name} ({src.name}): {seconds:.1f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("    " + line.strip())
+        ptxas[src.stem] = dict(nvcc_s=seconds,
+                               kernels=kernel_build.ptxas_report(log))
+        for r in ptxas[src.stem]["kernels"]:
+            print(f"    {r['function']}: {r.get('registers')} registers, "
+                  f"{r.get('stack')} bytes stack, {r.get('spill_stores')}/"
+                  f"{r.get('spill_loads')} bytes spill stores/loads")
+    spills = [r["function"] for r in ptxas["windowed_serving"]["kernels"]
+              if r.get("spill_stores") or r.get("spill_loads")]
+    if spills or not ptxas["windowed_serving"]["kernels"]:
+        raise AssertionError(f"K1's serving design spills in {spills}")
 
     errs = {k: [] for k in KERNELS}
     with torch.inference_mode():
         rich_errs = []
-        rows = kernel_phase(mods, dev, power, errs, rich_errs)
+        rows, splits = kernel_phase(mods, dev, power, errs, rich_errs)
         modes, ablations, ledgers = k1_options_phase(mods, dev, power)
         rows += global_kernel_phase(mods, dev, power, errs)
         launches, kernels, serving = serving_phase(mods, dev, power, errs,
@@ -971,7 +1029,8 @@ def main():
         raise AssertionError("the port imported jax")
 
     meta = {
-        "K1": ("windowed_fused", "romtime_tpu_torch/csrc/windowed_fused.cu",
+        "K1": ("windowed_serving",
+               "romtime_tpu_torch/csrc/windowed_serving.cu",
                "romtime_tpu/ops/pallas_online.py:1303"),
         "K2": ("resid_sweep", "romtime_tpu_torch/csrc/resid_sweep.cu",
                "romtime_tpu/ops/pallas_online.py:962"),
@@ -982,9 +1041,18 @@ def main():
         "K5": ("theta_global_sweep", "romtime_tpu_torch/csrc/global_sweep.cu",
                "romtime_tpu/ops/pallas_online.py:320"),
     }
-    kernels["K1"].update(richardson_launches=launches.pop("K1_richardson"),
-                         richardson_max_abs_err=max(rich_errs), modes=modes,
-                         ablate=ablations, ledger=ledgers)
+    # K1 is the serving design; the first design (the other follower
+    # modes, the ablations and the ledger) stands beside it as its
+    # same-run yardstick.
+    kernels["K1"].update(
+        richardson_launches=launches.pop("K1_richardson"),
+        richardson_max_abs_err=max(rich_errs),
+        phase_shares={shape: {solve: r["shares"] for solve, r in sp.items()}
+                      for shape, sp in splits.items()},
+        phase_split=splits, ptxas=ptxas["windowed_serving"],
+        first_design=dict(source="romtime_tpu_torch/csrc/windowed_fused.cu",
+                          ptxas=ptxas["windowed_fused"], modes=modes,
+                          ablate=ablations, ledger=ledgers))
     print(json.dumps({"kernels": [dict(
         name=meta[k][0], route="cuda", source=meta[k][1],
         replaces=meta[k][2], launches=launches[k],

@@ -1,10 +1,13 @@
-"""Measured per-component cost ledger of K1 (the fused windowed sweep) on
-the card.
+"""Measured per-component cost ledgers of K1 (the fused windowed sweep)
+on the card.
 
-Counterpart of ``scripts/kernel_ledger.py`` and of the ledger in
-``bench.py`` (:876-959): the kernel runs on the same inputs with one piece
-of its work taken out at a time (``ablate``), and the differences of the
-sweep times are the pieces' costs. Each variant is timed with CUDA events
+**The first design's ablation ledger** (``csrc/windowed_fused.cu``, the
+counterpart of ``scripts/kernel_ledger.py`` and of the ledger in
+``bench.py`` :876-959): the first design runs on the same inputs with one
+piece of its work taken out at a time (``ablate``), and the differences
+of the sweep times are the pieces' costs. Every variant, the unablated
+ones included, runs on the first design (``_first_design_sweep``), so the
+differences are of one design. Each variant is timed with CUDA events
 around single calls, the median of ``reps`` calls after one warm-up (the
 reference's chained-marginal protocol existed only because its TPU
 backend did not block on a result; a CUDA event does).
@@ -20,7 +23,15 @@ only), boundary dd = full − no_boundary, floor = empty. ``bench.py``'s
 four keys come from the ``full_paired5`` row (the serving solve), as its
 ablations time the served engine's paired setting.
 
-Used from ``chip_smoke.py``. It raises on a CPU tensor: there is no
+**The serving design's phase split** (``csrc/windowed_serving.cu``): its
+CLOCKED instantiation (the same compiled body with clock64() reads by
+one thread at each phase boundary) gives each block's cycles per phase;
+:func:`phase_split` times it beside the plain instantiation, for the
+paired LU (G=5, ``sub1``), the per-step LU and Richardson (5
+iterations), and reports the shares only where the two totals agree
+within :data:`CLOCK_GAP_MAX`.
+
+Used from ``chip_smoke.py``. Both raise on a CPU tensor: there is no
 ledger of the twin.
 """
 
@@ -28,7 +39,12 @@ import statistics
 
 import torch
 
-from .ops.windowed_fused import online_sweep_windowed_fused
+from .ops.windowed_fused import (
+    SERVING_PHASES,
+    _first_design_sweep,
+    _serving_sweep_clocked,
+    online_sweep_windowed_fused,
+)
 
 GROUP = 5
 SOLVE_ITERS = 5
@@ -50,16 +66,25 @@ COMPONENTS = (("theta_dots", "no_dots"), ("solve", "no_solve"),
               ("trilinear", "no_trilinear"), ("boundary_dd", "no_boundary"))
 
 
-def time_sweep(args, kw, reps):
-    """Median ms of ``reps`` K1 calls after one warm-up call, each call
-    between two CUDA events."""
-    online_sweep_windowed_fused(*args, **kw)
+#: Largest relative gap between the clocked and the plain serving design's
+#: sweep times at which the phase shares are reported.
+CLOCK_GAP_MAX = 0.03
+#: (name, K1 options) of the phase split's solves.
+SPLIT_SOLVES = (("sub1", {"paired_lu": GROUP}),
+                ("lu", {"paired_lu": None}),
+                ("richardson", {"solve_iters": SOLVE_ITERS}))
+
+
+def time_sweep(args, kw, reps, sweep=_first_design_sweep):
+    """Median ms of ``reps`` calls of ``sweep`` (default: K1's first
+    design) after one warm-up call, each call between two CUDA events."""
+    sweep(*args, **kw)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        online_sweep_windowed_fused(*args, **kw)
+        sweep(*args, **kw)
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
@@ -86,7 +111,7 @@ def _solve_ledger(variants, args, kw, no_trilinear, reps):
 
 
 def kernel_ledger(args, kw, no_trilinear=None, reps=3):
-    """The ledger of K1 on ``args``/``kw`` (its inputs and options as
+    """The ablation ledger of K1's first design on ``args``/``kw`` (its inputs and options as
     :func:`~romtime_tpu_torch.ops.windowed_fused.online_sweep_windowed_fused`
     takes them; the solve options in ``kw`` are replaced by each
     variant's). ``no_trilinear`` is the (args, kw) pair of the same inputs
@@ -95,9 +120,7 @@ def kernel_ledger(args, kw, no_trilinear=None, reps=3):
     sweep and µs per step of each variant and the derived components;
     ``bench`` holds ``bench.py``'s four ledger keys."""
     for a in (args, no_trilinear[0] if no_trilinear else args):
-        if not a[0].is_cuda:
-            raise ValueError("the kernel ledger times K1 on a CUDA device; "
-                             f"got a tensor on {a[0].device}")
+        _check_cuda(a)
     base = dict(kw, paired_lu=None, paired_mode="sub1", solve_iters=None,
                 ablate=None)
     tri = None
@@ -117,6 +140,61 @@ def kernel_ledger(args, kw, no_trilinear=None, reps=3):
         / max(full, 1e-9),
     }
     return {"lu": lu, "richardson": rich, "bench": bench}
+
+
+def _check_cuda(args):
+    if not args[0].is_cuda:
+        raise ValueError("the kernel ledger times K1 on a CUDA device; "
+                         f"got a tensor on {args[0].device}")
+
+
+def phase_split(args, kw, reps=3):
+    """The serving design's phase clocks on ``args``/``kw`` for each of
+    :data:`SPLIT_SOLVES` (its options replace the solve options in
+    ``kw``): {solve: {"ms", "clocked_ms", "gap", "shares",
+    "cycles_per_step"}}. ``ms`` and ``clocked_ms`` are medians of
+    ``reps`` calls (CUDA events) of the plain and the CLOCKED
+    instantiation, in turns; ``gap`` = |clocked − plain| / plain;
+    ``shares`` the phases' fractions of the blocks' summed cycles (None
+    where ``gap`` exceeds :data:`CLOCK_GAP_MAX`); ``cycles_per_step`` the
+    mean block's cycles per phase and step."""
+    _check_cuda(args)
+    nt = args[0].shape[0]
+    base = dict(kw, paired_lu=None, paired_mode="sub1", solve_iters=None,
+                ablate=None)
+    out = {}
+    for name, opts in SPLIT_SOLVES:
+        k = dict(base, **opts)
+        plain = time_sweep(args, k, reps, online_sweep_windowed_fused)
+        clocked = time_sweep(args, k, reps, _serving_sweep_clocked)
+        plain = min(plain, time_sweep(args, k, reps,
+                                      online_sweep_windowed_fused))
+        clk = _serving_sweep_clocked(*args, **k)[2].double()
+        sums = clk.sum(dim=0)
+        gap = abs(clocked - plain) / plain
+        per_step = (sums[:-1] / clk.shape[0] / nt).tolist()
+        shares = ({p: (sums[j] / sums[-1]).item()
+                   for j, p in enumerate(SERVING_PHASES)}
+                  if gap <= CLOCK_GAP_MAX else None)
+        out[name] = {"ms": plain, "clocked_ms": clocked, "gap": gap,
+                     "shares": shares,
+                     "cycles_per_step": dict(zip(SERVING_PHASES, per_step))}
+    return out
+
+
+def split_lines(split):
+    """Printable lines of :func:`phase_split`'s result."""
+    lines = []
+    for name, r in split.items():
+        head = (f"[phases] {name:10s} plain {r['ms']:9.3f} ms, clocked "
+                f"{r['clocked_ms']:9.3f} ms (gap {r['gap']:.2%})")
+        if r["shares"] is None:
+            lines.append(head + f": over {CLOCK_GAP_MAX:.0%}, shares not "
+                         "reported")
+        else:
+            lines.append(head + ": " + ", ".join(
+                f"{p} {v:.1%}" for p, v in r["shares"].items()))
+    return lines
 
 
 def ledger_lines(ledger, B):

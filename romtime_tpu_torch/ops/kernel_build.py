@@ -12,6 +12,7 @@ once (what ``chip_smoke.py`` does first).
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -85,6 +86,32 @@ def build_all(srcs=None):
     if failed:
         raise RuntimeError("\n".join(failed))
     return results
+
+
+def ptxas_report(log):
+    """Each compiled kernel of an nvcc log (``-Xptxas -v``): a list of
+    {"function", "registers", "stack", "spill_stores", "spill_loads"},
+    in the log's order (the mangled name carries the template
+    arguments)."""
+    rows, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = {"function": m.group(1)}
+            rows.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            current.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return rows
 
 
 def load(name, bind):

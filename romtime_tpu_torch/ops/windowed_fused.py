@@ -9,9 +9,16 @@ Counterpart of ``romtime_tpu/ops/pallas_online.py``
   loop of torch ops that mirrors ``_bdf_step_merged``, ``_lanes_solve``,
   ``_lanes_solve_panels``, ``_panels_substitute``, ``_lanes_invert`` and
   ``_richardson_solve`` op for op;
+- :func:`bdf_step_split`, the serving design's arithmetic in plain
+  PyTorch (the trilinear term formed once; the tests run it through the
+  twin's sweep loop with ``split=True``);
 - the wrapper :func:`online_sweep_windowed_fused`, which runs the twin for
-  CPU tensors and the hand-written CUDA kernel (``csrc/windowed_fused.cu``)
-  for CUDA tensors. There is no fallback between the two.
+  CPU tensors and a hand-written CUDA kernel for CUDA tensors, routed by
+  option (:func:`k1_design`): the serving design
+  (``csrc/windowed_serving.cu``) for the per-step LU, the paired LU with
+  ``sub1`` followers and the Richardson solve; the first design
+  (``csrc/windowed_fused.cu``) for the other follower modes and the
+  ablations. There is no fallback between any of them.
 
 Per step, for every lane (μ) b:
 
@@ -270,10 +277,7 @@ def _follower_solve(KN, panels, r0, NP, mode, dprev, dprev2):
 
 
 def _bdf_step_merged(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
-                     VE, dtb0, bdf2, n_real, NP, km8, kk8, kf8,
-                     panels=None, save_panels=False, Kinv=None,
-                     solve_iters=None, dprev=None, paired_mode="sub1",
-                     dprev2=None, skip_solve=False):
+                     VE, dtb0, bdf2, n_real, NP, km8, kk8, kf8, **solve):
     """One merged-dot residual-form BDF step (``_bdf_step_merged``).
     Returns (u_hi, u_lo, probes, δ, panels)."""
     kmk8 = km8 + kk8
@@ -301,7 +305,47 @@ def _bdf_step_merged(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
     t1k = (BkF @ pred_hi).reshape(kk, NP, B)
     KLp = (t1k * tts[km8:km8 + kk][:, None, :]).sum(dim=0)
     r0 = MNd + fN - KLp - trip
+    return _solve_step(KN, r0, pred_hi, pred_lo, tts, VE, n_real, NP,
+                       kmk8 + kf8, **solve)
 
+
+def bdf_step_split(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
+                   VE, dtb0, bdf2, n_real, NP, km8, kk8, kf8, **solve):
+    """The BDF step of :func:`_bdf_step_merged` with the trilinear term
+    formed once, as K1's serving design (``csrc/windowed_serving.cu``)
+    computes it: the folded combine's live columns in three segments,
+    MN = Bm·θm (unscaled), KL = Bk·θk and N = T0·(dt·b0·pred); then
+    KN = bdf·MN + KL + N and r0 = MN·d + fN − KL·pred − N·pred, each term
+    formed on its own and combined in the reference's order. TQ and the
+    factored BmF/BkF are not read (their shapes give the live θ rows km
+    and kk). Same arguments and results as :func:`_bdf_step_merged`."""
+    kmk8 = km8 + kk8
+    km = BmF.shape[0] // NP
+    kk = BkF.shape[0] // NP
+    B = tts.shape[1]
+    pred_hi, pred_lo, d, bdf = _dd_predictor(uN, lo, uN1, lo1, step, bdf2)
+    MN = (Bmk[:, :km] @ tts[:km]).reshape(NP, NP, B)
+    KL = (Bmk[:, km8:km8 + kk] @ tts[km8:km8 + kk]).reshape(NP, NP, B)
+    KN = bdf * MN + KL
+    if dtb0 is not None:
+        Nt = (Bmk[:, kmk8:kmk8 + NP] @ (pred_hi * dtb0)).reshape(NP, NP, B)
+        KN = KN + Nt
+        trip = lanes_matvec(Nt, pred_hi)
+    else:
+        trip = torch.zeros_like(pred_hi)
+    fN = Bf @ tts[kmk8:kmk8 + kf8]
+    r0 = lanes_matvec(MN, d) + fN - lanes_matvec(KL, pred_hi) - trip
+    return _solve_step(KN, r0, pred_hi, pred_lo, tts, VE, n_real, NP,
+                       kmk8 + kf8, **solve)
+
+
+def _solve_step(KN, r0, pred_hi, pred_lo, tts, VE, n_real, NP, off_g,
+                panels=None, save_panels=False, Kinv=None, solve_iters=None,
+                dprev=None, paired_mode="sub1", dprev2=None,
+                skip_solve=False):
+    """KN·δ = r0 by the step's solve, u = pred ⊕ δ and the probes: the
+    tail of ``_bdf_step_merged``. Returns (u_hi, u_lo, probes, δ,
+    panels)."""
     out_panels = None
     if skip_solve:
         delta = r0
@@ -318,7 +362,7 @@ def _bdf_step_merged(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
     else:
         delta = lanes_solve(KN, r0, n_real, NP)
     uN_new, lo_new = dd_add_small(pred_hi, pred_lo, delta)
-    probes = VE @ uN_new + tts[kmk8 + kf8:kmk8 + kf8 + PROBE_P]
+    probes = VE @ uN_new + tts[off_g:off_g + PROBE_P]
     return uN_new, lo_new, probes, delta, out_panels
 
 
@@ -399,9 +443,11 @@ def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
                              *, widths, dt, bdf2=True, with_trilinear=True,
                              n_real, km8, kk8, kf8, paired_lu=None,
                              paired_mode="sub1", period=None,
-                             solve_iters=None, ablate=None):
+                             solve_iters=None, ablate=None, split=False):
     """Plain PyTorch twin of K1; same arguments and results as
-    :func:`online_sweep_windowed_fused`."""
+    :func:`online_sweep_windowed_fused`. ``split`` steps with
+    :func:`bdf_step_split` (the serving design's arithmetic) instead of
+    the reference's ``_bdf_step_merged``."""
     W, width, NP, _km, _kk, period, group = _check_args(
         TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0, widths,
         with_trilinear, km8, kk8, kf8, paired_lu, paired_mode, period,
@@ -414,6 +460,7 @@ def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
     dt_c = torch.tensor(dt, dtype=TH.dtype, device=TH.device)
     dtb0 = dt_c * b0 if with_trilinear else None
     roles = step_roles(period, group)
+    step_fn = bdf_step_split if split else _bdf_step_merged
     THbar = (window_mean_theta(TH, W, km8, kk8, bdf2)
              if solve_iters is not None else None)
     # δ crosses window boundaries where a later step starts from it.
@@ -470,7 +517,7 @@ def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
                 uN1, lo1, uN, lo = uN, lo, uN_new, lo_new
                 continue
             role = roles[s % period]
-            uN_new, lo_new, probes[step], delta, out_pan = _bdf_step_merged(
+            uN_new, lo_new, probes[step], delta, out_pan = step_fn(
                 tts, *consts, uN, lo, uN1, lo1, step, TQ_w, VE_w,
                 dtb0, bdf2, n_real, NP, km8, kk8, kf8,
                 panels=pan if role == "follow" else None,
@@ -489,13 +536,159 @@ def windowed_fused_reference(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
 
 
 # ======================================================================
-# CUDA kernel: bind, launch (built by kernel_build)
+# CUDA kernels: bind, route, launch (built by kernel_build)
 # ======================================================================
+#: Phase clocks of the serving design's CLOCKED instantiation, in the
+#: order of its int64 output row (then the block's total).
+SERVING_PHASES = ("boundary", "wait", "build", "r0", "solve", "kbar",
+                  "update")
+#: Padded widths with a CLOCKED instantiation (the fleet's 50x32 and
+#: 150x48 shapes).
+SERVING_CLOCKED_NP = (32, 48)
+_ARG_NAMES = ("TH", "Bmk", "BmF", "BkF", "Bf", "TQ", "VE", "Tp", "b0",
+              "state0")
+
+
 def _bind(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.romtime_windowed_fused.argtypes = (
         [ptr] * 13 + [i32] * 16 + [ctypes.c_float, ptr])
     lib.romtime_windowed_fused.restype = i32
+
+
+def _bind_serving(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.romtime_windowed_serving.argtypes = (
+        [ptr] * 11 + [i32] * 14 + [ctypes.c_float, ptr])
+    lib.romtime_windowed_serving.restype = i32
+    lib.romtime_windowed_serving_tile.argtypes = [i32] * 4 + [ptr]
+    lib.romtime_windowed_serving_tile.restype = i32
+
+
+def k1_design(group, paired_mode, ablate):
+    """The K1 design that runs these options on the card, with ``group``
+    the effective paired-LU group (0 where :func:`_check_args` turns
+    pairing off): ``"serving"`` (``csrc/windowed_serving.cu``) without an
+    ablation and with no paired group or ``sub1`` followers, under the LU
+    or the Richardson solve; ``"first"`` (``csrc/windowed_fused.cu``) for
+    the other follower modes and every ablation. The route depends on the
+    options only, never on a failure."""
+    if ablate is None and (not group or paired_mode == "sub1"):
+        return "serving"
+    return "first"
+
+
+def serving_tile(NP, km8, kk8, kf8):
+    """Launch shape of the serving design for NP and the θ extents:
+    {"lanes", "threads", "ks", "smem_bytes"} (builds the library)."""
+    lib = kernel_build.load("windowed_serving", _bind_serving)
+    out = (ctypes.c_int * 4)()
+    err = lib.romtime_windowed_serving_tile(NP, km8, kk8, kf8, out)
+    kernel_build.check_launch(lib, err, "windowed_serving tile")
+    return dict(zip(("lanes", "threads", "ks", "smem_bytes"), out))
+
+
+def _count(design, kw):
+    wrapper = online_sweep_windowed_fused
+    wrapper.launches += 1
+    if design == "serving":
+        wrapper.serving_launches += 1
+    else:
+        wrapper.first_design_launches += 1
+    if kw["solve_iters"] is not None:
+        wrapper.richardson_launches += 1
+
+
+def _launch(args, kw, design=None, clocked=False):
+    """Check the options and the operands and launch K1's ``design``
+    (default: the one :func:`k1_design` names) on CUDA tensors; returns
+    (probes, state) and, with ``clocked``, the serving design's per-block
+    phase clocks."""
+    (TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0) = args
+    W, width, NP, km, kk, period, group = _check_args(
+        *args, kw["widths"], kw["with_trilinear"], kw["km8"], kw["kk8"],
+        kw["kf8"], kw["paired_lu"], kw["paired_mode"], kw["period"],
+        kw["n_real"], kw["solve_iters"], kw["ablate"])
+    design = design or k1_design(group, kw["paired_mode"], kw["ablate"])
+    if clocked and design != "serving":
+        raise ValueError("the phase clocks exist on the serving options "
+                         "only")
+    if clocked and NP not in SERVING_CLOCKED_NP:
+        raise ValueError(f"the phase clocks exist at NP in "
+                         f"{SERVING_CLOCKED_NP} only")
+    if TH.device.type != "cuda":
+        raise ValueError(f"unsupported device {TH.device}")
+    km8, kk8, kf8 = kw["km8"], kw["kk8"], kw["kf8"]
+    if not kw["with_trilinear"]:
+        TQ = TH.new_zeros((1,))
+    THbar = (window_mean_theta(TH, W, km8, kk8, kw["bdf2"])
+             if kw["solve_iters"] is not None else TH.new_zeros((1,)))
+    for name, t in zip(_ARG_NAMES + ("THbar",),
+                       args[:5] + (TQ,) + args[6:] + (THbar,)):
+        if t.dtype != torch.float32 or t.device != TH.device:
+            raise ValueError(f"{name} must be float32 on {TH.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    _no_tf32()
+    nt, _K8, B = TH.shape
+    dev = TH.device
+    probes = torch.empty((nt, PROBE_P, B), dtype=torch.float32, device=dev)
+    state = torch.empty((4, NP, B), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flags = (int(bool(kw["with_trilinear"])), int(bool(kw["bdf2"])), group)
+    iters = int(kw["solve_iters"] or 0)
+    clk = None
+    with torch.cuda.device(dev):
+        if design == "serving":
+            lib = kernel_build.load("windowed_serving", _bind_serving)
+            # The rows of each Bmk slice, of Tp and of VE padded to NP + 4
+            # floats: a chunk of slices (a window's Tp, VE) is one
+            # contiguous bulk copy that lands in the kernel's
+            # conflict-free shared layout.
+            def padded(t, *shape):
+                return torch.nn.functional.pad(t.view(*shape),
+                                               (0, 4)).contiguous()
+            Bmk = padded(Bmk, W, Bmk.shape[1], NP, NP)
+            Tp = padded(Tp, W, NP, NP)
+            VE = padded(VE, W, PROBE_P, NP)
+            if clocked:
+                lanes = serving_tile(NP, km8, kk8, kf8)["lanes"]
+                clk = torch.zeros(((B + lanes - 1) // lanes,
+                                   len(SERVING_PHASES) + 1),
+                                  dtype=torch.int64, device=dev)
+            err = lib.romtime_windowed_serving(
+                TH.data_ptr(), Bmk.data_ptr(), Bf.data_ptr(), VE.data_ptr(),
+                Tp.data_ptr(), b0.data_ptr(), state0.data_ptr(),
+                THbar.data_ptr(), probes.data_ptr(), state.data_ptr(),
+                None if clk is None else clk.data_ptr(),
+                W, width, period, NP, B, km8, kk8, kf8, km, kk, *flags,
+                iters, float(kw["dt"]), stream)
+        else:
+            lib = kernel_build.load("windowed_fused", _bind)
+            ablate = kw["ablate"]
+            err = lib.romtime_windowed_fused(
+                TH.data_ptr(), Bmk.data_ptr(), BmF.data_ptr(),
+                BkF.data_ptr(), Bf.data_ptr(), TQ.data_ptr(), VE.data_ptr(),
+                Tp.data_ptr(), b0.data_ptr(), state0.data_ptr(),
+                THbar.data_ptr(), probes.data_ptr(), state.data_ptr(),
+                W, width, period, NP, B, km8, kk8, kf8, km, kk, *flags,
+                PAIRED_MODES.index(kw["paired_mode"]), iters,
+                0 if ablate is None else 1 + ABLATE_MODES.index(ablate),
+                float(kw["dt"]), stream)
+    kernel_build.check_launch(lib, err, f"windowed_{design}")
+    _count(design, kw)
+    if clocked:
+        return probes, state, clk
+    return probes, state
+
+
+def _options(widths, dt, bdf2, with_trilinear, n_real, km8, kk8, kf8,
+             paired_lu, paired_mode, period, solve_iters, ablate):
+    return dict(widths=widths, dt=dt, bdf2=bdf2,
+                with_trilinear=with_trilinear, n_real=n_real, km8=km8,
+                kk8=kk8, kf8=kf8, paired_lu=paired_lu,
+                paired_mode=paired_mode, period=period,
+                solve_iters=solve_iters, ablate=ablate)
 
 
 def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
@@ -523,58 +716,45 @@ def online_sweep_windowed_fused(TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0,
     ablate : None, or one of :data:`ABLATE_MODES` (the cost ledger)
 
     Returns (probes (nt, PROBE_P, B), state (4, NP, B)), float32. CPU
-    tensors run the twin; CUDA tensors launch the kernel (and count the
-    launch in ``online_sweep_windowed_fused.launches``, a launch with the
-    Richardson solve also in ``.richardson_launches``)."""
+    tensors run the twin; CUDA tensors launch the design that
+    :func:`k1_design` names for the options: the serving design
+    (``csrc/windowed_serving.cu``, which reads neither TQ nor BmF/BkF
+    beyond their shapes) or the first design (``csrc/windowed_fused.cu``).
+    A launch counts in ``online_sweep_windowed_fused.launches`` and in its
+    design's ``.serving_launches`` or ``.first_design_launches``; one
+    with the Richardson solve also in ``.richardson_launches``."""
     args = (TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0)
-    kw = dict(widths=widths, dt=dt, bdf2=bdf2,
-              with_trilinear=with_trilinear, n_real=n_real, km8=km8,
-              kk8=kk8, kf8=kf8, paired_lu=paired_lu,
-              paired_mode=paired_mode, period=period,
-              solve_iters=solve_iters, ablate=ablate)
+    kw = _options(widths, dt, bdf2, with_trilinear, n_real, km8, kk8, kf8,
+                  paired_lu, paired_mode, period, solve_iters, ablate)
     if TH.device.type == "cpu":
         return windowed_fused_reference(*args, **kw)
-    if TH.device.type != "cuda":
-        raise ValueError(f"unsupported device {TH.device}")
-    W, width, NP, km, kk, period, group = _check_args(
-        *args, widths, with_trilinear, km8, kk8, kf8, paired_lu,
-        paired_mode, period, n_real, solve_iters, ablate)
-    if not with_trilinear:
-        TQ = TH.new_zeros((1,))
-    THbar = (window_mean_theta(TH, W, km8, kk8, bdf2)
-             if solve_iters is not None else TH.new_zeros((1,)))
-    for name, t in zip(("TH", "Bmk", "BmF", "BkF", "Bf", "TQ", "VE", "Tp",
-                        "b0", "state0", "THbar"),
-                       (TH, Bmk, BmF, BkF, Bf, TQ, VE, Tp, b0, state0,
-                        THbar)):
-        if t.dtype != torch.float32 or t.device != TH.device:
-            raise ValueError(f"{name} must be float32 on {TH.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    _no_tf32()
-    lib = kernel_build.load("windowed_fused", _bind)
-    nt, _K8, B = TH.shape
-    probes = torch.empty((nt, PROBE_P, B), dtype=torch.float32,
-                         device=TH.device)
-    state = torch.empty((4, NP, B), dtype=torch.float32, device=TH.device)
-    stream = torch.cuda.current_stream(TH.device).cuda_stream
-    with torch.cuda.device(TH.device):
-        err = lib.romtime_windowed_fused(
-            TH.data_ptr(), Bmk.data_ptr(), BmF.data_ptr(), BkF.data_ptr(),
-            Bf.data_ptr(), TQ.data_ptr(), VE.data_ptr(), Tp.data_ptr(),
-            b0.data_ptr(), state0.data_ptr(), THbar.data_ptr(),
-            probes.data_ptr(), state.data_ptr(),
-            W, width, period, NP, B, km8, kk8, kf8, km, kk,
-            int(bool(with_trilinear)), int(bool(bdf2)), group,
-            PAIRED_MODES.index(paired_mode), int(solve_iters or 0),
-            0 if ablate is None else 1 + ABLATE_MODES.index(ablate),
-            float(dt), stream)
-    kernel_build.check_launch(lib, err, "windowed_fused")
-    online_sweep_windowed_fused.launches += 1
-    if solve_iters is not None:
-        online_sweep_windowed_fused.richardson_launches += 1
-    return probes, state
+    return _launch(args, kw)
 
 
 online_sweep_windowed_fused.launches = 0
+online_sweep_windowed_fused.serving_launches = 0
+online_sweep_windowed_fused.first_design_launches = 0
 online_sweep_windowed_fused.richardson_launches = 0
+
+
+def _full_options(kw):
+    return _options(**dict(dict(bdf2=True, with_trilinear=True,
+                                paired_lu=None, paired_mode="sub1",
+                                period=None, solve_iters=None, ablate=None),
+                           **kw))
+
+
+def _first_design_sweep(*args, **kw):
+    """K1's first design (``csrc/windowed_fused.cu``) on any options, the
+    serving ones included: the same-run yardstick of ``chip_smoke.py``,
+    the cost ledger and the card tests. CUDA tensors only."""
+    return _launch(args, _full_options(kw), design="first")
+
+
+def _serving_sweep_clocked(*args, **kw):
+    """The serving design's CLOCKED instantiation on serving options at
+    an NP of :data:`SERVING_CLOCKED_NP`: (probes, state, clocks), the
+    clocks (blocks, len(SERVING_PHASES) + 1) int64 — each block's clock()
+    cycles per phase of :data:`SERVING_PHASES`, then its total. CUDA
+    tensors only."""
+    return _launch(args, _full_options(kw), clocked=True)

@@ -1,4 +1,7 @@
-"""K1-K5 on the card against their plain PyTorch twins on the card.
+"""K1-K5 on the card against their plain PyTorch twins on the card (K1
+in both of its designs: the serving design csrc/windowed_serving.cu on
+the serving options, the first design csrc/windowed_fused.cu on every
+option).
 Needs a CUDA device and nvcc; skips without a device. Imports no JAX, so
 it runs on a machine without it (tests/conftest.py imports JAX,
 hence ``--noconftest``):
@@ -45,6 +48,84 @@ def test_cuda_kernel_matches_twin(N, W, width, B, group, options):
     assert (got_p - twin_p).abs().max().item() <= 5e-5 * scale
     sscale = twin_s[[0, 2]].abs().max().item()
     assert (got_s - twin_s)[[0, 2]].abs().max().item() <= 5e-5 * sscale
+
+
+def _held_to(got, want):
+    got_p, got_s = got
+    want_p, want_s = want
+    assert torch.isfinite(got_p).all() and torch.isfinite(got_s).all()
+    scale = want_p.abs().max().item()
+    assert (got_p - want_p).abs().max().item() <= 5e-5 * scale
+    sscale = want_s[[0, 2]].abs().max().item()
+    assert (got_s - want_s)[[0, 2]].abs().max().item() <= 5e-5 * sscale
+
+
+#: K1's serving-option cases for both designs: CASES, NP=64 (two warps a
+#: lane in the serving design, four lanes a block) with and without
+#: pairing, and NP=40 and NP=8.
+DESIGN_CASES = CASES + [(60, 2, 8, 40, 5, {}), (64, 2, 8, 33, None, {}),
+                        (40, 2, 10, 70, 5, {}), (8, 2, 8, 33, None, {})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solve_iters", [None, 5], ids=["lu", "richardson"])
+@pytest.mark.parametrize("design", ["serving", "first"])
+@pytest.mark.parametrize("N,W,width,B,group,options", DESIGN_CASES)
+def test_cuda_designs_match_twin(N, W, width, B, group, options, design,
+                                 solve_iters):
+    """Each K1 design on the serving options (per-step LU, paired LU with
+    sub1 followers, Richardson) against the twin; the serving design
+    through the wrapper, the first through its private entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = kernel_tables(N, W, width, B, seed=N + 1, device="cuda",
+                             **options)
+    kw.update(paired_lu=group, solve_iters=solve_iters)
+    want = k1.windowed_fused_reference(*args, **kw)
+    sweep = (k1.online_sweep_windowed_fused if design == "serving"
+             else k1._first_design_sweep)
+    _held_to(sweep(*args, **kw), want)
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counters_follow_the_routing_rule():
+    """The serving options launch the serving design and only it; the
+    other follower modes and the ablations launch the first design."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = kernel_tables(24, 2, 8, 64, seed=3, device="cuda")
+    wrapper = k1.online_sweep_windowed_fused
+    for opts, design in (({"paired_lu": None}, "serving"),
+                         ({"paired_lu": 5}, "serving"),
+                         ({"paired_lu": 5, "solve_iters": 5}, "serving"),
+                         ({"paired_lu": 5, "paired_mode": "warm2",
+                           "solve_iters": 5}, "serving"),
+                         ({"paired_lu": 5, "paired_mode": "inv1"}, "first"),
+                         ({"ablate": "no_dots"}, "first"),
+                         ({"ablate": "empty", "solve_iters": 5}, "first")):
+        before = (wrapper.serving_launches, wrapper.first_design_launches)
+        wrapper(*args, **dict(kw, **opts))
+        torch.cuda.synchronize()
+        after = (wrapper.serving_launches, wrapper.first_design_launches)
+        moved = tuple(b - a for a, b in zip(before, after))
+        assert moved == ((1, 0) if design == "serving" else (0, 1)), opts
+
+
+@pytest.mark.cuda
+def test_cuda_serving_clocks_match_plain():
+    """The CLOCKED instantiation computes what the plain one computes and
+    reports a positive cycle count for every block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = kernel_tables(32, 2, 30, 67, seed=4, device="cuda")
+    kw.update(paired_lu=5)
+    plain = k1.online_sweep_windowed_fused(*args, **kw)
+    p, s, clk = k1._serving_sweep_clocked(*args, **kw)
+    torch.cuda.synchronize()
+    _held_to((p, s), plain)
+    assert clk.shape[1] == len(k1.SERVING_PHASES) + 1
+    assert (clk[:, -1] > 0).all()
+    assert (clk[:, :-1].sum(dim=1) <= clk[:, -1]).all()
 
 
 #: (N, W, width, B, solve_iters) of K1's Richardson solve: Gauss-Jordan-
