@@ -6,13 +6,15 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every kernel of the serving paths with nvcc for sm_90a, one
-   nvcc per source, all at once: K1's serving design
-   (romtime_tpu_torch/csrc/windowed_serving.cu) and its first design
-   (romtime_tpu_torch/csrc/windowed_fused.cu), K2 and K3
-   (romtime_tpu_torch/csrc/resid_sweep.cu), K4 and K5
+   nvcc per source, all at once, with each source's nvcc seconds: the
+   serving body (romtime_tpu_torch/csrc/serving_body.cuh) in K1's serving
+   design and K3 (romtime_tpu_torch/csrc/windowed_serving.cu) and in K5
+   (romtime_tpu_torch/csrc/global_serving.cu); K1's first design
+   (romtime_tpu_torch/csrc/windowed_fused.cu); K2 and K3's first design
+   (romtime_tpu_torch/csrc/resid_sweep.cu); K4 and K5's first design
    (romtime_tpu_torch/csrc/global_sweep.cu); each instantiation's
-   registers and spills (``-Xptxas -v``): the serving design must not
-   spill;
+   registers and spills (``-Xptxas -v``): no instantiation of the serving
+   body may spill;
 3. kernel phase, each kernel against its plain PyTorch twin, both on the
    card: K1-K3 at the fleet's two windowed serving shapes (50 windows ×
    30 steps at N=32, 150 × 10 at N=48): K1 (B=2048) with paired LU G=5
@@ -24,11 +26,15 @@ Phases, in order; any failure raises and exits non-zero:
    design's phase clocks (its CLOCKED instantiation beside the plain
    one; shares reported where the totals agree within 3%); K2 (B=512 at
    50x32, B=128 at 150x48) and K3 (B=2048) over one window launch with
-   step0 > 0 from a nonzero carried state; K4 and K5 over a whole global
-   sweep (nt=1500): K4 at N=15 and K5 at N=20 (B=2048, the throughput
-   ROM and S-ROM), each also at N=9 with BDF-1 and no trilinear term,
-   and at B=1000 (not a multiple of 128). Errors against 5e-5·scale; ms
-   per call of the kernel and of the twin, and the bound;
+   step0 > 0 from a nonzero carried state, K3 on both designs in turns
+   (serving, first, first, serving), held against its first design, the
+   twin and the split twin, with the serving body's phase clocks; K4 and
+   K5 over a whole global sweep (nt=1500): K4 at N=15, K5 at N=15 and
+   N=20 (B=2048, the throughput ROM and S-ROM), each also at N=9 with
+   BDF-1 and no trilinear term, and at B=1000 (not a multiple of 128),
+   K5 on both designs in turns as K3, with the phase clocks at N=20.
+   Errors against 5e-5·scale; ms per call of the kernel and of the twin,
+   and the bound;
 4. K1 options phase (the first design), at both windowed shapes
    (B=2048) on the same tables: the first design's cost ledger
    (romtime_tpu_torch/kernel_ledger.py: every ablated variant with the
@@ -44,7 +50,8 @@ Phases, in order; any failure raises and exits non-zero:
    B=2048 (fused K1 with the LU schedule, one launch of the serving
    design per call and none of the first), B=512
    (materialized tables, K2 once per window: 50 per call), B=2048 under
-   ROMTIME_WINDOWED_KERNEL=v2 (K3 once per window) and B=2048 on the
+   ROMTIME_WINDOWED_KERNEL=v2 (K3's serving body once per window, its
+   first design never) and B=2048 on the
    fused branch with ``WINDOWED_SOLVE_ITERS = 5`` on the instance (K1
    with the Richardson solve, one launch per call). Each branch's outputs
    must be finite and agree with the same batch through the twins on the
@@ -56,17 +63,19 @@ Phases, in order; any failure raises and exits non-zero:
 6. global serving phase (``engine="pallas"``) on the seeded synthetic
    global cells (same FOM), the same way: N=15 at B=2048 (materialized
    tables, one K4 launch per call), the same cell with the precompute
-   budget at 0 (one K5 launch per call; its outputs within 3e-6·scale of
-   K4's on the same μ) and N=20 at B=2048 (K5 by the budget alone);
+   budget at 0 (one launch of K5's serving body per call; its outputs
+   within 3e-6·scale of K4's on the same μ) and N=20 at B=2048 (K5 by the
+   budget alone); K5 on both designs in turns on each cell's inputs;
 7. one measured precompute autotune on the N=15 global cell at B=2048
    (record written under build/).
 
 Every serving branch reports solves/s (median of its calls, synchronized)
 beside the card name, where its time goes, and each kernel's ms, twin ms
-and bound on the serving path's own inputs (K1's on both designs, in
-turns). Prints a JSON line of per-kernel results (K1's serving design
-with the first design's time, the phase shares, the register and spill
-report, and the first design's modes, ablations and ledger), then, as
+and bound on the serving path's own inputs (K1's, K3's and K5's on both
+designs, in turns). Prints a JSON line of per-kernel results (K1, K3 and
+K5 on the serving body with their first designs' times, the phase
+shares, the register and spill report, and K1's first design's modes,
+ablations and ledger), then, as
 the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -115,9 +124,12 @@ GLOBAL_CALLS = 3
 GLOBAL_REPS = 3
 #: (kernel, N, B, options) of the global kernel phase.
 NO_TRI_BDF1 = {"bdf2": False, "with_trilinear": False}
-GLOBAL_SHAPES = (("K4", 15, 2048, {}), ("K5", 20, 2048, {}),
+GLOBAL_SHAPES = (("K4", 15, 2048, {}), ("K5", 15, 2048, {}),
+                 ("K5", 20, 2048, {}),
                  ("K4", 9, 2048, NO_TRI_BDF1), ("K5", 9, 2048, NO_TRI_BDF1),
                  ("K4", 15, 1000, {}), ("K5", 20, 1000, {}))
+#: Sources of the serving body: no instantiation may spill.
+SERVING_SOURCES = ("windowed_serving", "global_serving")
 #: The reference's own limit between its K5 and K4 branches
 #: (tests/test_rom.py:226-227).
 THETA_VS_TABLES_REL = 3e-6
@@ -366,21 +378,65 @@ def first_windows(args, kw, n):
              args[9]), dict(kw, widths=(width,) * n))
 
 
+def turns(a, b, args, kw, reps):
+    """Two designs on the same inputs in turns (a, b, b, a): (a's ms, b's
+    ms, a's outputs, b's outputs), each ms the mean of its two turns."""
+    fa = lambda: a(*args, **kw)    # noqa: E731
+    fb = lambda: b(*args, **kw)    # noqa: E731
+    a1, _ = cuda_ms(fa, reps)
+    b1, got_b = cuda_ms(fb, reps)
+    b2, _ = cuda_ms(fb, reps, warmup=False)
+    a2, got_a = cuda_ms(fa, reps, warmup=False)
+    return (a1 + a2) / 2, (b1 + b2) / 2, got_a, got_b
+
+
 def k1_turns(k1, args, kw, reps):
     """K1's first and serving designs on the same inputs in turns (first,
     serving, serving, first): (serving ms, first ms, serving's outputs,
-    the first's outputs), each ms the mean of its two turns."""
-    first = lambda: k1._first_design_sweep(*args, **kw)    # noqa: E731
-    new = lambda: k1.online_sweep_windowed_fused(*args, **kw)  # noqa: E731
-    f1, _ = cuda_ms(first, reps)
-    n1, got = cuda_ms(new, reps)
-    n2, _ = cuda_ms(new, reps, warmup=False)
-    f2, ref = cuda_ms(first, reps, warmup=False)
-    return (n1 + n2) / 2, (f1 + f2) / 2, got, ref
+    the first's outputs)."""
+    first_ms, ms, ref, got = turns(k1._first_design_sweep,
+                                   k1.online_sweep_windowed_fused, args, kw,
+                                   reps)
+    return ms, first_ms, got, ref
+
+
+def theta_entries(mods, name):
+    """(serving wrapper, first-design entry, twin, split twin) of K3 or
+    K5."""
+    if name == "K3":
+        rs = mods["rs"]
+        return (rs.online_sweep_theta_pallas_v2, rs._first_design_theta_v2,
+                rs.theta_sweep_v2_reference, rs.theta_sweep_v2_split)
+    gs = mods["gs"]
+    return (gs.online_sweep_theta_pallas, gs._first_design_theta,
+            gs.theta_sweep_reference, gs.theta_sweep_split)
+
+
+def theta_designs(mods, name, args, kw, reps, label, check_fn):
+    """K3 or K5 (``name``) on both designs in turns (serving, first,
+    first, serving), the serving body held against the first design, the
+    twin and the split twin: (a row {"ms", "first_design_ms", "plain_ms",
+    "max_abs_err"} (plain_ms: the twin's), the twin's outputs)."""
+    serve, first, twin, split = theta_entries(mods, name)
+    ms, first_ms, got, ref = turns(serve, first, args, kw, reps)
+    err = check_fn(f"{label}, serving body vs its first design:", got, ref)
+    del ref
+    plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1, warmup=False)
+    err = max(err, check_fn(f"{label}, serving body vs twin:", got, want))
+    err = max(err, check_fn(f"{label}, serving body vs split twin:", got,
+                            split(*args, **kw)))
+    print(f"  serving body {ms:.3f} ms, first design {first_ms:.3f} "
+          f"({first_ms / ms:.2f}×), twin {plain_ms:.1f} ms")
+    return dict(ms=ms, first_design_ms=first_ms, plain_ms=plain_ms,
+                max_abs_err=err), want
 
 
 def kernel_phase(mods, dev, power, errs, rich_errs):
-    from romtime_tpu_torch.kernel_ledger import phase_split, split_lines
+    from romtime_tpu_torch.kernel_ledger import (
+        phase_split,
+        split_lines,
+        theta_phase_split,
+    )
 
     k1, rs, synth = mods["k1"], mods["rs"], mods["synth"]
     rows, splits = [], {}
@@ -444,19 +500,30 @@ def kernel_phase(mods, dev, power, errs, rich_errs):
             args, kw = synth.resid_tables(N, width, Bk, seed=W + 1,
                                           device=dev, theta=theta,
                                           step0=step0)
-            ms, got = cuda_ms(lambda: wrapper(*args, **kw), RESID_REPS)
-            plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1,
-                                     warmup=False)
-            err = check_sweep(f"{name} {W}x{N} one window launch "
-                              f"(width={width}, step0={step0}) B={Bk} on "
-                              f"{power}:", got, want)
-            errs[name].append(err)
+            label = (f"{name} {W}x{N} one window launch (width={width}, "
+                     f"step0={step0}) B={Bk} on {power}")
             bms, by = bnd(args, kw)
-            print(f"  kernel {ms:.3f} ms/launch, twin {plain_ms:.1f} "
-                  f"ms/launch, bound {bms:.4f} ms ({by})")
-            rows.append(dict(kernel=name, shape=f"{W}x{N}", B=Bk, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                             max_abs_err=err))
+            if theta:
+                row, _want = theta_designs(mods, name, args, kw, RESID_REPS,
+                                           label, check_sweep)
+                split = theta_phase_split(name, args, kw, reps=K1_TURN_REPS)
+                print(f"K3 serving body phase clocks {shape} B={Bk} on "
+                      f"{power}:")
+                for line in split_lines(split):
+                    print("  " + line)
+                row["phase_split"] = split["lu"]
+            else:
+                ms, got = cuda_ms(lambda: wrapper(*args, **kw), RESID_REPS)
+                plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1,
+                                         warmup=False)
+                row = dict(ms=ms, plain_ms=plain_ms, max_abs_err=check_sweep(
+                    label + ":", got, want))
+                print(f"  kernel {ms:.3f} ms/launch, twin {plain_ms:.1f} "
+                      f"ms/launch")
+            print(f"  bound {bms:.4f} ms ({by})")
+            errs[name].append(row["max_abs_err"])
+            rows.append(dict(kernel=name, shape=f"{W}x{N}", B=Bk,
+                             bound_ms=bms, bound_by=by, **row))
     return rows, splits
 
 
@@ -527,25 +594,41 @@ def k1_options_phase(mods, dev, power):
 
 
 def global_kernel_phase(mods, dev, power, errs):
+    from romtime_tpu_torch.kernel_ledger import split_lines, theta_phase_split
+
     synth = mods["synth"]
     rows = []
     for name, N, Bn, options in GLOBAL_SHAPES:
         wrapper, twin, bnd = global_kernel(mods, name)
         args, kw = synth.global_tables(N, GLOBAL_NT, Bn, seed=N, device=dev,
                                        theta=name == "K5", **options)
-        ms, got = cuda_ms(lambda: wrapper(*args, **kw), GLOBAL_REPS)
-        plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1, warmup=False)
-        label = ", BDF-1 without the trilinear term" if options else ""
-        err = check_global(f"{name} N={N} nt={GLOBAL_NT} B={Bn}{label} on "
-                           f"{power}:", got, want)
-        errs[name].append(err)
+        label = (f"{name} N={N} nt={GLOBAL_NT} B={Bn}"
+                 + (", BDF-1 without the trilinear term" if options else "")
+                 + f" on {power}")
         bms, by = bnd(args, kw)
-        print(f"  kernel {ms:.3f} ms/sweep, twin {plain_ms:.1f} ms/sweep, "
-              f"bound {bms:.4f} ms ({by})")
+        if name == "K5":
+            row, _want = theta_designs(mods, name, args, kw, GLOBAL_REPS,
+                                       label, check_global)
+            if N == 20 and Bn == B:
+                split = theta_phase_split(name, args, kw, reps=GLOBAL_REPS)
+                print(f"K5 serving body phase clocks N={N} B={Bn} on "
+                      f"{power}:")
+                for line in split_lines(split):
+                    print("  " + line)
+                row["phase_split"] = split["lu"]
+        else:
+            ms, got = cuda_ms(lambda: wrapper(*args, **kw), GLOBAL_REPS)
+            plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1,
+                                     warmup=False)
+            row = dict(ms=ms, plain_ms=plain_ms,
+                       max_abs_err=check_global(label + ":", got, want))
+            print(f"  kernel {ms:.3f} ms/sweep, twin {plain_ms:.1f} ms/sweep")
+            del got, want
+        print(f"  bound {bms:.4f} ms ({by})")
+        errs[name].append(row["max_abs_err"])
         rows.append(dict(kernel=name, shape=f"N{N}", B=Bn, options=options,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         max_abs_err=err))
-        del args, got, want
+                         bound_ms=bms, bound_by=by, **row))
+        del args
         torch.cuda.empty_cache()
     return rows
 
@@ -594,19 +677,27 @@ def counters(mods):
             mods["gs"].online_sweep_theta_pallas)
 
 
+def design_counts(mods):
+    """(serving, first-design) launches of K1, K3 and K5."""
+    c = counters(mods)
+    return {name: (c[i].serving_launches, c[i].first_design_launches)
+            for i, name in ((0, "K1"), (2, "K3"), (4, "K5"))}
+
+
 def serve_calls(rom, batches, mods, engine):
     """Warm up, zero every launch counter, serve the batches one call at
     a time (synchronized), read the counters: (launches of K1-K5, K1's
-    (Richardson, serving design, first design) launches, outputs, call
-    seconds)."""
+    Richardson launches, {K1, K3, K5: (serving-design, first-design)
+    launches}, outputs, call seconds)."""
     k1 = mods["k1"].online_sweep_windowed_fused
     rom.solve_batch(batches[0], mode="probes", engine=engine,
                     probe_reduce="mean")
     torch.cuda.synchronize()
     for c in counters(mods):
         c.launches = 0
+        if hasattr(c, "serving_launches"):
+            c.serving_launches = c.first_design_launches = 0
     k1.richardson_launches = 0
-    k1.serving_launches = k1.first_design_launches = 0
     times, outs = [], []
     for mus in batches:
         torch.cuda.synchronize()
@@ -615,9 +706,8 @@ def serve_calls(rom, batches, mods, engine):
                                     probe_reduce="mean"))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return ([c.launches for c in counters(mods)],
-            (k1.richardson_launches, k1.serving_launches,
-             k1.first_design_launches), outs, times)
+    return ([c.launches for c in counters(mods)], k1.richardson_launches,
+            design_counts(mods), outs, times)
 
 
 def check_served(outs, Bb, N):
@@ -654,13 +744,14 @@ def serve_branch(rom, run, batches, mods, power):
                             rom.precompute_choice)
         if got != branch:
             raise AssertionError(f"B={Bb} routes to {got}, not {branch}")
-        launches, k1_counts, outs, times = serve_calls(
+        launches, rich, designs, outs, times = serve_calls(
             rom, batches, mods, "windowed-pallas")
     calls = len(batches)
     want = {"fused": [calls, 0, 0, 0, 0], "matrices": [0, W * calls, 0, 0, 0],
             "v2": [0, 0, W * calls, 0, 0]}[branch]
-    # K1's fused runs launch the serving design only.
-    want_k1 = (calls if iters else 0, want[0], 0)
+    # K1's and K3's runs launch the serving designs only.
+    want_designs = {"K1": (want[0], 0), "K3": (want[2], 0), "K5": (0, 0)}
+    want_rich = calls if iters else 0
     info = call_info(Bb, times)
     print(f"serving, {run} run ({branch} branch, solve_iters {iters}): "
           f"{calls} calls of {Bb} μ, median "
@@ -668,10 +759,11 @@ def serve_branch(rom, run, batches, mods, power):
           f"{info['serve_ms_min']:.1f}, max {info['serve_ms_max']:.1f}) = "
           f"{info['solves_per_s']:.1f} solves/s (prep + sweep + fetch, "
           f"synchronized) on {power}; launches K1-K5 {launches}, K1 "
-          f"(Richardson, serving design, first design) {k1_counts}")
-    if launches != want or tuple(k1_counts) != want_k1:
-        raise AssertionError(f"{run} run launched {launches} (K1 "
-                             f"{k1_counts}), expected {want} ({want_k1})")
+          f"Richardson {rich}, (serving design, first design) {designs}")
+    if launches != want or rich != want_rich or designs != want_designs:
+        raise AssertionError(f"{run} run launched {launches} (Richardson "
+                             f"{rich}, designs {designs}), expected {want} "
+                             f"({want_rich}, {want_designs})")
     check_served(outs, Bb, rom.N)
     return launches, outs, info
 
@@ -784,16 +876,30 @@ def serving_phase(mods, dev, power, errs, rich_errs):
                     "K3", rs.online_sweep_theta_pallas_v2,
                     rs.theta_sweep_v2_reference, k3_bound)
             wkw = dict(kw, step0=a)
-            ms, wgot = cuda_ms(lambda: wrapper(*wargs, **wkw), RESID_REPS)
-            plain_ms, wwant = cuda_ms(lambda: twin(*wargs, **wkw), 1,
-                                      warmup=False)
-            errs[name].append(check_sweep(
-                f"{name} on the serving inputs of window {w} "
-                f"(B={info['B']}):", wgot, wwant))
+            label = (f"{name} on the serving inputs of window {w} "
+                     f"(B={info['B']})")
+            if name == "K3":
+                wkw.update(engine.live_rows(tables))
+                row, _want = theta_designs(mods, name, wargs, wkw,
+                                           RESID_REPS, label, check_sweep)
+                # The wrapper's per-launch operand prep (the merged θ
+                # table, the padded fold and VE) alone.
+                row["operand_prep_ms"], _ops = cuda_ms(
+                    lambda: rs.serving_operands(
+                        *wargs[:9], kw["with_trilinear"]), RESID_REPS)
+                print(f"  of it the serving body's operand prep (merged θ, "
+                      f"padded fold) {row['operand_prep_ms']:.3f} ms")
+            else:
+                ms, wgot = cuda_ms(lambda: wrapper(*wargs, **wkw),
+                                   RESID_REPS)
+                plain_ms, wwant = cuda_ms(lambda: twin(*wargs, **wkw), 1,
+                                          warmup=False)
+                row = dict(ms=ms, plain_ms=plain_ms, max_abs_err=check_sweep(
+                    label + ":", wgot, wwant))
+            errs[name].append(row.pop("max_abs_err"))
             bms, by = bnd(wargs, wkw)
-            kernels[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                 bound_by=by)
-            info["kernel_ms_per_window"] = ms
+            kernels[name] = dict(row, bound_ms=bms, bound_by=by)
+            info["kernel_ms_per_window"] = row["ms"]
         run_errs = [check_sweep(
             f"{run} run sweep vs its twins (B={info['B']}):", got, want),
             served_vs(f"{run} run served outputs vs its twins' sweep:",
@@ -844,17 +950,22 @@ def serve_global(rom, label, batches, mods, power, kernel):
     :func:`serve_branch` drives a windowed one: one launch of ``kernel``
     per call and no other launch."""
     Bb = len(batches[0])
-    launches, _rich, outs, times = serve_calls(rom, batches, mods, "pallas")
+    launches, _rich, designs, outs, times = serve_calls(rom, batches, mods,
+                                                        "pallas")
     calls = len(batches)
     want = [0, 0, 0, calls, 0] if kernel == "K4" else [0, 0, 0, 0, calls]
+    # K5's runs launch its serving body only.
+    want_designs = {"K1": (0, 0), "K3": (0, 0), "K5": (want[4], 0)}
     info = call_info(Bb, times)
     print(f"global serving, {label}: {calls} calls of {Bb} μ, median "
           f"{info['serve_ms_median']:.1f} ms per call (min "
           f"{info['serve_ms_min']:.1f}, max {info['serve_ms_max']:.1f}) = "
           f"{info['solves_per_s']:.1f} solves/s (prep + sweep + fetch, "
-          f"synchronized) on {power}; launches K1-K5 {launches}")
-    if launches != want:
-        raise AssertionError(f"{label} launched {launches}, expected {want}")
+          f"synchronized) on {power}; launches K1-K5 {launches}, "
+          f"(serving design, first design) {designs}")
+    if launches != want or designs != want_designs:
+        raise AssertionError(f"{label} launched {launches} ({designs}), "
+                             f"expected {want} ({want_designs})")
     check_served(outs, Bb, rom.N)
     return launches, outs, info
 
@@ -913,18 +1024,27 @@ def global_serving_phase(mods, dev, power, errs):
         else:
             args = (THm, THk, THf, g, tables["Bm"][0], tables["Bk"][0],
                     tables["Bf"][0], tables["T0"][0], tables["VE"][0], b0)
+            kw.update(engine.live_rows(tables))
         wrapper, twin, bnd = global_kernel(mods, kname)
-        ms, got = cuda_ms(lambda: wrapper(*args, **kw), GLOBAL_REPS)
-        plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1, warmup=False)
-        errs[kname].append(check_global(
-            f"{kname} on the serving inputs of the {label} (B={B}):", got,
-            want))
+        klabel = f"{kname} on the serving inputs of the {label} (B={B})"
+        if kname == "K5":
+            row, want = theta_designs(mods, kname, args, kw, GLOBAL_REPS,
+                                      klabel, check_global)
+        else:
+            ms, got = cuda_ms(lambda: wrapper(*args, **kw), GLOBAL_REPS)
+            plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1,
+                                     warmup=False)
+            row = dict(ms=ms, plain_ms=plain_ms, max_abs_err=check_global(
+                klabel + ":", got, want))
+            del got
+        errs[kname].append(row.pop("max_abs_err"))
         errs[kname].append(served_vs(
             f"{label} served outputs vs the twin's sweep:", outs[-1],
             want[0], want[1], N, dev))
+        ms, plain_ms = row["ms"], row["plain_ms"]
         bms, by = bnd(args, kw)
-        info.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by)
+        info.update(kernel_ms=ms, bound_ms=bms, bound_by=by, **{
+            k: v for k, v in row.items() if k != "ms"})
         print(f"  {kname} {ms:.3f} ms/sweep, twin {plain_ms:.1f} ms/sweep, "
               f"bound {bms:.4f} ms ({by})")
         rest = (info["serve_ms_median"] - info["prep_ms"]
@@ -935,10 +1055,9 @@ def global_serving_phase(mods, dev, power, errs):
               f"{rest:.1f} ms")
         runs[label] = (launches, outs, info)
         if label != "K5 branch, budget 0 (N=15)":
-            kernels[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                  bound_by=by,
+            kernels[kname] = dict(row, bound_ms=bms, bound_by=by,
                                   launches=launches[KERNELS.index(kname)])
-        del args, got, want, prepped
+        del args, want, prepped
         torch.cuda.empty_cache()
     cells[15].ONLINE_PRECOMPUTE_BUDGET = (
         PrecomputePolicy.ONLINE_PRECOMPUTE_BUDGET)
@@ -1005,10 +1124,12 @@ def main():
             print(f"    {r['function']}: {r.get('registers')} registers, "
                   f"{r.get('stack')} bytes stack, {r.get('spill_stores')}/"
                   f"{r.get('spill_loads')} bytes spill stores/loads")
-    spills = [r["function"] for r in ptxas["windowed_serving"]["kernels"]
-              if r.get("spill_stores") or r.get("spill_loads")]
-    if spills or not ptxas["windowed_serving"]["kernels"]:
-        raise AssertionError(f"K1's serving design spills in {spills}")
+    for stem in SERVING_SOURCES:
+        spills = [r["function"] for r in ptxas[stem]["kernels"]
+                  if r.get("spill_stores") or r.get("spill_loads")]
+        if spills or not ptxas[stem]["kernels"]:
+            raise AssertionError(f"the serving body spills in {stem}: "
+                                 f"{spills}")
 
     errs = {k: [] for k in KERNELS}
     with torch.inference_mode():
@@ -1034,11 +1155,13 @@ def main():
                "romtime_tpu/ops/pallas_online.py:1303"),
         "K2": ("resid_sweep", "romtime_tpu_torch/csrc/resid_sweep.cu",
                "romtime_tpu/ops/pallas_online.py:962"),
-        "K3": ("theta_resid_sweep", "romtime_tpu_torch/csrc/resid_sweep.cu",
+        "K3": ("theta_resid_serving",
+               "romtime_tpu_torch/csrc/windowed_serving.cu",
                "romtime_tpu/ops/pallas_online.py:1100"),
         "K4": ("global_sweep", "romtime_tpu_torch/csrc/global_sweep.cu",
                "romtime_tpu/ops/pallas_online.py:184"),
-        "K5": ("theta_global_sweep", "romtime_tpu_torch/csrc/global_sweep.cu",
+        "K5": ("theta_global_serving",
+               "romtime_tpu_torch/csrc/global_serving.cu",
                "romtime_tpu/ops/pallas_online.py:320"),
     }
     # K1 is the serving design; the first design (the other follower
@@ -1053,6 +1176,17 @@ def main():
         first_design=dict(source="romtime_tpu_torch/csrc/windowed_fused.cu",
                           ptxas=ptxas["windowed_fused"], modes=modes,
                           ablate=ablations, ledger=ledgers))
+    # K3 and K5 run on the serving body; their first designs stand beside
+    # them as the same-run yardstick (first_design_ms on every row).
+    for k, stem, first_src in (
+            ("K3", "windowed_serving", "romtime_tpu_torch/csrc/resid_sweep.cu"),
+            ("K5", "global_serving", "romtime_tpu_torch/csrc/global_sweep.cu")):
+        kernels[k].update(
+            ptxas=ptxas[stem],
+            phase_split={r["shape"]: r["phase_split"] for r in rows
+                         if r["kernel"] == k and "phase_split" in r},
+            first_design=dict(source=first_src,
+                              ptxas=ptxas[first_src.rsplit("/", 1)[1][:-3]]))
     print(json.dumps({"kernels": [dict(
         name=meta[k][0], route="cuda", source=meta[k][1],
         replaces=meta[k][2], launches=launches[k],

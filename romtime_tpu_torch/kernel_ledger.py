@@ -23,15 +23,16 @@ only), boundary dd = full − no_boundary, floor = empty. ``bench.py``'s
 four keys come from the ``full_paired5`` row (the serving solve), as its
 ablations time the served engine's paired setting.
 
-**The serving design's phase split** (``csrc/windowed_serving.cu``): its
-CLOCKED instantiation (the same compiled body with clock64() reads by
+**The serving body's phase split** (``csrc/serving_body.cuh``): its
+CLOCKED instantiation (the same compiled body with clock() reads by
 one thread at each phase boundary) gives each block's cycles per phase;
-:func:`phase_split` times it beside the plain instantiation, for the
-paired LU (G=5, ``sub1``), the per-step LU and Richardson (5
-iterations), and reports the shares only where the two totals agree
-within :data:`CLOCK_GAP_MAX`.
+:func:`phase_split` times it beside the plain instantiation for K1, for
+the paired LU (G=5, ``sub1``), the per-step LU and Richardson (5
+iterations), and :func:`theta_phase_split` for one K3 launch or one K5
+sweep; each reports the shares only where the two totals agree within
+:data:`CLOCK_GAP_MAX`.
 
-Used from ``chip_smoke.py``. Both raise on a CPU tensor: there is no
+Used from ``chip_smoke.py``. Each raises on a CPU tensor: there is no
 ledger of the twin.
 """
 
@@ -39,6 +40,7 @@ import statistics
 
 import torch
 
+from .ops import global_sweep, resid_sweep
 from .ops.windowed_fused import (
     SERVING_PHASES,
     _first_design_sweep,
@@ -159,27 +161,49 @@ def phase_split(args, kw, reps=3):
     where ``gap`` exceeds :data:`CLOCK_GAP_MAX`); ``cycles_per_step`` the
     mean block's cycles per phase and step."""
     _check_cuda(args)
-    nt = args[0].shape[0]
     base = dict(kw, paired_lu=None, paired_mode="sub1", solve_iters=None,
                 ablate=None)
-    out = {}
-    for name, opts in SPLIT_SOLVES:
-        k = dict(base, **opts)
-        plain = time_sweep(args, k, reps, online_sweep_windowed_fused)
-        clocked = time_sweep(args, k, reps, _serving_sweep_clocked)
-        plain = min(plain, time_sweep(args, k, reps,
-                                      online_sweep_windowed_fused))
-        clk = _serving_sweep_clocked(*args, **k)[2].double()
-        sums = clk.sum(dim=0)
-        gap = abs(clocked - plain) / plain
-        per_step = (sums[:-1] / clk.shape[0] / nt).tolist()
-        shares = ({p: (sums[j] / sums[-1]).item()
-                   for j, p in enumerate(SERVING_PHASES)}
-                  if gap <= CLOCK_GAP_MAX else None)
-        out[name] = {"ms": plain, "clocked_ms": clocked, "gap": gap,
-                     "shares": shares,
-                     "cycles_per_step": dict(zip(SERVING_PHASES, per_step))}
-    return out
+    return {name: _clock_split(args, dict(base, **opts), reps,
+                               online_sweep_windowed_fused,
+                               _serving_sweep_clocked)
+            for name, opts in SPLIT_SOLVES}
+
+
+#: (plain wrapper, CLOCKED entry) of the θ-streaming kernels on the
+#: serving body.
+THETA_CLOCKED = {
+    "K3": (resid_sweep.online_sweep_theta_pallas_v2,
+           resid_sweep._theta_v2_clocked),
+    "K5": (global_sweep.online_sweep_theta_pallas,
+           global_sweep._theta_clocked),
+}
+
+
+def theta_phase_split(kernel, args, kw, reps=3):
+    """The serving body's phase clocks of one K3 launch or one K5 sweep
+    (``kernel``) on its wrapper's ``args``/``kw``: {"lu": ...} with the
+    entries of :func:`phase_split` (their one solve is the per-step LU)."""
+    _check_cuda(args)
+    return {"lu": _clock_split(args, kw, reps, *THETA_CLOCKED[kernel])}
+
+
+def _clock_split(args, kw, reps, plain_fn, clocked_fn):
+    """Plain and clocked times in turns and the clocked run's phase
+    shares (None over :data:`CLOCK_GAP_MAX`)."""
+    nt = args[0].shape[0]
+    plain = time_sweep(args, kw, reps, plain_fn)
+    clocked = time_sweep(args, kw, reps, clocked_fn)
+    plain = min(plain, time_sweep(args, kw, reps, plain_fn))
+    clk = clocked_fn(*args, **kw)[2].double()
+    sums = clk.sum(dim=0)
+    gap = abs(clocked - plain) / plain
+    per_step = (sums[:-1] / clk.shape[0] / nt).tolist()
+    shares = ({p: (sums[j] / sums[-1]).item()
+               for j, p in enumerate(SERVING_PHASES)}
+              if gap <= CLOCK_GAP_MAX else None)
+    return {"ms": plain, "clocked_ms": clocked, "gap": gap,
+            "shares": shares,
+            "cycles_per_step": dict(zip(SERVING_PHASES, per_step))}
 
 
 def split_lines(split):

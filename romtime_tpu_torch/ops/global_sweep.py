@@ -9,10 +9,16 @@ This module holds
 - the plain PyTorch twins :func:`sweep_reference` and
   :func:`theta_sweep_reference`, a lane-batched loop of torch ops over
   :func:`_bdf_step` (``_bdf_step`` :131, op for op);
+- :func:`theta_sweep_split`, K5 in the serving body's arithmetic (the
+  plain-f32 step form of :func:`~.windowed_fused.split_build`);
 - the wrappers :func:`online_sweep_pallas` and
   :func:`online_sweep_theta_pallas`, which run the twin for CPU tensors
-  and the hand-written CUDA kernel (``csrc/global_sweep.cu``) for CUDA
-  tensors. There is no fallback between the two.
+  and a hand-written CUDA kernel for CUDA tensors: K4's in
+  ``csrc/global_sweep.cu``; K5 on the serving body's plain-f32 step
+  (``csrc/global_serving.cu``) for every call, its first design
+  (``csrc/global_sweep.cu``) only on an explicit request
+  (:func:`~.resid_sweep.theta_design`). There is no fallback between any
+  of them.
 
 Per step, for every lane (μ) b, from a zero state:
 
@@ -35,8 +41,26 @@ import ctypes
 import torch
 
 from . import kernel_build
-from .resid_sweep import _check_theta, _check_v2
-from .windowed_fused import PROBE_P, _gauss_jordan, _no_tf32
+from .resid_sweep import (
+    _check_theta,
+    _check_v2,
+    fold_combines,
+    live_theta_rows,
+    serving_operands,
+    theta_design,
+)
+from .windowed_fused import (
+    PROBE_P,
+    SERVING_PHASES,
+    _gauss_jordan,
+    _no_tf32,
+    count_launch,
+    split_build,
+)
+
+#: Padded widths with a CLOCKED instantiation of K5's serving body (the
+#: S-ROM's N=20).
+SERVING_CLOCKED_NP = (24,)
 
 
 # ======================================================================
@@ -93,11 +117,15 @@ def sweep_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, *, dt,
 
 
 def theta_sweep_reference(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0,
-                          *, dt, bdf2=True, with_trilinear=True, n_real=15):
+                          *, dt, bdf2=True, with_trilinear=True, n_real=15,
+                          km=None, kk=None):
     """Plain PyTorch twin of K5; same arguments and results as
-    :func:`online_sweep_theta_pallas`."""
-    nt, NP, B, *_k = _check_theta(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
-                                  VE_p, b0, None, with_trilinear, n_real)
+    :func:`online_sweep_theta_pallas` (it forms the operators over the
+    padded extents: the rows past ``km``/``kk`` add exact zeros)."""
+    nt, NP, B, km8, kk8, _kf8 = _check_theta(
+        THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, None,
+        with_trilinear, n_real)
+    live_theta_rows(km, kk, km8, kk8)
     if THm.is_cuda:
         _no_tf32()
 
@@ -107,6 +135,45 @@ def theta_sweep_reference(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0,
 
     return _sweep(operators, nt, g_p, T0_p, VE_p, b0, dt, bdf2,
                   with_trilinear, n_real)
+
+
+def theta_sweep_split(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, *,
+                      dt, bdf2=True, with_trilinear=True, n_real=15,
+                      km=None, kk=None):
+    """K5 in the serving body's arithmetic (``csrc/global_serving.cu``):
+    per step u* and combo as the reference forms them, KN and bN from
+    :func:`~.windowed_fused.split_build`'s plain-f32 form over the fold of
+    (Bm, Bk, T0) and the live θ rows ``km``/``kk`` (KN = bdf·MN + KL +
+    (T0·u*)·dt·b0, bN = MN·combo + fN: the reference's order, which the
+    kernel keeps), then the reference's Gauss-Jordan over the n_real
+    pivots and the probes. Same arguments and results as
+    :func:`online_sweep_theta_pallas`."""
+    nt, NP, B, km8, kk8, kf8 = _check_theta(
+        THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, None,
+        with_trilinear, n_real)
+    km, kk = live_theta_rows(km, kk, km8, kk8)
+    if THm.is_cuda:
+        _no_tf32()
+    Bmk = fold_combines(Bm, Bk, T0_p, with_trilinear)
+    dtb0 = None
+    if with_trilinear:
+        dtb0 = torch.tensor(dt, dtype=THm.dtype, device=THm.device) * b0
+    probes = THm.new_empty((nt, PROBE_P, B))
+    uN = THm.new_zeros((NP, B))
+    uN1 = uN
+    for s in range(nt):
+        if bdf2:
+            bdf = 1.0 if s == 0 else 1.5
+            combo = 2.0 * uN - 0.5 * uN1
+            u_star = 2.0 * uN - uN1
+        else:
+            bdf, combo, u_star = 1.0, uN, uN
+        tts = torch.cat([THm[s], THk[s], THf[s], g_p[s]])
+        KN, bN = split_build(tts, Bmk, Bf, u_star, combo, bdf, dtb0, NP, km,
+                             kk, km8, kk8, kf8, plain=True)
+        uN1, uN = uN, _gauss_jordan(KN, bN, n_real)
+        probes[s] = VE_p @ uN + g_p[s]
+    return probes, uN
 
 
 # ======================================================================
@@ -154,9 +221,84 @@ def online_sweep_pallas(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, *, dt,
     return out
 
 
+def _bind_serving(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.romtime_theta_global_serving.argtypes = (
+        [ptr] * 8 + [i32] * 11 + [ctypes.c_float, ptr])
+    lib.romtime_theta_global_serving.restype = i32
+    lib.romtime_global_serving_tile.argtypes = [i32] * 4 + [ptr]
+    lib.romtime_global_serving_tile.restype = i32
+
+
+def global_serving_tile(NP, km8, kk8, kf8):
+    """Launch shape of K5's serving body for NP and the θ extents:
+    {"lanes", "threads", "ks", "smem_bytes"} (builds the library)."""
+    lib = kernel_build.load("global_serving", _bind_serving)
+    out = (ctypes.c_int * 4)()
+    err = lib.romtime_global_serving_tile(NP, km8, kk8, kf8, out)
+    kernel_build.check_launch(lib, err, "global_serving tile")
+    return dict(zip(("lanes", "threads", "ks", "smem_bytes"), out))
+
+
+def _launch_theta(args, kw, design, clocked=False):
+    """Check K5's operands and launch ``design`` on CUDA tensors; returns
+    (probes, uN) and, with ``clocked`` (NP in SERVING_CLOCKED_NP), the
+    serving body's per-block phase clocks."""
+    (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0) = args
+    with_tri = kw["with_trilinear"]
+    nt, NP, B, km8, kk8, kf8 = _check_theta(*args, None, with_tri,
+                                            kw["n_real"])
+    km, kk = live_theta_rows(kw["km"], kw["kk"], km8, kk8)
+    design = theta_design(design)
+    if clocked and (design != "serving" or NP not in SERVING_CLOCKED_NP):
+        raise ValueError(f"K5's phase clocks exist on the serving design "
+                         f"at NP in {SERVING_CLOCKED_NP} only")
+    if THm.device.type != "cuda":
+        raise ValueError(f"unsupported device {THm.device}: K5's kernels "
+                         "take CUDA tensors")
+    _no_tf32()
+    flags = (int(bool(with_tri)), int(bool(kw["bdf2"])))
+    outs = [(nt, PROBE_P, B), (NP, B)]
+    clk = None
+    if design == "first":
+        if not with_tri:
+            T0_p = THm.new_zeros((1,))
+        out = kernel_build.launch(
+            "global_sweep", _bind, "romtime_theta_global_sweep",
+            "theta global_sweep (K5, first design)",
+            list(zip(("THm", "THk", "THf", "g", "Bm", "Bk", "Bf", "T0",
+                      "VE", "b0"),
+                     (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0))),
+            (nt, NP, B, km8, kk8, kf8, kw["n_real"], *flags), kw["dt"],
+            outs)
+    else:
+        TH, Bmk, BfT, VE = serving_operands(THm, THk, THf, g_p, Bm, Bk, Bf,
+                                            T0_p, VE_p, with_tri)
+        if clocked:
+            lanes = global_serving_tile(NP, km8, kk8, kf8)["lanes"]
+            clk = torch.zeros(((B + lanes - 1) // lanes,
+                               len(SERVING_PHASES) + 1), dtype=torch.int64,
+                              device=THm.device)
+        out = kernel_build.launch(
+            "global_serving", _bind_serving, "romtime_theta_global_serving",
+            "theta global serving (K5)",
+            list(zip(("TH", "Bmk", "Bf", "VE", "b0"),
+                     (TH, Bmk, BfT, VE, b0))),
+            (nt, NP, B, km8, kk8, kf8, km, kk, kw["n_real"], *flags),
+            kw["dt"], outs, extra=[clk])
+    count_launch(online_sweep_theta_pallas, design)
+    return out + (clk,) if clocked else out
+
+
+def _theta_options(dt, bdf2=True, with_trilinear=True, n_real=15, km=None,
+                   kk=None):
+    return dict(dt=dt, bdf2=bdf2, with_trilinear=with_trilinear,
+                n_real=n_real, km=km, kk=kk)
+
+
 def online_sweep_theta_pallas(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p,
                               b0, *, dt, bdf2=True, with_trilinear=True,
-                              n_real=15):
+                              n_real=15, km=None, kk=None):
     """θ-streaming global sweep (K5): as :func:`online_sweep_pallas`, with
     the step's operators formed in the kernel from
 
@@ -164,29 +306,36 @@ def online_sweep_theta_pallas(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p,
                     THk ends in the constant-1 row of the padded diagonal)
     Bm, Bk        : (NP², km8|kk8) combine tensors (dt folded into Bk)
     Bf            : (NP, kf8) (dt folded)
+    km, kk        : live θm and θk rows
+                    (:func:`~.resid_sweep.live_theta_rows`; default the
+                    padded extents)
 
-    CUDA launches are counted in ``online_sweep_theta_pallas.launches``."""
-    kw = dict(dt=dt, bdf2=bdf2, with_trilinear=with_trilinear,
-              n_real=n_real)
+    CPU tensors run the twin; CUDA tensors launch K5 on the serving body
+    (``csrc/global_serving.cu``), counted in
+    ``online_sweep_theta_pallas.launches`` and ``.serving_launches`` (the
+    first design, on request only, in ``.first_design_launches``)."""
+    kw = _theta_options(dt, bdf2, with_trilinear, n_real, km, kk)
+    args = (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0)
     if kernel_build.device_route(THm) == "cpu":
-        return theta_sweep_reference(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
-                                     VE_p, b0, **kw)
-    nt, NP, B, km8, kk8, kf8 = _check_theta(
-        THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, None,
-        with_trilinear, n_real)
-    if not with_trilinear:
-        T0_p = THm.new_zeros((1,))
-    out = kernel_build.launch(
-        "global_sweep", _bind, "romtime_theta_global_sweep",
-        "theta global_sweep (K5)",
-        list(zip(("THm", "THk", "THf", "g", "Bm", "Bk", "Bf", "T0", "VE",
-                  "b0"),
-                 (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0))),
-        (nt, NP, B, km8, kk8, kf8, n_real, int(bool(with_trilinear)),
-         int(bool(bdf2))), dt, [(nt, PROBE_P, B), (NP, B)])
-    online_sweep_theta_pallas.launches += 1
-    return out
+        return theta_sweep_reference(*args, **kw)
+    return _launch_theta(args, kw, "serving")
+
+
+def _first_design_theta(*args, **kw):
+    """K5's first design (``csrc/global_sweep.cu``) on the wrapper's
+    arguments: the same-run yardstick of ``chip_smoke.py`` and the card
+    tests. CUDA tensors only."""
+    return _launch_theta(args, _theta_options(**kw), "first")
+
+
+def _theta_clocked(*args, **kw):
+    """K5 on the serving body's CLOCKED instantiation (NP 24): (probes,
+    uN, clocks), the clocks as K1's. CUDA tensors only."""
+    return _launch_theta(args, _theta_options(**kw), "serving",
+                         clocked=True)
 
 
 online_sweep_pallas.launches = 0
 online_sweep_theta_pallas.launches = 0
+online_sweep_theta_pallas.serving_launches = 0
+online_sweep_theta_pallas.first_design_launches = 0

@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -52,9 +53,9 @@ def _library_path(source):
 
 def build_all(srcs=None):
     """Compile ``srcs`` (default: every source) in parallel, one nvcc
-    each; returns {source: (library path, seconds, compiler log)}, with 0
-    seconds for a library that was already built. Raises if any build
-    fails."""
+    each; returns {source: (library path, seconds, compiler log)}: each
+    nvcc's own wall seconds, 0 for a library that was already built.
+    Raises if any build fails."""
     srcs = [Path(s) for s in (sources() if srcs is None else srcs)]
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -72,10 +73,17 @@ def build_all(srcs=None):
             [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((src, lib, tmp, proc, time.perf_counter()))
-    failed = []
-    for src, lib, tmp, proc, t0 in running:
+
+    def finish(proc, t0):
         log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
+        return log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(running))) as pool:
+        done = [pool.submit(finish, proc, t0)
+                for _s, _l, _t, proc, t0 in running]
+    failed = []
+    for (src, lib, tmp, proc, _t0), fut in zip(running, done):
+        log, seconds = fut.result()
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(f"nvcc failed on {src}:\n{log}")
@@ -144,11 +152,14 @@ def device_route(t):
     return t.device.type
 
 
-def launch(name, bind, entry, label, tensors, ints, dt, out_shapes):
+def launch(name, bind, entry, label, tensors, ints, dt, out_shapes,
+           extra=()):
     """Check the operands (float32, contiguous, on one device), allocate
     float32 outputs of ``out_shapes`` and launch ``entry`` of the library
     of ``csrc/<name>.cu`` on the current stream with (operand pointers,
-    output pointers, ``ints``, ``dt``, stream). Returns the outputs."""
+    output pointers, ``extra`` pointers (a tensor or None each: the phase
+    clocks' int64 buffer), ``ints``, ``dt``, stream). Returns the
+    outputs."""
     device = tensors[0][1].device
     for arg, t in tensors:
         if t.dtype != torch.float32 or t.device != device:
@@ -162,6 +173,8 @@ def launch(name, bind, entry, label, tensors, ints, dt, out_shapes):
     with torch.cuda.device(device):
         err = getattr(lib, entry)(
             *[t.data_ptr() for _arg, t in tensors],
-            *[o.data_ptr() for o in outs], *ints, float(dt), stream)
+            *[o.data_ptr() for o in outs],
+            *[None if e is None else e.data_ptr() for e in extra], *ints,
+            float(dt), stream)
     check_launch(lib, err, label)
     return tuple(outs)

@@ -9,10 +9,16 @@ Counterparts of ``romtime_tpu/ops/pallas_online.py``
 - the plain PyTorch twins :func:`sweep_v2_reference` and
   :func:`theta_sweep_v2_reference`, a lane-batched loop of torch ops over
   :func:`_bdf_step_resid` (``_bdf_step_resid`` :526, op for op);
+- :func:`theta_sweep_v2_split`, K3 in the serving body's arithmetic
+  (:func:`~.windowed_fused.split_build`: the trilinear term formed once,
+  r0 from the build's own segments);
 - the wrappers :func:`online_sweep_pallas_v2` and
   :func:`online_sweep_theta_pallas_v2`, which run the twin for CPU tensors
-  and the hand-written CUDA kernel (``csrc/resid_sweep.cu``) for CUDA
-  tensors. There is no fallback between the two.
+  and a hand-written CUDA kernel for CUDA tensors: K2's in
+  ``csrc/resid_sweep.cu``; K3 on the serving body
+  (``csrc/windowed_serving.cu``, the serving design) for every call, its
+  first design (``csrc/resid_sweep.cu``) only on an explicit request
+  (:func:`theta_design`). There is no fallback between any of them.
 
 Per step, for every lane (μ) b:
 
@@ -41,11 +47,23 @@ from .compensated import dd_add_small
 from .windowed_fused import (
     LU_BLOCK,
     PROBE_P,
+    SERVING_CLOCKED_NP,
+    SERVING_PHASES,
+    _bind_serving,
     _dd_predictor,
     _no_tf32,
+    _solve_step,
+    count_launch,
     lanes_solve,
     pad_dim,
+    pad_rows,
+    serving_tile,
+    split_build,
 )
+
+#: The designs of K3 and K5 on the card: the serving body, and the first
+#: design (the same-run yardstick).
+DESIGNS = ("serving", "first")
 
 
 def pad_reduced_tables(MN_tab, KLIN_tab, fN_tab, N, n_pad=None):
@@ -162,6 +180,52 @@ def _check_theta(THm, THk, THf, g, Bm, Bk, Bf, T0, VE, b0, state0,
     return nt, NP, B, km8, kk8, kf8
 
 
+def live_theta_rows(km, kk, km8, kk8):
+    """(km, kk): the live θm and θk rows a serving-body launch streams
+    (a padded row is an exact zero), by default the padded extents, which
+    are always right. The θk rows must include the constant-1 row of the
+    padded diagonal."""
+    km = km8 if km is None else int(km)
+    kk = kk8 if kk is None else int(kk)
+    if not (1 <= km <= km8 and 1 <= kk <= kk8):
+        raise ValueError(f"live θ rows km={km}, kk={kk} outside "
+                         f"1..{km8}, 1..{kk8}")
+    return km, kk
+
+
+def fold_combines(Bm, Bk, T0, with_trilinear):
+    """The folded combine [Bm | Bk | T0] (NP², kfold) of one window's
+    (NP², k) combine tensors; its transpose is the layout of the windowed
+    engine's ``tables["Bmk"][w]``."""
+    return torch.cat([Bm, Bk] + ([T0] if with_trilinear else []), dim=1)
+
+
+def serving_operands(THm, THk, THf, g, Bm, Bk, Bf, T0, VE, with_trilinear):
+    """The serving body's operands from K3's or K5's: the merged θ table
+    TH (nt, K8, B) = [θm | θk | θf | g], the fold (1, kfold, NP, NP + 4)
+    and VE (1, PROBE_P, NP + 4) with their rows padded
+    (:func:`~.windowed_fused.pad_rows`), Bf transposed (1, kf8, NP)."""
+    NP = VE.shape[-1]
+    Bmk = fold_combines(Bm, Bk, T0, with_trilinear).T
+    return (torch.cat([THm, THk, THf, g], dim=1).contiguous(),
+            pad_rows(Bmk.contiguous(), 1, Bmk.shape[0], NP, NP),
+            Bf.T.contiguous()[None], pad_rows(VE, 1, PROBE_P, NP))
+
+
+def theta_design(design=None):
+    """The design that runs a K3 or K5 call on the card: the serving body
+    for every option (NP a multiple of 8 up to 64, with or without the
+    trilinear term, BDF-1 or BDF-2), the first design only when
+    ``design="first"`` asks for it. The route depends on the request
+    only, never on a shape or a failure."""
+    if design is None:
+        return "serving"
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; one of "
+                         f"{', '.join(DESIGNS)}")
+    return design
+
+
 def sweep_v2_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0, *,
                        dt, step0=0, bdf2=True, with_trilinear=True,
                        n_real=15):
@@ -176,11 +240,15 @@ def sweep_v2_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0, *,
 
 def theta_sweep_v2_reference(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p,
                              b0, state0, *, dt, step0=0, bdf2=True,
-                             with_trilinear=True, n_real=15):
+                             with_trilinear=True, n_real=15, km=None,
+                             kk=None):
     """Plain PyTorch twin of K3; same arguments and results as
-    :func:`online_sweep_theta_pallas_v2`."""
-    nt, NP, B, *_k = _check_theta(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
-                                  VE_p, b0, state0, with_trilinear, n_real)
+    :func:`online_sweep_theta_pallas_v2` (it forms the operators over the
+    padded extents: the rows past ``km``/``kk`` add exact zeros)."""
+    nt, NP, B, km8, kk8, _kf8 = _check_theta(
+        THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, state0,
+        with_trilinear, n_real)
+    live_theta_rows(km, kk, km8, kk8)
     if THm.is_cuda:
         _no_tf32()
 
@@ -190,6 +258,42 @@ def theta_sweep_v2_reference(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p,
 
     return _resid_sweep(operators, nt, g_p, T0_p, VE_p, b0, state0, dt,
                         step0, bdf2, with_trilinear, n_real)
+
+
+def theta_sweep_v2_split(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0,
+                         state0, *, dt, step0=0, bdf2=True,
+                         with_trilinear=True, n_real=15, km=None, kk=None):
+    """K3 in the serving body's arithmetic (``csrc/windowed_serving.cu``):
+    each step's KN and r0 from :func:`~.windowed_fused.split_build` over
+    the fold of (Bm, Bk, T0) and the live θ rows ``km``/``kk``
+    (:func:`live_theta_rows`), N = T0·(dt·b0·pred) rather than the
+    reference's (T0·pred)·dt·b0, and KL·pred and N·pred dotted apart
+    rather than as dtS·pred; then the reference's solve, dd add and
+    probes. Same arguments and results as
+    :func:`online_sweep_theta_pallas_v2`."""
+    nt, NP, B, km8, kk8, kf8 = _check_theta(
+        THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, state0,
+        with_trilinear, n_real)
+    km, kk = live_theta_rows(km, kk, km8, kk8)
+    if THm.is_cuda:
+        _no_tf32()
+    Bmk = fold_combines(Bm, Bk, T0_p, with_trilinear)
+    dtb0 = None
+    if with_trilinear:
+        dtb0 = torch.tensor(dt, dtype=THm.dtype, device=THm.device) * b0
+    probes = THm.new_empty((nt, PROBE_P, B))
+    uN, lo, uN1, lo1 = state0[0], state0[1], state0[2], state0[3]
+    for s in range(nt):
+        tts = torch.cat([THm[s], THk[s], THf[s], g_p[s]])
+        pred_hi, pred_lo, d, bdf = _dd_predictor(uN, lo, uN1, lo1,
+                                                 int(step0) + s, bdf2)
+        KN, r0 = split_build(tts, Bmk, Bf, pred_hi, d, bdf, dtb0, NP, km,
+                             kk, km8, kk8, kf8)
+        uN_new, lo_new, probes[s], _delta, _pan = _solve_step(
+            KN, r0, pred_hi, pred_lo, tts, VE_p, n_real, NP,
+            km8 + kk8 + kf8)
+        uN1, lo1, uN, lo = uN, lo, uN_new, lo_new
+    return probes, torch.stack([uN, lo, uN1, lo1])
 
 
 # ======================================================================
@@ -242,9 +346,61 @@ def online_sweep_pallas_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
     return out
 
 
+def _launch_theta_v2(args, kw, design, clocked=False):
+    """Check K3's operands and launch ``design`` on CUDA tensors; returns
+    (probes, state) and, with ``clocked`` (the serving body's CLOCKED
+    instantiation, NP in SERVING_CLOCKED_NP), its per-block phase
+    clocks."""
+    (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, state0) = args
+    with_tri = kw["with_trilinear"]
+    nt, NP, B, km8, kk8, kf8 = _check_theta(*args, with_tri, kw["n_real"])
+    km, kk = live_theta_rows(kw["km"], kw["kk"], km8, kk8)
+    design = theta_design(design)
+    if clocked and (design != "serving" or NP not in SERVING_CLOCKED_NP):
+        raise ValueError(f"K3's phase clocks exist on the serving design "
+                         f"at NP in {SERVING_CLOCKED_NP} only")
+    if THm.device.type != "cuda":
+        raise ValueError(f"unsupported device {THm.device}: K3's kernels "
+                         "take CUDA tensors")
+    _no_tf32()
+    flags = (int(bool(with_tri)), int(bool(kw["bdf2"])))
+    outs = [(nt, PROBE_P, B), (4, NP, B)]
+    clk = None
+    if design == "first":
+        if not with_tri:
+            T0_p = THm.new_zeros((1,))
+        out = kernel_build.launch(
+            "resid_sweep", _bind, "romtime_theta_resid_sweep",
+            "theta resid_sweep (K3, first design)",
+            list(zip(("THm", "THk", "THf", "g", "Bm", "Bk", "Bf", "T0",
+                      "VE", "b0", "state0"),
+                     (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0,
+                      state0))),
+            (nt, NP, B, km8, kk8, kf8, kw["n_real"], int(kw["step0"]),
+             *flags), kw["dt"], outs)
+    else:
+        TH, Bmk, BfT, VE = serving_operands(THm, THk, THf, g_p, Bm, Bk, Bf,
+                                            T0_p, VE_p, with_tri)
+        if clocked:
+            lanes = serving_tile(NP, km8, kk8, kf8)["lanes"]
+            clk = torch.zeros(((B + lanes - 1) // lanes,
+                               len(SERVING_PHASES) + 1), dtype=torch.int64,
+                              device=THm.device)
+        out = kernel_build.launch(
+            "windowed_serving", _bind_serving, "romtime_theta_resid_serving",
+            "theta resid serving (K3)",
+            list(zip(("TH", "Bmk", "Bf", "VE", "b0", "state0"),
+                     (TH, Bmk, BfT, VE, b0, state0))),
+            (nt, NP, B, km8, kk8, kf8, km, kk, int(kw["step0"]), *flags),
+            kw["dt"], outs, extra=[clk])
+    count_launch(online_sweep_theta_pallas_v2, design)
+    return out + (clk,) if clocked else out
+
+
 def online_sweep_theta_pallas_v2(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
                                  VE_p, b0, state0, *, dt, step0=0,
-                                 bdf2=True, with_trilinear=True, n_real=15):
+                                 bdf2=True, with_trilinear=True, n_real=15,
+                                 km=None, kk=None):
     """θ-streaming residual-form sweep (K3): as
     :func:`online_sweep_pallas_v2`, with the step's operators formed in
     the kernel from
@@ -253,30 +409,42 @@ def online_sweep_theta_pallas_v2(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
                     THk ends in the constant-1 row of the padded diagonal)
     Bm, Bk        : (NP², km8|kk8) per-window combine tensors (dt folded
                     into Bk);  Bf : (NP, kf8)
+    km, kk        : live θm and θk rows (:func:`live_theta_rows`; default
+                    the padded extents)
 
-    CUDA launches are counted in ``online_sweep_theta_pallas_v2.launches``."""
-    kw = dict(dt=dt, step0=step0, bdf2=bdf2, with_trilinear=with_trilinear,
-              n_real=n_real)
+    CPU tensors run the twin; CUDA tensors launch K3 on the serving body
+    (``csrc/windowed_serving.cu``), counted in
+    ``online_sweep_theta_pallas_v2.launches`` and ``.serving_launches``
+    (the first design, on request only, in ``.first_design_launches``)."""
+    kw = _theta_v2_options(dt, step0, bdf2, with_trilinear, n_real, km, kk)
+    args = (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, state0)
     if kernel_build.device_route(THm) == "cpu":
-        return theta_sweep_v2_reference(THm, THk, THf, g_p, Bm, Bk, Bf,
-                                        T0_p, VE_p, b0, state0, **kw)
-    nt, NP, B, km8, kk8, kf8 = _check_theta(
-        THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, state0,
-        with_trilinear, n_real)
-    if not with_trilinear:
-        T0_p = THm.new_zeros((1,))
-    out = kernel_build.launch(
-        "resid_sweep", _bind, "romtime_theta_resid_sweep",
-        "theta resid_sweep (K3)",
-        list(zip(("THm", "THk", "THf", "g", "Bm", "Bk", "Bf", "T0", "VE",
-                  "b0", "state0"),
-                 (THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, state0))),
-        (nt, NP, B, km8, kk8, kf8, n_real, int(step0),
-         int(bool(with_trilinear)), int(bool(bdf2))), dt,
-        [(nt, PROBE_P, B), (4, NP, B)])
-    online_sweep_theta_pallas_v2.launches += 1
-    return out
+        return theta_sweep_v2_reference(*args, **kw)
+    return _launch_theta_v2(args, kw, "serving")
+
+
+def _theta_v2_options(dt, step0=0, bdf2=True, with_trilinear=True,
+                      n_real=15, km=None, kk=None):
+    return dict(dt=dt, step0=step0, bdf2=bdf2, with_trilinear=with_trilinear,
+                n_real=n_real, km=km, kk=kk)
+
+
+def _first_design_theta_v2(*args, **kw):
+    """K3's first design (``csrc/resid_sweep.cu``) on the wrapper's
+    arguments: the same-run yardstick of ``chip_smoke.py`` and the card
+    tests. CUDA tensors only."""
+    return _launch_theta_v2(args, _theta_v2_options(**kw), "first")
+
+
+def _theta_v2_clocked(*args, **kw):
+    """K3 on the serving body's CLOCKED instantiation (NP in
+    SERVING_CLOCKED_NP): (probes, state, clocks), the clocks
+    (blocks, len(SERVING_PHASES) + 1) int64 as K1's. CUDA tensors only."""
+    return _launch_theta_v2(args, _theta_v2_options(**kw), "serving",
+                            clocked=True)
 
 
 online_sweep_pallas_v2.launches = 0
 online_sweep_theta_pallas_v2.launches = 0
+online_sweep_theta_pallas_v2.serving_launches = 0
+online_sweep_theta_pallas_v2.first_design_launches = 0

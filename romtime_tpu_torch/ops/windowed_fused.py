@@ -309,34 +309,49 @@ def _bdf_step_merged(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
                        kmk8 + kf8, **solve)
 
 
+def split_build(tts, Bmk, Bf, pred, d, bdf, dtb0, NP, km, kk, km8, kk8,
+                kf8, plain=False):
+    """(KN, r0) of the serving body's segmented build
+    (``csrc/serving_body.cuh``) from one step's merged θ rows ``tts``
+    (K8, B) and the folded combine ``Bmk`` (NP², kfold): the live columns
+    in three segments, MN = Bm·θm (unscaled, the km live θm rows),
+    KL = Bk·θk (kk rows) and N = T0·(dtb0·pred) (``dtb0`` None: no
+    trilinear term); then KN = bdf·MN + KL + N and
+    r0 = MN·d + fN − KL·pred − N·pred, each term formed on its own and
+    combined in the reference's order. ``plain`` (K5's plain-f32 step,
+    ``pred`` = u* and ``d`` = combo) forms KN = bdf·MN + KL + N·dtb0 with
+    N = T0·pred, K5's order, and r0 = MN·d + fN only."""
+    kmk8 = km8 + kk8
+    B = tts.shape[1]
+    MN = (Bmk[:, :km] @ tts[:km]).reshape(NP, NP, B)
+    KL = (Bmk[:, km8:km8 + kk] @ tts[km8:km8 + kk]).reshape(NP, NP, B)
+    KN = bdf * MN + KL
+    r0 = lanes_matvec(MN, d) + Bf @ tts[kmk8:kmk8 + kf8]
+    if dtb0 is not None:
+        # K5 scales N = T0·pred after the product, K1 and K3 before it.
+        Nt = (Bmk[:, kmk8:kmk8 + NP] @ (pred if plain else pred * dtb0)
+              ).reshape(NP, NP, B)
+        KN = KN + (Nt * dtb0 if plain else Nt)
+    if not plain:
+        r0 = r0 - lanes_matvec(KL, pred)
+        if dtb0 is not None:
+            r0 = r0 - lanes_matvec(Nt, pred)
+    return KN, r0
+
+
 def bdf_step_split(tts, Bmk, BmF, BkF, Bf, uN, lo, uN1, lo1, step, TQ,
                    VE, dtb0, bdf2, n_real, NP, km8, kk8, kf8, **solve):
     """The BDF step of :func:`_bdf_step_merged` with the trilinear term
     formed once, as K1's serving design (``csrc/windowed_serving.cu``)
-    computes it: the folded combine's live columns in three segments,
-    MN = Bm·θm (unscaled), KL = Bk·θk and N = T0·(dt·b0·pred); then
-    KN = bdf·MN + KL + N and r0 = MN·d + fN − KL·pred − N·pred, each term
-    formed on its own and combined in the reference's order. TQ and the
+    computes it: :func:`split_build`, then the step's solve. TQ and the
     factored BmF/BkF are not read (their shapes give the live θ rows km
     and kk). Same arguments and results as :func:`_bdf_step_merged`."""
-    kmk8 = km8 + kk8
-    km = BmF.shape[0] // NP
-    kk = BkF.shape[0] // NP
-    B = tts.shape[1]
     pred_hi, pred_lo, d, bdf = _dd_predictor(uN, lo, uN1, lo1, step, bdf2)
-    MN = (Bmk[:, :km] @ tts[:km]).reshape(NP, NP, B)
-    KL = (Bmk[:, km8:km8 + kk] @ tts[km8:km8 + kk]).reshape(NP, NP, B)
-    KN = bdf * MN + KL
-    if dtb0 is not None:
-        Nt = (Bmk[:, kmk8:kmk8 + NP] @ (pred_hi * dtb0)).reshape(NP, NP, B)
-        KN = KN + Nt
-        trip = lanes_matvec(Nt, pred_hi)
-    else:
-        trip = torch.zeros_like(pred_hi)
-    fN = Bf @ tts[kmk8:kmk8 + kf8]
-    r0 = lanes_matvec(MN, d) + fN - lanes_matvec(KL, pred_hi) - trip
+    KN, r0 = split_build(tts, Bmk, Bf, pred_hi, d, bdf, dtb0, NP,
+                         BmF.shape[0] // NP, BkF.shape[0] // NP, km8, kk8,
+                         kf8)
     return _solve_step(KN, r0, pred_hi, pred_lo, tts, VE, n_real, NP,
-                       kmk8 + kf8, **solve)
+                       km8 + kk8 + kf8, **solve)
 
 
 def _solve_step(KN, r0, pred_hi, pred_lo, tts, VE, n_real, NP, off_g,
@@ -557,10 +572,15 @@ def _bind(lib):
 
 
 def _bind_serving(lib):
+    """Every entry of ``csrc/windowed_serving.cu``: K1's serving design,
+    K3 on the serving body (``ops/resid_sweep.py``) and the tile query."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.romtime_windowed_serving.argtypes = (
         [ptr] * 11 + [i32] * 14 + [ctypes.c_float, ptr])
     lib.romtime_windowed_serving.restype = i32
+    lib.romtime_theta_resid_serving.argtypes = (
+        [ptr] * 9 + [i32] * 11 + [ctypes.c_float, ptr])
+    lib.romtime_theta_resid_serving.restype = i32
     lib.romtime_windowed_serving_tile.argtypes = [i32] * 4 + [ptr]
     lib.romtime_windowed_serving_tile.restype = i32
 
@@ -588,15 +608,27 @@ def serving_tile(NP, km8, kk8, kf8):
     return dict(zip(("lanes", "threads", "ks", "smem_bytes"), out))
 
 
-def _count(design, kw):
-    wrapper = online_sweep_windowed_fused
+def pad_rows(t, *shape):
+    """``t`` viewed as ``shape`` with its last axis padded by 4 zero
+    floats: the serving body's row layout (a chunk of rows is one
+    contiguous bulk copy that lands in its conflict-free shared layout)."""
+    return torch.nn.functional.pad(t.view(*shape), (0, 4)).contiguous()
+
+
+def count_launch(wrapper, design):
+    """One launch of ``design`` in a wrapper's counters: ``.launches`` and
+    ``.serving_launches`` or ``.first_design_launches``."""
     wrapper.launches += 1
     if design == "serving":
         wrapper.serving_launches += 1
     else:
         wrapper.first_design_launches += 1
+
+
+def _count(design, kw):
+    count_launch(online_sweep_windowed_fused, design)
     if kw["solve_iters"] is not None:
-        wrapper.richardson_launches += 1
+        online_sweep_windowed_fused.richardson_launches += 1
 
 
 def _launch(args, kw, design=None, clocked=False):
@@ -641,16 +673,9 @@ def _launch(args, kw, design=None, clocked=False):
     with torch.cuda.device(dev):
         if design == "serving":
             lib = kernel_build.load("windowed_serving", _bind_serving)
-            # The rows of each Bmk slice, of Tp and of VE padded to NP + 4
-            # floats: a chunk of slices (a window's Tp, VE) is one
-            # contiguous bulk copy that lands in the kernel's
-            # conflict-free shared layout.
-            def padded(t, *shape):
-                return torch.nn.functional.pad(t.view(*shape),
-                                               (0, 4)).contiguous()
-            Bmk = padded(Bmk, W, Bmk.shape[1], NP, NP)
-            Tp = padded(Tp, W, NP, NP)
-            VE = padded(VE, W, PROBE_P, NP)
+            Bmk = pad_rows(Bmk, W, Bmk.shape[1], NP, NP)
+            Tp = pad_rows(Tp, W, NP, NP)
+            VE = pad_rows(VE, W, PROBE_P, NP)
             if clocked:
                 lanes = serving_tile(NP, km8, kk8, kf8)["lanes"]
                 clk = torch.zeros(((B + lanes - 1) // lanes,

@@ -32,6 +32,7 @@ from ...ops.windowed_fused import _no_tf32
 from ..windowed import WindowedServing
 from .windowed_fused import (
     materialize,
+    live_rows,
     time_grid,
     window_inputs,
     window_operators,
@@ -128,11 +129,11 @@ def sweep_materialized(fom, gs, prepped, tables):
 
 
 def sweep_theta(fom, gs, prepped, tables):
-    """One K5 launch over the θ streams."""
+    """One K5 launch over the θ streams' live rows."""
     (THm, THk, THf, g, b0), kw = window_inputs(fom, gs, prepped)
     return online_sweep_theta_pallas(
         THm, THk, THf, g, tables["Bm"][0], tables["Bk"][0], tables["Bf"][0],
-        tables["T0"][0], tables["VE"][0], b0, **kw)
+        tables["T0"][0], tables["VE"][0], b0, **kw, **live_rows(tables))
 
 
 def global_sweep(fom, gs, prepped, tables, precompute_choice):

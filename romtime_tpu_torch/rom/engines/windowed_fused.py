@@ -379,11 +379,21 @@ def sweep_materialized(fom, win, prepped, tables):
     return torch.cat(parts), state
 
 
+def live_rows(tables):
+    """The live θm and θk rows of the window tables (the factored
+    tensors' extents, as K1 reads them): the ``km``/``kk`` keywords of
+    the θ-streaming kernels K3 and K5, which then stream no padded row."""
+    NP = tables["VE"].shape[2]
+    return dict(km=tables["BmF"].shape[2] // NP,
+                kk=tables["BkF"].shape[2] // NP)
+
+
 def sweep_theta_v2(fom, win, prepped, tables):
     """v2 branch (reference ``:453-488``): per window w, the dd transfer
     through T[w] (T[0] = I included) and one K3 launch with
-    step0 = w·width."""
+    step0 = w·width over the live θ rows (:func:`live_rows`)."""
     (THm, THk, THf, g, b0), kw = window_inputs(fom, win, prepped)
+    kw.update(live_rows(tables))
     width = window_width(win)
     NP = pad_dim(win.N)
     state = THm.new_zeros((4, NP, THm.shape[2]))

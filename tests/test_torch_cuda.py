@@ -1,7 +1,10 @@
 """K1-K5 on the card against their plain PyTorch twins on the card (K1
 in both of its designs: the serving design csrc/windowed_serving.cu on
 the serving options, the first design csrc/windowed_fused.cu on every
-option).
+option; K3 and K5 in both of theirs: the serving body,
+csrc/windowed_serving.cu and csrc/global_serving.cu, and the first
+designs csrc/resid_sweep.cu and csrc/global_sweep.cu, each against the
+op-for-op twin, the split twin and the other design).
 Needs a CUDA device and nvcc; skips without a device. Imports no JAX, so
 it runs on a machine without it (tests/conftest.py imports JAX,
 hence ``--noconftest``):
@@ -284,3 +287,130 @@ def test_cuda_global_wrappers_refuse_np_above_64(theta):
     with pytest.raises(ValueError, match="at most 64"):
         wrapper(*args, **kw)
     assert wrapper.launches == n0
+
+
+def _held_global(got, want):
+    got_p, got_u = got
+    want_p, want_u = want
+    assert torch.isfinite(got_p).all() and torch.isfinite(got_u).all()
+    scale = want_p.abs().max().item()
+    assert (got_p - want_p).abs().max().item() <= 5e-5 * scale
+    uscale = want_u.abs().max().item()
+    assert (got_u - want_u).abs().max().item() <= 5e-5 * uscale
+
+
+#: (design → the K3 and K5 entries that launch it).
+THETA_ENTRIES = {"serving": (rs.online_sweep_theta_pallas_v2,
+                             gs.online_sweep_theta_pallas),
+                 "first": (rs._first_design_theta_v2,
+                           gs._first_design_theta)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["serving", "first"])
+@pytest.mark.parametrize("N,nt,B,step0,options", RESID_CASES)
+def test_cuda_k3_designs_match_twins(N, nt, B, step0, options, design):
+    """Each K3 design against the op-for-op twin, the split twin and the
+    other design, within 5e-5·scale (probes, state registers 0 and 2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = resid_tables(N, nt, B, seed=N + step0 + 7, device="cuda",
+                            theta=True, step0=step0, **options)
+    other = "first" if design == "serving" else "serving"
+    got = THETA_ENTRIES[design][0](*args, **kw)
+    torch.cuda.synchronize()
+    _held_to(got, rs.theta_sweep_v2_reference(*args, **kw))
+    _held_to(got, rs.theta_sweep_v2_split(*args, **kw))
+    _held_to(got, THETA_ENTRIES[other][0](*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["serving", "first"])
+@pytest.mark.parametrize("N,nt,B,options", GLOBAL_CASES)
+def test_cuda_k5_designs_match_twins(N, nt, B, options, design):
+    """Each K5 design against the op-for-op twin, the split twin and the
+    other design, within 5e-5·scale; the padded probe rows and uN entries
+    are exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = global_tables(N, nt, B, seed=N + 3, device="cuda",
+                             theta=True, **options)
+    other = "first" if design == "serving" else "serving"
+    got = THETA_ENTRIES[design][1](*args, **kw)
+    torch.cuda.synchronize()
+    _held_global(got, gs.theta_sweep_reference(*args, **kw))
+    _held_global(got, gs.theta_sweep_split(*args, **kw))
+    _held_global(got, THETA_ENTRIES[other][1](*args, **kw))
+    assert got[0][:, 2:].abs().max().item() == 0.0
+    assert got[1][N:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step0", [0, 30])
+def test_cuda_k3_serving_chains_bit_for_bit(step0):
+    """K3's serving body over two launches chained through the dd state
+    equals one launch over the same steps, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = resid_tables(32, 30, 67, seed=5, device="cuda", theta=True,
+                            step0=step0)
+    wrapper = rs.online_sweep_theta_pallas_v2
+    p1, s1 = wrapper(*args, **kw)
+    h = 12
+
+    def part(lo, hi):     # the θ streams and g lead the arguments
+        return [a[lo:hi] if i < 4 else a for i, a in enumerate(args[:-1])]
+
+    pa, sa = wrapper(*part(0, h), args[-1], **kw)
+    pb, sb = wrapper(*part(h, 30), sa, **dict(kw, step0=step0 + h))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([pa, pb]), p1)
+    assert torch.equal(sb, s1)
+
+
+@pytest.mark.cuda
+def test_cuda_theta_launch_counters_follow_the_design():
+    """The wrappers launch the serving body and only it; the first-design
+    entries the first design; each launch counts once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cases = ((rs.online_sweep_theta_pallas_v2,
+              resid_tables(24, 8, 64, seed=3, device="cuda", theta=True)),
+             (gs.online_sweep_theta_pallas,
+              global_tables(15, 8, 64, seed=3, device="cuda", theta=True)))
+    for k, (wrapper, (args, kw)) in enumerate(cases):
+        for design, moved in (("serving", (1, 1, 0)), ("first", (1, 0, 1))):
+            before = (wrapper.launches, wrapper.serving_launches,
+                      wrapper.first_design_launches)
+            THETA_ENTRIES[design][k](*args, **kw)
+            torch.cuda.synchronize()
+            after = (wrapper.launches, wrapper.serving_launches,
+                     wrapper.first_design_launches)
+            assert tuple(b - a for a, b in zip(before, after)) == moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K5"])
+def test_cuda_theta_clocks_match_plain(kernel):
+    """The CLOCKED serving body of K3 (NP 32) and K5 (NP 24) computes what
+    the plain one computes and reports a positive cycle count for every
+    block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if kernel == "K3":
+        args, kw = resid_tables(32, 30, 67, seed=6, device="cuda",
+                                theta=True, step0=30)
+        plain = rs.online_sweep_theta_pallas_v2(*args, **kw)
+        p, s, clk = rs._theta_v2_clocked(*args, **kw)
+        torch.cuda.synchronize()
+        _held_to((p, s), plain)
+    else:
+        args, kw = global_tables(20, 24, 130, seed=6, device="cuda",
+                                 theta=True)
+        plain = gs.online_sweep_theta_pallas(*args, **kw)
+        p, s, clk = gs._theta_clocked(*args, **kw)
+        torch.cuda.synchronize()
+        _held_global((p, s), plain)
+    assert clk.shape[1] == len(k1.SERVING_PHASES) + 1
+    assert (clk[:, -1] > 0).all()
+    assert (clk[:, :-1].sum(dim=1) <= clk[:, -1]).all()
