@@ -8,10 +8,12 @@ Phases, in order; any failure raises and exits non-zero:
 2. build of every kernel of the serving paths with nvcc for sm_90a, one
    nvcc per source, all at once, with each source's nvcc seconds: the
    serving body (romtime_tpu_torch/csrc/serving_body.cuh) in K1's serving
-   design and K3 (romtime_tpu_torch/csrc/windowed_serving.cu) and in K5
-   (romtime_tpu_torch/csrc/global_serving.cu); K1's first design
-   (romtime_tpu_torch/csrc/windowed_fused.cu); K2 and K3's first design
-   (romtime_tpu_torch/csrc/resid_sweep.cu); K4 and K5's first design
+   design and K3 (romtime_tpu_torch/csrc/windowed_serving.cu), in K5
+   (romtime_tpu_torch/csrc/global_serving.cu), and over materialized
+   tables in K2 (romtime_tpu_torch/csrc/resid_tables_serving.cu) and K4
+   (romtime_tpu_torch/csrc/global_tables_serving.cu); K1's first design
+   (romtime_tpu_torch/csrc/windowed_fused.cu); K2 and K3's first designs
+   (romtime_tpu_torch/csrc/resid_sweep.cu); K4 and K5's first designs
    (romtime_tpu_torch/csrc/global_sweep.cu); each instantiation's
    registers and spills (``-Xptxas -v``): no instantiation of the serving
    body may spill;
@@ -26,15 +28,17 @@ Phases, in order; any failure raises and exits non-zero:
    design's phase clocks (its CLOCKED instantiation beside the plain
    one; shares reported where the totals agree within 3%); K2 (B=512 at
    50x32, B=128 at 150x48) and K3 (B=2048) over one window launch with
-   step0 > 0 from a nonzero carried state, K3 on both designs in turns
+   step0 > 0 from a nonzero carried state, each on both designs in turns
    (serving, first, first, serving), held against its first design, the
-   twin and the split twin, with the serving body's phase clocks; K4 and
-   K5 over a whole global sweep (nt=1500): K4 at N=15, K5 at N=15 and
+   twin and the split twin, with the serving body's phase clocks (K2's
+   serving body on lane-major tables, the conversion from the reference
+   layout timed apart; at 50x32 also at 4, 8 and 16 lanes a block); K4
+   and K5 over a whole global sweep (nt=1500): K4 at N=15, K5 at N=15 and
    N=20 (B=2048, the throughput ROM and S-ROM), each also at N=9 with
    BDF-1 and no trilinear term, and at B=1000 (not a multiple of 128),
-   K5 on both designs in turns as K3, with the phase clocks at N=20.
-   Errors against 5e-5·scale; ms per call of the kernel and of the twin,
-   and the bound;
+   each on both designs in turns as K2 and K3, with the phase clocks at
+   N=15 (K4) and N=20 (K5). Errors against 5e-5·scale; ms per call of the
+   kernel and of the twin, and the bound;
 4. K1 options phase (the first design), at both windowed shapes
    (B=2048) on the same tables: the first design's cost ledger
    (romtime_tpu_torch/kernel_ledger.py: every ablated variant with the
@@ -51,7 +55,7 @@ Phases, in order; any failure raises and exits non-zero:
    design per call and none of the first), B=512
    (materialized tables, K2 once per window: 50 per call), B=2048 under
    ROMTIME_WINDOWED_KERNEL=v2 (K3's serving body once per window, its
-   first design never) and B=2048 on the
+   first design never; K2 likewise at B=512) and B=2048 on the
    fused branch with ``WINDOWED_SOLVE_ITERS = 5`` on the instance (K1
    with the Richardson solve, one launch per call). Each branch's outputs
    must be finite and agree with the same batch through the twins on the
@@ -62,20 +66,22 @@ Phases, in order; any failure raises and exits non-zero:
    "skipped (no global basis)" there and cond₂ on the global cells;
 6. global serving phase (``engine="pallas"``) on the seeded synthetic
    global cells (same FOM), the same way: N=15 at B=2048 (materialized
-   tables, one K4 launch per call), the same cell with the precompute
-   budget at 0 (one launch of K5's serving body per call; its outputs
-   within 3e-6·scale of K4's on the same μ) and N=20 at B=2048 (K5 by the
-   budget alone); K5 on both designs in turns on each cell's inputs;
+   tables, one launch of K4's serving body per call), the same cell with
+   the precompute budget at 0 (one launch of K5's serving body per call;
+   its outputs within 3e-6·scale of K4's on the same μ) and N=20 at
+   B=2048 (K5 by the budget alone); K4 and K5 on both designs in turns on
+   each cell's inputs, the materialized tables' product (lane-major, as
+   the engine forms them) timed against the reference layout's einsum;
 7. one measured precompute autotune on the N=15 global cell at B=2048
-   (record written under build/).
+   (record written under build/; its winner printed).
 
 Every serving branch reports solves/s (median of its calls, synchronized)
 beside the card name, where its time goes, and each kernel's ms, twin ms
-and bound on the serving path's own inputs (K1's, K3's and K5's on both
-designs, in turns). Prints a JSON line of per-kernel results (K1, K3 and
-K5 on the serving body with their first designs' times, the phase
-shares, the register and spill report, and K1's first design's modes,
-ablations and ledger), then, as
+and bound on the serving path's own inputs (each on both designs, in
+turns). Prints a JSON line of per-kernel results (K1-K5 on the serving
+body with their first designs' times, the phase shares, the register
+and spill report, and K1's first design's modes, ablations and ledger),
+then, as
 the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -129,7 +135,8 @@ GLOBAL_SHAPES = (("K4", 15, 2048, {}), ("K5", 15, 2048, {}),
                  ("K4", 9, 2048, NO_TRI_BDF1), ("K5", 9, 2048, NO_TRI_BDF1),
                  ("K4", 15, 1000, {}), ("K5", 20, 1000, {}))
 #: Sources of the serving body: no instantiation may spill.
-SERVING_SOURCES = ("windowed_serving", "global_serving")
+SERVING_SOURCES = ("windowed_serving", "global_serving",
+                   "resid_tables_serving", "global_tables_serving")
 #: The reference's own limit between its K5 and K4 branches
 #: (tests/test_rom.py:226-227).
 THETA_VS_TABLES_REL = 3e-6
@@ -175,6 +182,12 @@ def check(name, got, want, rel=ATOL_REL):
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its reference")
     return err
+
+
+def rel_gap(got, want):
+    """max |got − want| over max |want|."""
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
 
 
 def check_sweep(label, got, want):
@@ -360,12 +373,8 @@ def k5_bound(args, kw):
     return bound(flops, nbytes)
 
 
-def global_kernel(mods, name):
-    """(wrapper, twin, bound) of K4 or K5."""
-    gs = mods["gs"]
-    if name == "K4":
-        return gs.online_sweep_pallas, gs.sweep_reference, k4_bound
-    return gs.online_sweep_theta_pallas, gs.theta_sweep_reference, k5_bound
+#: The bound of each global kernel.
+GLOBAL_BOUND = {"K4": k4_bound, "K5": k5_bound}
 
 
 # ----------------------------------------------------------------------
@@ -431,14 +440,77 @@ def theta_designs(mods, name, args, kw, reps, label, check_fn):
                 max_abs_err=err), want
 
 
-def kernel_phase(mods, dev, power, errs, rich_errs):
-    from romtime_tpu_torch.kernel_ledger import (
-        phase_split,
-        split_lines,
-        theta_phase_split,
-    )
+def table_entries(mods, name):
+    """(serving wrapper, first-design entry, twin, split twin) of K2 or
+    K4."""
+    if name == "K2":
+        rs = mods["rs"]
+        return (rs.online_sweep_pallas_v2, rs._first_design_v2,
+                rs.sweep_v2_reference, rs.sweep_v2_split)
+    gs = mods["gs"]
+    return (gs.online_sweep_pallas, gs._first_design_tables,
+            gs.sweep_reference, gs.sweep_split)
 
-    k1, rs, synth = mods["k1"], mods["rs"], mods["synth"]
+
+def table_designs(mods, name, args, kw, reps, label, check_fn,
+                  lanes_sweep=False):
+    """K2 or K4 (``name``) on both designs in turns (serving, first, first,
+    serving): the serving body on lane-major tables (converted once from
+    the reference layout of ``args``, the conversion timed apart), the
+    first design on ``args``; the serving body held against the first
+    design, the twin and the split twin, and with ``lanes_sweep`` (K2)
+    timed at every lane tile it takes. Returns (a row {"ms", "first_design_ms",
+    "plain_ms", "max_abs_err", "conversion_ms", "lanes"[, "lanes_ms"]},
+    the twin's outputs, the lane-major args and keywords)."""
+    rs = mods["rs"]
+    serve, first, twin, split = table_entries(mods, name)
+    conversion_ms, lm = cuda_ms(lambda: rs.lane_major(*args[:3]), reps)
+    largs, lkw = (*lm, *args[3:]), dict(kw, lane_major=True)
+    del lm
+    ms, first_ms, got, ref = turns(lambda *_a, **_k: serve(*largs, **lkw),
+                                   lambda *_a, **_k: first(*args, **kw),
+                                   (), {}, reps)
+    err = check_fn(f"{label}, serving body vs its first design:", got, ref)
+    del ref
+    plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1, warmup=False)
+    err = max(err, check_fn(f"{label}, serving body vs twin:", got, want))
+    err = max(err, check_fn(f"{label}, serving body vs split twin:", got,
+                            split(*largs, **lkw)))
+    NP, Bn = args[5].shape[-1], args[3].shape[-1]
+    row = dict(ms=ms, first_design_ms=first_ms, plain_ms=plain_ms,
+               conversion_ms=conversion_ms,
+               lanes=rs.table_lanes(Bn, NP, got[0].device))
+    print(f"  serving body {ms:.3f} ms ({row['lanes']} lanes a block), "
+          f"first design {first_ms:.3f} ({first_ms / ms:.2f}×), twin "
+          f"{plain_ms:.1f} ms; layout conversion {conversion_ms:.3f} ms")
+    if lanes_sweep:
+        row["lanes_ms"] = {}
+        for tl in rs.TABLE_LANES:
+            if tl > rs.table_lanes_max(NP):
+                continue
+            row["lanes_ms"][tl], out = cuda_ms(
+                lambda: rs._v2_lanes(*largs, lanes=tl, **lkw), reps)
+            err = max(err, check_fn(f"{label}, serving body at {tl} lanes a "
+                                    f"block vs twin:", out, want))
+            print(f"  serving body at {tl} lanes a block "
+                  f"{row['lanes_ms'][tl]:.3f} ms")
+    row["max_abs_err"] = err
+    return row, want, largs, lkw
+
+
+def print_split(what, split):
+    """A phase split's lines (kernel_ledger.split_lines) under ``what``."""
+    from romtime_tpu_torch.kernel_ledger import split_lines
+
+    print(what)
+    for line in split_lines(split):
+        print("  " + line)
+
+
+def kernel_phase(mods, dev, power, errs, rich_errs):
+    from romtime_tpu_torch.kernel_ledger import body_phase_split, phase_split
+
+    k1, synth = mods["k1"], mods["synth"]
     rows, splits = [], {}
     for W, width, N in SHAPES:
         shape = f"{W}x{N}"
@@ -486,17 +558,13 @@ def kernel_phase(mods, dev, power, errs, rich_errs):
             rows.append(row)
             del got, ref
         split = phase_split(args, kw, reps=K1_TURN_REPS)
-        print(f"K1 serving design phase clocks {shape} B={B} on {power}:")
-        for line in split_lines(split):
-            print("  " + line)
+        print_split(f"K1 serving design phase clocks {shape} B={B} on "
+                    f"{power}:", split)
         splits[shape] = split
         del lu_probes
         step0 = (W // 2) * width
-        for name, theta, Bk, wrapper, twin, bnd in (
-                ("K2", False, K2_BATCH[N], rs.online_sweep_pallas_v2,
-                 rs.sweep_v2_reference, k2_bound),
-                ("K3", True, B, rs.online_sweep_theta_pallas_v2,
-                 rs.theta_sweep_v2_reference, k3_bound)):
+        for name, theta, Bk, bnd in (("K2", False, K2_BATCH[N], k2_bound),
+                                     ("K3", True, B, k3_bound)):
             args, kw = synth.resid_tables(N, width, Bk, seed=W + 1,
                                           device=dev, theta=theta,
                                           step0=step0)
@@ -506,20 +574,18 @@ def kernel_phase(mods, dev, power, errs, rich_errs):
             if theta:
                 row, _want = theta_designs(mods, name, args, kw, RESID_REPS,
                                            label, check_sweep)
-                split = theta_phase_split(name, args, kw, reps=K1_TURN_REPS)
-                print(f"K3 serving body phase clocks {shape} B={Bk} on "
-                      f"{power}:")
-                for line in split_lines(split):
-                    print("  " + line)
-                row["phase_split"] = split["lu"]
+                sargs, skw = args, kw
             else:
-                ms, got = cuda_ms(lambda: wrapper(*args, **kw), RESID_REPS)
-                plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1,
-                                         warmup=False)
-                row = dict(ms=ms, plain_ms=plain_ms, max_abs_err=check_sweep(
-                    label + ":", got, want))
-                print(f"  kernel {ms:.3f} ms/launch, twin {plain_ms:.1f} "
-                      f"ms/launch")
+                row, _want, sargs, skw = table_designs(
+                    mods, name, args, kw, RESID_REPS, label, check_sweep,
+                    lanes_sweep=N == 32)
+            del args, _want
+            # A launch takes ~0.3-1.5 ms: many calls steady the medians.
+            split = body_phase_split(name, sargs, skw, reps=RESID_REPS)
+            print_split(f"{name} serving body phase clocks {shape} B={Bk} "
+                        f"on {power}:", split)
+            row["phase_split"] = split["lu"]
+            del sargs
             print(f"  bound {bms:.4f} ms ({by})")
             errs[name].append(row["max_abs_err"])
             rows.append(dict(kernel=name, shape=f"{W}x{N}", B=Bk,
@@ -594,12 +660,12 @@ def k1_options_phase(mods, dev, power):
 
 
 def global_kernel_phase(mods, dev, power, errs):
-    from romtime_tpu_torch.kernel_ledger import split_lines, theta_phase_split
+    from romtime_tpu_torch.kernel_ledger import body_phase_split
 
     synth = mods["synth"]
     rows = []
     for name, N, Bn, options in GLOBAL_SHAPES:
-        wrapper, twin, bnd = global_kernel(mods, name)
+        bnd = GLOBAL_BOUND[name]
         args, kw = synth.global_tables(N, GLOBAL_NT, Bn, seed=N, device=dev,
                                        theta=name == "K5", **options)
         label = (f"{name} N={N} nt={GLOBAL_NT} B={Bn}"
@@ -609,26 +675,21 @@ def global_kernel_phase(mods, dev, power, errs):
         if name == "K5":
             row, _want = theta_designs(mods, name, args, kw, GLOBAL_REPS,
                                        label, check_global)
-            if N == 20 and Bn == B:
-                split = theta_phase_split(name, args, kw, reps=GLOBAL_REPS)
-                print(f"K5 serving body phase clocks N={N} B={Bn} on "
-                      f"{power}:")
-                for line in split_lines(split):
-                    print("  " + line)
-                row["phase_split"] = split["lu"]
+            sargs, skw = args, kw
         else:
-            ms, got = cuda_ms(lambda: wrapper(*args, **kw), GLOBAL_REPS)
-            plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1,
-                                     warmup=False)
-            row = dict(ms=ms, plain_ms=plain_ms,
-                       max_abs_err=check_global(label + ":", got, want))
-            print(f"  kernel {ms:.3f} ms/sweep, twin {plain_ms:.1f} ms/sweep")
-            del got, want
+            row, _want, sargs, skw = table_designs(
+                mods, name, args, kw, GLOBAL_REPS, label, check_global)
+        del _want, args
+        if (name, N, Bn) in (("K4", 15, B), ("K5", 20, B)):
+            split = body_phase_split(name, sargs, skw, reps=GLOBAL_REPS)
+            print_split(f"{name} serving body phase clocks N={N} B={Bn} on "
+                        f"{power}:", split)
+            row["phase_split"] = split["lu"]
+        del sargs
         print(f"  bound {bms:.4f} ms ({by})")
         errs[name].append(row["max_abs_err"])
         rows.append(dict(kernel=name, shape=f"N{N}", B=Bn, options=options,
                          bound_ms=bms, bound_by=by, **row))
-        del args
         torch.cuda.empty_cache()
     return rows
 
@@ -678,25 +739,22 @@ def counters(mods):
 
 
 def design_counts(mods):
-    """(serving, first-design) launches of K1, K3 and K5."""
-    c = counters(mods)
-    return {name: (c[i].serving_launches, c[i].first_design_launches)
-            for i, name in ((0, "K1"), (2, "K3"), (4, "K5"))}
+    """(serving, first-design) launches of K1-K5."""
+    return {name: (c.serving_launches, c.first_design_launches)
+            for name, c in zip(KERNELS, counters(mods))}
 
 
 def serve_calls(rom, batches, mods, engine):
     """Warm up, zero every launch counter, serve the batches one call at
     a time (synchronized), read the counters: (launches of K1-K5, K1's
-    Richardson launches, {K1, K3, K5: (serving-design, first-design)
+    Richardson launches, {K1-K5: (serving-design, first-design)
     launches}, outputs, call seconds)."""
     k1 = mods["k1"].online_sweep_windowed_fused
     rom.solve_batch(batches[0], mode="probes", engine=engine,
                     probe_reduce="mean")
     torch.cuda.synchronize()
     for c in counters(mods):
-        c.launches = 0
-        if hasattr(c, "serving_launches"):
-            c.serving_launches = c.first_design_launches = 0
+        c.launches = c.serving_launches = c.first_design_launches = 0
     k1.richardson_launches = 0
     times, outs = [], []
     for mus in batches:
@@ -749,8 +807,8 @@ def serve_branch(rom, run, batches, mods, power):
     calls = len(batches)
     want = {"fused": [calls, 0, 0, 0, 0], "matrices": [0, W * calls, 0, 0, 0],
             "v2": [0, 0, W * calls, 0, 0]}[branch]
-    # K1's and K3's runs launch the serving designs only.
-    want_designs = {"K1": (want[0], 0), "K3": (want[2], 0), "K5": (0, 0)}
+    # Every run launches the serving designs only.
+    want_designs = {k: (n, 0) for k, n in zip(KERNELS, want)}
     want_rich = calls if iters else 0
     info = call_info(Bb, times)
     print(f"serving, {run} run ({branch} branch, solve_iters {iters}): "
@@ -861,20 +919,30 @@ def serving_phase(mods, dev, power, errs, rich_errs):
             a, b = int(win.bounds[w]), int(win.bounds[w + 1])
             state = THm.new_zeros((4, tables["VE"].shape[2], THm.shape[2]))
             if branch == "matrices":
-                ops_ms, ops = cuda_ms(lambda: engine.window_operators(
-                    tables, w, THm, THk, THf, a, b), RESID_REPS)
-                info["materialize_ms_per_window"] = ops_ms
+                # The engine's lane-major product, and the reference
+                # layout's einsum it replaced, on the same window.
+                info["einsum_ms_per_window"], ops = cuda_ms(
+                    lambda: engine.window_operators(tables, w, THm, THk, THf,
+                                                    a, b), RESID_REPS)
+                info["materialize_ms_per_window"], lops = cuda_ms(
+                    lambda: engine.window_operators_lanes(
+                        tables, w, THm, THk, THf, a, b), RESID_REPS)
+                gap = max(rel_gap(x, y) for x, y in
+                          zip(lops, rs.lane_major(*ops)))
+                print(f"  window {w}'s tables: lane-major product "
+                      f"{info['materialize_ms_per_window']:.3f} ms, the "
+                      f"reference layout's einsum "
+                      f"{info['einsum_ms_per_window']:.3f} ms; they differ "
+                      f"by {gap:.3e} of their scale")
+                del lops
                 wargs = (*ops, g[a:b], tables["T0"][w], tables["VE"][w], b0,
                          state)
-                name, wrapper, twin, bnd = ("K2", rs.online_sweep_pallas_v2,
-                                            rs.sweep_v2_reference, k2_bound)
+                name, bnd = "K2", k2_bound
             else:
                 wargs = (THm[a:b], THk[a:b], THf[a:b], g[a:b],
                          tables["Bm"][w], tables["Bk"][w], tables["Bf"][w],
                          tables["T0"][w], tables["VE"][w], b0, state)
-                name, wrapper, twin, bnd = (
-                    "K3", rs.online_sweep_theta_pallas_v2,
-                    rs.theta_sweep_v2_reference, k3_bound)
+                name, bnd = "K3", k3_bound
             wkw = dict(kw, step0=a)
             label = (f"{name} on the serving inputs of window {w} "
                      f"(B={info['B']})")
@@ -890,12 +958,8 @@ def serving_phase(mods, dev, power, errs, rich_errs):
                 print(f"  of it the serving body's operand prep (merged θ, "
                       f"padded fold) {row['operand_prep_ms']:.3f} ms")
             else:
-                ms, wgot = cuda_ms(lambda: wrapper(*wargs, **wkw),
-                                   RESID_REPS)
-                plain_ms, wwant = cuda_ms(lambda: twin(*wargs, **wkw), 1,
-                                          warmup=False)
-                row = dict(ms=ms, plain_ms=plain_ms, max_abs_err=check_sweep(
-                    label + ":", wgot, wwant))
+                row, _want, _l, _k = table_designs(
+                    mods, name, wargs, wkw, RESID_REPS, label, check_sweep)
             errs[name].append(row.pop("max_abs_err"))
             bms, by = bnd(wargs, wkw)
             kernels[name] = dict(row, bound_ms=bms, bound_by=by)
@@ -913,7 +977,7 @@ def serving_phase(mods, dev, power, errs, rich_errs):
               f"{rest:.1f} ms")
         if branch != "fused":
             print(f"  per window: {name} {info['kernel_ms_per_window']:.3f}"
-                  f" ms" + (f", materializing MN/KL/fN "
+                  f" ms" + (f", materializing MN/KL/fN lane-major "
                             f"{info['materialize_ms_per_window']:.3f} ms"
                             if branch == "matrices" else "")
                   + f"; {W} windows")
@@ -954,8 +1018,8 @@ def serve_global(rom, label, batches, mods, power, kernel):
                                                         "pallas")
     calls = len(batches)
     want = [0, 0, 0, calls, 0] if kernel == "K4" else [0, 0, 0, 0, calls]
-    # K5's runs launch its serving body only.
-    want_designs = {"K1": (0, 0), "K3": (0, 0), "K5": (want[4], 0)}
+    # K4's and K5's runs launch their serving body only.
+    want_designs = {k: (n, 0) for k, n in zip(KERNELS, want)}
     info = call_info(Bb, times)
     print(f"global serving, {label}: {calls} calls of {Bb} μ, median "
           f"{info['serve_ms_median']:.1f} ms per call (min "
@@ -976,6 +1040,7 @@ def global_serving_phase(mods, dev, power, errs):
     with the kernel against its twin on the serving inputs, and where its
     time goes."""
     import romtime_tpu_torch.rom.engines.global_fused as engine
+    import romtime_tpu_torch.rom.engines.windowed_fused as products
     from romtime_tpu_torch.rom.engines.policy import PrecomputePolicy
 
     synth = mods["synth"]
@@ -1017,26 +1082,37 @@ def global_serving_phase(mods, dev, power, errs):
                                                           prepped)
         info["materialize_ms"] = 0.0
         if kname == "K4":
-            info["materialize_ms"], ops = cuda_ms(
-                lambda: engine.window_operators(tables, 0, THm, THk, THf, 0,
-                                                GLOBAL_NT), GLOBAL_REPS)
+            # The engine's lane-major product, and the reference layout's
+            # einsum it replaced.
+            info["einsum_ms"], ops = cuda_ms(
+                lambda: products.window_operators(tables, 0, THm, THk, THf,
+                                                  0, GLOBAL_NT), GLOBAL_REPS)
+            info["materialize_ms"], lops = cuda_ms(
+                lambda: products.window_operators_lanes(
+                    tables, 0, THm, THk, THf, 0, GLOBAL_NT), GLOBAL_REPS)
+            gap = max(rel_gap(x, y) for x, y in
+                      zip(lops, mods["rs"].lane_major(*ops)))
+            print(f"  the K4 branch's tables: lane-major product "
+                  f"{info['materialize_ms']:.3f} ms, the reference layout's "
+                  f"einsum {info['einsum_ms']:.3f} ms; they differ by "
+                  f"{gap:.3e} of their scale")
+            del lops
             args = (*ops, g, tables["T0"][0], tables["VE"][0], b0)
+            del ops
         else:
             args = (THm, THk, THf, g, tables["Bm"][0], tables["Bk"][0],
                     tables["Bf"][0], tables["T0"][0], tables["VE"][0], b0)
             kw.update(engine.live_rows(tables))
-        wrapper, twin, bnd = global_kernel(mods, kname)
+        bnd = GLOBAL_BOUND[kname]
         klabel = f"{kname} on the serving inputs of the {label} (B={B})"
         if kname == "K5":
             row, want = theta_designs(mods, kname, args, kw, GLOBAL_REPS,
                                       klabel, check_global)
         else:
-            ms, got = cuda_ms(lambda: wrapper(*args, **kw), GLOBAL_REPS)
-            plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1,
-                                     warmup=False)
-            row = dict(ms=ms, plain_ms=plain_ms, max_abs_err=check_global(
-                klabel + ":", got, want))
-            del got
+            row, want, _l, _k = table_designs(mods, kname, args, kw,
+                                              GLOBAL_REPS, klabel,
+                                              check_global)
+            del _l
         errs[kname].append(row.pop("max_abs_err"))
         errs[kname].append(served_vs(
             f"{label} served outputs vs the twin's sweep:", outs[-1],
@@ -1084,7 +1160,7 @@ def autotune_phase(rom, mus, repo, power):
     rec = rom.autotune_online_precompute(mus, n_rep=2, path=str(path))
     rom._set_precompute_override(None)
     print(f"autotune on the global N=15 cell at B={len(mus)} on {power}: "
-          f"{json.dumps(rec)}")
+          f"winner {rec['winner']} ({json.dumps(rec)})")
     return rec
 
 
@@ -1153,12 +1229,14 @@ def main():
         "K1": ("windowed_serving",
                "romtime_tpu_torch/csrc/windowed_serving.cu",
                "romtime_tpu/ops/pallas_online.py:1303"),
-        "K2": ("resid_sweep", "romtime_tpu_torch/csrc/resid_sweep.cu",
+        "K2": ("resid_tables_serving",
+               "romtime_tpu_torch/csrc/resid_tables_serving.cu",
                "romtime_tpu/ops/pallas_online.py:962"),
         "K3": ("theta_resid_serving",
                "romtime_tpu_torch/csrc/windowed_serving.cu",
                "romtime_tpu/ops/pallas_online.py:1100"),
-        "K4": ("global_sweep", "romtime_tpu_torch/csrc/global_sweep.cu",
+        "K4": ("global_tables_serving",
+               "romtime_tpu_torch/csrc/global_tables_serving.cu",
                "romtime_tpu/ops/pallas_online.py:184"),
         "K5": ("theta_global_serving",
                "romtime_tpu_torch/csrc/global_serving.cu",
@@ -1176,10 +1254,14 @@ def main():
         first_design=dict(source="romtime_tpu_torch/csrc/windowed_fused.cu",
                           ptxas=ptxas["windowed_fused"], modes=modes,
                           ablate=ablations, ledger=ledgers))
-    # K3 and K5 run on the serving body; their first designs stand beside
+    # K2-K5 run on the serving body; their first designs stand beside
     # them as the same-run yardstick (first_design_ms on every row).
     for k, stem, first_src in (
+            ("K2", "resid_tables_serving",
+             "romtime_tpu_torch/csrc/resid_sweep.cu"),
             ("K3", "windowed_serving", "romtime_tpu_torch/csrc/resid_sweep.cu"),
+            ("K4", "global_tables_serving",
+             "romtime_tpu_torch/csrc/global_sweep.cu"),
             ("K5", "global_serving", "romtime_tpu_torch/csrc/global_sweep.cu")):
         kernels[k].update(
             ptxas=ptxas[stem],

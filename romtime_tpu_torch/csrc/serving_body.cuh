@@ -1,7 +1,10 @@
 // The serving body for Hopper (sm_90a): one kernel template that runs
 // K1's serving design (csrc/windowed_serving.cu), K3 on the same body
-// (csrc/windowed_serving.cu) and K5 (csrc/global_serving.cu). Each entry
-// fills Params and launches serving_kernel<NP, CLOCKED, PLAIN>.
+// (csrc/windowed_serving.cu), K5 (csrc/global_serving.cu), and, with
+// their operators read from materialized tables, K2
+// (csrc/resid_tables_serving.cu) and K4 (csrc/global_tables_serving.cu).
+// Each entry fills Params and launches serving_kernel<NP, CLOCKED, PLAIN,
+// MAT>.
 //
 // What it runs: a μ batch's windowed BDF trajectory, W windows of `width`
 // steps, each step's solve matrix formed in the kernel from θ streams and
@@ -106,11 +109,36 @@
 // chains (2·NP/8 group barriers, four substitutions for a follower); the
 // ring's per-chunk barrier and copies. It stays ~5-9× its operation bound.
 //
+// The materialized operand source (MAT, a template flag; K2 on the dd
+// step, K4 on the PLAIN step, one window of nt steps). MN, KL and fN
+// come from per-lane tables in device memory, laid out lane-major with
+// the body's row padding: MN, KL (nt, B, NP, NP + 4) and fN (nt, B, NP),
+// so a block's step tile of its TL lanes is one contiguous run of each
+// table. The mass and stiffness segments of the build are replaced by a
+// row load: each thread reads row i of its lane's MN (with its entry of
+// fN) and of its KL as float4s from a second shared-memory ring, then
+// combines them as the segments' ends do (r0 = MN·d + fN, KN = bdf·MN,
+// then KL: dd r0 −= KL·pred, KN += KL; PLAIN KN = fmaf(bdf, MN, KL)).
+// Everything after that point is the θ source's: the T0 segment streams
+// through the Bmk ring (the only slices left), then the solve, the dd add
+// and the probes. The table ring holds `mu` units (2 or 3), a unit the
+// block's MN tile and fN, or its KL tile, of one step; thread 0 fills
+// each by one or two bulk copies on the unit's mbarrier, mu − 1 units
+// ahead, so at mu = 3 the next step's MN is in flight for a whole step.
+// A table is read once and never reused across lanes or steps, so the
+// stream is whole sectors from device memory. The lanes a block (TL = 4,
+// 8 or 16, at most 16 lanes at NP ≤ 32, 8 at NP 40 and 4 above) are a
+// launch parameter chosen on the host from the batch, so that a small
+// batch still gives every SM a block; the kernel's register cap is that
+// of its largest tile.
+//
 // CLOCKED (a template flag; NP 32 and 48 of the dd step, NP 24 of the
-// PLAIN step) adds clock() reads by the block's last thread at each phase
-// boundary; each block's sums go to an int64 output (PHASES + 1 a block:
-// the phases, then the total), so the phase split comes from the same
-// compiled body as the served kernel.
+// PLAIN step; with MAT, NP 32 and 48 of K2 and NP 16 of K4) adds clock()
+// reads by the block's last thread at each phase boundary; each block's
+// sums go to an int64 output (PHASES + 1 a block: the phases, then the
+// total), so the phase split comes from the same compiled body as the
+// served kernel. Under MAT the table ring's waits count as slice wait,
+// the row loads as build and the MN·d, KL·pred dots as r0.
 
 #pragma once
 
@@ -161,6 +189,14 @@ struct Tile {
   static constexpr int PR = NP + 4;                // panel row stride
 };
 
+// The materialized source's largest lane tile (its register cap): 16
+// lanes at NP ≤ 32, 8 at NP 40, 4 above (as the θ source at NP ≥ 40).
+template <int NP>
+struct MatTile {
+  static constexpr int TLMAX = NP <= 32 ? 16 : (NP <= 40 ? 8 : 4);
+};
+constexpr int MU_MAX = 3;           // table ring depth (units), at most
+
 struct Params {
   const float* TH;     // (nt, K8, B)
   const float* Bmk;    // (W, kfold, NP, NP + 4): rows padded
@@ -181,6 +217,13 @@ struct Params {
   // pivots of the PLAIN step's Gauss-Jordan (the real rows).
   int step0, boundary, n_real;
   float dt;
+  // MAT: the lane-major tables MN, KL (nt, B, NP, NP + 4) and fN
+  // (nt, B, NP) (TH is then g (nt, PROBE_P, B)), the lanes a block, the
+  // table ring's units and their size and offset (floats).
+  const float* MN;
+  const float* KL;
+  const float* fN;
+  int tl, mu, mat_slot, o_mat;
   // Derived on the host (set_shape), so that the kernel reads them from
   // the constant bank instead of holding them in registers.
   int kmk8, K8, kfold, off_g, nth, nlive, nchunk, per_w, slot;
@@ -640,21 +683,24 @@ __device__ __forceinline__ float gj_solve(float (&A)[NP], float y, int row,
   return y;
 }
 
-template <int NP, bool CLOCKED, bool PLAIN>
-__global__ void __launch_bounds__(Tile<NP, PLAIN>::THREADS, 1)
+template <int NP, bool CLOCKED, bool PLAIN, bool MAT = false>
+__global__ void __launch_bounds__(MAT ? MatTile<NP>::TLMAX * NP
+                                      : Tile<NP, PLAIN>::THREADS, 1)
 serving_kernel(const Params p) {
   using T = Tile<NP, PLAIN>;
-  constexpr int GT = T::GT, TL = T::TL, LD = T::LD, NQ = T::NQ,
-                THREADS = T::THREADS;
+  constexpr int GT = T::GT, LD = T::LD, NQ = T::NQ;
+  const int TL = MAT ? p.tl : T::TL;
+  const int THREADS = TL * NP;
   extern __shared__ __align__(16) float smem[];
   const int B = p.B, ks = p.ks;
   const int kmk8 = p.kmk8, K8 = p.K8, kfold = p.kfold, off_g = p.off_g;
   const int nth = p.nth;              // live θ rows
   const int nlive = p.nlive;          // live Bmk rows
   const int nchunk = p.nchunk, per_w = p.per_w, slot_floats = p.slot;
-  const bool rich = !PLAIN && p.solve_iters > 0;
+  const bool rich = !PLAIN && !MAT && p.solve_iters > 0;
 
   float* ring = smem;
+  float* mat = smem + p.o_mat;        // MAT: the table ring
   float* fac = smem + p.o_fac;
   float* tps = smem + p.o_tps;
   float* ves = smem + p.o_ves;
@@ -698,12 +744,15 @@ serving_kernel(const Params p) {
   // issues the ring's copies).
   __shared__ uint64_t full_bar[STAGES];
   __shared__ uint64_t win_bar;        // the window constants' copies
+  __shared__ uint64_t mat_bar[MAT ? MU_MAX : 1];   // the table ring
   __shared__ unsigned clk_sum[PHASES + 2];  // phases, total, last read
   // The block's last thread: last group, lane 3, row NP - 1.
   const bool clk_thread = CLOCKED && tid == THREADS - 1;
   if (tid == 0) {
     for (int q = 0; q < STAGES; ++q) mbar_init(&full_bar[q], 1);
     mbar_init(&win_bar, 1);
+    if constexpr (MAT)
+      for (int q = 0; q < MU_MAX; ++q) mbar_init(&mat_bar[q], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (clk_thread) {
@@ -734,6 +783,9 @@ serving_kernel(const Params p) {
   // touches (its padded slices are contiguous), completing on the slot's
   // mbarrier.
   auto issue = [&](int g) {
+    if constexpr (MAT) {
+      if (nchunk == 0) return;        // no trilinear term: no T0 slices
+    }
     const int w = g / per_w;
     if (tid != 0 || w >= p.W) return;
     const int n0 = (g % nchunk) * ks;
@@ -749,6 +801,32 @@ serving_kernel(const Params p) {
       n = end;
     }
   };
+  // MAT: unit u of the table ring's sequence (step u / 2; even: the
+  // block's MN tile and fN, odd: its KL tile) into slot u % mu by thread
+  // 0, completing on the slot's mbarrier. The tiles of the block's valid
+  // lanes are contiguous in the lane-major tables; a ragged last block
+  // copies only its valid lanes (the rest are never stored).
+  auto issue_mat = [&](int u) {
+    if constexpr (MAT) {
+      const int step = u >> 1;
+      if (tid != 0 || step >= p.width) return;
+      const int lane0 = static_cast<int>(blockIdx.x) * TL;
+      const int nl = min(TL, B - lane0);
+      uint64_t* bar = &mat_bar[u % p.mu];
+      float* dst = mat + (u % p.mu) * p.mat_slot;
+      const size_t row0 = (size_t)step * B + lane0;
+      const unsigned tile = nl * NP * LD * sizeof(float);
+      if (u & 1) {
+        mbar_expect_tx(bar, tile);
+        bulk_copy(dst, p.KL + row0 * NP * LD, tile, bar);
+      } else {
+        const unsigned fb = nl * NP * sizeof(float);
+        mbar_expect_tx(bar, tile + fb);
+        bulk_copy(dst, p.MN + row0 * NP * LD, tile, bar);
+        bulk_copy(dst + TL * NP * LD, p.fN + row0 * NP, fb, bar);
+      }
+    }
+  };
 
   float kn[NP], seg[NP];
   // kn ← bdf·MN + KL + N from the live rows of rhs, one register row; with
@@ -757,15 +835,67 @@ serving_kernel(const Params p) {
   // `b` is the build's place in its window (0 the K̄ build under
   // Richardson, then one a step), which gives its chunks' place in the
   // ring's sequence.
+  // Row i of unit u of the table ring (MN or KL of this thread's lane)
+  // into seg, after the unit's wait and the block barrier that frees the
+  // slot before it for the unit mu − 1 ahead (and publishes the step's
+  // vectors).
+  auto table_row = [&](int u) {
+    MARK(PH_BUILD);
+    mbar_wait(&mat_bar[u % p.mu], (u / p.mu) & 1);
+    __syncthreads();
+    issue_mat(u + p.mu - 1);
+    MARK(PH_WAIT);
+    const float4* row = reinterpret_cast<const float4*>(
+        mat + (u % p.mu) * p.mat_slot + (l * NP + i) * LD);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      if (q % 2 == 0) load_fence();
+      const float4 v = row[q];
+      seg[4 * q] = v.x;
+      seg[4 * q + 1] = v.y;
+      seg[4 * q + 2] = v.z;
+      seg[4 * q + 3] = v.w;
+    }
+  };
+  // MAT: kn and r0 from the step's table rows, as the mass and stiffness
+  // segments' ends form them (step s: units 2s and 2s + 1).
+  auto table_build = [&](int s, float bdf, float& r0) {
+    table_row(2 * s);
+    const float fn = mat[(2 * s % p.mu) * p.mat_slot + TL * NP * LD +
+                         l * NP + i];
+    MARK(PH_BUILD);
+    r0 = __fadd_rn(dot_row<NP>(seg, vD), fn);
+    MARK(PH_R0);
+#pragma unroll
+    for (int j = 0; j < NP; ++j) kn[j] = PLAIN ? seg[j] : __fmul_rn(bdf, seg[j]);
+    table_row(2 * s + 1);
+    if constexpr (PLAIN) {
+#pragma unroll
+      for (int j = 0; j < NP; ++j) kn[j] = fmaf(bdf, kn[j], seg[j]);
+    } else {
+      MARK(PH_BUILD);
+      r0 = __fsub_rn(r0, dot_row<NP>(seg, vP));
+      MARK(PH_R0);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) kn[j] = __fadd_rn(kn[j], seg[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < NP; ++j) seg[j] = 0.f;
+  };
+
   auto build = [&](int w, int b, float bdf, bool dots, bool kbar,
                    float& r0) {
     int g = w * per_w + b * nchunk;
+    if constexpr (MAT) {
+      table_build(b, bdf, r0);
+    } else {
 #pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      seg[j] = 0.f;
-      kn[j] = 0.f;
+      for (int j = 0; j < NP; ++j) {
+        seg[j] = 0.f;
+        kn[j] = 0.f;
+      }
+      r0 = 0.f;
     }
-    r0 = 0.f;
     for (int c = 0; c < nchunk; ++c, ++g) {
       if (kbar) MARK(PH_KBAR); else MARK(PH_BUILD);
       mbar_wait(&full_bar[g % STAGES], (g / STAGES) & 1);
@@ -845,11 +975,13 @@ serving_kernel(const Params p) {
   }
   vDP[i] = 0.f;
   for (int q = 0; q < STAGES - 1; ++q) issue(q);
+  if constexpr (MAT)
+    for (int q = 0; q < p.mu - 1; ++q) issue_mat(q);
 
   for (int w = 0; w < p.W; ++w) {
     // ---- window constants: Tp (with the boundary transfer only), VE
     //      (rows padded by the wrapper), Bf, by bulk copies of thread 0 ----
-    const bool boundary = !PLAIN && p.boundary;
+    const bool boundary = !PLAIN && !MAT && p.boundary;
     __syncthreads();    // the previous window's constants are read
     if (tid == 0) {
       mbar_expect_tx(&win_bar, ((boundary ? NP : 0) * LD + PROBE_P * LD +
@@ -958,8 +1090,9 @@ serving_kernel(const Params p) {
         }
         vDP[i] = x;
       } else {
-        const int role = step_role(s % p.period, p.period, p.group);
-        if (role == 2) {
+        // The tables' steps (MAT) take the per-step LU: K2 pairs none.
+        const int role = MAT ? 0 : step_role(s % p.period, p.period, p.group);
+        if (!MAT && role == 2) {
           // sub1 follower: substitute with the leader's factors, then one
           // refinement against this step's own KN.
           float y = r0;
@@ -975,7 +1108,7 @@ serving_kernel(const Params p) {
           // A leader's factor row goes to its slot for the followers.
           float y = r0, inv;
           eliminate<NP, GT>(kn, y, inv, i, grp, pan);
-          if (role == 1) {
+          if (!MAT && role == 1) {
             store_row<NP>(FROW, kn);
             FROW[NP] = inv;
           }
@@ -1103,6 +1236,116 @@ int tile_for(int NP, int km8, int kk8, int kf8, int* out) {
     case 64: tile_of<64, PLAIN>(kmk8, kf8, out); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return 0;
+}
+
+// ---- the materialized source (MAT): K2 and K4 ----
+
+// Shared floats of a MAT block: the T0 ring (ks slices a chunk, none
+// without the trilinear term), the table ring (mu units of the TL lanes'
+// tile and fN), VE and the lanes' scratch (no θ rows, no factor slot).
+inline size_t mat_smem_floats(int NP, int tl, int ks, int mu) {
+  const int LD = NP + 4;
+  return (size_t)STAGES * ks * NP * LD + (size_t)mu * tl * NP * (LD + 1)
+         + (size_t)PROBE_P * LD + (size_t)tl * lane_floats(NP, 0, 0);
+}
+
+// The table ring's depth and the T0 chunk: mu = 3 (the next step's MN a
+// whole step ahead) when it fits beside a chunk of at least one slice,
+// else 2; ks the largest ≤ min(KS_MAX, NP) that fits (0 without the
+// trilinear term). Returns false when nothing fits.
+inline bool pick_mat(int NP, int tl, bool with_tri, int* mu, int* ks) {
+  for (int m = MU_MAX; m >= 2; --m) {
+    if (!with_tri) {
+      if (mat_smem_floats(NP, tl, 0, m) * sizeof(float) <= SMEM_LIMIT) {
+        *mu = m;
+        *ks = 0;
+        return true;
+      }
+      continue;
+    }
+    for (int k = min(KS_MAX, NP); k >= 1; --k)
+      if (mat_smem_floats(NP, tl, k, m) * sizeof(float) <= SMEM_LIMIT) {
+        *mu = m;
+        *ks = k;
+        return true;
+      }
+  }
+  return false;
+}
+
+inline bool mat_lanes_ok(int NP, int tl, int tlmax) {
+  return (tl == 4 || tl == 8 || tl == 16) && tl <= tlmax && NP % 8 == 0;
+}
+
+// The derived sizes and offsets of Params for a MAT launch: one window of
+// `width` steps; TH is g (K8 = PROBE_P, no θ rows), the Bmk ring streams
+// the T0 fold (kfold = NP) alone.
+template <int NP>
+void set_shape_mat(Params& p) {
+  constexpr int LD = NP + 4;
+  p.km8 = p.kk8 = p.kf8 = p.km = p.kk = 0;
+  p.kmk8 = 0;
+  p.K8 = PROBE_P;
+  p.kfold = p.with_tri ? NP : 0;
+  p.off_g = 0;
+  p.nth = 0;
+  p.nlive = p.with_tri ? NP : 0;
+  p.nchunk = p.ks > 0 ? (p.nlive + p.ks - 1) / p.ks : 0;
+  p.per_w = p.width * p.nchunk;
+  p.slot = p.ks * NP * LD;
+  p.o_mat = STAGES * p.slot;
+  p.mat_slot = p.tl * NP * (LD + 1);
+  p.o_fac = p.o_tps = p.o_ves = p.o_mat + p.mu * p.mat_slot;
+  p.o_bfs = p.o_lanes = p.o_ves + PROBE_P * LD;
+  p.lanef = lane_floats(NP, 0, 0);
+  p.o_thf = 10 * NP + 8 * (NP + 4) + round4(NP);
+  p.o_gv = p.o_thf;
+}
+
+template <int NP, bool CLOCKED, bool PLAIN>
+cudaError_t launch_mat_np(Params p, cudaStream_t stream) {
+  if (!mat_lanes_ok(NP, p.tl, MatTile<NP>::TLMAX) ||
+      !pick_mat(NP, p.tl, p.with_tri, &p.mu, &p.ks))
+    return cudaErrorInvalidValue;
+  set_shape_mat<NP>(p);
+  const size_t bytes = mat_smem_floats(NP, p.tl, p.ks, p.mu) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      serving_kernel<NP, CLOCKED, PLAIN, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int grid = (p.B + p.tl - 1) / p.tl;
+  serving_kernel<NP, CLOCKED, PLAIN, true>
+      <<<grid, p.tl * NP, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The MAT launch shape for NP and `tl` lanes a block: out = (lanes a
+// block, threads a block, T0 slices a chunk, shared bytes, table ring
+// units, the largest lanes a block at this NP); returns 0, or
+// cudaErrorInvalidValue for a shape it does not take.
+inline int mat_tile_for(int NP, int tl, int with_tri, int* out) {
+  int tlmax;
+  switch (NP) {
+    case 8: tlmax = MatTile<8>::TLMAX; break;
+    case 16: tlmax = MatTile<16>::TLMAX; break;
+    case 24: tlmax = MatTile<24>::TLMAX; break;
+    case 32: tlmax = MatTile<32>::TLMAX; break;
+    case 40: tlmax = MatTile<40>::TLMAX; break;
+    case 48: tlmax = MatTile<48>::TLMAX; break;
+    case 56: tlmax = MatTile<56>::TLMAX; break;
+    case 64: tlmax = MatTile<64>::TLMAX; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  int mu = 0, ks = 0;
+  if (!mat_lanes_ok(NP, tl, tlmax) || !pick_mat(NP, tl, with_tri, &mu, &ks))
+    return (int)cudaErrorInvalidValue;
+  out[0] = tl;
+  out[1] = tl * NP;
+  out[2] = ks;
+  out[3] = (int)(mat_smem_floats(NP, tl, ks, mu) * sizeof(float));
+  out[4] = mu;
+  out[5] = tlmax;
   return 0;
 }
 

@@ -28,8 +28,8 @@ CLOCKED instantiation (the same compiled body with clock() reads by
 one thread at each phase boundary) gives each block's cycles per phase;
 :func:`phase_split` times it beside the plain instantiation for K1, for
 the paired LU (G=5, ``sub1``), the per-step LU and Richardson (5
-iterations), and :func:`theta_phase_split` for one K3 launch or one K5
-sweep; each reports the shares only where the two totals agree within
+iterations), and :func:`body_phase_split` for one K2 or K3 launch or
+one K4 or K5 sweep; each reports the shares only where the two totals agree within
 :data:`CLOCK_GAP_MAX`.
 
 Used from ``chip_smoke.py``. Each raises on a CPU tensor: there is no
@@ -169,22 +169,24 @@ def phase_split(args, kw, reps=3):
             for name, opts in SPLIT_SOLVES}
 
 
-#: (plain wrapper, CLOCKED entry) of the θ-streaming kernels on the
-#: serving body.
-THETA_CLOCKED = {
+#: (plain wrapper, CLOCKED entry) of K2-K5 on the serving body.
+BODY_CLOCKED = {
+    "K2": (resid_sweep.online_sweep_pallas_v2, resid_sweep._v2_clocked),
     "K3": (resid_sweep.online_sweep_theta_pallas_v2,
            resid_sweep._theta_v2_clocked),
+    "K4": (global_sweep.online_sweep_pallas, global_sweep._tables_clocked),
     "K5": (global_sweep.online_sweep_theta_pallas,
            global_sweep._theta_clocked),
 }
 
 
-def theta_phase_split(kernel, args, kw, reps=3):
-    """The serving body's phase clocks of one K3 launch or one K5 sweep
-    (``kernel``) on its wrapper's ``args``/``kw``: {"lu": ...} with the
-    entries of :func:`phase_split` (their one solve is the per-step LU)."""
+def body_phase_split(kernel, args, kw, reps=3):
+    """The serving body's phase clocks of one K2 or K3 launch or one K4
+    or K5 sweep (``kernel``) on its wrapper's ``args``/``kw``: {"lu": ...}
+    with the entries of :func:`phase_split` (their one solve is the
+    per-step LU, or K4's and K5's Gauss-Jordan)."""
     _check_cuda(args)
-    return {"lu": _clock_split(args, kw, reps, *THETA_CLOCKED[kernel])}
+    return {"lu": _clock_split(args, kw, reps, *BODY_CLOCKED[kernel])}
 
 
 def _clock_split(args, kw, reps, plain_fn, clocked_fn):

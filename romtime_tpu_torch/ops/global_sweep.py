@@ -9,13 +9,15 @@ This module holds
 - the plain PyTorch twins :func:`sweep_reference` and
   :func:`theta_sweep_reference`, a lane-batched loop of torch ops over
   :func:`_bdf_step` (``_bdf_step`` :131, op for op);
-- :func:`theta_sweep_split`, K5 in the serving body's arithmetic (the
-  plain-f32 step form of :func:`~.windowed_fused.split_build`);
+- :func:`sweep_split` and :func:`theta_sweep_split`, K4 and K5 in the
+  serving body's arithmetic (the plain-f32 step form of
+  :func:`~.windowed_fused.split_combine`);
 - the wrappers :func:`online_sweep_pallas` and
   :func:`online_sweep_theta_pallas`, which run the twin for CPU tensors
-  and a hand-written CUDA kernel for CUDA tensors: K4's in
-  ``csrc/global_sweep.cu``; K5 on the serving body's plain-f32 step
-  (``csrc/global_serving.cu``) for every call, its first design
+  and a hand-written CUDA kernel for CUDA tensors: the serving body's
+  plain-f32 step, over materialized tables for K4
+  (``csrc/global_tables_serving.cu``) and over θ for K5
+  (``csrc/global_serving.cu``), for every call; their first designs
   (``csrc/global_sweep.cu``) only on an explicit request
   (:func:`~.resid_sweep.theta_design`). There is no fallback between any
   of them.
@@ -30,7 +32,9 @@ Per step, for every lane (μ) b, from a zero state:
 
 bdf is 1 at step 0 and 1.5 after it (always 1 under BDF-1). K4 reads MN
 (nt, NP, NP, B), KL and fN per step; K5 forms MN = Bm·θm, KL = Bk·θk and
-fN = Bf·θf per step. The padded block of KN is the identity (KL carries 1
+fN = Bf·θf per step; K4's serving body reads its tables lane-major
+(:func:`~.resid_sweep.lane_major`, ``lane_major=True`` from the engine).
+The padded block of KN is the identity (KL carries 1
 on the padded diagonal), so the padded entries of uN and the padded probe
 rows stay exactly 0. The TPU tiling (128-lane blocks, DMA chunks, the
 unroll caps) is not carried over: the kernels take any batch.
@@ -45,8 +49,12 @@ from .resid_sweep import (
     _check_theta,
     _check_v2,
     fold_combines,
+    lane_major,
     live_theta_rows,
     serving_operands,
+    table_lanes,
+    table_operands,
+    table_operators,
     theta_design,
 )
 from .windowed_fused import (
@@ -56,11 +64,15 @@ from .windowed_fused import (
     _no_tf32,
     count_launch,
     split_build,
+    split_combine,
 )
 
 #: Padded widths with a CLOCKED instantiation of K5's serving body (the
 #: S-ROM's N=20).
 SERVING_CLOCKED_NP = (24,)
+#: Padded widths with a CLOCKED instantiation of K4's serving body (the
+#: throughput ROM's N=15).
+TABLES_CLOCKED_NP = (16,)
 
 
 # ======================================================================
@@ -107,13 +119,64 @@ def _sweep(operators, nt, g, T0, VE, b0, dt, bdf2, with_trilinear, n_real):
 
 
 def sweep_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, *, dt,
-                    bdf2=True, with_trilinear=True, n_real=15):
+                    bdf2=True, with_trilinear=True, n_real=15,
+                    lane_major=False):
     """Plain PyTorch twin of K4; same arguments and results as
-    :func:`online_sweep_pallas`."""
+    :func:`online_sweep_pallas` (the same result from either table
+    layout)."""
     nt, _NP, _B = _check_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, None,
-                            with_trilinear, n_real)
-    return _sweep(lambda s: (MN_p[s], KL_p[s], fN_p[s]), nt, g_p, T0_p,
-                  VE_p, b0, dt, bdf2, with_trilinear, n_real)
+                            with_trilinear, n_real, lane_major)
+    return _sweep(table_operators(MN_p, KL_p, fN_p, lane_major), nt, g_p,
+                  T0_p, VE_p, b0, dt, bdf2, with_trilinear, n_real)
+
+
+def _split_sweep(operators, nt, g_p, VE_p, b0, dt, bdf2, with_trilinear,
+                 n_real):
+    """The split twins' step loop from a zero state: ``operators(s)``
+    gives step s's (KN, bN) from (u*, combo, bdf, dtb0); then the
+    reference's Gauss-Jordan over the n_real pivots and the probes."""
+    NP = VE_p.shape[1]
+    dtb0 = None
+    if with_trilinear:
+        dtb0 = torch.tensor(dt, dtype=g_p.dtype, device=g_p.device) * b0
+    probes = g_p.new_empty((nt, PROBE_P, g_p.shape[2]))
+    uN = g_p.new_zeros((NP, g_p.shape[2]))
+    uN1 = uN
+    for s in range(nt):
+        if bdf2:
+            bdf = 1.0 if s == 0 else 1.5
+            combo = 2.0 * uN - 0.5 * uN1
+            u_star = 2.0 * uN - uN1
+        else:
+            bdf, combo, u_star = 1.0, uN, uN
+        KN, bN = operators(s, u_star, combo, bdf, dtb0)
+        uN1, uN = uN, _gauss_jordan(KN, bN, n_real)
+        probes[s] = VE_p @ uN + g_p[s]
+    return probes, uN
+
+
+def sweep_split(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, *, dt, bdf2=True,
+                with_trilinear=True, n_real=15, lane_major=False):
+    """K4 in the serving body's arithmetic
+    (``csrc/global_tables_serving.cu``): per step u* and combo as the
+    reference forms them, KN and bN from
+    :func:`~.windowed_fused.split_combine`'s plain-f32 form on the step's
+    table operators (KN = bdf·MN + KL + (T0·u*)·dt·b0, bN = MN·combo + fN:
+    K4's order, which the kernel keeps), then the reference's Gauss-Jordan
+    over the n_real pivots and the probes. Same arguments and results as
+    :func:`online_sweep_pallas`."""
+    nt, NP, _B = _check_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, None,
+                           with_trilinear, n_real, lane_major)
+    if g_p.is_cuda:
+        _no_tf32()
+    ops = table_operators(MN_p, KL_p, fN_p, lane_major)
+
+    def operators(s, u_star, combo, bdf, dtb0):
+        return split_combine(*ops(s), T0_p, u_star, combo, bdf, dtb0, NP,
+                             plain=True)
+
+    return _split_sweep(operators, nt, g_p, VE_p, b0, dt, bdf2,
+                        with_trilinear, n_real)
 
 
 def theta_sweep_reference(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0,
@@ -155,25 +218,14 @@ def theta_sweep_split(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0, *,
     if THm.is_cuda:
         _no_tf32()
     Bmk = fold_combines(Bm, Bk, T0_p, with_trilinear)
-    dtb0 = None
-    if with_trilinear:
-        dtb0 = torch.tensor(dt, dtype=THm.dtype, device=THm.device) * b0
-    probes = THm.new_empty((nt, PROBE_P, B))
-    uN = THm.new_zeros((NP, B))
-    uN1 = uN
-    for s in range(nt):
-        if bdf2:
-            bdf = 1.0 if s == 0 else 1.5
-            combo = 2.0 * uN - 0.5 * uN1
-            u_star = 2.0 * uN - uN1
-        else:
-            bdf, combo, u_star = 1.0, uN, uN
-        tts = torch.cat([THm[s], THk[s], THf[s], g_p[s]])
-        KN, bN = split_build(tts, Bmk, Bf, u_star, combo, bdf, dtb0, NP, km,
-                             kk, km8, kk8, kf8, plain=True)
-        uN1, uN = uN, _gauss_jordan(KN, bN, n_real)
-        probes[s] = VE_p @ uN + g_p[s]
-    return probes, uN
+
+    def operators(s, u_star, combo, bdf, dtb0):
+        tts = torch.cat([THm[s], THk[s], THf[s]])
+        return split_build(tts, Bmk, Bf, u_star, combo, bdf, dtb0, NP, km,
+                           kk, km8, kk8, kf8, plain=True)
+
+    return _split_sweep(operators, nt, g_p, VE_p, b0, dt, bdf2,
+                        with_trilinear, n_real)
 
 
 # ======================================================================
@@ -189,8 +241,16 @@ def _bind(lib):
     lib.romtime_theta_global_sweep.restype = i32
 
 
+def _bind_tables(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.romtime_global_tables_serving.argtypes = (
+        [ptr] * 10 + [i32] * 7 + [ctypes.c_float, ptr])
+    lib.romtime_global_tables_serving.restype = i32
+
+
 def online_sweep_pallas(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, *, dt,
-                        bdf2=True, with_trilinear=True, n_real=15):
+                        bdf2=True, with_trilinear=True, n_real=15,
+                        lane_major=False):
     """Plain-f32 global sweep over materialized per-step operators (K4).
 
     MN_p, KL_p : (nt, NP, NP, B) mass and dt-scaled stiffness-side
@@ -199,26 +259,90 @@ def online_sweep_pallas(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, *, dt,
     g_p        : (nt, PROBE_P, B) lifting probes
     T0_p       : (NP², NP) trilinear tensor (ignored without it)
     VE_p       : (PROBE_P, NP) probe rows;  b0 : (1, B) trilinear coefficient
+    lane_major : MN_p, KL_p and fN_p are already in the serving body's
+                 layout ((nt, B, NP, NP + 4) and (nt, B, NP)), as the
+                 engine hands them down
 
     Returns (probes (nt, PROBE_P, B), uN_final (NP, B)), float32, from a
-    zero state. CPU tensors run the twin; CUDA tensors launch the kernel
-    (and count the launch in ``online_sweep_pallas.launches``)."""
-    kw = dict(dt=dt, bdf2=bdf2, with_trilinear=with_trilinear,
-              n_real=n_real)
+    zero state. CPU tensors run the twin; CUDA tensors launch K4 on the
+    serving body (``csrc/global_tables_serving.cu``; a reference-layout
+    table is converted first), counted in ``online_sweep_pallas.launches``
+    and ``.serving_launches`` (the first design, on request only, in
+    ``.first_design_launches``)."""
+    kw = _tables_options(dt, bdf2, with_trilinear, n_real, lane_major)
+    args = (MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0)
     if kernel_build.device_route(MN_p) == "cpu":
-        return sweep_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, **kw)
-    nt, NP, B = _check_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, None,
-                          with_trilinear, n_real)
-    if not with_trilinear:
-        T0_p = MN_p.new_zeros((1,))
-    out = kernel_build.launch(
-        "global_sweep", _bind, "romtime_global_sweep", "global_sweep (K4)",
-        list(zip(("MN", "KL", "fN", "g", "T0", "VE", "b0"),
-                 (MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0))),
-        (nt, NP, B, n_real, int(bool(with_trilinear)), int(bool(bdf2))),
-        dt, [(nt, PROBE_P, B), (NP, B)])
-    online_sweep_pallas.launches += 1
-    return out
+        return sweep_reference(*args, **kw)
+    return _launch_tables(args, kw, "serving")
+
+
+def _tables_options(dt, bdf2=True, with_trilinear=True, n_real=15,
+                    lane_major=False):
+    return dict(dt=dt, bdf2=bdf2, with_trilinear=with_trilinear,
+                n_real=n_real, lane_major=lane_major)
+
+
+def _launch_tables(args, kw, design, clocked=False):
+    """Check K4's operands and launch ``design`` on CUDA tensors; returns
+    (probes, uN) and, with ``clocked`` (NP in TABLES_CLOCKED_NP), the
+    serving body's per-block phase clocks. The serving body takes
+    :func:`~.resid_sweep.table_lanes` lanes a block."""
+    (MN, KL, fN, g_p, T0_p, VE_p, b0) = args
+    with_tri, lm = kw["with_trilinear"], kw["lane_major"]
+    nt, NP, B = _check_v2(*args, None, with_tri, kw["n_real"], lm)
+    design = theta_design(design)
+    if clocked and (design != "serving" or NP not in TABLES_CLOCKED_NP):
+        raise ValueError(f"K4's phase clocks exist on the serving design "
+                         f"at NP in {TABLES_CLOCKED_NP} only")
+    if MN.device.type != "cuda":
+        raise ValueError(f"unsupported device {MN.device}: K4's kernels "
+                         "take CUDA tensors")
+    _no_tf32()
+    flags = (int(bool(with_tri)), int(bool(kw["bdf2"])))
+    outs = [(nt, PROBE_P, B), (NP, B)]
+    clk = None
+    if design == "first":
+        if lm:
+            raise ValueError("K4's first design takes the reference layout")
+        if not with_tri:
+            T0_p = MN.new_zeros((1,))
+        out = kernel_build.launch(
+            "global_sweep", _bind, "romtime_global_sweep",
+            "global_sweep (K4, first design)",
+            list(zip(("MN", "KL", "fN", "g", "T0", "VE", "b0"),
+                     (MN, KL, fN, g_p, T0_p, VE_p, b0))),
+            (nt, NP, B, kw["n_real"], *flags), kw["dt"], outs)
+    else:
+        if not lm:
+            MN, KL, fN = lane_major(MN, KL, fN)
+        T0, VE = table_operands(T0_p, VE_p, with_tri)
+        tl = table_lanes(B, NP, MN.device)
+        if clocked:
+            clk = torch.zeros(((B + tl - 1) // tl, len(SERVING_PHASES) + 1),
+                              dtype=torch.int64, device=MN.device)
+        out = kernel_build.launch(
+            "global_tables_serving", _bind_tables,
+            "romtime_global_tables_serving", "global tables serving (K4)",
+            list(zip(("MN", "KL", "fN", "g", "T0", "VE", "b0"),
+                     (MN, KL, fN, g_p, T0, VE, b0))),
+            (nt, NP, B, tl, kw["n_real"], *flags), kw["dt"], outs,
+            extra=[clk])
+    count_launch(online_sweep_pallas, design)
+    return out + (clk,) if clocked else out
+
+
+def _first_design_tables(*args, **kw):
+    """K4's first design (``csrc/global_sweep.cu``) on the wrapper's
+    arguments (reference layout): the same-run yardstick of
+    ``chip_smoke.py`` and the card tests. CUDA tensors only."""
+    return _launch_tables(args, _tables_options(**kw), "first")
+
+
+def _tables_clocked(*args, **kw):
+    """K4 on the serving body's CLOCKED instantiation (NP 16): (probes,
+    uN, clocks), the clocks as K1's. CUDA tensors only."""
+    return _launch_tables(args, _tables_options(**kw), "serving",
+                          clocked=True)
 
 
 def _bind_serving(lib):
@@ -336,6 +460,8 @@ def _theta_clocked(*args, **kw):
 
 
 online_sweep_pallas.launches = 0
+online_sweep_pallas.serving_launches = 0
+online_sweep_pallas.first_design_launches = 0
 online_sweep_theta_pallas.launches = 0
 online_sweep_theta_pallas.serving_launches = 0
 online_sweep_theta_pallas.first_design_launches = 0

@@ -9,16 +9,17 @@ Counterparts of ``romtime_tpu/ops/pallas_online.py``
 - the plain PyTorch twins :func:`sweep_v2_reference` and
   :func:`theta_sweep_v2_reference`, a lane-batched loop of torch ops over
   :func:`_bdf_step_resid` (``_bdf_step_resid`` :526, op for op);
-- :func:`theta_sweep_v2_split`, K3 in the serving body's arithmetic
-  (:func:`~.windowed_fused.split_build`: the trilinear term formed once,
-  r0 from the build's own segments);
+- :func:`sweep_v2_split` and :func:`theta_sweep_v2_split`, K2 and K3 in
+  the serving body's arithmetic (:func:`~.windowed_fused.split_combine`:
+  the trilinear term formed once, r0 from the build's own segments);
 - the wrappers :func:`online_sweep_pallas_v2` and
   :func:`online_sweep_theta_pallas_v2`, which run the twin for CPU tensors
-  and a hand-written CUDA kernel for CUDA tensors: K2's in
-  ``csrc/resid_sweep.cu``; K3 on the serving body
-  (``csrc/windowed_serving.cu``, the serving design) for every call, its
-  first design (``csrc/resid_sweep.cu``) only on an explicit request
-  (:func:`theta_design`). There is no fallback between any of them.
+  and a hand-written CUDA kernel for CUDA tensors: K2 on the serving body
+  over its materialized tables (``csrc/resid_tables_serving.cu``) and K3
+  on the serving body (``csrc/windowed_serving.cu``) for every call,
+  their first designs (``csrc/resid_sweep.cu``) only on an explicit
+  request (:func:`theta_design`). There is no fallback between any of
+  them.
 
 Per step, for every lane (μ) b:
 
@@ -31,7 +32,10 @@ Per step, for every lane (μ) b:
     probes = VE·u + g
 
 K2 reads MN (nt, NP, NP, B), KL and fN per step; K3 forms MN = Bm·θm,
-KL = Bk·θk and fN = Bf·θf per step. The dd state ``state0`` (4, NP, B)
+KL = Bk·θk and fN = Bf·θf per step. K2's serving body reads its tables
+lane-major, (nt, B, NP, NP + 4) and (nt, B, NP) (:func:`lane_major`): the
+wrapper converts the reference layout on entry, and the engine hands
+lane-major tables down directly (``lane_major=True``). The dd state ``state0`` (4, NP, B)
 comes in and goes out, and ``step0`` (the launch's first global step)
 only selects BDF-1 at global step 0, so per-window launches chain. The
 TPU tiling (128-lane blocks, DMA chunks, the step unroll policy) is not
@@ -59,11 +63,71 @@ from .windowed_fused import (
     pad_rows,
     serving_tile,
     split_build,
+    split_combine,
 )
 
-#: The designs of K3 and K5 on the card: the serving body, and the first
+#: The designs of K2-K5 on the card: the serving body, and the first
 #: design (the same-run yardstick).
 DESIGNS = ("serving", "first")
+#: Lanes a block of the serving body over materialized tables (K2, K4).
+TABLE_LANES = (4, 8, 16)
+
+
+def lane_major(MN_p, KL_p, fN_p):
+    """Reference-layout tables MN, KL (nt, NP, NP, B) and fN (nt, NP, B)
+    in the serving body's lane-major layout: (nt, B, NP, NP + 4), rows
+    padded with 4 zeros, and (nt, B, NP)."""
+    pad = torch.nn.functional.pad
+    return (pad(MN_p.permute(0, 3, 1, 2), (0, 4)).contiguous(),
+            pad(KL_p.permute(0, 3, 1, 2), (0, 4)).contiguous(),
+            fN_p.permute(0, 2, 1).contiguous())
+
+
+def table_operators(MN_p, KL_p, fN_p, lane_major=False):
+    """``operators(s)``: step s's (MN, KL, fN) as contiguous (NP, NP, B)
+    and (NP, B) tensors from tables in either layout (the same values in
+    the same memory order, so a twin gives the same result from both)."""
+    if not lane_major:
+        return lambda s: (MN_p[s], KL_p[s], fN_p[s])
+    NP = fN_p.shape[2]
+    return lambda s: (MN_p[s, :, :, :NP].permute(1, 2, 0).contiguous(),
+                      KL_p[s, :, :, :NP].permute(1, 2, 0).contiguous(),
+                      fN_p[s].T.contiguous())
+
+
+def table_lanes_max(NP):
+    """The largest lane tile of the materialized serving body at NP (its
+    register cap): 16 lanes at NP ≤ 32, 8 at NP 40, 4 above."""
+    return 16 if NP <= 32 else (8 if NP <= 40 else 4)
+
+
+def pick_table_lanes(B, NP, n_sm):
+    """Lanes a block for a materialized serving-body launch of B lanes on
+    ``n_sm`` SMs: the fewest lanes an SM over the launch (waves of one
+    block an SM × lanes a block), ties to the larger tile (fewer blocks).
+    B=512 at NP 32 → 4 (128 blocks), B=2048 at NP 16 → 16."""
+    def lanes_per_sm(tl):
+        return -(-(-(-B // tl)) // n_sm) * tl
+
+    return min((tl for tl in TABLE_LANES if tl <= table_lanes_max(NP)),
+               key=lambda tl: (lanes_per_sm(tl), -tl))
+
+
+def table_lanes(B, NP, device):
+    """:func:`pick_table_lanes` on the card ``device``."""
+    return pick_table_lanes(
+        B, NP, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def table_operands(T0_p, VE_p, with_trilinear):
+    """The materialized serving body's constants: the T0 fold
+    (1, NP, NP, NP + 4) (slice k row i = T0[(i, ·), k]; a one-float
+    placeholder without the trilinear term) and VE (1, PROBE_P, NP + 4),
+    their rows padded (:func:`~.windowed_fused.pad_rows`)."""
+    NP = VE_p.shape[-1]
+    T0 = (pad_rows(T0_p.T.contiguous(), 1, NP, NP, NP) if with_trilinear
+          else VE_p.new_zeros((1,)))
+    return T0, pad_rows(VE_p, 1, PROBE_P, NP)
 
 
 def pad_reduced_tables(MN_tab, KLIN_tab, fN_tab, N, n_pad=None):
@@ -153,10 +217,16 @@ def _check_common(nt, g, T0, VE, b0, state0, with_trilinear, n_real):
     return NP, B
 
 
-def _check_v2(MN, KL, fN, g, T0, VE, b0, state0, with_trilinear, n_real):
+def _check_v2(MN, KL, fN, g, T0, VE, b0, state0, with_trilinear, n_real,
+              lane_major=False):
     nt = MN.shape[0]
     NP, B = _check_common(nt, g, T0, VE, b0, state0, with_trilinear, n_real)
-    if (MN.shape != (nt, NP, NP, B) or KL.shape != MN.shape
+    if lane_major:
+        if (MN.shape != (nt, B, NP, NP + 4) or KL.shape != MN.shape
+                or fN.shape != (nt, B, NP)):
+            raise ValueError("lane-major MN/KL must be (nt, B, NP, NP + 4) "
+                             "and fN (nt, B, NP)")
+    elif (MN.shape != (nt, NP, NP, B) or KL.shape != MN.shape
             or fN.shape != (nt, NP, B)):
         raise ValueError("MN/KL must be (nt, NP, NP, B) and fN (nt, NP, B)")
     return nt, NP, B
@@ -213,7 +283,7 @@ def serving_operands(THm, THk, THf, g, Bm, Bk, Bf, T0, VE, with_trilinear):
 
 
 def theta_design(design=None):
-    """The design that runs a K3 or K5 call on the card: the serving body
+    """The design that runs a K2-K5 call on the card: the serving body
     for every option (NP a multiple of 8 up to 64, with or without the
     trilinear term, BDF-1 or BDF-2), the first design only when
     ``design="first"`` asks for it. The route depends on the request
@@ -228,14 +298,59 @@ def theta_design(design=None):
 
 def sweep_v2_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0, *,
                        dt, step0=0, bdf2=True, with_trilinear=True,
-                       n_real=15):
+                       n_real=15, lane_major=False):
     """Plain PyTorch twin of K2; same arguments and results as
-    :func:`online_sweep_pallas_v2`."""
+    :func:`online_sweep_pallas_v2` (the same result from either table
+    layout)."""
     nt, _NP, _B = _check_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
-                            with_trilinear, n_real)
-    return _resid_sweep(lambda s: (MN_p[s], KL_p[s], fN_p[s]), nt, g_p,
-                        T0_p, VE_p, b0, state0, dt, step0, bdf2,
+                            with_trilinear, n_real, lane_major)
+    return _resid_sweep(table_operators(MN_p, KL_p, fN_p, lane_major), nt,
+                        g_p, T0_p, VE_p, b0, state0, dt, step0, bdf2,
                         with_trilinear, n_real)
+
+
+def _split_resid_sweep(operators, nt, g_p, T0_p, VE_p, b0, state0, dt,
+                       step0, bdf2, with_trilinear, n_real):
+    """The split twins' step loop: ``operators(s)`` gives step s's (KN,
+    r0) from the predictor's (pred, d, bdf, dtb0); then the reference's
+    solve, dd add and probes."""
+    NP = VE_p.shape[1]
+    dtb0 = None
+    if with_trilinear:
+        dtb0 = torch.tensor(dt, dtype=g_p.dtype, device=g_p.device) * b0
+    probes = g_p.new_empty((nt, PROBE_P, g_p.shape[2]))
+    uN, lo, uN1, lo1 = state0[0], state0[1], state0[2], state0[3]
+    for s in range(nt):
+        pred_hi, pred_lo, d, bdf = _dd_predictor(uN, lo, uN1, lo1,
+                                                 int(step0) + s, bdf2)
+        KN, r0 = operators(s, pred_hi, d, bdf, dtb0)
+        uN_new, lo_new, probes[s], _delta, _pan = _solve_step(
+            KN, r0, pred_hi, pred_lo, g_p[s], VE_p, n_real, NP, 0)
+        uN1, lo1, uN, lo = uN, lo, uN_new, lo_new
+    return probes, torch.stack([uN, lo, uN1, lo1])
+
+
+def sweep_v2_split(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0, *, dt,
+                   step0=0, bdf2=True, with_trilinear=True, n_real=15,
+                   lane_major=False):
+    """K2 in the serving body's arithmetic
+    (``csrc/resid_tables_serving.cu``): each step's KN and r0 from
+    :func:`~.windowed_fused.split_combine` on the step's table operators,
+    N = T0·(dt·b0·pred) rather than the reference's (T0·pred)·dt·b0, and
+    KL·pred and N·pred dotted apart rather than as dtS·pred; then the
+    reference's solve, dd add and probes. Same arguments and results as
+    :func:`online_sweep_pallas_v2`."""
+    nt, NP, _B = _check_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
+                           with_trilinear, n_real, lane_major)
+    if g_p.is_cuda:
+        _no_tf32()
+    ops = table_operators(MN_p, KL_p, fN_p, lane_major)
+
+    def operators(s, pred, d, bdf, dtb0):
+        return split_combine(*ops(s), T0_p, pred, d, bdf, dtb0, NP)
+
+    return _split_resid_sweep(operators, nt, g_p, T0_p, VE_p, b0, state0,
+                              dt, step0, bdf2, with_trilinear, n_real)
 
 
 def theta_sweep_v2_reference(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p,
@@ -278,22 +393,14 @@ def theta_sweep_v2_split(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p, VE_p, b0,
     if THm.is_cuda:
         _no_tf32()
     Bmk = fold_combines(Bm, Bk, T0_p, with_trilinear)
-    dtb0 = None
-    if with_trilinear:
-        dtb0 = torch.tensor(dt, dtype=THm.dtype, device=THm.device) * b0
-    probes = THm.new_empty((nt, PROBE_P, B))
-    uN, lo, uN1, lo1 = state0[0], state0[1], state0[2], state0[3]
-    for s in range(nt):
-        tts = torch.cat([THm[s], THk[s], THf[s], g_p[s]])
-        pred_hi, pred_lo, d, bdf = _dd_predictor(uN, lo, uN1, lo1,
-                                                 int(step0) + s, bdf2)
-        KN, r0 = split_build(tts, Bmk, Bf, pred_hi, d, bdf, dtb0, NP, km,
-                             kk, km8, kk8, kf8)
-        uN_new, lo_new, probes[s], _delta, _pan = _solve_step(
-            KN, r0, pred_hi, pred_lo, tts, VE_p, n_real, NP,
-            km8 + kk8 + kf8)
-        uN1, lo1, uN, lo = uN, lo, uN_new, lo_new
-    return probes, torch.stack([uN, lo, uN1, lo1])
+
+    def operators(s, pred, d, bdf, dtb0):
+        tts = torch.cat([THm[s], THk[s], THf[s]])
+        return split_build(tts, Bmk, Bf, pred, d, bdf, dtb0, NP, km, kk,
+                           km8, kk8, kf8)
+
+    return _split_resid_sweep(operators, nt, g_p, T0_p, VE_p, b0, state0,
+                              dt, step0, bdf2, with_trilinear, n_real)
 
 
 # ======================================================================
@@ -309,9 +416,32 @@ def _bind(lib):
     lib.romtime_theta_resid_sweep.restype = i32
 
 
+def _bind_tables(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.romtime_resid_tables_serving.argtypes = (
+        [ptr] * 11 + [i32] * 7 + [ctypes.c_float, ptr])
+    lib.romtime_resid_tables_serving.restype = i32
+    lib.romtime_resid_tables_serving_tile.argtypes = [i32] * 3 + [ptr]
+    lib.romtime_resid_tables_serving_tile.restype = i32
+
+
+def resid_tables_tile(NP, lanes, with_trilinear=True):
+    """Launch shape of K2's serving body for NP and ``lanes`` a block:
+    {"lanes", "threads", "ks", "smem_bytes", "ring_units", "lanes_max"}
+    (builds the library; raises for a shape it does not take). K4's body
+    (``csrc/global_tables_serving.cu``) lays out the same shapes."""
+    lib = kernel_build.load("resid_tables_serving", _bind_tables)
+    out = (ctypes.c_int * 6)()
+    err = lib.romtime_resid_tables_serving_tile(
+        NP, lanes, int(bool(with_trilinear)), out)
+    kernel_build.check_launch(lib, err, "resid_tables_serving tile")
+    return dict(zip(("lanes", "threads", "ks", "smem_bytes", "ring_units",
+                     "lanes_max"), out))
+
+
 def online_sweep_pallas_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
                            *, dt, step0=0, bdf2=True, with_trilinear=True,
-                           n_real=15):
+                           n_real=15, lane_major=False):
     """Residual-form sweep over materialized per-step operators (K2).
 
     MN_p, KL_p : (nt, NP, NP, B) mass and dt-scaled stiffness-side
@@ -323,27 +453,100 @@ def online_sweep_pallas_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
     state0     : (4, NP, B) dd carry (uN_hi, uN_lo, uN1_hi, uN1_lo): zeros
                  for a fresh trajectory, the previous window's when chained
     step0      : global index of this launch's first step
+    lane_major : MN_p, KL_p and fN_p are already in the serving body's
+                 layout (:func:`lane_major`: (nt, B, NP, NP + 4) and
+                 (nt, B, NP)), as the engine hands them down
 
     Returns (probes (nt, PROBE_P, B), state (4, NP, B)), float32. CPU
-    tensors run the twin; CUDA tensors launch the kernel (and count the
-    launch in ``online_sweep_pallas_v2.launches``)."""
-    kw = dict(dt=dt, step0=step0, bdf2=bdf2, with_trilinear=with_trilinear,
-              n_real=n_real)
+    tensors run the twin; CUDA tensors launch K2 on the serving body
+    (``csrc/resid_tables_serving.cu``; a reference-layout table is
+    converted first), counted in ``online_sweep_pallas_v2.launches`` and
+    ``.serving_launches`` (the first design, on request only, in
+    ``.first_design_launches``)."""
+    kw = _v2_options(dt, step0, bdf2, with_trilinear, n_real, lane_major)
+    args = (MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0)
     if kernel_build.device_route(MN_p) == "cpu":
-        return sweep_v2_reference(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0,
-                                  state0, **kw)
-    nt, NP, B = _check_v2(MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0,
-                          with_trilinear, n_real)
-    if not with_trilinear:
-        T0_p = MN_p.new_zeros((1,))
-    out = kernel_build.launch(
-        "resid_sweep", _bind, "romtime_resid_sweep", "resid_sweep (K2)",
-        list(zip(("MN", "KL", "fN", "g", "T0", "VE", "b0", "state0"),
-                 (MN_p, KL_p, fN_p, g_p, T0_p, VE_p, b0, state0))),
-        (nt, NP, B, n_real, int(step0), int(bool(with_trilinear)),
-         int(bool(bdf2))), dt, [(nt, PROBE_P, B), (4, NP, B)])
-    online_sweep_pallas_v2.launches += 1
-    return out
+        return sweep_v2_reference(*args, **kw)
+    return _launch_v2(args, kw, "serving")
+
+
+def _v2_options(dt, step0=0, bdf2=True, with_trilinear=True, n_real=15,
+                lane_major=False):
+    return dict(dt=dt, step0=step0, bdf2=bdf2, with_trilinear=with_trilinear,
+                n_real=n_real, lane_major=lane_major)
+
+
+def _launch_v2(args, kw, design, clocked=False, lanes=None):
+    """Check K2's operands and launch ``design`` on CUDA tensors; returns
+    (probes, state) and, with ``clocked`` (the serving body's CLOCKED
+    instantiation, NP in SERVING_CLOCKED_NP), its per-block phase clocks.
+    ``lanes`` forces the serving body's lanes a block (default
+    :func:`table_lanes`)."""
+    (MN, KL, fN, g_p, T0_p, VE_p, b0, state0) = args
+    with_tri, lm = kw["with_trilinear"], kw["lane_major"]
+    nt, NP, B = _check_v2(*args, with_tri, kw["n_real"], lm)
+    design = theta_design(design)
+    if clocked and (design != "serving" or NP not in SERVING_CLOCKED_NP):
+        raise ValueError(f"K2's phase clocks exist on the serving design "
+                         f"at NP in {SERVING_CLOCKED_NP} only")
+    if MN.device.type != "cuda":
+        raise ValueError(f"unsupported device {MN.device}: K2's kernels "
+                         "take CUDA tensors")
+    _no_tf32()
+    flags = (int(bool(with_tri)), int(bool(kw["bdf2"])))
+    outs = [(nt, PROBE_P, B), (4, NP, B)]
+    clk = None
+    if design == "first":
+        if lm or lanes is not None:
+            raise ValueError("K2's first design takes the reference layout "
+                             "and picks its own tile")
+        if not with_tri:
+            T0_p = MN.new_zeros((1,))
+        out = kernel_build.launch(
+            "resid_sweep", _bind, "romtime_resid_sweep",
+            "resid_sweep (K2, first design)",
+            list(zip(("MN", "KL", "fN", "g", "T0", "VE", "b0", "state0"),
+                     (MN, KL, fN, g_p, T0_p, VE_p, b0, state0))),
+            (nt, NP, B, kw["n_real"], int(kw["step0"]), *flags), kw["dt"],
+            outs)
+    else:
+        if not lm:
+            MN, KL, fN = lane_major(MN, KL, fN)
+        T0, VE = table_operands(T0_p, VE_p, with_tri)
+        tl = table_lanes(B, NP, MN.device) if lanes is None else int(lanes)
+        if clocked:
+            clk = torch.zeros(((B + tl - 1) // tl, len(SERVING_PHASES) + 1),
+                              dtype=torch.int64, device=MN.device)
+        out = kernel_build.launch(
+            "resid_tables_serving", _bind_tables,
+            "romtime_resid_tables_serving", "resid tables serving (K2)",
+            list(zip(("MN", "KL", "fN", "g", "T0", "VE", "b0", "state0"),
+                     (MN, KL, fN, g_p, T0, VE, b0, state0))),
+            (nt, NP, B, tl, int(kw["step0"]), *flags), kw["dt"], outs,
+            extra=[clk])
+    count_launch(online_sweep_pallas_v2, design)
+    return out + (clk,) if clocked else out
+
+
+def _first_design_v2(*args, **kw):
+    """K2's first design (``csrc/resid_sweep.cu``) on the wrapper's
+    arguments (reference layout): the same-run yardstick of
+    ``chip_smoke.py`` and the card tests. CUDA tensors only."""
+    return _launch_v2(args, _v2_options(**kw), "first")
+
+
+def _v2_clocked(*args, **kw):
+    """K2 on the serving body's CLOCKED instantiation (NP in
+    SERVING_CLOCKED_NP): (probes, state, clocks), the clocks as K1's.
+    CUDA tensors only."""
+    return _launch_v2(args, _v2_options(**kw), "serving", clocked=True)
+
+
+def _v2_lanes(*args, lanes, **kw):
+    """K2 on the serving body with ``lanes`` lanes a block (4, 8 or 16,
+    at most :func:`table_lanes_max`), for measuring the tile choice.
+    CUDA tensors only."""
+    return _launch_v2(args, _v2_options(**kw), "serving", lanes=lanes)
 
 
 def _launch_theta_v2(args, kw, design, clocked=False):
@@ -445,6 +648,8 @@ def _theta_v2_clocked(*args, **kw):
 
 
 online_sweep_pallas_v2.launches = 0
+online_sweep_pallas_v2.serving_launches = 0
+online_sweep_pallas_v2.first_design_launches = 0
 online_sweep_theta_pallas_v2.launches = 0
 online_sweep_theta_pallas_v2.serving_launches = 0
 online_sweep_theta_pallas_v2.first_design_launches = 0

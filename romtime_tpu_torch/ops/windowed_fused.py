@@ -325,12 +325,26 @@ def split_build(tts, Bmk, Bf, pred, d, bdf, dtb0, NP, km, kk, km8, kk8,
     B = tts.shape[1]
     MN = (Bmk[:, :km] @ tts[:km]).reshape(NP, NP, B)
     KL = (Bmk[:, km8:km8 + kk] @ tts[km8:km8 + kk]).reshape(NP, NP, B)
+    return split_combine(MN, KL, Bf @ tts[kmk8:kmk8 + kf8],
+                         Bmk[:, kmk8:kmk8 + NP], pred, d, bdf, dtb0, NP,
+                         plain)
+
+
+def split_combine(MN, KL, fN, T0, pred, d, bdf, dtb0, NP, plain=False):
+    """(KN, r0) of the serving body from one step's operators MN, KL
+    (NP, NP, B) and fN (NP, B), however they were formed (K1, K3 and K5
+    from θ by :func:`split_build`; K2 and K4 read from the materialized
+    tables), with the trilinear T0 (NP², NP) as the body's third segment:
+    KN = bdf·MN + KL + N, N = T0·(dtb0·pred) and
+    r0 = MN·d + fN − KL·pred − N·pred, each term formed on its own and
+    combined in the reference's order; ``plain`` as for
+    :func:`split_build`."""
+    B = MN.shape[2]
     KN = bdf * MN + KL
-    r0 = lanes_matvec(MN, d) + Bf @ tts[kmk8:kmk8 + kf8]
+    r0 = lanes_matvec(MN, d) + fN
     if dtb0 is not None:
-        # K5 scales N = T0·pred after the product, K1 and K3 before it.
-        Nt = (Bmk[:, kmk8:kmk8 + NP] @ (pred if plain else pred * dtb0)
-              ).reshape(NP, NP, B)
+        # K4 and K5 scale N = T0·pred after the product, K1-K3 before it.
+        Nt = (T0 @ (pred if plain else pred * dtb0)).reshape(NP, NP, B)
         KN = KN + (Nt * dtb0 if plain else Nt)
     if not plain:
         r0 = r0 - lanes_matvec(KL, pred)

@@ -15,8 +15,8 @@ time grid, so the windowed engine's two stages carry it:
 2. :func:`global_sweep` routes on the precompute budget (``:204-221``):
    while the materialized tables (2·nt·NP²·B·4 bytes) fit it, MN/KL/fN
    are plain products of the combine tensors with the θ rows (the
-   reference leaves them to XLA outside any kernel) and K4 runs once;
-   otherwise K5 runs once.
+   reference leaves them to XLA outside any kernel), formed in K4's
+   lane-major layout, and K4 runs once; otherwise K5 runs once.
 """
 
 from dataclasses import dataclass, field
@@ -35,7 +35,7 @@ from .windowed_fused import (
     live_rows,
     time_grid,
     window_inputs,
-    window_operators,
+    window_operators_lanes,
     windowed_prep,
     windowed_tables,
 )
@@ -118,14 +118,15 @@ def global_branch(nt, NP, B, precompute_choice):
 
 
 def sweep_materialized(fom, gs, prepped, tables):
-    """MN/KL/fN materialized over the whole grid, then one K4 launch.
-    Returns (probes (nt, 8, B), uN (NP, B))."""
+    """MN/KL/fN materialized over the whole grid (lane-major), then one
+    K4 launch. Returns (probes (nt, 8, B), uN (NP, B))."""
     (THm, THk, THf, g, b0), kw = window_inputs(fom, gs, prepped)
     if THm.is_cuda:
         _no_tf32()
-    MN, KL, fN = window_operators(tables, 0, THm, THk, THf, 0, THm.shape[0])
+    MN, KL, fN = window_operators_lanes(tables, 0, THm, THk, THf, 0,
+                                        THm.shape[0])
     return online_sweep_pallas(MN, KL, fN, g, tables["T0"][0],
-                               tables["VE"][0], b0, **kw)
+                               tables["VE"][0], b0, lane_major=True, **kw)
 
 
 def sweep_theta(fom, gs, prepped, tables):

@@ -57,6 +57,10 @@ def windowed_tables(win, dt, stiff_names, device):
     For K2/K3 (reference layouts, ``windowed_pallas.py:130-134``): Bm
     (W, NP², km8), Bk (W, NP², kk8) with the padded-diagonal identity
     column, Bf (W, NP, kf8), T0 (W, NP², NP), T (W, N, N) with T[0] = I.
+    For the lane-major product of K2's and K4's tables
+    (:func:`window_operators_lanes`): BmL (W, km8, NP·(NP + 4)) and BkL
+    (W, kk8, NP·(NP + 4)), Bm and Bk transposed with each row of NP
+    padded by 4 zero columns.
     For K1: Bmk (W, kfold, NP²) folded [Bm | Bk | T0], BmF/BkF
     (W, NP, k·NP) factored tensors, BfT (W, kf8, NP), TQ (W, NP, NP²),
     Tp (W, NP, NP) = T zero-padded. Both: VE (W, 8, NP), the θ row extents
@@ -112,10 +116,16 @@ def windowed_tables(win, dt, stiff_names, device):
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
+    def lanes_combine(C, k8):
+        out = np.zeros((W, k8, NP, NP + 4), np.float32)
+        out[..., :NP] = C.reshape(W, NP, NP, k8).transpose(0, 3, 1, 2)
+        return dev(out.reshape(W, k8, NP * (NP + 4)))
+
     tbl = {
         "km8": km8, "kk8": kk8, "kf8": kf8,
         "Bm": dev(Bm), "Bk": dev(Bk), "Bf": dev(Bf), "T0": dev(T0),
-        "T": dev(T),
+        "T": dev(T), "BmL": lanes_combine(Bm, km8),
+        "BkL": lanes_combine(Bk, kk8),
         "Bmk": dev(Bmk.transpose(0, 2, 1)),
         "BmF": dev(BmF.transpose(0, 2, 1)),
         "BkF": dev(BkF.transpose(0, 2, 1)),
@@ -355,11 +365,28 @@ def window_operators(tables, w, THm, THk, THf, a, b):
     return MN, KL, fN
 
 
+def window_operators_lanes(tables, w, THm, THk, THf, a, b):
+    """:func:`window_operators` in the serving body's lane-major layout:
+    MN, KL (b−a, B, NP, NP + 4), rows padded with exact zeros, and fN
+    (b−a, B, NP), as the products θᵀ·[Bm | Bk | Bf]ᵀ with the operands
+    swapped (``tables["BmL"]``/``["BkL"]``/``["BfT"]``), so K2 and K4
+    read one contiguous tile per step and block without a conversion."""
+    NP = tables["VE"].shape[2]
+    B = THm.shape[2]
+    MN, KL = (torch.matmul(th[a:b].transpose(1, 2), tables[key][w])
+              .reshape(b - a, B, NP, NP + 4).contiguous()
+              for key, th in (("BmL", THm), ("BkL", THk)))
+    fN = torch.matmul(THf[a:b].transpose(1, 2),
+                      tables["BfT"][w]).contiguous()
+    return MN, KL, fN
+
+
 def sweep_materialized(fom, win, prepped, tables):
     """Materialized branch (reference ``:381-414``): per window w, the dd
     transfer through T[w] (w > 0), the window's MN, KL and fN by a plain
-    product of the combine tensors with its θ rows, and one K2 launch
-    with step0 = bounds[w]."""
+    product of the combine tensors with its θ rows (lane-major,
+    :func:`window_operators_lanes`), and one K2 launch with
+    step0 = bounds[w]."""
     (THm, THk, THf, g, b0), kw = window_inputs(fom, win, prepped)
     NP = pad_dim(win.N)
     B = THm.shape[2]
@@ -371,10 +398,10 @@ def sweep_materialized(fom, win, prepped, tables):
         a, b = int(win.bounds[w]), int(win.bounds[w + 1])
         if w > 0:
             state = _transfer(state, tables["T"][w])
-        MN, KL, fN = window_operators(tables, w, THm, THk, THf, a, b)
+        MN, KL, fN = window_operators_lanes(tables, w, THm, THk, THf, a, b)
         probes_w, state = online_sweep_pallas_v2(
             MN, KL, fN, g[a:b], tables["T0"][w], tables["VE"][w], b0,
-            state, step0=a, **kw)
+            state, step0=a, lane_major=True, **kw)
         parts.append(probes_w)
     return torch.cat(parts), state
 

@@ -1,8 +1,9 @@
 """K1-K5 on the card against their plain PyTorch twins on the card (K1
 in both of its designs: the serving design csrc/windowed_serving.cu on
 the serving options, the first design csrc/windowed_fused.cu on every
-option; K3 and K5 in both of theirs: the serving body,
-csrc/windowed_serving.cu and csrc/global_serving.cu, and the first
+option; K2-K5 in both of theirs: the serving body,
+csrc/resid_tables_serving.cu, csrc/windowed_serving.cu,
+csrc/global_tables_serving.cu and csrc/global_serving.cu, and the first
 designs csrc/resid_sweep.cu and csrc/global_sweep.cu, each against the
 op-for-op twin, the split twin and the other design).
 Needs a CUDA device and nvcc; skips without a device. Imports no JAX, so
@@ -414,3 +415,162 @@ def test_cuda_theta_clocks_match_plain(kernel):
     assert clk.shape[1] == len(k1.SERVING_PHASES) + 1
     assert (clk[:, -1] > 0).all()
     assert (clk[:, :-1].sum(dim=1) <= clk[:, -1]).all()
+
+
+#: (design → the K2 and K4 entries that launch it).
+TABLE_ENTRIES = {"serving": (rs.online_sweep_pallas_v2,
+                             gs.online_sweep_pallas),
+                 "first": (rs._first_design_v2, gs._first_design_tables)}
+
+
+def _lane_major_call(wrapper, args, kw):
+    """``wrapper`` on the lane-major tables of ``args``, as the engines
+    hand them down."""
+    return wrapper(*rs.lane_major(*args[:3]), *args[3:], lane_major=True,
+                   **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["serving", "first"])
+@pytest.mark.parametrize("N,nt,B,step0,options", RESID_CASES)
+def test_cuda_k2_designs_match_twins(N, nt, B, step0, options, design):
+    """Each K2 design against the op-for-op twin, the split twin and the
+    other design, within 5e-5·scale (probes, state registers 0 and 2);
+    the serving body gives the same result, bit for bit, from lane-major
+    tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = resid_tables(N, nt, B, seed=N + step0 + 11, device="cuda",
+                            step0=step0, **options)
+    other = "first" if design == "serving" else "serving"
+    got = TABLE_ENTRIES[design][0](*args, **kw)
+    torch.cuda.synchronize()
+    _held_to(got, rs.sweep_v2_reference(*args, **kw))
+    _held_to(got, rs.sweep_v2_split(*args, **kw))
+    _held_to(got, TABLE_ENTRIES[other][0](*args, **kw))
+    if design == "serving":
+        lm = _lane_major_call(rs.online_sweep_pallas_v2, args, kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, lm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["serving", "first"])
+@pytest.mark.parametrize("N,nt,B,options", GLOBAL_CASES)
+def test_cuda_k4_designs_match_twins(N, nt, B, options, design):
+    """Each K4 design against the op-for-op twin, the split twin and the
+    other design, within 5e-5·scale; the padded probe rows and uN entries
+    are exact zeros; the serving body gives the same result, bit for bit,
+    from lane-major tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = global_tables(N, nt, B, seed=N + 5, device="cuda", **options)
+    other = "first" if design == "serving" else "serving"
+    got = TABLE_ENTRIES[design][1](*args, **kw)
+    torch.cuda.synchronize()
+    _held_global(got, gs.sweep_reference(*args, **kw))
+    _held_global(got, gs.sweep_split(*args, **kw))
+    _held_global(got, TABLE_ENTRIES[other][1](*args, **kw))
+    assert got[0][:, 2:].abs().max().item() == 0.0
+    assert got[1][N:].abs().max().item() == 0.0
+    if design == "serving":
+        lm = _lane_major_call(gs.online_sweep_pallas, args, kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, lm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step0", [0, 30])
+def test_cuda_k2_serving_chains_bit_for_bit(step0):
+    """K2's serving body over two launches chained through the dd state
+    equals one launch over the same steps, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = resid_tables(32, 30, 67, seed=8, device="cuda", step0=step0)
+    lm = rs.lane_major(*args[:3])
+    kw = dict(kw, lane_major=True)
+    wrapper = rs.online_sweep_pallas_v2
+    p1, s1 = wrapper(*lm, *args[3:], **kw)
+    h = 12
+
+    def part(lo, hi):     # the tables and g lead the arguments
+        return [t[lo:hi] for t in lm] + [args[3][lo:hi]] + list(args[4:-1])
+
+    pa, sa = wrapper(*part(0, h), args[-1], **kw)
+    pb, sb = wrapper(*part(h, 30), sa, **dict(kw, step0=step0 + h))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([pa, pb]), p1)
+    assert torch.equal(sb, s1)
+
+
+@pytest.mark.cuda
+def test_cuda_table_launch_counters_follow_the_design():
+    """K2's and K4's wrappers launch the serving body and only it; the
+    first-design entries the first design; each launch counts once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cases = ((rs.online_sweep_pallas_v2,
+              resid_tables(24, 8, 64, seed=3, device="cuda")),
+             (gs.online_sweep_pallas,
+              global_tables(15, 8, 64, seed=3, device="cuda")))
+    for k, (wrapper, (args, kw)) in enumerate(cases):
+        for design, moved in (("serving", (1, 1, 0)), ("first", (1, 0, 1))):
+            before = (wrapper.launches, wrapper.serving_launches,
+                      wrapper.first_design_launches)
+            TABLE_ENTRIES[design][k](*args, **kw)
+            torch.cuda.synchronize()
+            after = (wrapper.launches, wrapper.serving_launches,
+                     wrapper.first_design_launches)
+            assert tuple(b - a for a, b in zip(before, after)) == moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,N", [("K2", 32), ("K2", 48), ("K4", 15)])
+def test_cuda_table_clocks_match_plain(kernel, N):
+    """The CLOCKED serving body of K2 (NP 32 and 48) and K4 (NP 16)
+    computes what the plain one computes, bit for bit, and reports a
+    positive cycle count for every block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if kernel == "K2":
+        args, kw = resid_tables(N, 10, 67, seed=6, device="cuda", step0=10)
+        plain = rs.online_sweep_pallas_v2(*args, **kw)
+        p, s, clk = rs._v2_clocked(*args, **kw)
+    else:
+        args, kw = global_tables(N, 24, 130, seed=6, device="cuda")
+        plain = gs.online_sweep_pallas(*args, **kw)
+        p, s, clk = gs._tables_clocked(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(p, plain[0]) and torch.equal(s, plain[1])
+    assert clk.shape[1] == len(k1.SERVING_PHASES) + 1
+    assert (clk[:, -1] > 0).all()
+    assert (clk[:, :-1].sum(dim=1) <= clk[:, -1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,B", [(32, 512), (48, 128)])
+def test_cuda_table_lanes(N, B):
+    """K2's lanes a block at the batches it serves (B=512 at 50x32, B=128
+    at 150x48): the host rule on this card's SM count (4 lanes on a card
+    of 128 SMs or more), a tile the kernel takes; every tile it takes
+    gives the same result, bit for bit; a larger one is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    NP = k1.pad_dim(N)
+    lanes = rs.table_lanes(B, NP, "cuda")
+    assert lanes == rs.pick_table_lanes(B, NP, n_sm)
+    if n_sm >= 128:
+        assert lanes == 4
+    tile = rs.resid_tables_tile(NP, lanes)
+    assert tile["lanes"] == lanes and tile["threads"] == lanes * NP
+    assert tile["lanes_max"] == rs.table_lanes_max(NP)
+    assert tile["ring_units"] >= 2 and tile["ks"] >= 1
+    args, kw = resid_tables(N, 6, B, seed=4, device="cuda", step0=6)
+    want = rs.online_sweep_pallas_v2(*args, **kw)
+    for tl in rs.TABLE_LANES:
+        if tl > rs.table_lanes_max(NP):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                rs._v2_lanes(*args, lanes=tl, **kw)
+            continue
+        got = rs._v2_lanes(*args, lanes=tl, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
