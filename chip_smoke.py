@@ -73,16 +73,33 @@ Phases, in order; any failure raises and exits non-zero:
    each cell's inputs, the materialized tables' product (lane-major, as
    the engine forms them) timed against the reference layout's einsum;
 7. one measured precompute autotune on the N=15 global cell at B=2048
-   (record written under build/; its winner printed).
+   (record written under build/; its winner printed);
+8. fleet phase, the flagship μ-local fleet (``testing.synthetic
+   .synthetic_fleet``: four 50x32 cells and two 150x48 cells on the same
+   FOM, equal-width Mach edges over the μ box, a guarded dilation law on
+   cell 5) through ``solve_batch_mulocal(mus, mode="probes")`` at
+   B=2048: the cell occupancy, each cell's stage-2 branch and the solve
+   the fleet policy picks for its (W, N) group, then one cold call (each
+   cell's device tables built on it) and 3 warm calls, every launch
+   counter set to 0 before the cold call and read after the last (one
+   launch of K1's serving design per occupied cell and call, no other
+   launch), with each occupied cell's prep and sweep ms. Held, each a
+   failure: (a) the routed rows equal each cell's direct
+   ``solve_batch`` on the same padded sub-batch bit for bit; (b) at
+   B=128 on cell 0 (50x32) and cell 5 (150x48), the served K1 (budget
+   0) within 5e-6·scale of the port's float32 lanes engine
+   (``engine="windowed"``) on the probes and 5e-5 on ``uN_final``
+   (tests/test_windowed.py:91-94); (c) ``host=False`` returns CUDA
+   tensors equal to the host copy.
 
-Every serving branch reports solves/s (median of its calls, synchronized)
-beside the card name, where its time goes, and each kernel's ms, twin ms
-and bound on the serving path's own inputs (each on both designs, in
-turns). Prints a JSON line of per-kernel results (K1-K5 on the serving
-body with their first designs' times, the phase shares, the register
-and spill report, and K1's first design's modes, ablations and ledger),
-then, as
-the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device
+Every serving branch and the fleet report solves/s (median of the calls,
+synchronized) beside the card name, where the time goes, and each
+kernel's ms, twin ms and bound on the serving path's own inputs (each on
+both designs, in turns). Prints a JSON line of per-kernel results (K1-K5
+on the serving body with their first designs' times, the phase shares,
+the register and spill report, and K1's first design's modes, ablations
+and ledger; the fleet's numbers), then, as the last line,
+``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
 
@@ -95,6 +112,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ATOL_REL = 5e-5      # kernel vs twin, relative to the largest |value|
@@ -140,6 +158,14 @@ SERVING_SOURCES = ("windowed_serving", "global_serving",
 #: The reference's own limit between its K5 and K4 branches
 #: (tests/test_rom.py:226-227).
 THETA_VS_TABLES_REL = 3e-6
+FLEET_CALLS = 3      # warm fleet calls after the cold one
+#: (b) of the fleet phase: the cells held against the float32 lanes
+#: engine (one of each shape), at the reference test's batch and limits
+#: (tests/test_windowed.py:77-94).
+FLEET_LANES_CELLS = (0, 5)
+FLEET_LANES_B = 128
+FLEET_PROBES_REL = 5e-6
+FLEET_UN_ATOL = 5e-5
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores
 # and HBM3 bandwidth, at the full 700 W power limit.
 PEAK_FLOPS = 67e12
@@ -1164,6 +1190,196 @@ def autotune_phase(rom, mus, repo, power):
     return rec
 
 
+def fleet_phase(mods, dev, power):
+    """The flagship fleet at full width (phase 8 of the module doc)."""
+    import romtime_tpu_torch.rom.engines.windowed_fused as engine
+    from romtime_tpu_torch.conventions import Stage
+
+    synth = mods["synth"]
+    t0 = time.perf_counter()
+    rom = synth.synthetic_fleet(device=dev)
+    ml = rom.mulocal
+    nt = int(rom.fom.domain[rom.fom.NT])
+    print(f"fleet: {ml.n_cells} cells {ml.cell_wn} (nx={rom.fom.mesh.nx}, "
+          f"nt={nt}), "
+          f"Mach edges {np.round(ml.edges, 6).tolist()}, registered cells "
+          f"{[c for c, w in enumerate(ml.cells) if w.dilation is not None]}"
+          f", built in {time.perf_counter() - t0:.1f} s")
+    batches = [synth.synthetic_mus(B, seed=21 + r)
+               for r in range(FLEET_CALLS + 1)]
+    cell_lists = [ml.cell_of([rom.compute_piston_mach_number(m)
+                              for m in mus]) for mus in batches]
+    cells = cell_lists[-1]
+    occupancy = np.bincount(cells, minlength=ml.n_cells).tolist()
+    print(f"fleet occupancy of the last batch: real μ per cell {occupancy}"
+          f", each occupied cell's sub-batch padded to {B} by cycling")
+
+    # The policy's solve for each cell's (W, N) group, and the branch.
+    t0 = time.perf_counter()
+    policy = []
+    for c, win in enumerate(ml.cells):
+        rom._set_serving_windows(win)
+        iters = rom._windowed_solve_iters()
+        branch = engine.stage2_branch(nt, mods["k1"].pad_dim(win.N), B,
+                                      rom.precompute_choice)
+        policy.append(dict(cell=c, shape=f"{win.n_windows}x{win.N}",
+                           branch=branch, solve_iters=iters,
+                           rho=win._auto_iters_rho_value))
+        print(f"  cell {c} {win.n_windows}x{win.N}: branch {branch} at "
+              f"B={B}, measured ρ = {win._auto_iters_rho_value:.6g}, group "
+              f"solve {'LU' if iters is None else f'{iters} Richardson'}")
+        if branch != "fused":
+            raise AssertionError(f"cell {c} routes to {branch} at B={B}")
+    rom._set_serving_windows(ml.cells[0])
+    print(f"  policy over the fleet: {time.perf_counter() - t0:.1f} s on "
+          f"the host (float64)")
+
+    def routed(mus):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = rom.solve_batch_mulocal(mus, mode="probes")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    occupied = sorted(set(cells.tolist()))
+    for c in counters(mods):
+        c.launches = c.serving_launches = c.first_design_launches = 0
+    _out, cold = routed(batches[0])
+    warm = []
+    for mus in batches[1:]:
+        out, seconds = routed(mus)
+        warm.append(seconds)
+    launches = [c.launches for c in counters(mods)]
+    designs = design_counts(mods)
+    want = [sum(len(set(cl.tolist())) for cl in cell_lists), 0, 0, 0, 0]
+    info = dict(call_info(B, warm), cold_ms=cold * 1e3,
+                cold_solves_per_s=B / cold, occupancy=occupancy,
+                policy=policy, launches=launches)
+    print(f"fleet serving: cold call {cold * 1e3:.1f} ms = {B / cold:.1f} "
+          f"solves/s (each cell's tables built); warm calls median "
+          f"{info['serve_ms_median']:.1f} ms (min {info['serve_ms_min']:.1f}"
+          f", max {info['serve_ms_max']:.1f}) = {info['solves_per_s']:.1f} "
+          f"solves/s (prep + sweep + fetch + merge, {len(occupied)} full-"
+          f"batch sweeps a call, synchronized) on {power}; launches K1-K5 "
+          f"{launches}, (serving design, first design) {designs}")
+    if launches != want or designs["K1"] != (want[0], 0):
+        raise AssertionError(f"the fleet launched {launches} ({designs}), "
+                             f"expected {want}")
+    check_fleet_rows(out, B, ml)
+
+    # Per cell on the last batch: prep, sweep, and (a) routed ≡ direct.
+    mus = batches[-1]
+    per_cell, worst = [], 0.0
+    for c in occupied:
+        idx = np.nonzero(cells == c)[0]
+        sub = [dict(mus[int(i)]) for i in idx]
+        sub = (sub * -(-B // len(sub)))[:B]
+        win = ml.cells[c]
+        rom._set_serving_windows(win)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prepped = rom.prep(sub)
+        torch.cuda.synchronize()
+        prep_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        engine.windowed_sweep(rom.fom, win, prepped, rom._windowed_tables(),
+                              rom)
+        torch.cuda.synchronize()
+        sweep_ms = (time.perf_counter() - t) * 1e3
+        del prepped
+        direct = rom.solve_batch(sub, mode="probes")
+        for k, v in direct.items():
+            for j, i in enumerate(idx):
+                row = np.asarray(out[k][int(i)])
+                # A key the cell does not emit per row (t without a law)
+                # was merged as the shared value.
+                want_row = v[j] if len(v) == B else v
+                if not np.array_equal(row, want_row):
+                    raise AssertionError(f"fleet cell {c}: routed {k} row "
+                                         f"{i} differs from the direct "
+                                         f"solve")
+                worst = max(worst, float(np.abs(row - want_row).max()))
+        if c == occupied[0]:
+            dev_out = rom.solve_batch(sub, Stage.ONLINE, "probes", None,
+                                      False)
+            for k, v in dev_out.items():
+                moved = (v.movedim(-1, 0) if v.ndim >= 2 else v)
+                if (v.device.type != rom.device.type
+                        or not np.array_equal(moved.cpu().numpy(),
+                                              direct[k])):
+                    raise AssertionError(f"host=False {k} is not the "
+                                         f"{rom.device.type} tensor of the "
+                                         f"host copy")
+            print(f"  (c) host=False on cell {c}: {sorted(dev_out)} are "
+                  f"{rom.device.type} tensors "
+                  f"{[tuple(v.shape) for v in dev_out.values()]}, equal to "
+                  f"the host copy once moved")
+            del dev_out
+        per_cell.append(dict(cell=c, real=int(len(idx)), prep_ms=prep_ms,
+                             sweep_ms=sweep_ms))
+        print(f"  cell {c} {win.n_windows}x{win.N} ({len(idx)} real μ): "
+              f"prep {prep_ms:.1f} ms, sweep {sweep_ms:.1f} ms on {power}")
+    rom._set_serving_windows(ml.cells[0])
+    print(f"  (a) routed ≡ direct on every occupied cell: max abs diff "
+          f"{worst} (limit 0)")
+    info.update(per_cell=per_cell, routed_vs_direct_max_abs=worst)
+
+    # (b) served K1 against the float32 lanes engine at B=128.
+    rom.ONLINE_PRECOMPUTE_BUDGET = 0
+    k1 = mods["k1"].online_sweep_windowed_fused
+    checks = []
+    for c in FLEET_LANES_CELLS:
+        win = ml.cells[c]
+        rom._set_serving_windows(win)
+        sub = [dict(mus[int(i)]) for i in np.nonzero(cells == c)[0]]
+        sub = (sub * -(-FLEET_LANES_B // len(sub)))[:FLEET_LANES_B]
+        n0 = k1.serving_launches
+        served = rom.solve_batch(sub, mode="probes")
+        if k1.serving_launches != n0 + 1:
+            raise AssertionError(f"cell {c} at B={FLEET_LANES_B} did not "
+                                 f"serve on K1")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lanes = rom.solve_batch(sub, mode="probes", engine="windowed")
+        torch.cuda.synchronize()
+        lanes_s = time.perf_counter() - t
+        scale = max(float(np.abs(lanes["probes"]).max()), 1e-3)
+        perr = float(np.abs(served["probes"] - lanes["probes"]).max())
+        uerr = float(np.abs(served["uN_final"] - lanes["uN_final"]).max())
+        ok = (perr <= FLEET_PROBES_REL * scale and uerr <= FLEET_UN_ATOL
+              and np.isfinite(lanes["probes"]).all())
+        print(f"  (b) cell {c} {win.n_windows}x{win.N}, B={FLEET_LANES_B}: "
+              f"served K1 vs the float32 lanes engine: probes max abs err "
+              f"{perr:.3e} (limit {FLEET_PROBES_REL * scale:.3e}), uN_final "
+              f"{uerr:.3e} (limit {FLEET_UN_ATOL:.0e}); lanes engine "
+              f"{lanes_s:.1f} s on {power} {'ok' if ok else 'FAIL'}")
+        checks.append(dict(cell=c, probes_err=perr, probes_limit=(
+            FLEET_PROBES_REL * scale), uN_err=uerr, lanes_s=lanes_s))
+        if not ok:
+            raise AssertionError(f"fleet cell {c}: served K1 disagrees with "
+                                 f"the lanes engine")
+        del lanes
+        torch.cuda.empty_cache()
+    rom._set_serving_windows(ml.cells[0])
+    info["served_vs_lanes"] = checks
+    return info
+
+
+def check_fleet_rows(out, Bb, ml):
+    """Shapes and finiteness of a routed fleet call's outputs."""
+    nt_probes = out["probes"]
+    if nt_probes.shape[0] != Bb or nt_probes.shape[2] != 2:
+        raise AssertionError(f"fleet probes {nt_probes.shape}")
+    Ns = {w.N for w in ml.cells}
+    for r in out["uN_final"]:
+        if np.shape(r)[0] not in Ns:
+            raise AssertionError(f"fleet uN_final row {np.shape(r)}")
+    values = [out["probes"], out["dil"], out["dil_oor"]] + list(
+        out["uN_final"])
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in values):
+        raise AssertionError("non-finite fleet outputs")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1218,6 +1434,9 @@ def main():
         gkernels, gserving, rom15, mus = global_serving_phase(mods, dev,
                                                               power, errs)
         autotune = autotune_phase(rom15, mus, repo, power)
+        del rom15, mus
+        torch.cuda.empty_cache()
+        fleet = fleet_phase(mods, dev, power)
     for k, v in gkernels.items():
         launches[k] = v.pop("launches")
         kernels[k] = v
@@ -1247,6 +1466,7 @@ def main():
     # same-run yardstick.
     kernels["K1"].update(
         richardson_launches=launches.pop("K1_richardson"),
+        fleet_launches=fleet["launches"][0],
         richardson_max_abs_err=max(rich_errs),
         phase_shares={shape: {solve: r["shares"] for solve, r in sp.items()}
                       for shape, sp in splits.items()},
@@ -1275,7 +1495,7 @@ def main():
         max_abs_err=max(errs[k]), library_ms=None, **kernels[k])
         for k in KERNELS],
         "shapes": rows, "serving": serving, "autotune": autotune,
-        "card": power}))
+        "fleet": fleet, "card": power}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

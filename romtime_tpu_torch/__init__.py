@@ -1,9 +1,12 @@
 """PyTorch + CUDA port of ``romtime_tpu`` for NVIDIA Hopper (H100).
 
-Piston probe serving, windowed (``engine="windowed-pallas"``) and on the
-global basis (``engine="pallas"``). The offline build stays in the JAX
-package; serving configurations are carried across as numpy
-(``convert.serving_from_arrays``, ``convert.global_serving_from_arrays``).
+Piston probe serving, windowed (``engine="windowed-pallas"``), on the
+global basis (``engine="pallas"``) and over a μ-local fleet of windowed
+Mach cells (``solve_batch_mulocal``), with the windowed lanes engine
+(``engine="windowed"``) for certification. The offline build stays in the
+JAX package; serving configurations are carried across as numpy
+(``convert.serving_from_arrays``, ``convert.global_serving_from_arrays``,
+``convert.fleet_serving_from_arrays``).
 The serving sweeps run the hand-written CUDA kernels K1-K5
 (``csrc/*.cu``) for CUDA tensors and their plain PyTorch twins for CPU
 tensors. Importing the package loads torch and numpy only; a kernel is
@@ -11,6 +14,8 @@ built at its first launch.
 """
 
 from .convert import (
+    fleet_serving_from_arrays,
+    fleet_serving_to_arrays,
     global_serving_from_arrays,
     global_serving_to_arrays,
     serving_from_arrays,
@@ -19,6 +24,7 @@ from .convert import (
 from .rom import (
     DilationLaw,
     GlobalServing,
+    MuLocalWindowed,
     RomConstructorNonlinear,
     WindowedServing,
 )
@@ -26,8 +32,11 @@ from .rom import (
 __all__ = [
     "DilationLaw",
     "GlobalServing",
+    "MuLocalWindowed",
     "RomConstructorNonlinear",
     "WindowedServing",
+    "fleet_serving_from_arrays",
+    "fleet_serving_to_arrays",
     "global_serving_from_arrays",
     "global_serving_to_arrays",
     "serving_from_arrays",

@@ -8,6 +8,12 @@ A serving configuration travels as a flat ``dict[str, np.ndarray]``:
   optionally the global configuration below under a ``global_`` prefix
   (the reference's windowed instance keeps its global basis and
   reductors beside the windows; the pivot-free guard runs on them);
+- fleet: the :class:`~romtime_tpu_torch.rom.windowed.MuLocalWindowed`
+  npz keys (``edges``, the cells' keys under ``c{c}_`` prefixes and, for a
+  nested fleet, ``serving_ns``), optionally with the global configuration
+  under ``global_``. The cells share one set of reductors: routing swaps
+  the active windows, never the reductors, as in the reference
+  (``romtime_tpu/rom/hrom.py:474-480``);
 - global: the :class:`~romtime_tpu_torch.rom.GlobalServing` keys
   (``basis`` (nh, N), ``combine_<source>`` (n_out, k), the reductor's
   folded V·(PᵀU)⁻¹, and ``trilinear`` (N², N), the exact trilinear state
@@ -31,7 +37,7 @@ from .fom import OneDimensionalBurgers
 from .problems import define_piston_problem
 from .rom.engines.global_fused import GlobalServing
 from .rom.rom import THETA_SOURCES, RomConstructorNonlinear, make_reductors
-from .rom.windowed import WindowedServing
+from .rom.windowed import MuLocalWindowed, WindowedServing
 
 _FOM_KEYS = ("fom_L0", "fom_nx", "fom_tf", "fom_nt", "fom_degree",
              "fom_bdf", "fom_which")
@@ -79,18 +85,38 @@ def _serving_arrays(payload):
             if not k.startswith(("dofs_", "fom_", "grid_", _GLOBAL))}
 
 
+def _windowed_object(payload, windows, device):
+    """The serving object of a windowed or fleet payload, ``windows``
+    active; the global configuration rides along when the payload has
+    ``global_`` keys."""
+    fom, reductors = _fom_and_reductors(payload)
+    glob = {k[len(_GLOBAL):]: v for k, v in payload.items()
+            if k.startswith(_GLOBAL)}
+    gs = GlobalServing.from_arrays(glob) if glob else None
+    return RomConstructorNonlinear(fom, reductors, windows, device=device,
+                                   global_serving=gs, grid=_grid(payload))
+
+
 def serving_from_arrays(payload, device="cuda"):
     """Build the port's windowed serving object from a plain-numpy
     payload, serving on ``device`` (the card by default); the global
     configuration rides along when the payload has ``global_`` keys."""
-    fom, reductors = _fom_and_reductors(payload)
-    grid = _grid(payload)
-    win = WindowedServing.from_arrays(_serving_arrays(payload))
-    glob = {k[len(_GLOBAL):]: v for k, v in payload.items()
-            if k.startswith(_GLOBAL)}
-    gs = GlobalServing.from_arrays(glob) if glob else None
-    return RomConstructorNonlinear(fom, reductors, win, device=device,
-                                   global_serving=gs, grid=grid)
+    return _windowed_object(
+        payload, WindowedServing.from_arrays(_serving_arrays(payload)),
+        device)
+
+
+def fleet_serving_from_arrays(payload, device="cuda"):
+    """Build the port's serving object for a μ-local fleet from a
+    plain-numpy payload, serving on ``device`` (the card by default): the
+    fleet attached as ``mulocal``, cell 0 as the active windows, and the
+    global configuration when the payload has ``global_`` keys."""
+    if "edges" not in payload:
+        raise KeyError("fleet serving payload lacks 'edges'")
+    ml = MuLocalWindowed.from_arrays(_serving_arrays(payload))
+    rom = _windowed_object(payload, ml.cells[0], device)
+    rom.mulocal = ml
+    return rom
 
 
 def global_serving_from_arrays(payload, device="cuda"):
@@ -122,13 +148,22 @@ def _fom_and_dofs_arrays(rom, which):
     return payload
 
 
-def serving_to_arrays(rom, which="rest"):
-    """Inverse of :func:`serving_from_arrays`."""
-    payload = dict(rom.windows.to_arrays(), **_fom_and_dofs_arrays(rom, which))
+def _windowed_arrays(rom, serving, which):
+    payload = dict(serving.to_arrays(), **_fom_and_dofs_arrays(rom, which))
     if rom.global_serving is not None:
         payload.update({_GLOBAL + k: v for k, v in
                         rom.global_serving.to_arrays().items()})
     return payload
+
+
+def serving_to_arrays(rom, which="rest"):
+    """Inverse of :func:`serving_from_arrays`."""
+    return _windowed_arrays(rom, rom.windows, which)
+
+
+def fleet_serving_to_arrays(rom, which="rest"):
+    """Inverse of :func:`fleet_serving_from_arrays`."""
+    return _windowed_arrays(rom, rom.mulocal, which)
 
 
 def global_serving_to_arrays(rom, which="rest"):

@@ -1,7 +1,7 @@
 from .engines.global_fused import GlobalServing
 from .registration import DilationLaw
 from .rom import RomConstructorNonlinear
-from .windowed import WindowedServing
+from .windowed import MuLocalWindowed, WindowedServing
 
-__all__ = ["DilationLaw", "GlobalServing", "RomConstructorNonlinear",
-           "WindowedServing"]
+__all__ = ["DilationLaw", "GlobalServing", "MuLocalWindowed",
+           "RomConstructorNonlinear", "WindowedServing"]

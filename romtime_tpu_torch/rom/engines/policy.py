@@ -128,8 +128,8 @@ class SolvePolicy:
       ``WINDOWED_SOLVE_ITERS_PERF_CAP`` (the reference's measured
       crossover against the LU): "auto" takes the LU above the smaller.
 
-    Needs ``self.fom``, ``self.grid`` (name → (lo, hi)), ``self.windows``
-    and ``self._theta_sources()``."""
+    Needs ``self.fom``, ``self.grid`` (name → (lo, hi)), ``self.windows``,
+    ``self.mulocal`` and ``self._theta_sources()``."""
 
     WINDOWED_SOLVE_ITERS = "auto"
     WINDOWED_SOLVE_ITERS_CAP = 12
@@ -155,13 +155,32 @@ class SolvePolicy:
 
     def _auto_solve_iters(self):
         """The measured Richardson iteration count of the active windows,
-        or None (→ LU). The reference's μ-local fleet branch (the worst
-        case over the active cell's (W, N) group, ``policy.py:160-185``)
-        waits for the port's fleet container (ROADMAP Queue 1, item 1):
-        here the active windows decide alone."""
+        or None (→ LU). With a μ-local fleet attached whose cells include
+        the active windows, the worst case over the active cell's (W, N)
+        group decides (reference ``policy.py:160-185``): the LU if any
+        cell of the group needs it, else the largest count, cached per
+        fleet and shape (``_auto_iters_cache_ml``). Same-shape cells serve
+        with one setting in the reference, where it is baked into one
+        compiled kernel; the port keeps the rule."""
         win = self.windows
         if win is None:
             return None
+        ml = getattr(self, "mulocal", None)
+        if ml is not None and any(win is c for c in ml.cells):
+            shape = (win.n_windows, win.N)
+            cache = getattr(self, "_auto_iters_cache_ml", None)
+            if (isinstance(cache, dict) and cache.get("ml") is ml
+                    and shape in cache):
+                return cache[shape]
+            group = [c for c in ml.cells if (c.n_windows, c.N) == shape]
+            per_cell = [self._auto_iters_for(c) for c in group]
+            result = (None if any(r is None for r in per_cell)
+                      else max(per_cell))
+            if not isinstance(cache, dict) or cache.get("ml") is not ml:
+                cache = {"ml": ml}
+                self._auto_iters_cache_ml = cache
+            cache[shape] = result
+            return result
         return self._auto_iters_for(win)
 
     def _auto_iters_for(self, win):

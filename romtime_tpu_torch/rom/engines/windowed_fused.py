@@ -135,16 +135,25 @@ def windowed_tables(win, dt, stiff_names, device):
         "VE": dev(VE),
         "Tp": dev(Tp),
     }
-    law = win.dilation
-    if law is not None:
-        tbl["dil_coef"] = dev(np.asarray(law.coef, np.float32))
-        if law.has_guard:
-            tbl["dil_guard_feats"] = dev(np.asarray(law.guard_feats,
-                                                    np.float32))
-            tbl["dil_guard_inv_span"] = dev(np.asarray(law.guard_inv_span,
-                                                       np.float32))
-            tbl["dil_guard_thresh"] = dev(np.asarray(
-                GUARD_FACTOR * law.guard_dref, np.float32))
+    tbl.update(dilation_tables(win.dilation, torch.float32, device))
+    return tbl
+
+
+def dilation_tables(law, dtype, device):
+    """The dilation law's coefficients ``dil_coef`` and, with a guard,
+    ``dil_guard_feats``/``dil_guard_inv_span``/``dil_guard_thresh`` in
+    ``dtype`` on ``device`` (none without a law)."""
+    if law is None:
+        return {}
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    tbl = {"dil_coef": dev(law.coef)}
+    if law.has_guard:
+        tbl.update(dil_guard_feats=dev(law.guard_feats),
+                   dil_guard_inv_span=dev(law.guard_inv_span),
+                   dil_guard_thresh=dev(GUARD_FACTOR * law.guard_dref))
     return tbl
 
 
@@ -193,6 +202,26 @@ def time_grid(fom, dil, dtype, device):
 PREP_TIME_CHUNK = 256
 
 
+def entry_chunks(sources, mu, ts, dil):
+    """The DEIM entries over the time grid ``ts`` ((nt,), or per-lane
+    (nt, B) with the dilation ``dil``), :data:`PREP_TIME_CHUNK` steps at
+    a time: yields (a, b, t, ent) for steps a..b−1 with their times ``t``
+    ((b−a, 1) or (b−a, B)) and name → (b−a, k, B) entries in the times'
+    dtype, the dt-side sources scaled by the lane's dilation (dt is
+    folded into the combine tensors)."""
+    nt = ts.shape[0]
+    for a in range(0, nt, PREP_TIME_CHUNK):
+        b = min(nt, a + PREP_TIME_CHUNK)
+        t = ts[a:b] if dil is not None else ts[a:b, None]
+        ent = {name: red._entries_traced(mu, t).to(ts.dtype).permute(1, 0, 2)
+               for name, red in sources.items()}
+        if dil is not None:
+            for name in ent:
+                if name != MASS:
+                    ent[name] = ent[name] * dil[None, None, :]
+        yield a, b, t, ent
+
+
 def windowed_prep(fom, sources, win, tables, mu):
     """Stage 1: θ entry tables THm (nt, km8, B), THk (nt, kk8, B) with
     the appended constant-1 row, THf (nt, kf8, B), lifting probes g
@@ -221,18 +250,7 @@ def windowed_prep(fom, sources, win, tables, mu):
     THf = torch.empty((nt, kf8, B), dtype=dtype, device=device)
     g = torch.zeros((nt, PROBE_P, B), dtype=dtype, device=device)
     L0 = float(fom.domain[fom.L0])
-    for a in range(0, nt, PREP_TIME_CHUNK):
-        b = min(nt, a + PREP_TIME_CHUNK)
-        # (T, 1) or (T, B) times broadcast against (B,) μ lanes.
-        t = ts[a:b] if dil is not None else ts[a:b, None]
-        ent = {name: red._entries_traced(mu, t).to(dtype).permute(1, 0, 2)
-               for name, red in sources.items()}          # (T, k, B)
-        if dil is not None:
-            for name in ent:
-                if name != MASS:
-                    # dt-side terms: the θ stream carries d_b (dt is
-                    # folded into the combine tensors).
-                    ent[name] = ent[name] * dil[None, None, :]
+    for a, b, t, ent in entry_chunks(sources, mu, ts, dil):
         THm[a:b] = padded([ent[MASS]], km8)
         THk[a:b] = padded([ent[n] for n in stiff]
                           + [ent[MASS].new_ones((b - a, 1, B))], kk8)

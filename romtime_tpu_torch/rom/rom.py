@@ -2,12 +2,15 @@
 ``romtime_tpu/rom/rom.py``: ``RomConstructorNonlinear.solve_batch`` with
 ``mode="probes"`` on windowed serving, the ``"windowed-pallas"`` engine,
 and on the global basis, the ``"pallas"`` engine, behind the reference's
-pivot-free guard ``certify_pivot_free``).
+pivot-free guard ``certify_pivot_free``; the windowed lanes engine
+``"windowed"`` in every mode, float64 or float32; a μ-local fleet routed
+by Mach cell, ``solve_batch_mulocal``).
 
 The offline build (POD, DEIM training, window construction, the
 trilinear state table) stays in the JAX package; a serving object here is
 made from its artifacts (``convert.serving_from_arrays``,
-``convert.global_serving_from_arrays``) or from a seeded synthetic cell
+``convert.global_serving_from_arrays``,
+``convert.fleet_serving_from_arrays``) or from seeded synthetic data
 (``testing.synthetic``).
 """
 
@@ -21,6 +24,7 @@ from ..deim import (
     MatrixDiscreteEmpiricalInterpolation,
 )
 from .engines.autotune import AutotuneMixin
+from .engines.mulocal import MuLocalRoutingMixin
 from .engines.global_fused import (
     global_prep,
     global_sweep,
@@ -33,6 +37,11 @@ from .engines.windowed_fused import (
     windowed_sweep,
     windowed_tables,
     stiffness_side,
+)
+from .engines.windowed_lanes import (
+    MODES,
+    online_sweep_windowed,
+    windowed_lanes_tables,
 )
 
 #: θ source name → (reductor class, FOM assembly method), in the
@@ -58,7 +67,8 @@ def make_reductors(fom, dofs):
     }
 
 
-class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
+class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
+                              PrecomputePolicy, SolvePolicy):
     """Piston serving on one device (the card unless ``device`` says
     otherwise).
 
@@ -70,7 +80,9 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
     one of them, or both (windows then serve by default, as in the
     reference, and the global basis carries the pivot-free guard).
     ``grid`` is the μ box, name → (lo, hi), that the guard and the auto
-    solve policy probe."""
+    solve policy probe. ``mulocal`` is the attached μ-local fleet
+    (:class:`~romtime_tpu_torch.rom.windowed.MuLocalWindowed`) or None;
+    its cells share the reductors and swap in as the active windows."""
 
     # The online engines eliminate without pivoting, justified by the
     # M-dominance of K_N = bdf·M_N + dt·S_N; the certifiable proxy is
@@ -95,6 +107,7 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
             k: (float(lo), float(hi)) for k, (lo, hi) in grid.items()}
         self._global_tables = None
         self._pivot_cert = None
+        self.mulocal = None
         self._set_serving_windows(windows)
 
     @property
@@ -109,11 +122,24 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
         return {name: self.reductors[name] for name in THETA_SOURCES}
 
     def _set_serving_windows(self, win):
-        """Swap the active windowed serving tables (the cached device
-        tables belong to the old ones; the pivot-free certificate belongs
-        to the global basis and stays)."""
+        """Swap the active windowed serving configuration. Its device
+        tables are cached on the configuration object itself
+        (:meth:`_cell_tables`), so a routed fleet builds and uploads each
+        cell's constants once; the pivot-free certificate belongs to the
+        global basis and stays."""
         self.windows = win
-        self._tables = None
+
+    def _cell_tables(self, win, key, build):
+        """``build()``'s device tables for the configuration ``win``,
+        cached on ``win`` under ``key`` with this object's device and dt,
+        as the solve policy memoizes on it; rebuilt when ``win``'s
+        dilation law was replaced since."""
+        cache = win.__dict__.setdefault("_serving_tables", {})
+        key = (str(self.device), float(self.fom.dt)) + key
+        hit = cache.get(key)
+        if hit is None or hit[0] is not win.dilation:
+            hit = cache[key] = (win.dilation, build())
+        return hit[1]
 
     def _guard_parts(self, mu, t):
         """(M_N, dt·S_N) of the global basis at (μ, t) and the zero state,
@@ -183,11 +209,19 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
             self.certify_pivot_free()
 
     def _windowed_tables(self):
-        if self._tables is None:
-            self._tables = windowed_tables(
-                self.windows, self.fom.dt,
-                stiffness_side(self._theta_sources()), self.device)
-        return self._tables
+        win = self.windows
+        return self._cell_tables(win, ("windowed-pallas",), lambda: (
+            windowed_tables(win, self.fom.dt,
+                            stiffness_side(self._theta_sources()),
+                            self.device)))
+
+    def _lanes_tables(self, mode):
+        """The lanes engine's tables of the active windows, per (mode,
+        compute dtype)."""
+        win, dtype = self.windows, compute_dtype()
+        return self._cell_tables(win, ("windowed", mode, dtype), lambda: (
+            windowed_lanes_tables(win, self._theta_sources(), mode, dtype,
+                                  self.device)))
 
     def _global_serving_tables(self):
         if self._global_tables is None:
@@ -218,8 +252,10 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
     def _resolve_engine(self, mode, B):
         """The reference's engine choice (``rom.py:1262-1267``): windows
         attached → ``"windowed-pallas"``; the global engine's gate holds →
-        ``"pallas"``. Where the reference would take its lanes (or vmap)
-        engine, which is not ported, this raises."""
+        ``"pallas"``. Where the reference would take its global lanes (or
+        vmap) engine, which is not ported, this raises; the windowed lanes
+        engine, ``"windowed"``, is taken only when asked for, as in the
+        reference."""
         if self.windows is not None and mode == "probes":
             return "windowed-pallas"
         gs = self.global_serving
@@ -229,12 +265,27 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
             return "pallas"
         raise NotImplementedError(
             f"mode {mode!r} at B={B} in {compute_dtype()} takes the "
-            f"reference's lanes engine (vmap without hyper-reduction), "
-            f"which is not ported (ROADMAP Queue 1, item 3)")
+            f"reference's global lanes engine (vmap without "
+            f"hyper-reduction), which is not ported (ROADMAP Queue 1, "
+            f"item 2)")
 
-    def _serve(self, mus, engine):
+    def _serve(self, mus, engine, mode="probes"):
         """Stages 1 and 2 of ``engine`` on the device: (nt, …, B) tensors
         (the pivot-free guard runs once per instance first)."""
+        if engine == "windowed":
+            if self.windows is None:
+                raise ValueError("no windowed serving configuration "
+                                 "attached")
+            self._ensure_pivot_free_certified()
+            return online_sweep_windowed(
+                self.fom, self.windows, self._theta_sources(),
+                self._lanes_tables(mode), self._mu_batch(mus), mode)
+        if mode != "probes":
+            raise NotImplementedError(
+                f"mode {mode!r} is served by engine='windowed' (the "
+                f"reference's global lanes engine is not ported, ROADMAP "
+                f"Queue 1, item 2); engine {engine!r} serves "
+                f"mode='probes'")
         if engine == "windowed-pallas":
             if self.windows is None:
                 raise ValueError("no windowed serving configuration "
@@ -255,37 +306,48 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
                                 self.precompute_choice)
         raise NotImplementedError(
             f"engine {engine!r} is not ported (ported: 'windowed-pallas', "
-            f"'pallas')")
+            f"'pallas', 'windowed')")
 
     def solve_batch(self, mus, step=Stage.ONLINE, mode="reduced", engine=None,
-                    probe_reduce=None):
-        """Serve a μ batch on ``engine`` (default: :meth:`_resolve_engine`):
-        θ prep, then the stage-2 sweep the reference would take. Windowed
+                    host=True, probe_reduce=None):
+        """Serve a μ batch on ``engine`` (default: :meth:`_resolve_engine`),
+        with the reference's signature (``rom.py:1168-1169``): θ prep,
+        then the stage-2 sweep the reference would take. Windowed
         (``engines/windowed_fused.windowed_sweep``): K2 per window while
         the operator tables fit the precompute budget, else the fused K1
         (its solve from :class:`SolvePolicy`) or, under
         ``ROMTIME_WINDOWED_KERNEL=v2``, K3 per window. Global
         (``engines/global_fused.global_sweep``): K4 over the materialized
-        tables on the same test, else K5. Only ``mode="probes"`` is
-        ported: the reference's default ``"reduced"`` (and ``"full"``)
-        run its lanes engine, and raise ``NotImplementedError`` here.
+        tables on the same test, else K5. Those serve ``mode="probes"``.
+        ``engine="windowed"`` (``engines/windowed_lanes``), the
+        reference's certification engine, serves ``"probes"``,
+        ``"reduced"`` and ``"full"`` in the compute dtype (float64 under
+        ``compute_dtype_scope``, else float32 with the dd carry). The
+        reference's default ``"reduced"`` without an engine resolves to
+        its global lanes engine, which is not ported, and raises
+        ``NotImplementedError``.
 
         Returns batch-first numpy arrays: ``t``, ``probes`` (B, nt, 2) —
         or (B, 2) / (B, nt//k, 2) with ``probe_reduce`` "mean" / k —
-        ``uN_final`` (B, N), and ``dil``/``dil_oor`` with a dilation law.
-        ``step`` is the reference's stage tag; serving keeps no record of
-        the μ it served."""
-        if mode != "probes":
-            raise NotImplementedError(
-                f"mode {mode!r} runs the reference's lanes engine, which is "
-                f"not ported (ROADMAP Queue 1, item 3); serving runs "
-                f"mode='probes'")
+        ``uN_final`` (B, N) (probes), ``uN`` (B, nt, N) (reduced, full),
+        ``uc`` and ``x`` (B, nt, nh) (full), and ``dil``/``dil_oor`` with
+        a dilation law. ``host=False`` returns the (nt, …, B) device
+        tensors unmoved instead, the device synchronized. ``step`` is the
+        reference's stage tag; serving keeps no record of the μ it
+        served."""
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; the modes are "
+                             f"{', '.join(MODES)}")
         if engine is None:
             engine = self._resolve_engine(mode, len(mus))
-        outs = self._serve(mus, engine)
-        if probe_reduce is not None:
+        outs = self._serve(mus, engine, mode)
+        if probe_reduce is not None and "probes" in outs:
             outs["probes"] = self._reduce_probes(outs["probes"],
                                                  probe_reduce)
+        if not host:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return outs
         return {k: (v.movedim(-1, 0) if v.ndim >= 2 else v).cpu().numpy()
                 for k, v in outs.items()}
 
@@ -308,3 +370,20 @@ class RomConstructorNonlinear(AutotuneMixin, PrecomputePolicy, SolvePolicy):
         return (sample[PistonParameters.DELTA]
                 * sample[PistonParameters.OMEGA]
                 / sample[PistonParameters.A0])
+
+    @staticmethod
+    def compute_piston_mach_number_space(grid, num, mach_min=None,
+                                         mach_max=None):
+        """``num`` + 1 equal-width bin edges across the admissible Mach
+        range of the μ box ``grid`` (name → (lo, hi)), reference
+        ``rom.py:1359-1379``: δ_min·ω_min/a0_max to δ_max·ω_max/a0_min
+        unless ``mach_min``/``mach_max`` say otherwise."""
+        A0, OMEGA, DELTA = (PistonParameters.A0, PistonParameters.OMEGA,
+                            PistonParameters.DELTA)
+        lo = {k: float(min(grid[k])) for k in (A0, OMEGA, DELTA)}
+        hi = {k: float(max(grid[k])) for k in (A0, OMEGA, DELTA)}
+        if mach_min is None:
+            mach_min = lo[DELTA] * lo[OMEGA] / hi[A0]
+        if mach_max is None:
+            mach_max = hi[DELTA] * hi[OMEGA] / lo[A0]
+        return np.linspace(start=mach_min, stop=mach_max, num=num + 1)

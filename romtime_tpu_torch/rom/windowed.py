@@ -1,13 +1,15 @@
 """Time-windowed serving artifacts (counterpart of
-``romtime_tpu/rom/windowed.py:59-164``).
+``romtime_tpu/rom/windowed.py:59-164`` and ``:298-414``).
 
 One ``.npz`` container holds a windowed serving configuration: window
 bounds, per-window bases ``Vs``, boundary transfers T_w = V_{w+1}ᵀV_w,
 per-operator folded combine tensors, the per-window trilinear tables and
-an optional dilation law. ``dump``/``load`` use the reference's keys and
-plain ``np.savez``, so each package reads the other's files bit-exactly.
-The artifacts stay host-side numpy (float64); the serving engine moves
-what it needs onto the device.
+an optional dilation law. A μ-local fleet (:class:`MuLocalWindowed`)
+holds one such configuration per Mach cell under ``c{c}_`` prefixes.
+``dump``/``load`` use the reference's keys and plain ``np.savez``, so
+each package reads the other's files bit-exactly. The artifacts stay
+host-side numpy (float64); the serving engine moves what it needs onto
+the device (and caches it on the configuration object).
 """
 
 from dataclasses import dataclass, field
@@ -82,6 +84,120 @@ class WindowedServing:
             dilation=_load_dilation({k: data[k] for k in keys
                                      if k.startswith("dilation_")}, ""),
         )
+
+    def dump(self, path):
+        np.savez(path, **self.to_arrays())
+
+    @classmethod
+    def load(cls, path):
+        with np.load(path) as data:
+            return cls.from_arrays({k: data[k] for k in data.files})
+
+    def truncate(self, N):
+        """The nested N-mode configuration of an (N+Δ)-mode build by pure
+        slicing (reference ``:103-144``): per-window POD bases nest, so
+        the first N columns of every artifact are the N-mode build."""
+        Nh = self.N
+        if N > Nh:
+            raise ValueError(f"cannot truncate N={Nh} to {N}")
+        if N == Nh:
+            return self
+        combines = {}
+        for name, C in self.combines.items():
+            C = np.asarray(C)
+            W, n_out, k = C.shape
+            if n_out == Nh * Nh:
+                combines[name] = np.ascontiguousarray(
+                    C.reshape(W, Nh, Nh, k)[:, :N, :N].reshape(W, N * N, k))
+            else:
+                combines[name] = np.ascontiguousarray(C[:, :N])
+        tri = None
+        if self.trilinear is not None:
+            T = np.asarray(self.trilinear)
+            W = T.shape[0]
+            tri = np.ascontiguousarray(
+                T.reshape(W, Nh, Nh, Nh)[:, :N, :N, :N].reshape(W, N * N, N))
+        return WindowedServing(
+            bounds=np.asarray(self.bounds),
+            Vs=np.ascontiguousarray(np.asarray(self.Vs)[:, :, :N]),
+            transfers=np.ascontiguousarray(
+                np.asarray(self.transfers)[:, :N, :N]),
+            combines=combines, trilinear=tri, dilation=self.dilation)
+
+
+@dataclass
+class MuLocalWindowed:
+    """μ-local windowed serving (reference ``:298-414``): K Mach-band
+    cells, each a :class:`WindowedServing`. A served μ of piston Mach m
+    goes to cell ``searchsorted(edges, m, side="right") - 1``, clipped to
+    the nearest cell outside the edges. Cells may differ in (W, N).
+    ``cells_srom`` are the nested (N+Δ) builds the serving cells were
+    sliced from, or None."""
+
+    edges: np.ndarray              # (K+1,) Mach bin edges
+    cells: list                    # K × WindowedServing
+    cells_srom: list = None        # K × WindowedServing at N+Δ, or None
+
+    @property
+    def n_cells(self):
+        return len(self.cells)
+
+    @property
+    def n_windows(self):
+        return self.cells[0].n_windows
+
+    @property
+    def N(self):
+        return self.cells[0].N
+
+    @property
+    def cell_wn(self):
+        """Per-cell (n_windows, N) pairs."""
+        return [(w.n_windows, w.N) for w in self.cells]
+
+    @property
+    def is_uniform(self):
+        return len(set(self.cell_wn)) == 1
+
+    def cell_of(self, mach):
+        """Cell index (scalar or array) for piston Mach number(s)."""
+        idx = np.searchsorted(np.asarray(self.edges), np.asarray(mach),
+                              side="right") - 1
+        return np.clip(idx, 0, self.n_cells - 1)
+
+    def to_arrays(self):
+        """The npz payload. A nested fleet stores only its (N+Δ) cells and
+        the per-cell serving N (``serving_ns``); :meth:`from_arrays`
+        slices the serving cells back out."""
+        payload = {"edges": np.asarray(self.edges)}
+        store = self.cells
+        if self.cells_srom is not None:
+            payload["serving_ns"] = np.asarray([w.N for w in self.cells])
+            store = self.cells_srom
+        for c, win in enumerate(store):
+            payload.update({f"c{c}_{k}": v
+                            for k, v in win.to_arrays().items()})
+        return payload
+
+    @classmethod
+    def from_arrays(cls, data):
+        """Inverse of :meth:`to_arrays` on any mapping of arrays; reads
+        the legacy uniform ``serving_n`` too."""
+        edges = data["edges"]
+        cells = []
+        for c in range(len(edges) - 1):
+            pre = f"c{c}_"
+            cells.append(WindowedServing.from_arrays(
+                {k[len(pre):]: data[k] for k in data if k.startswith(pre)}))
+        if "serving_ns" in data:
+            ns = [int(n) for n in np.asarray(data["serving_ns"])]
+        elif "serving_n" in data:
+            ns = [int(data["serving_n"])] * len(cells)
+        else:
+            return cls(edges=edges, cells=cells)
+        return cls(edges=edges,
+                   cells=[w.truncate(n) for w, n in zip(cells, ns)],
+                   cells_srom=cells)
 
     def dump(self, path):
         np.savez(path, **self.to_arrays())

@@ -1,6 +1,7 @@
 """Seeded synthetic serving data for the port (the analog of random-init
 weights): K1-K5 kernel inputs at serving shapes, and whole serving cells
-(windowed, and on a global basis) on the real piston FOM.
+(windowed, on a global basis, and the flagship μ-local fleet) on the real
+piston FOM.
 
 The synthetic cell has the flagship active-cell shape (W=50 windows of
 30 steps, N=32 per window) on the flagship FOM (nx=1000, nt=1500, tf=1.0,
@@ -14,6 +15,11 @@ small noise. That keeps K = bdf·M + dt·S diagonally dominant, the regime
 of the pivot-free LU (``certify_pivot_free`` checks it on a global basis
 before the first sweep; the windowed cell carries none, so its check is
 skipped, as the reference skips it).
+
+The synthetic fleet (:func:`synthetic_fleet`) is the flagship's six
+Mach cells (``bench.py``'s ``cell_wn``: four 50x32 cells and two 150x48
+cells) on one FOM and one set of reductors, each cell drawn by the same
+recipe, with equal-width Mach edges over the μ box.
 """
 
 import numpy as np
@@ -24,8 +30,9 @@ from ..dtypes import compute_dtype_scope
 from ..ops.windowed_fused import PROBE_P, pad_dim
 from ..rom.engines.global_fused import GlobalServing
 from ..rom.engines.windowed_fused import time_grid
+from ..rom.registration import DilationLaw
 from ..rom.rom import THETA_SOURCES, RomConstructorNonlinear, make_reductors
-from ..rom.windowed import WindowedServing
+from ..rom.windowed import MuLocalWindowed, WindowedServing
 
 #: The μ box of the flagship benchmark (a0, ω, δ; α and γ fixed): the
 #: ``grid`` of the synthetic serving objects (the pivot-free guard and the
@@ -191,9 +198,9 @@ def _draw_dofs(rng, nh, k, matrix):
     return np.stack([rows, cols], axis=1)
 
 
-def _cell_parts(rng, nx, nt, tf, W, N, k):
-    """FOM, reductors and (W, n_out, k) combines of a seeded cell (see
-    the module doc), drawn from ``rng``."""
+def _base_parts(rng, nx, nt, tf, k):
+    """FOM, reductors (their dofs drawn from ``rng``) and the θ scales of
+    the combine recipe (see the module doc)."""
     fom = piston_fom(L0=1.0, nx=nx, tf=tf, nt=nt)
     nh = fom.mesh.nh
     dofs = {name: _draw_dofs(rng, nh, k, matrix=name != "rhs_vec")
@@ -208,7 +215,11 @@ def _cell_parts(rng, nx, nt, tf, W, N, k):
         scales = {name: red._entries_traced(mu, ts).abs().amax(dim=(1, 2))
                   .clamp(min=1e-300).numpy()
                   for name, red in reductors.items()}
+    return fom, reductors, scales
 
+
+def _draw_combines(rng, scales, W, N, k):
+    """(W, n_out, k) combines of a seeded cell, drawn from ``rng``."""
     idx = np.arange(N)
     combines = {}
     for name in THETA_SOURCES:
@@ -223,7 +234,23 @@ def _cell_parts(rng, nx, nt, tf, W, N, k):
         elif name == "stiffness":
             C[:, idx, idx, 0] += 2.0
         combines[name] = (C * inv).reshape(W, N * N, k)
-    return fom, reductors, combines
+    return combines
+
+
+def _draw_windows(rng, nh, nt, scales, W, N, k):
+    """A seeded :class:`WindowedServing` of W equal windows at N: the
+    combines, the bases' end rows, orthogonal transfers and the trilinear
+    term, drawn from ``rng`` in that order."""
+    combines = _draw_combines(rng, scales, W, N, k)
+    Vs = np.zeros((W, nh, N))
+    Vs[:, [0, -1], :] = rng.normal(size=(W, 2, N))
+    transfers = np.stack([np.linalg.qr(rng.normal(size=(N, N)))[0]
+                          for _ in range(W - 1)])
+    return WindowedServing(
+        bounds=np.linspace(0, nt, W + 1).astype(int), Vs=Vs,
+        transfers=transfers, combines=combines,
+        trilinear=0.02 * rng.normal(size=(W, N * N, N)),
+    )
 
 
 def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
@@ -231,20 +258,49 @@ def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
     """A seeded windowed serving cell on the real piston FOM (see module
     doc)."""
     rng = np.random.default_rng(seed)
-    W = n_windows
-    fom, reductors, combines = _cell_parts(rng, nx, nt, tf, W, N, k)
-    nh = fom.mesh.nh
-    Vs = np.zeros((W, nh, N))
-    Vs[:, [0, -1], :] = rng.normal(size=(W, 2, N))
-    transfers = np.stack([np.linalg.qr(rng.normal(size=(N, N)))[0]
-                          for _ in range(W - 1)])
-    win = WindowedServing(
-        bounds=np.linspace(0, nt, W + 1).astype(int), Vs=Vs,
-        transfers=transfers, combines=combines,
-        trilinear=0.02 * rng.normal(size=(W, N * N, N)),
-    )
+    fom, reductors, scales = _base_parts(rng, nx, nt, tf, k)
+    win = _draw_windows(rng, fom.mesh.nh, nt, scales, n_windows, N, k)
     return RomConstructorNonlinear(fom, reductors, win, device=device,
                                    grid=MU_BOX)
+
+
+#: The flagship fleet's cell shapes (W, N), ``bench.py``'s
+#: ``cell_wn="50x32,50x32,50x32,50x32,150x48,150x48"``.
+FLEET_CELL_WN = ((50, 32),) * 4 + ((150, 48),) * 2
+
+
+def _draw_law(rng):
+    """A seeded guarded dilation law in a0: d(μ) = 1 + s·(a0 − 9) with s
+    in [0.002, 0.006], the guard's training cloud six a0 values across the
+    box (range-normalized), its fill distance 0.08."""
+    s = rng.uniform(0.002, 0.006)
+    lo, hi = MU_BOX["a0"]
+    return DilationLaw(
+        names=("a0",), coef=np.array([1.0 - 9.0 * s, s]), floor=0.9,
+        guard_feats=rng.uniform(lo, hi, size=(6, 1)) / (hi - lo),
+        guard_inv_span=np.array([1.0 / (hi - lo)]), guard_dref=0.08)
+
+
+def synthetic_fleet(cell_wn=FLEET_CELL_WN, register=(5,), seed=0, nx=1000,
+                    nt=1500, tf=1.0, k=8, device="cuda"):
+    """A seeded μ-local fleet on the real piston FOM: one FOM and one set
+    of reductors (dofs drawn once), one cell per (W, N) of ``cell_wn``
+    drawn by :func:`synthetic_cell`'s recipe, equal-width Mach edges over
+    :data:`MU_BOX`, and a seeded guarded dilation law on each cell of
+    ``register``. Returns the serving object with the fleet attached as
+    ``mulocal`` and cell 0 active."""
+    rng = np.random.default_rng(seed)
+    fom, reductors, scales = _base_parts(rng, nx, nt, tf, k)
+    cells = [_draw_windows(rng, fom.mesh.nh, nt, scales, W, N, k)
+             for W, N in cell_wn]
+    for c in register:
+        cells[c].dilation = _draw_law(rng)
+    edges = RomConstructorNonlinear.compute_piston_mach_number_space(
+        MU_BOX, len(cells))
+    rom = RomConstructorNonlinear(fom, reductors, cells[0], device=device,
+                                  grid=MU_BOX)
+    rom.mulocal = MuLocalWindowed(edges=edges, cells=cells)
+    return rom
 
 
 def synthetic_global_cell(N=15, k=8, nx=1000, nt=1500, seed=0,
@@ -254,7 +310,8 @@ def synthetic_global_cell(N=15, k=8, nx=1000, nt=1500, seed=0,
     recipe, with the global basis's end rows and the trilinear state
     table drawn from the seed."""
     rng = np.random.default_rng(seed)
-    fom, reductors, combines = _cell_parts(rng, nx, nt, 1.0, 1, N, k)
+    fom, reductors, scales = _base_parts(rng, nx, nt, 1.0, k)
+    combines = _draw_combines(rng, scales, 1, N, k)
     basis = np.zeros((fom.mesh.nh, N))
     basis[[0, -1], :] = rng.normal(size=(2, N))
     gs = GlobalServing(basis=basis,

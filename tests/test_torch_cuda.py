@@ -13,6 +13,7 @@ hence ``--noconftest``):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +24,8 @@ from romtime_tpu_torch.testing.synthetic import (
     global_tables,
     kernel_tables,
     resid_tables,
+    synthetic_fleet,
+    synthetic_mus,
 )
 
 #: (N, W, width, B, paired-LU group, options): Gauss-Jordan-sized and
@@ -574,3 +577,44 @@ def test_cuda_table_lanes(N, B):
         got = rs._v2_lanes(*args, lanes=tl, **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_routed_and_lanes():
+    """A two-cell fleet on the card, one cell of each serving shape
+    (50x32, and 150x48 registered) on the flagship time grid (nt=1500: at
+    nt=120 the paired-LU followers' stale factors alone miss the limit by
+    ~30×, on the CPU twin too, while the per-step LU meets it), 32 μ in
+    each, the fused K1 (budget 0): the routed rows equal each cell's
+    direct solve_batch on the same padded sub-batch bit for bit, one K1
+    launch per cell, and each cell's served K1 meets the float32 lanes
+    engine at tests/test_windowed.py:91-94's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rom = synthetic_fleet(cell_wn=((50, 32), (150, 48)), register=(1,),
+                          nx=200, nt=1500, device="cuda")
+    rom.ONLINE_PRECOMPUTE_BUDGET = 0
+    ml = rom.mulocal
+    draw = synthetic_mus(256, seed=9)
+    cells = ml.cell_of([rom.compute_piston_mach_number(m) for m in draw])
+    mus = [m for c in (0, 1) for m in
+           [draw[int(i)] for i in np.nonzero(cells == c)[0][:32]]]
+    n0 = k1.online_sweep_windowed_fused.serving_launches
+    routed = rom.solve_batch_mulocal(mus)
+    assert k1.online_sweep_windowed_fused.serving_launches == n0 + 2
+    for c in (0, 1):
+        sub = mus[32 * c:32 * (c + 1)] * 2
+        rom._set_serving_windows(ml.cells[c])
+        direct = rom.solve_batch(sub, mode="probes")
+        for j in range(32):
+            i = 32 * c + j
+            assert np.array_equal(routed["probes"][i], direct["probes"][j])
+            assert np.array_equal(routed["uN_final"][i],
+                                  direct["uN_final"][j])
+        lanes = rom.solve_batch(sub, mode="probes", engine="windowed")
+        scale = max(np.abs(lanes["probes"]).max(), 1e-3)
+        assert np.abs(direct["probes"] - lanes["probes"]).max() <= (
+            5e-6 * scale)
+        assert np.abs(direct["uN_final"] - lanes["uN_final"]).max() <= 5e-5
+    assert routed["dil"][:32].tolist() == [1.0] * 32
+    assert (routed["dil"][32:] != 1.0).any()

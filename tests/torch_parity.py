@@ -118,16 +118,25 @@ def _global_arrays(rom, with_trilinear=True):
     return out
 
 
-def payload_from_rom(rom, which="rest"):
+def npz_arrays(obj):
+    """key → array of what ``obj.dump`` writes (a reference
+    ``WindowedServing`` or ``MuLocalWindowed``)."""
+    buf = io.BytesIO()
+    obj.dump(buf)
+    buf.seek(0)
+    with np.load(buf) as data:
+        return {k: data[k] for k in data.files}
+
+
+def payload_from_rom(rom, which="rest", serving=None):
     """The port's serving payload (romtime_tpu_torch.convert) from a JAX
     ``RomConstructorNonlinear`` with windowed serving attached, its global
     basis and combines under the ``global_`` prefix (the pivot-free guard
-    runs on them; no trilinear table, which the guard does not read)."""
-    buf = io.BytesIO()
-    rom.windows.dump(buf)
-    buf.seek(0)
-    with np.load(buf) as data:
-        payload = {k: data[k] for k in data.files}
+    runs on them; no trilinear table, which the guard does not read).
+    ``serving`` (default: the active windows) is what the payload serves:
+    a reference ``MuLocalWindowed`` gives a fleet payload
+    (``convert.fleet_serving_from_arrays``)."""
+    payload = npz_arrays(rom.windows if serving is None else serving)
     payload.update(_dofs_payload(rom), **fom_payload(rom, which),
                    **grid_payload(rom))
     payload.update({f"global_{k}": v for k, v in
