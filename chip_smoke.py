@@ -90,7 +90,35 @@ Phases, in order; any failure raises and exits non-zero:
    0) within 5e-6·scale of the port's float32 lanes engine
    (``engine="windowed"``) on the probes and 5e-5 on ``uN_final``
    (tests/test_windowed.py:91-94); (c) ``host=False`` returns CUDA
-   tensors equal to the host copy.
+   tensors equal to the host copy;
+9. certification phase, the S-ROM certification path at full width
+   (nx=1000, nt=1500), every launch counter set to 0 before it and read
+   after (K4 and K5 once each, by (a)'s yardsticks; the served fleet's
+   kernels by (d)): (a) the global lanes engine in float32 at B=2048
+   through ``solve_batch(mus, mode="reduced")`` with no engine on the
+   synthetic estimator pair (``testing.synthetic.synthetic_estimator``:
+   ROM N=15, its tables materialized, 5.15 GiB; S-ROM N=20, θ
+   recombined per step, 9.15 GiB over the 6 GiB budget), resolved to
+   "lanes", its probes within 3e-5·scale of the served K4 (N=15) and K5
+   (N=20) on the same μ and ``uN_final`` within 1e-4·max(|uN|, 1)
+   (tests/test_rom.py:196-200), with its solves/s; (b) ``estimate_batch``
+   in float64 at B=16 (15 seeded μ and the box center), on the card and
+   in an explicit CPU run (``device="cpu"``): the two runs' global lanes
+   sweeps within 1e-9·scale; (c) its estimator finite, ≥ 0, (16, 1500),
+   equal to ``compute_rom_difference`` on its trajectories (rtol 1e-10,
+   atol 1e-17) and, card against CPU, within the triangle bound of (b)'s
+   gaps (tests/test_hrom.py:442-520); (d) ``estimate_batch_mulocal`` in
+   float64 at B=16 on the synthetic fleet drawn at N+8
+   (``srom_extra=8``, every cell occupied): shapes, finite positive
+   averages, each estimator row the coefficient-difference norm of its
+   μ's merged trajectories (rtol 1e-12), a permuted batch's rows bit for
+   bit, and the served fleet
+   (``solve_batch_mulocal``) equal before and after bit for bit, with
+   the per-cell seconds; (e) the chained lanes variant on a 50x32-recipe
+   cell with W=7 unequal windows (214 and 215 steps), float64, B=16,
+   ``mode="reduced"``: card against an explicit CPU run within
+   1e-9·scale, and called directly on the equal-width 50x32 cell within
+   1e-9·scale of the equal-width engine.
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -98,7 +126,8 @@ kernel's ms, twin ms and bound on the serving path's own inputs (each on
 both designs, in turns). Prints a JSON line of per-kernel results (K1-K5
 on the serving body with their first designs' times, the phase shares,
 the register and spill report, and K1's first design's modes, ablations
-and ledger; the fleet's numbers), then, as the last line,
+and ledger; the fleet's numbers; the certification phase's numbers),
+then, as the last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -166,6 +195,21 @@ FLEET_LANES_CELLS = (0, 5)
 FLEET_LANES_B = 128
 FLEET_PROBES_REL = 5e-6
 FLEET_UN_ATOL = 5e-5
+#: Phase 9, certification: (a) the global lanes engine at the serving
+#: batch against the served K4/K5 at the reference's limits
+#: (tests/test_rom.py:196-200); (b)-(e) float64 at the certification
+#: batch, card against an explicit CPU run at the same-code limit.
+CERT_B = 2048
+CERT_SMALL_B = 16
+CERT_PROBES_REL = 3e-5
+CERT_UN_REL = 1e-4
+CERT_F64_REL = 1e-9
+#: The synthetic cells' grid (the flagship FOM) and the S-ROM's extra
+#: modes (bench.py's BENCH_WINDOW_SROM_EXTRA default).
+CERT_GRID = {"nx": 1000, "nt": 1500}
+SROM_EXTRA = 8
+#: (e): unequal widths (W=7 on nt=1500: 214 and 215 steps) at N=32.
+CHAINED_W = 7
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores
 # and HBM3 bandwidth, at the full 700 W power limit.
 PEAK_FLOPS = 67e12
@@ -1380,6 +1424,300 @@ def check_fleet_rows(out, Bb, ml):
         raise AssertionError("non-finite fleet outputs")
 
 
+def timed(dev, fn):
+    """(fn(), seconds), a CUDA device synchronized on both sides."""
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def max_gap(got, want):
+    """(max |got − want|, max |want|) of two tensors on any devices."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    return ((got - want).abs().max().item(),
+            max(want.abs().max().item(), 1e-30))
+
+
+def same_code(label, got, want, power):
+    """A card run against the explicit CPU run of the same code: every
+    shared output within CERT_F64_REL of its scale."""
+    worst = 0.0
+    for key in sorted(want):
+        if key == "t":
+            continue
+        err, scale = max_gap(got[key], want[key])
+        ok = err <= CERT_F64_REL * scale
+        print(f"  {label} {key}: card vs CPU max abs err {err:.3e} (scale "
+              f"{scale:.3e}, limit {CERT_F64_REL * scale:.3e}) on {power} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} {key}: card and CPU disagree")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def certification_phase(mods, dev, power):
+    """Phase 9 of the module doc: the S-ROM certification path at full
+    width, each part with its own line and time. The CPU runs of (b), (c)
+    and (e) are explicit comparison runs (``device="cpu"``); nothing in
+    the phase falls back or is caught."""
+    from romtime_tpu_torch.conventions import Errors
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.rom.engines import global_lanes, windowed_lanes
+    from romtime_tpu_torch.rom.hrom import HyperReducedPiston
+    from romtime_tpu_torch.utils import compute_rom_difference
+
+    synth = mods["synth"]
+    nt = CERT_GRID["nt"]
+    info = {"card": power}
+    est, t_build = timed(dev, lambda: synth.synthetic_estimator(
+        device=dev, **CERT_GRID))
+    est_cpu = synth.synthetic_estimator(device="cpu", **CERT_GRID)
+    print(f"certification: the synthetic estimator pair (ROM N={est.rom.N}, "
+          f"S-ROM N={est.srom.N}, nx={CERT_GRID['nx']}, nt={nt}) built in "
+          f"{t_build:.1f} s")
+    for c in counters(mods):
+        c.launches = c.serving_launches = c.first_design_launches = 0
+
+    # (a) The global lanes engine in float32 at the serving batch, against
+    # the served K4 (N=15) and K5 (N=20) on the same μ.
+    mus = synth.synthetic_mus(CERT_B, seed=31)
+    info["lanes_f32"] = []
+    for rom, kname, branch in ((est.rom, "K4", "matrices"),
+                               (est.srom, "K5", "thetas")):
+        engine = rom._resolve_engine("reduced", CERT_B)
+        got_branch = global_lanes.lanes_branch(nt, rom.N, CERT_B,
+                                               torch.float32,
+                                               rom.precompute_choice)
+        nbytes = global_lanes.table_bytes(nt, rom.N, CERT_B, torch.float32)
+        print(f"  (a) N={rom.N}, B={CERT_B}, float32: solve_batch(mus, "
+              f"mode='reduced') resolves to {engine!r}, precompute branch "
+              f"{got_branch} ({nbytes / 2**30:.2f} GiB of tables)")
+        if engine != "lanes" or got_branch != branch:
+            raise AssertionError(f"N={rom.N}: resolved {engine}/"
+                                 f"{got_branch}, expected lanes/{branch}")
+        lanes, seconds = timed(dev, lambda: rom.solve_batch(
+            mus, mode="reduced", host=False))
+        served, served_s = timed(dev, lambda: rom.solve_batch(
+            mus, mode="probes", host=False))
+        perr, pscale = max_gap(lanes["probes"], served["probes"])
+        uerr, uscale = max_gap(lanes["uN"][-1], served["uN_final"])
+        uscale = max(lanes["uN"][-1].abs().max().item(), 1.0)
+        ok = (perr <= CERT_PROBES_REL * pscale and uerr <= CERT_UN_REL * uscale
+              and bool(torch.isfinite(lanes["uN"]).all()))
+        print(f"  (a) N={rom.N}: lanes engine {seconds:.2f} s a call = "
+              f"{CERT_B / seconds:.1f} solves/s; served {kname} "
+              f"{served_s * 1e3:.1f} ms a call; lanes vs {kname} probes max "
+              f"abs err {perr:.3e} (limit {CERT_PROBES_REL * pscale:.3e}), "
+              f"uN_final {uerr:.3e} (limit {CERT_UN_REL * uscale:.3e}) on "
+              f"{power} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"N={rom.N}: the lanes engine disagrees "
+                                 f"with {kname}")
+        info["lanes_f32"].append(dict(
+            N=rom.N, B=CERT_B, branch=got_branch, table_bytes=nbytes,
+            lanes_s=seconds, solves_per_s=CERT_B / seconds,
+            served_kernel=kname, served_ms=served_s * 1e3, probes_err=perr,
+            probes_limit=CERT_PROBES_REL * pscale, uN_err=uerr,
+            uN_limit=CERT_UN_REL * uscale))
+        del lanes, served
+        torch.cuda.empty_cache()
+
+    # (b) and (c): estimate_batch in float64 at the certification batch,
+    # on the card and in an explicit CPU run; (b) holds the two runs'
+    # lanes sweeps (the global lanes engine in float64), (c) the estimator.
+    cert = synth.certification_mus()
+    with compute_dtype_scope(torch.float64):
+        out, est_s = timed(dev, lambda: est.estimate_batch(cert))
+        ref, cpu_s = timed("cpu", lambda: est_cpu.estimate_batch(cert))
+    print(f"  (b) estimate_batch, B={len(cert)}, float64: the card "
+          f"{est_s:.2f} s a call (two global lanes sweeps, resolved to "
+          f"{est.rom._resolve_engine('reduced', len(cert))!r}), the CPU run "
+          f"{cpu_s:.2f} s")
+    worst = max(same_code(f"{name} N={o['uN'].shape[1]}", out[name], ref[name],
+                          power) for name, o in (("rom", out["rom"]),
+                                                 ("srom", out["srom"])))
+    e, e_cpu = out[Errors.ESTIMATOR], ref[Errors.ESTIMATOR]
+    avg = out[Errors.AVERAGE_ESTIMATOR]
+    if (e.shape != (len(cert), nt) or not np.isfinite(e).all()
+            or (e < 0).any() or not np.isfinite(avg).all()):
+        raise AssertionError(f"estimator {e.shape}: not finite and ≥ 0")
+    V_srom = np.asarray(est.srom.global_serving.basis)
+    uN = out["rom"]["uN"].movedim(-1, 0).cpu().numpy()
+    uNs = out["srom"]["uN"].movedim(-1, 0).cpu().numpy()
+    uN_c = ref["rom"]["uN"].movedim(-1, 0).numpy()
+    uNs_c = ref["srom"]["uN"].movedim(-1, 0).numpy()
+    formula_gap, bound_slack = 0.0, np.inf
+    for b in range(len(cert)):
+        same = np.array([compute_rom_difference(uN[b, i], uNs[b, i], V_srom)
+                         for i in range(nt)])
+        if not np.allclose(e[b], same, rtol=1e-10, atol=1e-17):
+            raise AssertionError(f"μ {b}: the estimator is not the "
+                                 f"reconstruction-norm formula")
+        formula_gap = max(formula_gap, float(np.max(
+            np.abs(e[b] - same) / np.maximum(np.abs(same), 1e-300))))
+        noise = (np.linalg.norm(uN[b] - uN_c[b], axis=1)
+                 + np.linalg.norm(uNs[b] - uNs_c[b], axis=1)) / np.sqrt(
+                     V_srom.shape[0])
+        gap = np.abs(e[b] - e_cpu[b])
+        limit = noise + 1e-12 * e_cpu[b] + 1e-16
+        if not np.all(gap <= limit):
+            raise AssertionError(f"μ {b}: card and CPU estimators differ "
+                                 f"beyond the triangle bound")
+        bound_slack = min(bound_slack, float(np.min(limit - gap)))
+    print(f"  (c) estimator (16, {nt}) finite and ≥ 0, time averages "
+          f"{float(avg.min()):.4e}..{float(avg.max()):.4e}; equals "
+          f"compute_rom_difference on its trajectories (largest relative "
+          f"gap {formula_gap:.2e}, limit 1e-10); card vs CPU within the "
+          f"triangle bound of (b)'s gaps (smallest slack {bound_slack:.3e})"
+          f" on {power} ok")
+    info["global_estimator"] = dict(
+        B=len(cert), card_s=est_s, cpu_s=cpu_s, trajectory_rel_gap=worst,
+        formula_rel_gap=formula_gap, bound_slack=bound_slack,
+        average_min=float(avg.min()), average_max=float(avg.max()))
+    del out, ref
+
+    # (d) The fleet estimator, float64, on the nested synthetic fleet.
+    fleet, t_build = timed(dev, lambda: synth.synthetic_fleet(
+        device=dev, srom_extra=SROM_EXTRA, **CERT_GRID))
+    ml = fleet.mulocal
+    hp = HyperReducedPiston(fleet)
+    # Every cell occupied (the box's draws leave the top Mach cell nearly
+    # empty): μ taken from a seeded draw cell by cell, in turn.
+    draw = synth.synthetic_mus(4096, seed=41)
+    pool = ml.cell_of([fleet.compute_piston_mach_number(m) for m in draw])
+    queues = [list(np.nonzero(pool == c)[0]) for c in range(ml.n_cells)]
+    picks = []
+    while len(picks) < CERT_SMALL_B:
+        for q in queues:
+            if q and len(picks) < CERT_SMALL_B:
+                picks.append(int(q.pop(0)))
+    fmus = [draw[i] for i in picks]
+    cells = ml.cell_of([fleet.compute_piston_mach_number(m) for m in fmus])
+    print(f"  (d) the nested fleet {ml.cell_wn} over S-ROM cells "
+          f"{[(w.n_windows, w.N) for w in ml.cells_srom]} built in "
+          f"{t_build:.1f} s; μ per cell "
+          f"{np.bincount(cells, minlength=ml.n_cells).tolist()}")
+    served_before = fleet.solve_batch_mulocal(fmus, mode="probes")
+    real = hp.estimate_batch
+    per_cell = []
+
+    def cell_timed(sub, step, engine):
+        win = fleet.windows
+        got, sec = timed(dev, lambda: real(sub, step=step, engine=engine))
+        per_cell.append(dict(cell=f"{win.n_windows}x{win.N}", seconds=sec))
+        return got
+
+    hp.estimate_batch = cell_timed
+    try:
+        with compute_dtype_scope(torch.float64):
+            fest, fest_s = timed(dev, lambda: hp.estimate_batch_mulocal(fmus))
+            perm = np.random.default_rng(5).permutation(CERT_SMALL_B)
+            again = hp.estimate_batch_mulocal([fmus[i] for i in perm])
+    finally:
+        del hp.estimate_batch
+    served_after = fleet.solve_batch_mulocal(fmus, mode="probes")
+    fe, favg = fest[Errors.ESTIMATOR], fest[Errors.AVERAGE_ESTIMATOR]
+    if (fe.shape != (CERT_SMALL_B, nt) or favg.shape != (CERT_SMALL_B,)
+            or not np.isfinite(favg).all() or (favg <= 0).any()):
+        raise AssertionError(f"fleet estimator {fe.shape}, averages "
+                             f"{favg.shape}: not finite and > 0")
+    if not (np.array_equal(again[Errors.ESTIMATOR], fe[perm])
+            and np.array_equal(again[Errors.AVERAGE_ESTIMATOR], favg[perm])):
+        raise AssertionError("a permuted batch did not return the permuted "
+                             "rows bit for bit")
+    for k, v in served_before.items():
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(v, served_after[k])):
+            raise AssertionError(f"served {k} changed across the estimator")
+    if fleet.windows is not ml.cells[0] or hp.windows_srom is not None:
+        raise AssertionError("the estimator left the fleet's windows swapped")
+    # Each μ's estimator row against the coefficient-difference norm of
+    # its own merged trajectories: the rows merge consistently. (The
+    # synthetic windows carry only their bases' end rows, not orthonormal
+    # bases, so compute_rom_difference's reconstruction form does not
+    # apply to them.)
+    fformula = 0.0
+    for b, c in enumerate(cells):
+        uN_b, uNs_b = fest["rom"][b], fest["srom"][b]
+        diff = uNs_b.copy()
+        diff[:, :uN_b.shape[1]] -= uN_b
+        same = (np.linalg.norm(diff, axis=1)
+                / np.sqrt(np.asarray(ml.cells_srom[int(c)].Vs).shape[1]))
+        if not np.allclose(fe[b], same, rtol=1e-12, atol=0.0):
+            raise AssertionError(f"fleet μ {b}: the estimator row is not "
+                                 f"its merged trajectories' norm")
+        fformula = max(fformula, float(np.max(
+            np.abs(fe[b] - same) / np.maximum(np.abs(same), 1e-300))))
+    print(f"  (d) estimate_batch_mulocal, B={CERT_SMALL_B}, float64: "
+          f"{fest_s:.2f} s a call; per cell "
+          + ", ".join(f"{r['cell']} {r['seconds']:.2f} s"
+                      for r in per_cell[:len(per_cell) // 2])
+          + f"; averages {float(favg.min()):.4e}..{float(favg.max()):.4e}; "
+          f"each row the norm of its μ's merged trajectories (largest "
+          f"relative gap {fformula:.2e}, limit 1e-12); "
+          f"the permuted batch's rows bit for bit; the served fleet equal "
+          f"before and after, bit for bit, on {power} ok")
+    info["fleet_estimator"] = dict(
+        B=CERT_SMALL_B, seconds=fest_s, formula_rel_gap=fformula,
+        per_cell=per_cell[:len(per_cell) // 2],
+        average_min=float(favg.min()), average_max=float(favg.max()))
+    del fleet, hp
+
+    # (e) The chained variant on unequal widths, and on equal widths
+    # against the equal-width engine.
+    cmus = synth.synthetic_mus(CERT_SMALL_B, seed=51)
+    cells7 = {d: synth.synthetic_cell(seed=7, n_windows=CHAINED_W, N=32,
+                                      device=d, **CERT_GRID)
+              for d in (dev, "cpu")}
+    widths = sorted(set(np.diff(cells7[dev].windows.bounds).tolist()))
+    with compute_dtype_scope(torch.float64):
+        runs = {d: timed(d, lambda r=r: r.solve_batch(
+            cmus, mode="reduced", engine="windowed", host=False))
+            for d, r in cells7.items()}
+    print(f"  (e) chained, W={CHAINED_W} (widths {widths}), N=32, "
+          f"B={CERT_SMALL_B}, float64: the card {runs[dev][1]:.2f} s, the "
+          f"CPU run {runs['cpu'][1]:.2f} s")
+    chained_gap = same_code("chained", runs[dev][0], runs["cpu"][0], power)
+    cell = synth.synthetic_cell(device=dev, **CERT_GRID)
+    with compute_dtype_scope(torch.float64):
+        equal, equal_s = timed(dev, lambda: cell.solve_batch(
+            cmus, mode="reduced", engine="windowed", host=False))
+        direct, direct_s = timed(dev, lambda: (
+            windowed_lanes.online_sweep_windowed_chained(
+                cell.fom, cell.windows, cell._theta_sources(),
+                cell._lanes_tables("reduced"), cell._mu_batch(cmus),
+                "reduced")))
+    eq_gap = 0.0
+    for key in ("uN", "probes"):
+        err, scale = max_gap(direct[key], equal[key])
+        eq_gap = max(eq_gap, err / scale)
+        if err > CERT_F64_REL * scale:
+            raise AssertionError(f"the chained variant on equal widths "
+                                 f"disagrees on {key}")
+    print(f"  (e) chained on the equal-width 50x32 cell vs the equal-width "
+          f"engine: largest relative gap {eq_gap:.3e} (limit "
+          f"{CERT_F64_REL:.0e}); {direct_s:.2f} s and {equal_s:.2f} s on "
+          f"{power} ok")
+    info["chained"] = dict(widths=widths, card_s=runs[dev][1],
+                           cpu_s=runs["cpu"][1], rel_gap=chained_gap,
+                           equal_width_rel_gap=eq_gap, direct_s=direct_s,
+                           equal_s=equal_s)
+    launches = [c.launches for c in counters(mods)]
+    info["launches"] = launches
+    print(f"certification launches K1-K5 {launches} (K4 and K5 by (a)'s "
+          f"yardsticks, the served fleet's kernels by (d))")
+    if launches[3] != 1 or launches[4] != 1:
+        raise AssertionError(f"phase 9 launched {launches}: K4 and K5 "
+                             f"once each expected")
+    return info
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1437,6 +1775,11 @@ def main():
         del rom15, mus
         torch.cuda.empty_cache()
         fleet = fleet_phase(mods, dev, power)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        certification = certification_phase(mods, dev, power)
+        certification["seconds"] = time.perf_counter() - t0
+        print(f"certification phase: {certification['seconds']:.1f} s")
     for k, v in gkernels.items():
         launches[k] = v.pop("launches")
         kernels[k] = v
@@ -1495,7 +1838,7 @@ def main():
         max_abs_err=max(errs[k]), library_ms=None, **kernels[k])
         for k in KERNELS],
         "shapes": rows, "serving": serving, "autotune": autotune,
-        "fleet": fleet, "card": power}))
+        "fleet": fleet, "certification": certification, "card": power}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

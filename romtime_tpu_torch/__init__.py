@@ -2,11 +2,13 @@
 
 Piston probe serving, windowed (``engine="windowed-pallas"``), on the
 global basis (``engine="pallas"``) and over a μ-local fleet of windowed
-Mach cells (``solve_batch_mulocal``), with the windowed lanes engine
-(``engine="windowed"``) for certification. The offline build stays in the
-JAX package; serving configurations are carried across as numpy
+Mach cells (``solve_batch_mulocal``), with the global and windowed lanes
+engines (``engine="lanes"``, ``engine="windowed"``) in every mode and the
+S-ROM estimator (``HyperReducedPiston.estimate_batch``,
+``estimate_batch_mulocal``) for certification. The offline build stays
+in the JAX package; serving configurations are carried across as numpy
 (``convert.serving_from_arrays``, ``convert.global_serving_from_arrays``,
-``convert.fleet_serving_from_arrays``).
+``convert.fleet_serving_from_arrays``, ``convert.estimator_from_arrays``).
 The serving sweeps run the hand-written CUDA kernels K1-K5
 (``csrc/*.cu``) for CUDA tensors and their plain PyTorch twins for CPU
 tensors. Importing the package loads torch and numpy only; a kernel is
@@ -14,6 +16,8 @@ built at its first launch.
 """
 
 from .convert import (
+    estimator_from_arrays,
+    estimator_to_arrays,
     fleet_serving_from_arrays,
     fleet_serving_to_arrays,
     global_serving_from_arrays,
@@ -24,6 +28,7 @@ from .convert import (
 from .rom import (
     DilationLaw,
     GlobalServing,
+    HyperReducedPiston,
     MuLocalWindowed,
     RomConstructorNonlinear,
     WindowedServing,
@@ -32,9 +37,12 @@ from .rom import (
 __all__ = [
     "DilationLaw",
     "GlobalServing",
+    "HyperReducedPiston",
     "MuLocalWindowed",
     "RomConstructorNonlinear",
     "WindowedServing",
+    "estimator_from_arrays",
+    "estimator_to_arrays",
     "fleet_serving_from_arrays",
     "fleet_serving_to_arrays",
     "global_serving_from_arrays",

@@ -61,6 +61,17 @@ class PistonParameters:
     NONLINEARITY = "eta"
 
 
+class Errors(ProblemType):
+    """Error report keys (reference ``conventions.py:156-164``)."""
+
+    SACRIFICIAL = "sacrificial"
+    ESTIMATOR = "estimator"
+
+    AVERAGE_ROM = "rom_average"
+    AVERAGE_ESTIMATOR = "estimator_average"
+    AVERAGE_SACRIFICIAL = "srom_average"
+
+
 class StorageNames:
     ROM = "basis_rom.pkl"
     SROM = "basis_srom.pkl"

@@ -18,7 +18,9 @@ A serving configuration travels as a flat ``dict[str, np.ndarray]``:
   (``basis`` (nh, N), ``combine_<source>`` (n_out, k), the reductor's
   folded V·(PᵀU)⁻¹, and ``trilinear`` (N², N), the exact trilinear state
   table, which the port does not build: its banded assembly is offline
-  work that stays in the JAX package);
+  work that stays in the JAX package), and, optional, the reductors'
+  ``PT_U_<source>`` (k, k) and ``basis_rom_<source>`` (n_out, k), which
+  float64 serving on the global basis needs (the PᵀU θ-solve);
 - ``dofs_<source>`` for every θ source: the reductor's interpolation
   entries, (k, 2) for MDEIM, (k, 1) for DEIM;
 - ``grid_<name>`` for every μ parameter: its box (lo, hi), in the
@@ -26,6 +28,14 @@ A serving configuration travels as a flat ``dict[str, np.ndarray]``:
   probe the box's corners);
 - the FOM configuration: ``fom_L0``, ``fom_nx``, ``fom_tf``, ``fom_nt``,
   ``fom_degree``, ``fom_bdf`` and the piston regime ``fom_which``.
+
+An estimator (:func:`estimator_from_arrays`) is a ROM payload of any of
+these forms plus its S-ROM under an ``srom_`` prefix: a global
+configuration (``srom_basis``, ``srom_combine_<source>``,
+``srom_trilinear``, ``srom_basis_rom_<source>``; PᵀU is the ROM's, whose
+DEIM the S-ROM shares) or a :class:`WindowedServing` at N+Δ
+(``srom_bounds``, ``srom_Vs``, …). A nested fleet's S-ROM cells travel
+in the fleet payload itself (``serving_ns``).
 
 ``np.savez(path, **payload)`` persists it; the JAX side extracts the same
 payload from a trained ``HyperReducedPiston``.
@@ -36,12 +46,15 @@ import numpy as np
 from .fom import OneDimensionalBurgers
 from .problems import define_piston_problem
 from .rom.engines.global_fused import GlobalServing
+from .rom.hrom import HyperReducedPiston
 from .rom.rom import THETA_SOURCES, RomConstructorNonlinear, make_reductors
 from .rom.windowed import MuLocalWindowed, WindowedServing
 
 _FOM_KEYS = ("fom_L0", "fom_nx", "fom_tf", "fom_nt", "fom_degree",
              "fom_bdf", "fom_which")
 _GLOBAL = "global_"
+_SROM = "srom_"
+_REDUCED = ("PT_U", "basis_rom")
 
 
 def piston_fom(L0, nx, tf, nt, degree=1, bdf="2", which="rest"):
@@ -52,8 +65,34 @@ def piston_fom(L0, nx, tf, nt, degree=1, bdf="2", which="rest"):
                                  degrees=int(degree), bdf_scheme=str(bdf))
 
 
-def _fom_and_reductors(payload):
-    """The FOM and the serving reductors of a payload."""
+def _reduced_parts(arrays, PT_U=None):
+    """source → the reductor's optional ``PT_U`` and ``basis_rom`` from a
+    global configuration's keys (``PT_U`` from the mapping ``PT_U`` where
+    the keys lack it)."""
+    parts = {}
+    for name in THETA_SOURCES:
+        got = {attr: arrays[f"{attr}_{name}"] for attr in _REDUCED
+               if f"{attr}_{name}" in arrays}
+        if PT_U is not None and "PT_U" not in got and name in PT_U:
+            got["PT_U"] = PT_U[name]
+        parts[name] = got
+    return parts
+
+
+def _reduced_arrays(rom):
+    """The ``PT_U_<source>``/``basis_rom_<source>`` keys of a serving
+    object's reductors (the ones they hold)."""
+    out = {}
+    for name, red in rom._theta_sources().items():
+        for attr in _REDUCED:
+            if getattr(red, attr) is not None:
+                out[f"{attr}_{name}"] = np.asarray(getattr(red, attr))
+    return out
+
+
+def _fom_and_reductors(payload, reduced=None):
+    """The FOM and the serving reductors of a payload (``reduced``: the
+    global configuration's keys that carry PᵀU and ``basis_rom``)."""
     missing = [k for k in _FOM_KEYS[:-1] if k not in payload]
     missing += [f"dofs_{n}" for n in THETA_SOURCES
                 if f"dofs_{n}" not in payload]
@@ -66,7 +105,8 @@ def _fom_and_reductors(payload):
         which=str(np.asarray(payload.get("fom_which", "rest"))),
     )
     reductors = make_reductors(
-        fom, {n: np.asarray(payload[f"dofs_{n}"]) for n in THETA_SOURCES})
+        fom, {n: np.asarray(payload[f"dofs_{n}"]) for n in THETA_SOURCES},
+        _reduced_parts(reduced or {}))
     return fom, reductors
 
 
@@ -89,9 +129,9 @@ def _windowed_object(payload, windows, device):
     """The serving object of a windowed or fleet payload, ``windows``
     active; the global configuration rides along when the payload has
     ``global_`` keys."""
-    fom, reductors = _fom_and_reductors(payload)
     glob = {k[len(_GLOBAL):]: v for k, v in payload.items()
             if k.startswith(_GLOBAL)}
+    fom, reductors = _fom_and_reductors(payload, glob)
     gs = GlobalServing.from_arrays(glob) if glob else None
     return RomConstructorNonlinear(fom, reductors, windows, device=device,
                                    global_serving=gs, grid=_grid(payload))
@@ -125,7 +165,7 @@ def global_serving_from_arrays(payload, device="cuda"):
     default)."""
     if "basis" not in payload:
         raise KeyError("global serving payload lacks 'basis'")
-    fom, reductors = _fom_and_reductors(payload)
+    fom, reductors = _fom_and_reductors(payload, payload)
     grid = _grid(payload)
     gs = GlobalServing.from_arrays(_serving_arrays(payload))
     return RomConstructorNonlinear(fom, reductors, device=device,
@@ -148,11 +188,17 @@ def _fom_and_dofs_arrays(rom, which):
     return payload
 
 
+def _global_arrays(rom):
+    """A serving object's global configuration keys: the
+    :class:`GlobalServing` keys and its reductors' PᵀU and ``basis_rom``."""
+    return dict(rom.global_serving.to_arrays(), **_reduced_arrays(rom))
+
+
 def _windowed_arrays(rom, serving, which):
     payload = dict(serving.to_arrays(), **_fom_and_dofs_arrays(rom, which))
     if rom.global_serving is not None:
         payload.update({_GLOBAL + k: v for k, v in
-                        rom.global_serving.to_arrays().items()})
+                        _global_arrays(rom).items()})
     return payload
 
 
@@ -168,5 +214,61 @@ def fleet_serving_to_arrays(rom, which="rest"):
 
 def global_serving_to_arrays(rom, which="rest"):
     """Inverse of :func:`global_serving_from_arrays`."""
-    return dict(rom.global_serving.to_arrays(),
-                **_fom_and_dofs_arrays(rom, which))
+    return dict(_global_arrays(rom), **_fom_and_dofs_arrays(rom, which))
+
+
+def estimator_from_arrays(payload, device="cuda"):
+    """Build the port's S-ROM estimator (:class:`HyperReducedPiston`)
+    from a plain-numpy payload, serving on ``device`` (the card by
+    default): the ROM from the payload's own keys (a fleet when it has
+    ``edges``, windows when it has ``bounds``, else a global basis), the
+    S-ROM from the ``srom_`` keys (a global configuration sharing the
+    ROM's FOM, dofs and PᵀU, or a windowed one), none without them."""
+    rom_payload = {k: v for k, v in payload.items()
+                   if not k.startswith(_SROM)}
+    srom_arrays = {k[len(_SROM):]: v for k, v in payload.items()
+                   if k.startswith(_SROM)}
+    if "edges" in rom_payload:
+        rom = fleet_serving_from_arrays(rom_payload, device)
+    elif "bounds" in rom_payload:
+        rom = serving_from_arrays(rom_payload, device)
+    else:
+        rom = global_serving_from_arrays(rom_payload, device)
+    srom = windows_srom = None
+    if "basis" in srom_arrays:
+        PT_U = {name: red.PT_U for name, red in rom.reductors.items()
+                if red.PT_U is not None}
+        reductors = make_reductors(
+            rom.fom, {name: red.dofs_array()
+                      for name, red in rom.reductors.items()},
+            _reduced_parts(srom_arrays, PT_U))
+        srom = RomConstructorNonlinear(
+            rom.fom, reductors, device=device,
+            global_serving=GlobalServing.from_arrays(srom_arrays),
+            grid=rom.grid)
+    elif "bounds" in srom_arrays:
+        windows_srom = WindowedServing.from_arrays(srom_arrays)
+    elif srom_arrays:
+        raise KeyError("the S-ROM keys hold neither a global configuration "
+                       "('srom_basis') nor windows ('srom_bounds')")
+    return HyperReducedPiston(rom, srom=srom, windows_srom=windows_srom)
+
+
+def estimator_to_arrays(est, which="rest"):
+    """Inverse of :func:`estimator_from_arrays`."""
+    rom = est.rom
+    if rom.mulocal is not None:
+        payload = fleet_serving_to_arrays(rom, which)
+    elif rom.windows is not None:
+        payload = serving_to_arrays(rom, which)
+    else:
+        payload = global_serving_to_arrays(rom, which)
+    if est.srom is not None:
+        srom = {k: v for k, v in _global_arrays(est.srom).items()
+                if not k.startswith("PT_U_")}
+    elif est.windows_srom is not None:
+        srom = est.windows_srom.to_arrays()
+    else:
+        srom = {}
+    payload.update({_SROM + k: v for k, v in srom.items()})
+    return payload

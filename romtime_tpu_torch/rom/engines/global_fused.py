@@ -10,8 +10,8 @@ time grid, so the windowed engine's two stages carry it:
    (``pallas_global.py:107-196``). :func:`global_prep` is the windowed
    prep without a dilation law (``:90-98``, ``:166-175``): the raw
    gathered entries it streams are the reference's f32 ``_thetas_traced``
-   (the reductors' ``_thetas_traced`` here), which pair with the folded
-   combines.
+   (the reductors' ``_entries_traced`` here, what their ``_thetas_traced``
+   returns under float32 serving), which pair with the folded combines.
 2. :func:`global_sweep` routes on the precompute budget (``:204-221``):
    while the materialized tables (2·nt·NP²·B·4 bytes) fit it, MN/KL/fN
    are plain products of the combine tensors with the θ rows (the

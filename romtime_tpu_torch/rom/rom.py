@@ -2,9 +2,10 @@
 ``romtime_tpu/rom/rom.py``: ``RomConstructorNonlinear.solve_batch`` with
 ``mode="probes"`` on windowed serving, the ``"windowed-pallas"`` engine,
 and on the global basis, the ``"pallas"`` engine, behind the reference's
-pivot-free guard ``certify_pivot_free``; the windowed lanes engine
-``"windowed"`` in every mode, float64 or float32; a μ-local fleet routed
-by Mach cell, ``solve_batch_mulocal``).
+pivot-free guard ``certify_pivot_free``; the global lanes engine
+``"lanes"`` and the windowed lanes engine ``"windowed"`` in every mode,
+float64 or float32; a μ-local fleet routed by Mach cell,
+``solve_batch_mulocal``).
 
 The offline build (POD, DEIM training, window construction, the
 trilinear state table) stays in the JAX package; a serving object here is
@@ -31,6 +32,7 @@ from .engines.global_fused import (
     global_tables,
     supported,
 )
+from .engines.global_lanes import global_lanes_tables, online_scan_batch
 from .engines.policy import PrecomputePolicy, SolvePolicy, box_corners
 from .engines.windowed_fused import (
     windowed_prep,
@@ -59,10 +61,14 @@ THETA_SOURCES = {
 }
 
 
-def make_reductors(fom, dofs):
-    """Serving reductors bound to ``fom`` from per-source dofs."""
+def make_reductors(fom, dofs, reduced=None):
+    """Serving reductors bound to ``fom`` from per-source dofs;
+    ``reduced`` maps a source name to its optional ``PT_U`` and
+    ``basis_rom`` (the global basis's float64 θ-solve)."""
+    reduced = reduced or {}
     return {
-        name: cls(assemble=getattr(fom, method), dofs=dofs[name], name=name)
+        name: cls(assemble=getattr(fom, method), dofs=dofs[name], name=name,
+                  **reduced.get(name, {}))
         for name, (cls, method) in THETA_SOURCES.items()
     }
 
@@ -133,19 +139,23 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         """``build()``'s device tables for the configuration ``win``,
         cached on ``win`` under ``key`` with this object's device and dt,
         as the solve policy memoizes on it; rebuilt when ``win``'s
-        dilation law was replaced since."""
+        dilation law was replaced since. A
+        :class:`~romtime_tpu_torch.rom.engines.global_fused.GlobalServing`
+        caches its lanes tables the same way (it has no dilation law)."""
         cache = win.__dict__.setdefault("_serving_tables", {})
         key = (str(self.device), float(self.fom.dt)) + key
+        dilation = getattr(win, "dilation", None)
         hit = cache.get(key)
-        if hit is None or hit[0] is not win.dilation:
-            hit = cache[key] = (win.dilation, build())
+        if hit is None or hit[0] is not dilation:
+            hit = cache[key] = (dilation, build())
         return hit[1]
 
     def _guard_parts(self, mu, t):
         """(M_N, dt·S_N) of the global basis at (μ, t) and the zero state,
-        float64 numpy: each operator is its folded combine times its θ
-        (the reference's ``assemble_*``), S_N = A_N + C_N + N̂_N (the
-        trilinear term vanishes at the zero state, rom.py:1589-1634)."""
+        float64 numpy: each operator is its folded combine times its raw
+        gathered entries (the reference's ``assemble_*``), S_N = A_N +
+        C_N + N̂_N (the trilinear term vanishes at the zero state,
+        rom.py:1589-1634)."""
         gs = self.global_serving
         N = gs.N
         with compute_dtype_scope(torch.float64):
@@ -154,7 +164,7 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
             t_b = torch.tensor(float(t), dtype=torch.float64)
 
             def op(name):
-                theta = self.reductors[name]._thetas_traced(mu_b, t_b)
+                theta = self.reductors[name]._entries_traced(mu_b, t_b)
                 return (np.asarray(gs.combines[name], np.float64)
                         @ theta.numpy()[:, 0]).reshape(N, N)
 
@@ -223,6 +233,14 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
             windowed_lanes_tables(win, self._theta_sources(), mode, dtype,
                                   self.device)))
 
+    def _global_lanes_tables(self, mode):
+        """The global lanes engine's tables, cached on the global
+        configuration per (mode, compute dtype)."""
+        gs, dtype = self.global_serving, compute_dtype()
+        return self._cell_tables(gs, ("lanes", mode, dtype), lambda: (
+            global_lanes_tables(gs, self._theta_sources(), mode, dtype,
+                                self.device)))
+
     def _global_serving_tables(self):
         if self._global_tables is None:
             self._global_tables = global_tables(
@@ -251,10 +269,13 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
 
     def _resolve_engine(self, mode, B):
         """The reference's engine choice (``rom.py:1262-1267``): windows
-        attached → ``"windowed-pallas"``; the global engine's gate holds →
-        ``"pallas"``. Where the reference would take its global lanes (or
-        vmap) engine, which is not ported, this raises; the windowed lanes
-        engine, ``"windowed"``, is taken only when asked for, as in the
+        attached and ``mode="probes"`` → ``"windowed-pallas"``; the global
+        engine's gate holds → ``"pallas"``; otherwise the global lanes
+        engine, ``"lanes"``. The reference's vmap engine, taken only where
+        an operator has no trained reductor (``rom.py:1051-1061``), is not
+        ported (ROADMAP Queue 1, item 4): a serving object holds every
+        reductor, so it never resolves there. The windowed lanes engine,
+        ``"windowed"``, is taken only when asked for, as in the
         reference."""
         if self.windows is not None and mode == "probes":
             return "windowed-pallas"
@@ -263,11 +284,7 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
                 and supported(B, gs.N, compute_dtype(),
                               gs.trilinear is not None)):
             return "pallas"
-        raise NotImplementedError(
-            f"mode {mode!r} at B={B} in {compute_dtype()} takes the "
-            f"reference's global lanes engine (vmap without "
-            f"hyper-reduction), which is not ported (ROADMAP Queue 1, "
-            f"item 2)")
+        return "lanes"
 
     def _serve(self, mus, engine, mode="probes"):
         """Stages 1 and 2 of ``engine`` on the device: (nt, …, B) tensors
@@ -280,12 +297,19 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
             return online_sweep_windowed(
                 self.fom, self.windows, self._theta_sources(),
                 self._lanes_tables(mode), self._mu_batch(mus), mode)
+        if engine == "lanes":
+            gs = self.global_serving
+            if gs is None:
+                raise ValueError("no global serving configuration attached")
+            self._ensure_pivot_free_certified()
+            return online_scan_batch(
+                self.fom, gs, self._theta_sources(),
+                self._global_lanes_tables(mode), self._mu_batch(mus), mode,
+                self.precompute_choice)
         if mode != "probes":
             raise NotImplementedError(
-                f"mode {mode!r} is served by engine='windowed' (the "
-                f"reference's global lanes engine is not ported, ROADMAP "
-                f"Queue 1, item 2); engine {engine!r} serves "
-                f"mode='probes'")
+                f"engine {engine!r} serves mode='probes'; mode {mode!r} is "
+                f"served by engine='lanes' or 'windowed'")
         if engine == "windowed-pallas":
             if self.windows is None:
                 raise ValueError("no windowed serving configuration "
@@ -306,7 +330,8 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
                                 self.precompute_choice)
         raise NotImplementedError(
             f"engine {engine!r} is not ported (ported: 'windowed-pallas', "
-            f"'pallas', 'windowed')")
+            f"'pallas', 'lanes', 'windowed'; the reference's 'vmap' engine "
+            f"is ROADMAP Queue 1, item 4)")
 
     def solve_batch(self, mus, step=Stage.ONLINE, mode="reduced", engine=None,
                     host=True, probe_reduce=None):
@@ -319,13 +344,15 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         ``ROMTIME_WINDOWED_KERNEL=v2``, K3 per window. Global
         (``engines/global_fused.global_sweep``): K4 over the materialized
         tables on the same test, else K5. Those serve ``mode="probes"``.
-        ``engine="windowed"`` (``engines/windowed_lanes``), the
-        reference's certification engine, serves ``"probes"``,
-        ``"reduced"`` and ``"full"`` in the compute dtype (float64 under
-        ``compute_dtype_scope``, else float32 with the dd carry). The
-        reference's default ``"reduced"`` without an engine resolves to
-        its global lanes engine, which is not ported, and raises
-        ``NotImplementedError``.
+        ``engine="lanes"`` (``engines/global_lanes``), the reference's
+        global lanes engine, and ``engine="windowed"``
+        (``engines/windowed_lanes``), its windowed certification engine,
+        serve ``"probes"``, ``"reduced"`` and ``"full"`` in the compute
+        dtype (float64 under ``compute_dtype_scope``, else float32 with
+        the dd carry). Without an engine, ``"reduced"`` and ``"full"``,
+        and ``"probes"`` outside the global kernels' gate, resolve to
+        ``"lanes"`` (:meth:`_resolve_engine`); it raises ``ValueError``
+        where no global configuration is attached.
 
         Returns batch-first numpy arrays: ``t``, ``probes`` (B, nt, 2) —
         or (B, 2) / (B, nt//k, 2) with ``probe_reduce`` "mean" / k —

@@ -34,6 +34,17 @@ def _load_dilation(data, prefix):
     )
 
 
+def leading_modes(C, N, Nh):
+    """The N-mode block of an Nh-mode combine (…, n_out, k): its leading
+    N×N operator block (n_out = Nh²) or its first N rows (n_out = Nh)."""
+    C = np.asarray(C)
+    lead, k = C.shape[:-2], C.shape[-1]
+    if C.shape[-2] == Nh * Nh:
+        C = C.reshape(lead + (Nh, Nh, k))[..., :N, :N, :]
+        return np.ascontiguousarray(C.reshape(lead + (N * N, k)))
+    return np.ascontiguousarray(C[..., :N, :])
+
+
 @dataclass
 class WindowedServing:
     """Per-window serving artifacts."""
@@ -102,15 +113,8 @@ class WindowedServing:
             raise ValueError(f"cannot truncate N={Nh} to {N}")
         if N == Nh:
             return self
-        combines = {}
-        for name, C in self.combines.items():
-            C = np.asarray(C)
-            W, n_out, k = C.shape
-            if n_out == Nh * Nh:
-                combines[name] = np.ascontiguousarray(
-                    C.reshape(W, Nh, Nh, k)[:, :N, :N].reshape(W, N * N, k))
-            else:
-                combines[name] = np.ascontiguousarray(C[:, :N])
+        combines = {name: leading_modes(C, N, Nh)
+                    for name, C in self.combines.items()}
         tri = None
         if self.trilinear is not None:
             T = np.asarray(self.trilinear)

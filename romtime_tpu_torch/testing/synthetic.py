@@ -19,7 +19,14 @@ skipped, as the reference skips it).
 The synthetic fleet (:func:`synthetic_fleet`) is the flagship's six
 Mach cells (``bench.py``'s ``cell_wn``: four 50x32 cells and two 150x48
 cells) on one FOM and one set of reductors, each cell drawn by the same
-recipe, with equal-width Mach edges over the μ box.
+recipe, with equal-width Mach edges over the μ box; with ``srom_extra``
+each cell is drawn at N+Δ and the serving cell sliced from it, as the
+reference nests its S-ROM cells.
+
+The synthetic estimator (:func:`synthetic_estimator`) is the global pair
+of ``bench.py``'s throughput profile: an S-ROM at N̂=20 with an
+orthonormal basis, each reductor's PᵀU (unit lower triangular, as DEIM's
+is) and ``basis_rom``, and the ROM at N=15 as its leading blocks.
 """
 
 import numpy as np
@@ -30,9 +37,10 @@ from ..dtypes import compute_dtype_scope
 from ..ops.windowed_fused import PROBE_P, pad_dim
 from ..rom.engines.global_fused import GlobalServing
 from ..rom.engines.windowed_fused import time_grid
+from ..rom.hrom import HyperReducedPiston
 from ..rom.registration import DilationLaw
 from ..rom.rom import THETA_SOURCES, RomConstructorNonlinear, make_reductors
-from ..rom.windowed import MuLocalWindowed, WindowedServing
+from ..rom.windowed import MuLocalWindowed, WindowedServing, leading_modes
 
 #: The μ box of the flagship benchmark (a0, ω, δ; α and γ fixed): the
 #: ``grid`` of the synthetic serving objects (the pivot-free guard and the
@@ -282,24 +290,34 @@ def _draw_law(rng):
 
 
 def synthetic_fleet(cell_wn=FLEET_CELL_WN, register=(5,), seed=0, nx=1000,
-                    nt=1500, tf=1.0, k=8, device="cuda"):
+                    nt=1500, tf=1.0, k=8, device="cuda", srom_extra=None):
     """A seeded μ-local fleet on the real piston FOM: one FOM and one set
     of reductors (dofs drawn once), one cell per (W, N) of ``cell_wn``
     drawn by :func:`synthetic_cell`'s recipe, equal-width Mach edges over
     :data:`MU_BOX`, and a seeded guarded dilation law on each cell of
-    ``register``. Returns the serving object with the fleet attached as
-    ``mulocal`` and cell 0 active."""
+    ``register``. With ``srom_extra`` = Δ (``bench.py``'s default is 8)
+    each cell is drawn at (W, N+Δ), kept as the fleet's nested S-ROM cell
+    (``cells_srom``), and the serving cell is its
+    :meth:`~romtime_tpu_torch.rom.windowed.WindowedServing.truncate` to
+    N. Returns the serving object with the fleet attached as ``mulocal``
+    and cell 0 active."""
     rng = np.random.default_rng(seed)
     fom, reductors, scales = _base_parts(rng, nx, nt, tf, k)
-    cells = [_draw_windows(rng, fom.mesh.nh, nt, scales, W, N, k)
+    extra = srom_extra or 0
+    drawn = [_draw_windows(rng, fom.mesh.nh, nt, scales, W, N + extra, k)
              for W, N in cell_wn]
     for c in register:
-        cells[c].dilation = _draw_law(rng)
+        drawn[c].dilation = _draw_law(rng)
+    cells, cells_srom = drawn, None
+    if srom_extra:
+        cells = [w.truncate(N) for w, (_W, N) in zip(drawn, cell_wn)]
+        cells_srom = drawn
     edges = RomConstructorNonlinear.compute_piston_mach_number_space(
         MU_BOX, len(cells))
     rom = RomConstructorNonlinear(fom, reductors, cells[0], device=device,
                                   grid=MU_BOX)
-    rom.mulocal = MuLocalWindowed(edges=edges, cells=cells)
+    rom.mulocal = MuLocalWindowed(edges=edges, cells=cells,
+                                  cells_srom=cells_srom)
     return rom
 
 
@@ -319,6 +337,57 @@ def synthetic_global_cell(N=15, k=8, nx=1000, nt=1500, seed=0,
                        trilinear=0.02 * rng.normal(size=(N * N, N)))
     return RomConstructorNonlinear(fom, reductors, device=device,
                                    global_serving=gs, grid=MU_BOX)
+
+
+def synthetic_estimator(N=15, N_hat=20, k=8, nx=1000, nt=1500, seed=0,
+                        device="cuda"):
+    """A seeded global S-ROM estimator on the real piston FOM
+    (:class:`~romtime_tpu_torch.rom.hrom.HyperReducedPiston` with ``rom``
+    and ``srom``): the S-ROM drawn at ``N_hat`` by
+    :func:`synthetic_global_cell`'s recipe with an orthonormal basis (the
+    estimator's coefficient norm is the reconstruction norm only then),
+    a well-conditioned unit lower triangular ``PT_U`` per source,
+    ``basis_rom`` = folded·PᵀU and the folded combine reset to
+    basis_rom·(PᵀU)⁻¹ in float64, so that the float32 and float64 forms
+    describe one operator; the ROM at ``N`` takes the leading blocks of
+    the basis, of ``basis_rom``, of the folded combines and of the
+    trilinear table, and shares the dofs and PᵀU."""
+    rng = np.random.default_rng(seed)
+    fom, base, scales = _base_parts(rng, nx, nt, 1.0, k)
+    dofs = {name: red.dofs_array() for name, red in base.items()}
+    folded = _draw_combines(rng, scales, 1, N_hat, k)
+    PT_U, basis_rom, combines = {}, {}, {}
+    for name in THETA_SOURCES:
+        P = np.eye(k) + np.tril(0.2 * rng.normal(size=(k, k)), -1)
+        PT_U[name] = P
+        basis_rom[name] = folded[name][0] @ P
+        combines[name] = basis_rom[name] @ np.linalg.inv(P)
+    basis = np.linalg.qr(rng.normal(size=(fom.mesh.nh, N_hat)))[0]
+    tri = 0.02 * rng.normal(size=(N_hat * N_hat, N_hat))
+
+    def serving(n):
+        lead = {name: {"PT_U": PT_U[name],
+                       "basis_rom": leading_modes(basis_rom[name], n,
+                                                  N_hat)}
+                for name in THETA_SOURCES}
+        gs = GlobalServing(
+            basis=np.ascontiguousarray(basis[:, :n]),
+            combines={name: leading_modes(C, n, N_hat)
+                      for name, C in combines.items()},
+            trilinear=np.ascontiguousarray(
+                tri.reshape(N_hat, N_hat, N_hat)[:n, :n, :n]
+                .reshape(n * n, n)))
+        return RomConstructorNonlinear(fom, make_reductors(fom, dofs, lead),
+                                       device=device, global_serving=gs,
+                                       grid=MU_BOX)
+
+    return HyperReducedPiston(serving(N), srom=serving(N_hat))
+
+
+def certification_mus(n_held_out=15, seed=7):
+    """The certification batch: ``n_held_out`` μ drawn from
+    :data:`MU_BOX` and the box center, last."""
+    return synthetic_mus(n_held_out, seed=seed) + [mu_center()]
 
 
 def global_tables(N, nt, B, seed=0, device="cuda", theta=False,

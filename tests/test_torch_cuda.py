@@ -5,7 +5,11 @@ option; K2-K5 in both of theirs: the serving body,
 csrc/resid_tables_serving.cu, csrc/windowed_serving.cu,
 csrc/global_tables_serving.cu and csrc/global_serving.cu, and the first
 designs csrc/resid_sweep.cu and csrc/global_sweep.cu, each against the
-op-for-op twin, the split twin and the other design).
+op-for-op twin, the split twin and the other design), and the
+certification path on the card (phase 9 of chip_smoke.py at a small
+size: the global lanes engine against the served K4 and K5, the S-ROM
+estimators and the chained lanes variant in float64 against an explicit
+CPU run).
 Needs a CUDA device and nvcc; skips without a device. Imports no JAX, so
 it runs on a machine without it (tests/conftest.py imports JAX,
 hence ``--noconftest``):
@@ -21,9 +25,12 @@ from romtime_tpu_torch.ops import global_sweep as gs
 from romtime_tpu_torch.ops import resid_sweep as rs
 from romtime_tpu_torch.ops import windowed_fused as k1
 from romtime_tpu_torch.testing.synthetic import (
+    certification_mus,
     global_tables,
     kernel_tables,
     resid_tables,
+    synthetic_cell,
+    synthetic_estimator,
     synthetic_fleet,
     synthetic_mus,
 )
@@ -618,3 +625,147 @@ def test_cuda_fleet_routed_and_lanes():
         assert np.abs(direct["uN_final"] - lanes["uN_final"]).max() <= 5e-5
     assert routed["dil"][:32].tolist() == [1.0] * 32
     assert (routed["dil"][32:] != 1.0).any()
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget,kernel", [(None, "K4"), (0, "K5")])
+def test_cuda_global_lanes_against_served(budget, kernel):
+    """The float32 global lanes engine (mode="reduced", no engine) against
+    the served K4 or K5 on the same μ at tests/test_rom.py:196-200's
+    limits (probes 3e-5·scale, uN_final 1e-4·max(|uN|, 1))."""
+    _need_cuda()
+    from romtime_tpu_torch.rom.engines import global_fused as engine
+
+    rom = synthetic_estimator(nx=200, nt=300, device="cuda").rom
+    if budget is not None:
+        rom.ONLINE_PRECOMPUTE_BUDGET = budget
+    mus = synthetic_mus(128, seed=3)
+    assert rom._resolve_engine("reduced", 128) == "lanes"
+    counter = (engine.online_sweep_pallas if kernel == "K4"
+               else engine.online_sweep_theta_pallas)
+    lanes = rom.solve_batch(mus)
+    n0 = counter.serving_launches
+    served = rom.solve_batch(mus, mode="probes")
+    assert counter.serving_launches == n0 + 1
+    scale = np.abs(lanes["probes"]).max()
+    assert np.abs(served["probes"] - lanes["probes"]).max() <= 3e-5 * scale
+    uN = lanes["uN"][:, -1]
+    assert np.abs(served["uN_final"] - uN).max() <= (
+        1e-4 * max(np.abs(uN).max(), 1.0))
+
+
+@pytest.mark.cuda
+def test_cuda_global_estimator_card_vs_cpu():
+    """estimate_batch in float64 on the card against the explicit CPU run:
+    the sweeps within 1e-9·scale, the estimator the reconstruction-norm
+    formula on its trajectories (rtol 1e-10) and within the triangle
+    bound of the sweeps' gaps (tests/test_hrom.py:442-520)."""
+    _need_cuda()
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.utils import compute_rom_difference
+
+    mus = certification_mus()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        est = synthetic_estimator(nx=200, nt=150, device=dev)
+        with compute_dtype_scope(torch.float64):
+            outs[dev] = est.estimate_batch(mus)
+    got, ref = outs["cuda"], outs["cpu"]
+    traj = {}
+    for name in ("rom", "srom"):
+        for key in ("uN", "probes"):
+            a, b = got[name][key].cpu(), ref[name][key]
+            assert (a - b).abs().max().item() <= 1e-9 * b.abs().max().item()
+        traj[name] = (got[name]["uN"].movedim(-1, 0).cpu().numpy(),
+                      ref[name]["uN"].movedim(-1, 0).numpy())
+    V = np.asarray(est.srom.global_serving.basis)
+    e, e_cpu = got["estimator"], ref["estimator"]
+    assert e.shape == (16, 150) and np.isfinite(e).all() and (e >= 0).all()
+    for b in range(16):
+        same = [compute_rom_difference(traj["rom"][0][b, i],
+                                       traj["srom"][0][b, i], V)
+                for i in range(150)]
+        np.testing.assert_allclose(e[b], same, rtol=1e-10, atol=1e-17)
+        noise = sum(np.linalg.norm(g[b] - c[b], axis=1)
+                    for g, c in traj.values()) / np.sqrt(V.shape[0])
+        assert np.all(np.abs(e[b] - e_cpu[b])
+                      <= noise + 1e-12 * e_cpu[b] + 1e-16)
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_estimator():
+    """estimate_batch_mulocal in float64 on a nested two-cell fleet: the
+    rows of a permuted batch bit for bit, the served fleet untouched, each
+    μ's merged trajectories within 1e-9·scale of the CPU run's and the
+    estimators within the triangle bound of those gaps
+    (tests/test_hrom.py:442-520)."""
+    _need_cuda()
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.rom.hrom import HyperReducedPiston
+
+    mus = synthetic_mus(16, seed=4)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        rom = synthetic_fleet(cell_wn=((4, 8), (6, 12)), register=(1,),
+                              nx=200, nt=120, srom_extra=8, device=dev)
+        hp = HyperReducedPiston(rom)
+        before = rom.solve_batch_mulocal(mus)
+        with compute_dtype_scope(torch.float64):
+            outs[dev] = hp.estimate_batch_mulocal(mus)
+            if dev == "cuda":
+                perm = np.random.default_rng(1).permutation(16)
+                again = hp.estimate_batch_mulocal([mus[i] for i in perm])
+                np.testing.assert_array_equal(
+                    again["estimator"], outs[dev]["estimator"][perm])
+        after = rom.solve_batch_mulocal(mus)
+        for k, v in before.items():
+            for a, b in zip(after[k], v):
+                np.testing.assert_array_equal(a, b)
+    e, e_cpu = outs["cuda"]["estimator"], outs["cpu"]["estimator"]
+    assert e.shape == (16, 120)
+    assert (outs["cuda"]["estimator_average"] > 0).all()
+    Nh = np.asarray(rom.mulocal.cells_srom[0].Vs).shape[1]
+    for b in range(16):
+        noise = 0.0
+        for key in ("rom", "srom"):
+            g, c = outs["cuda"][key][b], outs["cpu"][key][b]
+            assert np.abs(g - c).max() <= 1e-9 * max(np.abs(c).max(), 1e-30)
+            noise = noise + np.linalg.norm(g - c, axis=1)
+        assert np.all(np.abs(e[b] - e_cpu[b])
+                      <= noise / np.sqrt(Nh) + 1e-12 * e_cpu[b] + 1e-16)
+
+
+@pytest.mark.cuda
+def test_cuda_chained_card_vs_cpu():
+    """The chained lanes variant in float64 on unequal widths (W=7 on
+    nt=150), card against the explicit CPU run at 1e-9·scale, and on
+    equal widths against the equal-width engine."""
+    _need_cuda()
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.rom.engines import windowed_lanes
+
+    mus = synthetic_mus(16, seed=6)
+    outs = {}
+    with compute_dtype_scope(torch.float64):
+        for dev in ("cuda", "cpu"):
+            cell = synthetic_cell(seed=7, nx=200, nt=150, n_windows=7, N=12,
+                                  device=dev)
+            assert len(set(np.diff(cell.windows.bounds).tolist())) > 1
+            outs[dev] = cell.solve_batch(mus, engine="windowed")
+        equal = synthetic_cell(seed=7, nx=200, nt=150, n_windows=5, N=12,
+                               device="cuda")
+        want = equal.solve_batch(mus, engine="windowed", host=False)
+        direct = windowed_lanes.online_sweep_windowed_chained(
+            equal.fom, equal.windows, equal._theta_sources(),
+            equal._lanes_tables("reduced"), equal._mu_batch(mus), "reduced")
+    for key in ("uN", "probes"):
+        scale = np.abs(outs["cpu"][key]).max()
+        assert np.abs(outs["cuda"][key] - outs["cpu"][key]).max() <= (
+            1e-9 * scale)
+        scale = want[key].abs().max().item()
+        assert (direct[key] - want[key]).abs().max().item() <= 1e-9 * scale

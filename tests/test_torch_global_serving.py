@@ -167,25 +167,35 @@ def test_global_routing(global_cell, monkeypatch, B_, budget, override, cap,
 
 def test_engine_gate(global_cell):
     """The gate of test_pallas_supported_gating: the global engine serves
-    f32 batches of whole 128-lane blocks; elsewhere the reference takes its
-    lanes engine, which the port does not have, so it raises. An explicit
-    engine="pallas" serves any batch."""
-    rom, payload, _mus_, _ref = global_cell
+    f32 batches of whole 128-lane blocks; elsewhere the port resolves to
+    the reference's global lanes engine, "lanes", and serves there (the
+    same probes as the K4 branch, within the reference's 3e-5·scale of
+    test_solve_batch_pallas_engine). An explicit engine="pallas" serves
+    any batch, and engine="lanes" serves a gated batch too."""
+    rom, payload, _mus_, ref = global_cell
     port = _port(payload)
     with compute_dtype_scope(jnp.float32):
         assert rom._resolve_engine("probes", 128) == "pallas"
         assert rom._resolve_engine("probes", 100) == "lanes"
     assert port._resolve_engine("probes", 128) == "pallas"
-    with pytest.raises(NotImplementedError, match="lanes"):
-        port.solve_batch(piston_mus(100), mode="probes")
+    assert port._resolve_engine("probes", 100) == "lanes"
+    assert port._resolve_engine("reduced", 128) == "lanes"
+    lanes = port.solve_batch(_mus_[:100], mode="probes")
+    assert lanes["probes"].shape == (100, 96, 2)
+    want = ref["matrices"]["probes"][:100]
+    scale = np.abs(want).max()
+    assert np.abs(lanes["probes"] - want).max() <= 3e-5 * scale
     with port_dtype_scope(torch.float64):
-        with pytest.raises(NotImplementedError, match="lanes"):
-            port.solve_batch(piston_mus(128), mode="probes")
+        assert port._resolve_engine("probes", 128) == "lanes"
+        out64 = port.solve_batch(_mus_[:4], mode="probes")
+    assert out64["probes"].dtype == np.float64
+    assert np.abs(out64["probes"] - want[:4]).max() <= 3e-5 * scale
     out = port.solve_batch(piston_mus(100), mode="probes", engine="pallas")
     assert out["probes"].shape == (100, 96, 2)
     assert np.isfinite(out["probes"]).all()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.solve_batch(piston_mus(128), mode="probes", engine="lanes")
+    forced = port.solve_batch(_mus_, mode="probes", engine="lanes")
+    assert np.abs(forced["probes"] - ref["matrices"]["probes"]).max() <= (
+        3e-5 * np.abs(ref["matrices"]["probes"]).max())
 
 
 def test_autotune_online_precompute(global_cell, tmp_path):

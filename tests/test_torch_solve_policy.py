@@ -10,8 +10,9 @@
   cell; the ill-conditioned family refused and the benign one passed
   (tests/test_pivot_guard.py:84, :90); ``PIVOT_GUARD="off"`` and a
   missing global basis skip it;
-- F1: ``solve_batch``'s default mode is the reference's ``"reduced"``,
-  which runs the unported lanes engine, so a bare call raises;
+- F1, closed: ``solve_batch``'s default mode is the reference's
+  ``"reduced"``, which runs the global lanes engine: a bare call serves
+  there, and raises ``ValueError`` without a global configuration;
 - F4: the paired-LU period is the reference's kernel chunk
   ``_fused_chunk`` (pallas_online.py:1591-1602), and serving passes it.
 """
@@ -204,12 +205,28 @@ def test_guard_runs_once_before_the_first_sweep(piston_cell, monkeypatch):
 
 
 def test_bare_solve_batch_raises(piston_cell):
-    """F1: the reference's default mode, "reduced", runs its lanes
-    engine (rom.py:1168, :1262-1267), which is not ported."""
-    _rom, payload = piston_cell
-    port = serving_from_arrays(payload, device="cpu")
-    with pytest.raises(NotImplementedError, match="lanes"):
-        port.solve_batch(piston_mus(2))
+    """F1, closed: the reference's default mode, "reduced", runs its
+    global lanes engine (rom.py:1168, :1262-1267). The port's bare
+    ``solve_batch(mus)`` serves there where the payload has a global
+    configuration (equal to the explicit engine="lanes" call), and raises
+    ``ValueError`` where it has none."""
+    rom, payload = piston_cell
+    port = serving_from_arrays(payload_from_rom(rom, with_trilinear=True),
+                               device="cpu")
+    mus = piston_mus(2)
+    assert port._resolve_engine("reduced", 2) == "lanes"
+    out = port.solve_batch(mus)
+    assert out["uN"].shape == (2, 96, port.global_serving.N)
+    assert out["probes"].shape == (2, 96, 2)
+    assert np.isfinite(out["uN"]).all() and np.isfinite(out["probes"]).all()
+    forced = port.solve_batch(mus, mode="reduced", engine="lanes")
+    for k in out:
+        np.testing.assert_array_equal(out[k], forced[k], err_msg=k)
+    bare = serving_from_arrays(
+        {k: v for k, v in payload.items() if not k.startswith("global_")},
+        device="cpu")
+    with pytest.raises(ValueError, match="no global serving configuration"):
+        bare.solve_batch(mus)
 
 
 def test_payload_without_grid_is_refused(piston_cell):

@@ -22,9 +22,14 @@ from romtime_tpu.conventions import Stage
 from romtime_tpu.dtypes import compute_dtype_scope
 from romtime_tpu.ops.linalg import gauss_solve_lanes as ref_gauss_solve_lanes
 from romtime_tpu.rom.rom import RomConstructorNonlinear as RefRCN
-from romtime_tpu_torch import RomConstructorNonlinear, serving_from_arrays
+from romtime_tpu_torch import (
+    DilationLaw,
+    RomConstructorNonlinear,
+    serving_from_arrays,
+)
 from romtime_tpu_torch.dtypes import compute_dtype_scope as port_dtype_scope
 from romtime_tpu_torch.ops.linalg import gauss_solve_lanes
+from test_torch_serving import LAW_PAYLOAD
 from torch_parity import (
     BRANCHES,
     build_piston_hrom,
@@ -146,10 +151,18 @@ def test_lanes_tables_cached_per_mode_and_dtype(piston_cell, monkeypatch):
 
 
 def test_unequal_widths_raise(piston_cell):
+    """Unequal widths take the chained variant (reference
+    windowed_lanes.py:119-121), which serves; only registered (dilated)
+    serving on unequal widths raises, with the reference's reason
+    (:309-314)."""
     _rom, payload = piston_cell
     port = serving_from_arrays(payload, device="cpu")
     port.windows.bounds = np.array([0, 20, 48, 72, 96])
-    with pytest.raises(NotImplementedError, match="chained"):
+    out = port.solve_batch(piston_mus(2), mode="probes", engine="windowed")
+    assert out["probes"].shape == (2, 96, 2)
+    assert np.isfinite(out["probes"]).all()
+    port.windows.dilation = DilationLaw.from_payload(**LAW_PAYLOAD)
+    with pytest.raises(NotImplementedError, match="equal window widths"):
         port.solve_batch(piston_mus(2), mode="probes", engine="windowed")
 
 

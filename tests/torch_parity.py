@@ -107,12 +107,15 @@ def grid_payload(rom):
 
 
 def _global_arrays(rom, with_trilinear=True):
-    """Basis, each reductor's folded combine V·(PᵀU)⁻¹ on the ROM basis
-    and (optionally) the trilinear state table."""
+    """Basis, each reductor's folded combine V·(PᵀU)⁻¹ on the ROM basis,
+    its PᵀU and reduced collateral basis (the float64 θ-solve), and
+    (optionally) the trilinear state table."""
     basis = np.asarray(rom.basis)
     out = {"basis": basis}
     for name, (red, _fb) in rom._theta_sources().items():
         out[f"combine_{name}"] = np.asarray(red._combine_matrix(red.ROM))
+        out[f"PT_U_{name}"] = np.asarray(red.PT_U, np.float64)
+        out[f"basis_rom_{name}"] = np.asarray(red.basis_rom, np.float64)
     if with_trilinear:
         out["trilinear"] = np.asarray(rom._trilinear_state_table(basis))
     return out
@@ -128,19 +131,20 @@ def npz_arrays(obj):
         return {k: data[k] for k in data.files}
 
 
-def payload_from_rom(rom, which="rest", serving=None):
+def payload_from_rom(rom, which="rest", serving=None, with_trilinear=False):
     """The port's serving payload (romtime_tpu_torch.convert) from a JAX
     ``RomConstructorNonlinear`` with windowed serving attached, its global
-    basis and combines under the ``global_`` prefix (the pivot-free guard
-    runs on them; no trilinear table, which the guard does not read).
-    ``serving`` (default: the active windows) is what the payload serves:
-    a reference ``MuLocalWindowed`` gives a fleet payload
-    (``convert.fleet_serving_from_arrays``)."""
+    basis, combines, PᵀU and reduced collateral bases under the
+    ``global_`` prefix (the pivot-free guard runs on them; the trilinear
+    table, which the guard does not read, only ``with_trilinear``, for
+    the global lanes engine). ``serving`` (default: the active windows)
+    is what the payload serves: a reference ``MuLocalWindowed`` gives a
+    fleet payload (``convert.fleet_serving_from_arrays``)."""
     payload = npz_arrays(rom.windows if serving is None else serving)
     payload.update(_dofs_payload(rom), **fom_payload(rom, which),
                    **grid_payload(rom))
     payload.update({f"global_{k}": v for k, v in
-                    _global_arrays(rom, with_trilinear=False).items()})
+                    _global_arrays(rom, with_trilinear).items()})
     return payload
 
 
@@ -150,6 +154,25 @@ def global_payload_from_rom(rom, which="rest"):
     combine V·(PᵀU)⁻¹ on the ROM basis and the trilinear state table."""
     return dict(_dofs_payload(rom), **fom_payload(rom, which),
                 **grid_payload(rom), **_global_arrays(rom))
+
+
+def estimator_payload_from_hrom(hrom, engine=None, fleet=None):
+    """The port's estimator payload (``convert.estimator_from_arrays``)
+    from a JAX ``HyperReducedPiston``: the global ROM and its S-ROM under
+    ``srom_`` (default), the windowed ROM and ``windows_srom`` under
+    ``srom_`` (``engine="windowed"``), or the fleet payload of ``fleet``,
+    whose nested S-ROM cells travel in it."""
+    rom = hrom.rom
+    if fleet is not None:
+        return payload_from_rom(rom, serving=fleet)
+    if engine == "windowed":
+        payload, srom = payload_from_rom(rom), npz_arrays(hrom.windows_srom)
+    else:
+        payload = global_payload_from_rom(rom)
+        srom = {k: v for k, v in _global_arrays(hrom.srom).items()
+                if not k.startswith("PT_U_")}
+    payload.update({f"srom_{k}": v for k, v in srom.items()})
+    return payload
 
 
 def clear_serving_caches(rom):
