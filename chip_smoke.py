@@ -118,7 +118,24 @@ Phases, in order; any failure raises and exits non-zero:
    cell with W=7 unequal windows (214 and 215 steps), float64, B=16,
    ``mode="reduced"``: card against an explicit CPU run within
    1e-9·scale, and called directly on the equal-width 50x32 cell within
-   1e-9·scale of the equal-width engine.
+   1e-9·scale of the equal-width engine;
+10. FOM phase, the full-order piston model at the flagship width
+   (nx=1000, nt=1500, P1, BDF-2, regime "rest"; ``convert.piston_fom``)
+   over 88 μ drawn from the μ box by the port's ``ParameterSampler``
+   (seed 13; the flagship fleet's offline batch, bench.py:113). It runs
+   no kernel of K1-K5 (plain torch, as the reference computes the FOM
+   outside Pallas). (a) ``solve_fom_batch`` in float32 at B=88, plain
+   and with ``dd_sweep``: the reference's keys and shapes, finite, with
+   seconds a sweep, ms a step, μ·steps/s and peak device memory; (b) the
+   same sweep in float64 on the card for the first 4 μ against an
+   explicit CPU run (``device="cpu"``): ``uh``, ``uc``, ``probes`` and
+   ``nonlinear_data`` within 1e-10 relative per μ; (c) (a)'s sweeps on
+   those 4 μ against (b)'s card sweep (tests/test_fom_dd.py:60-68, :90):
+   the dd drift under 1e-4 and under 5× the plain drift, the low words
+   0 < |lo| < 1e-5·|hi|; (d) in float64 the piston probe equals the
+   Dirichlet value bL within 1e-12 (tests/test_fom_piston.py:54-59); (e)
+   ``fom.solve()`` on the card in float64 for the first μ equals its row
+   of (b) within 1e-12 relative.
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -126,7 +143,8 @@ kernel's ms, twin ms and bound on the serving path's own inputs (each on
 both designs, in turns). Prints a JSON line of per-kernel results (K1-K5
 on the serving body with their first designs' times, the phase shares,
 the register and spill report, and K1's first design's modes, ablations
-and ledger; the fleet's numbers; the certification phase's numbers),
+and ledger; the fleet's numbers; the certification and FOM phases'
+numbers),
 then, as the last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
@@ -210,6 +228,20 @@ CERT_GRID = {"nx": 1000, "nt": 1500}
 SROM_EXTRA = 8
 #: (e): unequal widths (W=7 on nt=1500: 214 and 215 steps) at N=32.
 CHAINED_W = 7
+#: Phase 10, the FOM: the flagship piston FOM (bench.py:121-122, :145)
+#: over the flagship fleet's offline batch (bench.py:113, 88 μ); (b)-(e)
+#: on its first 4 μ, at the limits of the reference tests named there.
+FOM_GRID = {"L0": 1.0, "nx": 1000, "tf": 1.0, "nt": 1500}
+FOM_B = 88
+FOM_SEED = 13
+FOM_CHECK_B = 4
+FOM_KEYS = ("uh", "uc", "x", "t", "probes", "nonlinear_data")
+FOM_F64_REL = 1e-10
+FOM_DD_DRIFT = 1e-4
+FOM_DD_VS_PLAIN = 5.0
+FOM_LO_REL = 1e-5
+FOM_PROBE_ATOL = 1e-12
+FOM_SERIAL_REL = 1e-12
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores
 # and HBM3 bandwidth, at the full 700 W power limit.
 PEAK_FLOPS = 67e12
@@ -1718,6 +1750,161 @@ def certification_phase(mods, dev, power):
     return info
 
 
+def per_mu_rel(got, want):
+    """Relative L2 gap per μ of two (B, ...) arrays."""
+    got = np.asarray(got, np.float64).reshape(len(want), -1)
+    want = np.asarray(want, np.float64).reshape(len(want), -1)
+    return (np.linalg.norm(got - want, axis=1)
+            / np.maximum(np.linalg.norm(want, axis=1), 1e-300))
+
+
+def fom_mus():
+    """FOM_B μ dicts from the synthetic cells' μ box by the port's
+    sampler (sorted keys, one seeded RandomState stream)."""
+    from romtime_tpu_torch.parameters import (
+        ParameterSampler,
+        get_uniform_dist,
+    )
+    from romtime_tpu_torch.testing.synthetic import MU_BOX
+
+    grid = {k: get_uniform_dist(lo, hi) for k, (lo, hi) in MU_BOX.items()}
+    return [{k: float(v) for k, v in mu.items()}
+            for mu in ParameterSampler(grid, FOM_B, random_state=FOM_SEED)]
+
+
+def check_fom_outputs(label, out, B, nnz, dd):
+    """The reference's keys and shapes, (B, nt, …), all finite."""
+    nt, nh = FOM_GRID["nt"], FOM_GRID["nx"] + 1
+    keys = set(FOM_KEYS) | ({"uh_lo"} if dd else set())
+    shapes = {"uh": (B, nt, nh), "uc": (B, nt, nh), "x": (B, nt, nh),
+              "uh_lo": (B, nt, nh), "t": (B, nt), "probes": (B, nt, 3),
+              "nonlinear_data": (B, nt, nnz)}
+    if set(out) != keys:
+        raise AssertionError(f"{label}: keys {sorted(out)}")
+    for k, v in out.items():
+        if v.shape != shapes[k] or not np.isfinite(v).all():
+            raise AssertionError(f"{label} {k}: {v.shape}, finite "
+                                 f"{bool(np.isfinite(v).all())}")
+
+
+def fom_phase(dev, power):
+    """Phase 10 of the module doc: the piston FOM at the flagship width,
+    each part with its own line and time. The CPU run of (b) is an
+    explicit comparison run (``device="cpu"``); nothing falls back."""
+    from romtime_tpu_torch.convert import piston_fom
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.parallel import solve_fom_batch
+
+    nt = FOM_GRID["nt"]
+    fom, t_build = timed(dev, lambda: piston_fom(**FOM_GRID, device=dev))
+    nnz = len(fom._nonlinear_topology[0])
+    mus = fom_mus()
+    check = mus[:FOM_CHECK_B]
+    print(f"FOM: the piston FOM (nx={FOM_GRID['nx']}, nt={nt}, P1, BDF-2, "
+          f"rest; {nnz} nonlinear entries) set up in {t_build:.2f} s; "
+          f"{FOM_B} μ from the sampler (seed {FOM_SEED})")
+    info = {"card": power, "grid": dict(FOM_GRID, degree=1, bdf="2",
+                                        which="rest"),
+            "B": FOM_B, "seed": FOM_SEED, "nnz": nnz, "launches": None}
+
+    # (a) float32 at the full batch, plain and dd; the first 4 μ kept.
+    kept = {}
+    for dd in (False, True):
+        label = "dd" if dd else "plain"
+        fom.dd_sweep = dd
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, sec = timed(dev, lambda: solve_fom_batch(fom, mus))
+        peak = torch.cuda.max_memory_allocated()
+        check_fom_outputs(f"(a) {label}", out, FOM_B, nnz, dd)
+        kept[dd] = {k: v[:FOM_CHECK_B].copy() for k, v in out.items()}
+        del out
+        info[f"f32_{label}"] = dict(
+            seconds=sec, ms_per_step=sec / nt * 1e3,
+            mu_steps_per_s=FOM_B * nt / sec, peak_bytes=peak)
+        print(f"  (a) solve_fom_batch float32 {label}, B={FOM_B}: "
+              f"{sec:.2f} s a sweep, {sec / nt * 1e3:.3f} ms a step, "
+              f"{FOM_B * nt / sec:.1f} μ·steps/s, peak device memory "
+              f"{peak / 2**30:.2f} GiB; keys and shapes as the reference's, "
+              f"finite, on {power} ok")
+
+    # (b) float64, the first 4 μ, the card against the CPU.
+    fom.dd_sweep = False
+    fom_cpu = piston_fom(**FOM_GRID, device="cpu")
+    with compute_dtype_scope(torch.float64):
+        card64, card_s = timed(dev, lambda: solve_fom_batch(fom, check))
+        cpu64, cpu_s = timed("cpu", lambda: solve_fom_batch(fom_cpu, check))
+    check_fom_outputs("(b) card", card64, FOM_CHECK_B, nnz, False)
+    gaps = {}
+    for key in ("uh", "uc", "probes", "nonlinear_data"):
+        gaps[key] = float(per_mu_rel(card64[key], cpu64[key]).max())
+        if not gaps[key] <= FOM_F64_REL:
+            raise AssertionError(f"(b) {key}: card vs CPU {gaps[key]:.3e}")
+    print(f"  (b) float64, B={FOM_CHECK_B}: the card {card_s:.2f} s "
+          f"({card_s / nt * 1e3:.3f} ms a step), the CPU run {cpu_s:.2f} s; "
+          f"card vs CPU largest relative gap per μ "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (limit {FOM_F64_REL:.0e}) on {power} ok")
+    info["f64_card_vs_cpu"] = dict(B=FOM_CHECK_B, card_s=card_s,
+                                   cpu_s=cpu_s, rel_gaps=gaps)
+
+    # (c) the float32 sweeps of (a) against (b)'s float64 card sweep.
+    plain = float(per_mu_rel(kept[False]["uh"], card64["uh"]).max())
+    dd_traj = kept[True]["uh"].astype(np.float64) + kept[True]["uh_lo"]
+    dd = float(per_mu_rel(dd_traj, card64["uh"]).max())
+    hi = float(np.abs(kept[True]["uh"]).max())
+    lo = float(np.abs(kept[True]["uh_lo"]).max())
+    ok = (dd < FOM_DD_DRIFT and dd < FOM_DD_VS_PLAIN * plain
+          and 0.0 < lo < FOM_LO_REL * hi)
+    print(f"  (c) float32 against float64 on {FOM_CHECK_B} μ: plain drift "
+          f"{plain:.3e}, dd drift {dd:.3e} (limits {FOM_DD_DRIFT:.0e} and "
+          f"{FOM_DD_VS_PLAIN:.0f}× plain), low words max {lo:.3e} of hi "
+          f"{hi:.3e} (limit {FOM_LO_REL:.0e}·hi) on {power} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(c) the float32 sweeps miss the dd limits")
+    info["f32_vs_f64"] = dict(plain_drift=plain, dd_drift=dd, lo_max=lo,
+                              hi_max=hi)
+
+    # (d) the piston probe on the Dirichlet value, float64.
+    probe_err = 0.0
+    for b, mu in enumerate(check):
+        bL = (-mu["delta"] * (mu["omega"] / mu["a0"])
+              * np.sin(mu["omega"] * card64["t"][b]))
+        probe_err = max(probe_err,
+                        float(np.abs(card64["probes"][b, :, 2] - bL).max()))
+    print(f"  (d) piston probe against bL, float64: max abs err "
+          f"{probe_err:.3e} (limit {FOM_PROBE_ATOL:.0e}) on {power} "
+          f"{'ok' if probe_err <= FOM_PROBE_ATOL else 'FAIL'}")
+    if not probe_err <= FOM_PROBE_ATOL:
+        raise AssertionError("(d) the piston probe misses bL")
+    info["probe_vs_bL"] = probe_err
+
+    # (e) the serial solve() against its row of (b).
+    fom.update_parametrization(check[0])
+    with compute_dtype_scope(torch.float64):
+        _, serial_s = timed(dev, fom.solve)
+    sols = fom.solutions
+    pr = np.stack([np.asarray(v) for v in fom.probes.values()], axis=1)
+    serial = {
+        "uh": float(per_mu_rel(sols.snapshots.T[None], card64["uh"][:1])[0]),
+        "uc": float(per_mu_rel(sols.fom.T[None], card64["uc"][:1])[0]),
+        "probes": float(per_mu_rel(pr[None], card64["probes"][:1])[0]),
+        "nonlinear_data": float(per_mu_rel(
+            np.asarray(fom.nonlinear_snapshots)[None],
+            card64["nonlinear_data"][:1])[0])}
+    ok = all(v <= FOM_SERIAL_REL for v in serial.values())
+    print(f"  (e) fom.solve() on the card, float64: {serial_s:.2f} s; "
+          f"against its row of (b): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in serial.items())
+          + f" (limit {FOM_SERIAL_REL:.0e}) on {power} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(e) solve() disagrees with its batch row")
+    info["serial"] = dict(seconds=serial_s, rel_gaps=serial)
+    return info
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1780,6 +1967,17 @@ def main():
         certification = certification_phase(mods, dev, power)
         certification["seconds"] = time.perf_counter() - t0
         print(f"certification phase: {certification['seconds']:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches_before = [c.launches for c in counters(mods)]
+        fom = fom_phase(dev, power)
+        fom["launches"] = [c.launches - n for c, n in
+                           zip(counters(mods), launches_before)]
+        fom["seconds"] = time.perf_counter() - t0
+        print(f"FOM phase: {fom['seconds']:.1f} s, launches K1-K5 "
+              f"{fom['launches']} (none: no kernel on the FOM path)")
+        if any(fom["launches"]):
+            raise AssertionError("the FOM phase launched a serving kernel")
     for k, v in gkernels.items():
         launches[k] = v.pop("launches")
         kernels[k] = v
@@ -1838,7 +2036,8 @@ def main():
         max_abs_err=max(errs[k]), library_ms=None, **kernels[k])
         for k in KERNELS],
         "shapes": rows, "serving": serving, "autotune": autotune,
-        "fleet": fleet, "certification": certification, "card": power}))
+        "fleet": fleet, "certification": certification, "fom": fom,
+        "card": power}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

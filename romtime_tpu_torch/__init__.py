@@ -5,8 +5,13 @@ global basis (``engine="pallas"``) and over a μ-local fleet of windowed
 Mach cells (``solve_batch_mulocal``), with the global and windowed lanes
 engines (``engine="lanes"``, ``engine="windowed"``) in every mode and the
 S-ROM estimator (``HyperReducedPiston.estimate_batch``,
-``estimate_batch_mulocal``) for certification. The offline build stays
-in the JAX package; serving configurations are carried across as numpy
+``estimate_batch_mulocal``) for certification. The piston full-order
+model runs on the card too: ``OneDimensionalBurgers.setup()``/``solve()``
+and the batched sweep ``parallel.solve_fom_batch`` (the BDF-2 loop and
+its compensated dd form, banded assembly and cyclic-reduction solves in
+eager torch; ``convert.piston_fom``, ``convert.fom_from_arrays``). The
+rest of the offline build stays in the JAX package; serving
+configurations are carried across as numpy
 (``convert.serving_from_arrays``, ``convert.global_serving_from_arrays``,
 ``convert.fleet_serving_from_arrays``, ``convert.estimator_from_arrays``).
 The serving sweeps run the hand-written CUDA kernels K1-K5

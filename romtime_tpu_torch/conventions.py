@@ -1,7 +1,8 @@
 """Shared vocabulary: string constants used as configuration and storage
 keys. Counterpart of ``romtime_tpu/conventions.py``; the values are
-identical because persisted artifacts (npz keys, pickle names) depend on
-them. Only the namespaces the serving slice reads are carried over.
+identical because persisted artifacts (npz keys, pickle names, CSV
+headers) depend on them. Only the namespaces the port reads are carried
+over.
 """
 
 
@@ -59,6 +60,36 @@ class PistonParameters:
 
     MACH_PISTON = "piston_mach"
     NONLINEARITY = "eta"
+
+
+class OneDimensionalBurgersConventions:
+    """Piston μ names (reference ``fom/nonlinear.py:30-35``)."""
+
+    A0 = "a0"
+    DELTA = "delta"
+    GAMMA = "gamma"
+    ALPHA = "alpha"
+
+
+class MassConservation:
+    """Mass conservation report keys (reference ``conventions.py:146-153``)."""
+
+    WHICH = "which"
+    TIMESTEPS = "timesteps"
+    MASS = "mass"
+    MASS_CHANGE = "mass_change"
+    OUTFLOW = "outflow"
+
+
+class SolutionsStorageNames:
+    """Solution storage attributes (reference ``base.py:14-22``)."""
+
+    DOMAIN = "domain"
+    FOM = "fom"
+    MU = "mu"
+    ROM = "rom"
+    SNAPSHOTS = "snapshots"
+    TIMESTEPS = "ts"
 
 
 class Errors(ProblemType):

@@ -27,7 +27,9 @@ A serving configuration travels as a flat ``dict[str, np.ndarray]``:
   serving object's parameter order (the guard and the solve policy
   probe the box's corners);
 - the FOM configuration: ``fom_L0``, ``fom_nx``, ``fom_tf``, ``fom_nt``,
-  ``fom_degree``, ``fom_bdf`` and the piston regime ``fom_which``.
+  ``fom_degree``, ``fom_bdf``, the piston regime ``fom_which`` and,
+  where it is set, ``fom_project_u0``; :func:`fom_from_arrays` builds
+  the FOM from these keys alone, ready to ``solve()``.
 
 An estimator (:func:`estimator_from_arrays`) is a ROM payload of any of
 these forms plus its S-ROM under an ``srom_`` prefix: a global
@@ -57,12 +59,34 @@ _SROM = "srom_"
 _REDUCED = ("PT_U", "basis_rom")
 
 
-def piston_fom(L0, nx, tf, nt, degree=1, bdf="2", which="rest"):
-    """The piston FOM (entry assembly) for a domain configuration."""
-    domain, bcs, _forcing, _u0, Lt, dLt_dt = define_piston_problem(
+def piston_fom(L0, nx, tf, nt, degree=1, bdf="2", which="rest",
+               project_u0=False, device="cuda"):
+    """The piston FOM for a domain configuration, set up: it assembles at
+    entries and over the full band, and its ``solve()`` steps on
+    ``device`` (the card by default)."""
+    domain, bcs, forcing, u0, Lt, dLt_dt = define_piston_problem(
         L=float(L0), nx=int(nx), tf=float(tf), nt=int(nt), which=which)
-    return OneDimensionalBurgers(domain, dirichlet=bcs, Lt=Lt, dLt_dt=dLt_dt,
-                                 degrees=int(degree), bdf_scheme=str(bdf))
+    fom = OneDimensionalBurgers(
+        domain, dirichlet=bcs, forcing_term=forcing, u0=u0, Lt=Lt,
+        dLt_dt=dLt_dt, degrees=int(degree), bdf_scheme=str(bdf),
+        project_u0=bool(project_u0), device=device)
+    fom.setup()
+    return fom
+
+
+def fom_from_arrays(payload, device="cuda"):
+    """The piston FOM of a payload's ``fom_*`` keys (``fom_which``
+    default "rest", ``fom_project_u0`` default False), on ``device``."""
+    missing = [k for k in _FOM_KEYS[:-1] if k not in payload]
+    if missing:
+        raise KeyError(f"FOM payload lacks {missing}")
+    return piston_fom(
+        L0=payload["fom_L0"], nx=payload["fom_nx"], tf=payload["fom_tf"],
+        nt=payload["fom_nt"], degree=payload["fom_degree"],
+        bdf=str(np.asarray(payload["fom_bdf"])),
+        which=str(np.asarray(payload.get("fom_which", "rest"))),
+        project_u0=bool(np.asarray(payload.get("fom_project_u0", False))),
+        device=device)
 
 
 def _reduced_parts(arrays, PT_U=None):
@@ -90,7 +114,7 @@ def _reduced_arrays(rom):
     return out
 
 
-def _fom_and_reductors(payload, reduced=None):
+def _fom_and_reductors(payload, reduced=None, device="cuda"):
     """The FOM and the serving reductors of a payload (``reduced``: the
     global configuration's keys that carry PᵀU and ``basis_rom``)."""
     missing = [k for k in _FOM_KEYS[:-1] if k not in payload]
@@ -98,12 +122,7 @@ def _fom_and_reductors(payload, reduced=None):
                 if f"dofs_{n}" not in payload]
     if missing:
         raise KeyError(f"serving payload lacks {missing}")
-    fom = piston_fom(
-        L0=payload["fom_L0"], nx=payload["fom_nx"], tf=payload["fom_tf"],
-        nt=payload["fom_nt"], degree=payload["fom_degree"],
-        bdf=str(np.asarray(payload["fom_bdf"])),
-        which=str(np.asarray(payload.get("fom_which", "rest"))),
-    )
+    fom = fom_from_arrays(payload, device)
     reductors = make_reductors(
         fom, {n: np.asarray(payload[f"dofs_{n}"]) for n in THETA_SOURCES},
         _reduced_parts(reduced or {}))
@@ -131,7 +150,7 @@ def _windowed_object(payload, windows, device):
     ``global_`` keys."""
     glob = {k[len(_GLOBAL):]: v for k, v in payload.items()
             if k.startswith(_GLOBAL)}
-    fom, reductors = _fom_and_reductors(payload, glob)
+    fom, reductors = _fom_and_reductors(payload, glob, device)
     gs = GlobalServing.from_arrays(glob) if glob else None
     return RomConstructorNonlinear(fom, reductors, windows, device=device,
                                    global_serving=gs, grid=_grid(payload))
@@ -165,7 +184,7 @@ def global_serving_from_arrays(payload, device="cuda"):
     default)."""
     if "basis" not in payload:
         raise KeyError("global serving payload lacks 'basis'")
-    fom, reductors = _fom_and_reductors(payload, payload)
+    fom, reductors = _fom_and_reductors(payload, payload, device)
     grid = _grid(payload)
     gs = GlobalServing.from_arrays(_serving_arrays(payload))
     return RomConstructorNonlinear(fom, reductors, device=device,
@@ -185,6 +204,8 @@ def _fom_and_dofs_arrays(rom, which):
         fom_degree=np.int64(fom.mesh.degree),
         fom_bdf=np.array(fom.BDF_SCHEME), fom_which=np.array(which),
     )
+    if fom.project_u0:
+        payload["fom_project_u0"] = np.bool_(True)
     return payload
 
 

@@ -1,4 +1,5 @@
-from .base import OneDimensionalSolver
+from .base import BandedOperator, OneDimensionalSolver, move_mesh
 from .nonlinear import OneDimensionalBurgers
 
-__all__ = ["OneDimensionalSolver", "OneDimensionalBurgers"]
+__all__ = ["BandedOperator", "OneDimensionalSolver", "OneDimensionalBurgers",
+           "move_mesh"]

@@ -40,6 +40,11 @@ def dd_history_diff(u_hi, u_lo, u1_hi, u1_lo):
     return dh + (de + (u1_lo - u_lo))
 
 
+def zeros_like_pair(x):
+    z = torch.zeros_like(x)
+    return z, z
+
+
 def _split_point(dtype):
     """Dekker splitting constant 2^ceil(p/2)+1 for the mantissa width."""
     return 134217729.0 if dtype == torch.float64 else 4097.0

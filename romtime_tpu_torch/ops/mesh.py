@@ -1,11 +1,16 @@
 """Static 1-D interval-mesh topology and DEIM entry maps (counterpart of
 ``romtime_tpu/ops/mesh.py``). Dofs are ordered left→right, so cell ``e``
-of degree ``p`` owns dofs ``e*p .. e*p+p``."""
+of degree ``p`` owns dofs ``e*p .. e*p+p`` and every operator is banded
+with half-bandwidth ``p``. The structures are numpy, computed once; the
+assembly reads them as tensors cached per (dtype, device)
+(:meth:`Mesh1D.on`)."""
 
 from dataclasses import dataclass
 from functools import cached_property
+from types import SimpleNamespace
 
 import numpy as np
+import torch
 
 from .element import lagrange_tables
 
@@ -47,6 +52,10 @@ class Mesh1D:
         return self.nx
 
     @property
+    def p(self):
+        return self.degree
+
+    @property
     def nh(self):
         return self.nx * self.degree + 1
 
@@ -68,6 +77,43 @@ class Mesh1D:
         starts = self.h0 * np.arange(self.ne)
         return starts[:, None] + self.h0 * self.tables.quad_points[None, :]
 
+    @cached_property
+    def scatter_rows(self):
+        """scatter_rows[i]: the global rows of local index i, by cell."""
+        p = self.degree
+        return [i + p * np.arange(self.ne) for i in range(p + 1)]
+
+    @cached_property
+    def _tensors(self):
+        return {}
+
+    def on(self, dtype, device):
+        """The static tables as tensors of ``dtype`` on ``device``, made
+        once per (dtype, device) so a time loop copies nothing from the
+        host: ``B0``, ``B1``, ``w`` (quadrature weights), ``coeffs``,
+        ``xq`` (:attr:`xq_ref`), ``x`` (:attr:`x_dofs`) and ``forms``, the
+        weak forms' quadrature tables (``ops.assembly._form_table``)."""
+        device = torch.device(device)
+        key = (dtype, device)
+        got = self._tensors.get(key)
+        if got is None:
+            t = self.tables
+
+            def conv(a):
+                return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                       device=device)
+
+            got = SimpleNamespace(B0=conv(t.B0), B1=conv(t.B1),
+                                  w=conv(t.quad_weights),
+                                  coeffs=conv(t.coeffs), xq=conv(self.xq_ref),
+                                  x=conv(self.x_dofs), forms={})
+            self._tensors[key] = got
+        return got
+
+    def cell_dofs(self, e):
+        p = self.degree
+        return list(range(e * p, e * p + p + 1))
+
     def dof_cells(self, dof):
         """Cells whose basis support covers ``dof``."""
         p = self.degree
@@ -75,6 +121,22 @@ class Mesh1D:
             vertex = dof // p
             return [e for e in (vertex - 1, vertex) if 0 <= e < self.ne]
         return [dof // p]
+
+    @cached_property
+    def band_pattern(self):
+        """Structural nonzero pattern (rows, cols) of any assembled
+        operator, sorted by (row, col): the CSR storage order, which fixes
+        the MDEIM vector layout (reference ``mesh.py:135-153``)."""
+        pairs = set()
+        for e in range(self.ne):
+            dofs = self.cell_dofs(e)
+            for i in dofs:
+                for j in dofs:
+                    pairs.add((i, j))
+        pairs = sorted(pairs)
+        rows = np.array([r for r, _ in pairs], dtype=np.int64)
+        cols = np.array([c for _, c in pairs], dtype=np.int64)
+        return rows, cols
 
     def build_entry_map(self, entries, dirichlet_dofs=(), dirichlet_entry=1.0,
                         dirichlet_value=0.0):

@@ -9,7 +9,10 @@ op-for-op twin, the split twin and the other design), and the
 certification path on the card (phase 9 of chip_smoke.py at a small
 size: the global lanes engine against the served K4 and K5, the S-ROM
 estimators and the chained lanes variant in float64 against an explicit
-CPU run).
+CPU run), and the piston FOM sweep on the card (``solve_fom_batch``,
+plain and dd, BDF-2 and BDF-1, in float64 against the same sweep on the
+CPU; ``solve()`` against its batch row; the float32 sweeps within the
+reference's dd limits).
 Needs a CUDA device and nvcc; skips without a device. Imports no JAX, so
 it runs on a machine without it (tests/conftest.py imports JAX,
 hence ``--noconftest``):
@@ -769,3 +772,76 @@ def test_cuda_chained_card_vs_cpu():
             1e-9 * scale)
         scale = want[key].abs().max().item()
         assert (direct[key] - want[key]).abs().max().item() <= 1e-9 * scale
+
+
+#: The FOM card tests' grid (the CPU parity tests' conftest size).
+FOM_GRID = (1.0, 150, 0.6, 96)
+
+
+def _fom_pair(bdf="2"):
+    from romtime_tpu_torch.convert import piston_fom
+
+    return {dev: piston_fom(*FOM_GRID, bdf=bdf, device=dev)
+            for dev in ("cuda", "cpu")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bdf", ["2", "1"])
+@pytest.mark.parametrize("dd", [False, True])
+def test_cuda_fom_sweep_card_vs_cpu(dd, bdf):
+    """solve_fom_batch in float64 on the card against the same sweep on
+    the CPU: every output within 1e-10 relative per μ (the same code,
+    other reduction orders); the reference's keys and shapes."""
+    _need_cuda()
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.parallel import solve_fom_batch
+
+    mus = synthetic_mus(3, seed=9)
+    outs = {}
+    with compute_dtype_scope(torch.float64):
+        for dev, fom in _fom_pair(bdf).items():
+            fom.dd_sweep = dd
+            outs[dev] = solve_fom_batch(fom, mus)
+    got, want = outs["cuda"], outs["cpu"]
+    keys = {"uh", "uc", "x", "t", "probes", "nonlinear_data"}
+    assert set(got) == set(want) == keys | ({"uh_lo"} if dd else set())
+    assert got["uh"].shape == (3, 96, 151)
+    for key in keys - {"t"}:
+        a = got[key].reshape(3, -1)
+        b = want[key].reshape(3, -1)
+        assert np.isfinite(a).all(), key
+        rel = np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)
+        assert rel.max() <= 1e-10, (key, rel)
+    assert np.array_equal(got["t"], want["t"])
+
+
+@pytest.mark.cuda
+def test_cuda_fom_solve_and_f32_sweep():
+    """fom.solve() on the card equals its row of the float64 batch
+    (1e-12); the float32 plain and dd sweeps on the card stay within the
+    reference's float32 limits of that trajectory (tests/test_fom_dd.py:
+    60-68: dd drift < 1e-4 and < 5× the plain drift; the low words
+    0 < |lo| < 1e-5·|hi|)."""
+    _need_cuda()
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.parallel import solve_fom_batch
+
+    mus = synthetic_mus(3, seed=9)
+    fom = _fom_pair()["cuda"]
+    with compute_dtype_scope(torch.float64):
+        ref = solve_fom_batch(fom, mus)
+        fom.update_parametrization(mus[1])
+        fom.solve()
+    row = ref["uh"][1].T
+    assert (np.linalg.norm(fom.solutions.snapshots - row)
+            <= 1e-12 * np.linalg.norm(row))
+    drift = {}
+    for dd in (False, True):
+        fom.dd_sweep = dd
+        out = solve_fom_batch(fom, mus)
+        traj = out["uh"].astype(np.float64) + out.get("uh_lo", 0.0)
+        drift[dd] = max(np.linalg.norm(traj[b] - ref["uh"][b])
+                        / np.linalg.norm(ref["uh"][b]) for b in range(3))
+    assert drift[True] < 1e-4 and drift[True] < 5.0 * drift[False], drift
+    hi, lo = np.abs(out["uh"]).max(), np.abs(out["uh_lo"]).max()
+    assert 0 < lo < 1e-5 * hi

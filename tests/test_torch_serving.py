@@ -296,15 +296,26 @@ def test_payload_roundtrip(piston_cell):
 
 
 def test_empty_entries_raise(piston_cell):
-    """Serving never assembles the full band: an empty entry list
-    raises (the reference would fall back to a banded operator)."""
-    _rom, payload = piston_cell
+    """An empty entry list raises: serving never falls back to the full
+    band (the reference's ``if entries:`` would). ``entries=None`` is the
+    full band, as in the reference: the lifting vector of a one-lane μ
+    batch equals the reference's, float64 on both sides."""
+    import jax.numpy as jnp
+
+    rom, payload = piston_cell
     fom = serving_from_arrays(payload, device="cpu").fom
-    mu = {k: torch.tensor([v]) for k, v in piston_mus(1)[0].items()}
+    mu = piston_mus(1)[0]
+    f64 = torch.float64
+    mu_t = {k: torch.tensor([v], dtype=f64) for k, v in mu.items()}
+    t = torch.tensor(0.1, dtype=f64)
     with pytest.raises(ValueError, match="entry"):
-        fom.assemble_mass(mu, torch.tensor(0.1), entries=[])
-    with pytest.raises(ValueError, match="entry"):
-        fom.assemble_rhs(mu, torch.tensor(0.1), entries=None)
+        fom.assemble_mass(mu_t, t, entries=[])
+    got = fom.assemble_rhs(mu_t, t, entries=None).numpy()
+    want = np.asarray(rom.fom.assemble_rhs(
+        {k: jnp.asarray(v) for k, v in mu.items()}, jnp.asarray(0.1)))
+    assert got.shape == (fom.mesh.nh, 1) and want.shape == (fom.mesh.nh,)
+    np.testing.assert_allclose(got[:, 0], want, rtol=1e-12,
+                               atol=1e-14 * np.abs(want).max())
 
 
 def _served_with_env(piston_cell, monkeypatch, env, value, seed):
