@@ -136,6 +136,32 @@ Phases, in order; any failure raises and exits non-zero:
    Dirichlet value bL within 1e-12 (tests/test_fom_piston.py:54-59); (e)
    ``fom.solve()`` on the card in float64 for the first μ equals its row
    of (b) within 1e-12 relative.
+11. offline build phase: the port builds its own global ROM on the card,
+   ``bench.py``'s throughput profile (``problems.throughput_profile``:
+   nx=1000, nt=1500, P1, BDF-2, 3 offline μ from the Mach-stratified
+   sampler with RandomState(0), S-ROM N=20, ROM N=15, N-MDEIM 12 modes,
+   the tree walk on 100 times, all six operator models) through
+   ``HyperReducedPiston``'s ``setup``, ``setup_hyperreduction``,
+   ``run_offline_rom(device_sweep=True)``,
+   ``run_offline_hyperreduction``, ``project_reductors`` and the dumps,
+   in float64, in a temporary directory: (a) the seconds of each stage
+   (set-up, FOM sweep, POD, each reductor's training, projection, the
+   trilinear tables with the global configurations, the dumps), the
+   snapshot-assembly calls, peak device memory, N and each reductor's
+   dof count; (b) ``solve_batch(mus, mode="probes")`` at B=2048 on the
+   built ROM (N=15, K4) and S-ROM (N=20, K5), a cold and a warm call
+   each, every launch counter set to 0 before and read after (K4 and K5
+   each launched, K1-K3 never), with the engine, branch and solves/s;
+   the ROM again with the budget at 0 (K5) within 3e-6·scale of K4
+   (tests/test_rom.py:226-227); the served probes of the first 16 μ
+   within 3e-5·scale, ``uN_final`` within 1e-4·max(|uN|, 1), of the
+   float64 global lanes engine on the same built ROMs
+   (tests/test_rom.py:196-200); (c) ``estimate_batch`` in float64 at B=16
+   on the built pair, the card against the same pair carried to the CPU
+   (``convert.estimator_to_arrays``), by phase 9's contract; (d) the
+   same build on the CPU (``device="cpu"``, full width): the same offline
+   μ, the same dofs (as sets; their order printed), and the two builds'
+   float64 lanes probes within 1e-9·scale.
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -244,6 +270,11 @@ FOM_PROBE_ATOL = 1e-12
 FOM_SERIAL_REL = 1e-12
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores
 # and HBM3 bandwidth, at the full 700 W power limit.
+# Phase 11: bench.py's throughput profile built by the port (bench.py:117-190).
+BUILD_GRID = {"nx": 1000, "nt": 1500, "tf": 1.0}
+BUILD_CPU_GRID = dict(BUILD_GRID)   # (d)'s CPU build, at full width
+BUILD_B = 2048
+BUILD_CHECK_B = 16
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -1502,7 +1533,6 @@ def certification_phase(mods, dev, power):
     from romtime_tpu_torch.dtypes import compute_dtype_scope
     from romtime_tpu_torch.rom.engines import global_lanes, windowed_lanes
     from romtime_tpu_torch.rom.hrom import HyperReducedPiston
-    from romtime_tpu_torch.utils import compute_rom_difference
 
     synth = mods["synth"]
     nt = CERT_GRID["nt"]
@@ -1574,36 +1604,10 @@ def certification_phase(mods, dev, power):
     worst = max(same_code(f"{name} N={o['uN'].shape[1]}", out[name], ref[name],
                           power) for name, o in (("rom", out["rom"]),
                                                  ("srom", out["srom"])))
-    e, e_cpu = out[Errors.ESTIMATOR], ref[Errors.ESTIMATOR]
-    avg = out[Errors.AVERAGE_ESTIMATOR]
-    if (e.shape != (len(cert), nt) or not np.isfinite(e).all()
-            or (e < 0).any() or not np.isfinite(avg).all()):
-        raise AssertionError(f"estimator {e.shape}: not finite and ≥ 0")
     V_srom = np.asarray(est.srom.global_serving.basis)
-    uN = out["rom"]["uN"].movedim(-1, 0).cpu().numpy()
-    uNs = out["srom"]["uN"].movedim(-1, 0).cpu().numpy()
-    uN_c = ref["rom"]["uN"].movedim(-1, 0).numpy()
-    uNs_c = ref["srom"]["uN"].movedim(-1, 0).numpy()
-    formula_gap, bound_slack = 0.0, np.inf
-    for b in range(len(cert)):
-        same = np.array([compute_rom_difference(uN[b, i], uNs[b, i], V_srom)
-                         for i in range(nt)])
-        if not np.allclose(e[b], same, rtol=1e-10, atol=1e-17):
-            raise AssertionError(f"μ {b}: the estimator is not the "
-                                 f"reconstruction-norm formula")
-        formula_gap = max(formula_gap, float(np.max(
-            np.abs(e[b] - same) / np.maximum(np.abs(same), 1e-300))))
-        noise = (np.linalg.norm(uN[b] - uN_c[b], axis=1)
-                 + np.linalg.norm(uNs[b] - uNs_c[b], axis=1)) / np.sqrt(
-                     V_srom.shape[0])
-        gap = np.abs(e[b] - e_cpu[b])
-        limit = noise + 1e-12 * e_cpu[b] + 1e-16
-        if not np.all(gap <= limit):
-            raise AssertionError(f"μ {b}: card and CPU estimators differ "
-                                 f"beyond the triangle bound")
-        bound_slack = min(bound_slack, float(np.min(limit - gap)))
+    formula_gap, bound_slack, avg = estimator_contract(out, ref, V_srom, nt)
     print(f"  (c) estimator (16, {nt}) finite and ≥ 0, time averages "
-          f"{float(avg.min()):.4e}..{float(avg.max()):.4e}; equals "
+          f"{avg[0]:.4e}..{avg[1]:.4e}; equals "
           f"compute_rom_difference on its trajectories (largest relative "
           f"gap {formula_gap:.2e}, limit 1e-10); card vs CPU within the "
           f"triangle bound of (b)'s gaps (smallest slack {bound_slack:.3e})"
@@ -1611,14 +1615,14 @@ def certification_phase(mods, dev, power):
     info["global_estimator"] = dict(
         B=len(cert), card_s=est_s, cpu_s=cpu_s, trajectory_rel_gap=worst,
         formula_rel_gap=formula_gap, bound_slack=bound_slack,
-        average_min=float(avg.min()), average_max=float(avg.max()))
+        average_min=avg[0], average_max=avg[1])
     del out, ref
 
     # (d) The fleet estimator, float64, on the nested synthetic fleet.
     fleet, t_build = timed(dev, lambda: synth.synthetic_fleet(
         device=dev, srom_extra=SROM_EXTRA, **CERT_GRID))
     ml = fleet.mulocal
-    hp = HyperReducedPiston(fleet)
+    hp = HyperReducedPiston.from_serving(fleet)
     # Every cell occupied (the box's draws leave the top Mach cell nearly
     # empty): μ taken from a seeded draw cell by cell, in turn.
     draw = synth.synthetic_mus(4096, seed=41)
@@ -1905,6 +1909,253 @@ def fom_phase(dev, power):
     return info
 
 
+def estimator_contract(out, ref, V_srom, nt):
+    """tests/test_hrom.py:442-520's contract between the card's estimate
+    ``out`` and an explicit CPU run ``ref`` of the same pair: the
+    estimator finite, ≥ 0 and (B, nt); equal to compute_rom_difference
+    on its own trajectories (rtol 1e-10, atol 1e-17); within the triangle
+    bound of the two runs' trajectory gaps. Returns (the largest relative
+    formula gap, the smallest bound slack, the time averages' range)."""
+    from romtime_tpu_torch.conventions import Errors
+    from romtime_tpu_torch.utils import compute_rom_difference
+
+    e, e_cpu = out[Errors.ESTIMATOR], ref[Errors.ESTIMATOR]
+    avg = out[Errors.AVERAGE_ESTIMATOR]
+    B = e_cpu.shape[0]
+    if (e.shape != (B, nt) or not np.isfinite(e).all()
+            or (e < 0).any() or not np.isfinite(avg).all()):
+        raise AssertionError(f"estimator {e.shape}: not finite and ≥ 0")
+    uN = out["rom"]["uN"].movedim(-1, 0).cpu().numpy()
+    uNs = out["srom"]["uN"].movedim(-1, 0).cpu().numpy()
+    uN_c = ref["rom"]["uN"].movedim(-1, 0).numpy()
+    uNs_c = ref["srom"]["uN"].movedim(-1, 0).numpy()
+    formula_gap, bound_slack = 0.0, np.inf
+    for b in range(B):
+        same = np.array([compute_rom_difference(uN[b, i], uNs[b, i], V_srom)
+                         for i in range(nt)])
+        if not np.allclose(e[b], same, rtol=1e-10, atol=1e-17):
+            raise AssertionError(f"μ {b}: the estimator is not the "
+                                 f"reconstruction-norm formula")
+        formula_gap = max(formula_gap, float(np.max(
+            np.abs(e[b] - same) / np.maximum(np.abs(same), 1e-300))))
+        noise = (np.linalg.norm(uN[b] - uN_c[b], axis=1)
+                 + np.linalg.norm(uNs[b] - uNs_c[b], axis=1)) / np.sqrt(
+                     V_srom.shape[0])
+        gap = np.abs(e[b] - e_cpu[b])
+        limit = noise + 1e-12 * e_cpu[b] + 1e-16
+        if not np.all(gap <= limit):
+            raise AssertionError(f"μ {b}: card and CPU estimators differ "
+                                 f"beyond the triangle bound")
+        bound_slack = min(bound_slack, float(np.min(limit - gap)))
+    return formula_gap, bound_slack, (float(avg.min()), float(avg.max()))
+
+
+def build_pipeline(dev, grid, workdir):
+    """bench.py's offline sequence (bench.py:209-262) with the port on
+    ``dev`` in ``workdir``: returns the pipeline, each stage's seconds and
+    the calls of the snapshot assembly (one per μ and trained operator,
+    the tree walk's times its trailing batch)."""
+    from romtime_tpu_torch.deim import DiscreteEmpiricalInterpolation
+    from romtime_tpu_torch.problems import throughput_profile
+    from romtime_tpu_torch.rom.hrom import HyperReducedPiston
+
+    calls = [0]
+    real = DiscreteEmpiricalInterpolation.assemble_snapshots_batch
+
+    def counted(self, mu, ts):
+        calls[0] += 1
+        return real(self, mu, ts)
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    DiscreteEmpiricalInterpolation.assemble_snapshots_batch = counted
+    try:
+        hrom = HyperReducedPiston(**throughput_profile(device=dev, **grid))
+        _, setup_s = timed(dev, lambda: (hrom.setup(),
+                                         hrom.setup_hyperreduction()))
+        timed(dev, lambda: hrom.run_offline_rom(device_sweep=True))
+        timed(dev, lambda: hrom.run_offline_hyperreduction(
+            mu_space=hrom.mu_space["offline"], evaluate=False))
+        hrom.project_reductors()
+        _, tri_s = timed(dev, lambda: (hrom.rom.global_serving,
+                                       hrom.srom.global_serving))
+        _, dump_s = timed(dev, lambda: (hrom.dump_mu_space(),
+                                        hrom.dump_reduced_basis(),
+                                        hrom.dump_offline_snapshots()))
+    finally:
+        DiscreteEmpiricalInterpolation.assemble_snapshots_batch = real
+        os.chdir(cwd)
+    seconds = dict(setup=setup_s, **hrom.build_seconds,
+                   trilinear_tables=tri_s, dumps=dump_s)
+    return hrom, seconds, calls[0]
+
+
+def dof_sets(hrom):
+    """operator → the ROM reductor's dofs."""
+    return {name: list(getattr(hrom.rom, attr).dofs) for name, attr in (
+        ("mass", "mdeim_Mh"), ("stiffness", "mdeim_Ah"),
+        ("rhs", "deim_rhs"), ("convection", "mdeim_Ch"),
+        ("nonlinear_lifting", "mdeim_Nh_hat"), ("trilinear", "mdeim_Nh"))}
+
+
+def offline_build_phase(mods, dev, power):
+    """Phase 11 of the module doc: the port builds bench.py's throughput
+    profile on the card in float64, serves it through K4 and K5 and
+    certifies it; then the same build on the CPU. The CPU build and runs
+    are explicit comparison runs (``device="cpu"``); nothing falls back."""
+    import tempfile
+
+    from romtime_tpu_torch.convert import (
+        estimator_from_arrays,
+        estimator_to_arrays,
+    )
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.rom.engines.global_fused import global_branch
+
+    synth = mods["synth"]
+    nt = BUILD_GRID["nt"]
+    info = {"card": power, "grid": dict(BUILD_GRID)}
+
+    # (a) The build, on the card, in a temporary directory.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as workdir:
+        hrom, seconds, calls = build_pipeline(dev, BUILD_GRID, workdir)
+        dumped = sorted(os.listdir(workdir))
+    peak = torch.cuda.max_memory_allocated()
+    rom, srom = hrom.rom, hrom.srom
+    dofs = dof_sets(hrom)
+    print(f"offline build: bench.py's throughput profile (nx="
+          f"{BUILD_GRID['nx']}, nt={nt}, P1, BDF-2, float64) on the card: "
+          f"ROM N={rom.N}, S-ROM N={srom.N}, dofs "
+          + ", ".join(f"{k} {len(v)}" for k, v in dofs.items())
+          + "; offline μ at Mach "
+          + ", ".join(f"{m['piston_mach']:.4f}"
+                      for m in hrom.mu_space["offline"]))
+    print("  (a) seconds: " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in seconds.items())
+          + f"; {calls} snapshot-assembly calls; peak device memory "
+          f"{peak / 2**30:.3f} GiB; dumped {len(dumped)} files on {power}")
+    if rom.N != 15 or srom.N != 20:
+        raise AssertionError(f"built N={rom.N}/{srom.N}, expected 15/20")
+    info.update(seconds=seconds, snapshot_calls=calls, peak_bytes=peak,
+                N=rom.N, N_srom=srom.N, dofs={k: len(v)
+                                              for k, v in dofs.items()},
+                dumped=dumped)
+
+    # (b) Serving B=2048 through K4 (ROM) and K5 (S-ROM), every counter
+    # set to 0 just before and read just after; then K5 on the ROM.
+    mus = synth.synthetic_mus(BUILD_B, seed=41)
+    for c in counters(mods):
+        c.launches = c.serving_launches = c.first_design_launches = 0
+    served, info["serve"] = {}, []
+    for label, r in (("ROM", rom), ("S-ROM", srom)):
+        branch = global_branch(nt, mods["k1"].pad_dim(r.N), BUILD_B,
+                               r.precompute_choice)
+        engine = r._resolve_engine("probes", BUILD_B)
+        _, cold = timed(dev, lambda: r.solve_batch(mus, mode="probes"))
+        served[label], warm = timed(dev, lambda: r.solve_batch(
+            mus, mode="probes"))
+        print(f"  (b) {label} N={r.N}, B={BUILD_B}: engine {engine!r}, "
+              f"branch {branch}; cold {cold:.3f} s, warm {warm:.3f} s = "
+              f"{BUILD_B / warm:.1f} solves/s on {power}")
+        info["serve"].append(dict(N=r.N, engine=engine, branch=branch,
+                                  cold_s=cold, warm_s=warm,
+                                  solves_per_s=BUILD_B / warm))
+    launches = [c.launches for c in counters(mods)]
+    print(f"  (b) launches K1-K5 over the two ROMs' calls: {launches}")
+    if not (launches[3] > 0 and launches[4] > 0) or any(launches[:3]):
+        raise AssertionError(f"the built ROMs did not serve through K4 and "
+                             f"K5 alone: {launches}")
+    info["launches"] = launches
+    rom.ONLINE_PRECOMPUTE_BUDGET = 0
+    try:
+        k5 = rom.solve_batch(mus, mode="probes")
+    finally:
+        del rom.ONLINE_PRECOMPUTE_BUDGET
+    err = max_gap(torch.as_tensor(k5["probes"]),
+                  torch.as_tensor(served["ROM"]["probes"]))
+    ok = err[0] <= THETA_VS_TABLES_REL * err[1]
+    print(f"  (b) K5 (budget 0) vs K4 on the ROM, same μ: probes max abs "
+          f"err {err[0]:.3e} (limit {THETA_VS_TABLES_REL * err[1]:.3e}) on "
+          f"{power} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K5 disagrees with K4 on the built ROM")
+    info["k5_vs_k4"] = err[0] / err[1]
+    small = mus[:BUILD_CHECK_B]
+    info["served_vs_lanes"] = []
+    for label, r in (("ROM", rom), ("S-ROM", srom)):
+        with compute_dtype_scope(torch.float64):
+            lanes = r.solve_batch(small, mode="probes", engine="lanes")
+        got = {k: v[:BUILD_CHECK_B] for k, v in served[label].items()}
+        perr = float(np.abs(got["probes"] - lanes["probes"]).max())
+        pscale = float(np.abs(lanes["probes"]).max())
+        uerr = float(np.abs(got["uN_final"] - lanes["uN_final"]).max())
+        uscale = max(float(np.abs(lanes["uN_final"]).max()), 1.0)
+        ok = (perr <= CERT_PROBES_REL * pscale
+              and uerr <= CERT_UN_REL * uscale)
+        print(f"  (b) served {label} vs the float64 lanes engine, B="
+              f"{BUILD_CHECK_B}: probes {perr:.3e} (limit "
+              f"{CERT_PROBES_REL * pscale:.3e}), uN_final {uerr:.3e} (limit "
+              f"{CERT_UN_REL * uscale:.3e}) on {power} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"served {label} misses the lanes engine")
+        info["served_vs_lanes"].append(dict(N=r.N, probes_err=perr,
+                                            probes_scale=pscale,
+                                            uN_err=uerr))
+
+    # (c) Certification in float64 at B=16, the card against the same
+    # pair carried to the CPU.
+    cert = synth.certification_mus()
+    est_cpu = estimator_from_arrays(estimator_to_arrays(hrom), device="cpu")
+    with compute_dtype_scope(torch.float64):
+        out, est_s = timed(dev, lambda: hrom.estimate_batch(cert))
+        ref, cpu_s = timed("cpu", lambda: est_cpu.estimate_batch(cert))
+    worst = max(same_code(f"(c) {name}", out[name], ref[name], power)
+                for name in ("rom", "srom"))
+    formula, slack, avg = estimator_contract(
+        out, ref, np.asarray(srom.basis), nt)
+    print(f"  (c) estimate_batch, B={len(cert)}, float64: the card "
+          f"{est_s:.2f} s, the CPU run {cpu_s:.2f} s; estimator finite, "
+          f"≥ 0, time averages {avg[0]:.4e}..{avg[1]:.4e}; the formula "
+          f"within {formula:.2e} (limit 1e-10); card vs CPU within the "
+          f"triangle bound (smallest slack {slack:.3e}) on {power} ok")
+    info["estimator"] = dict(B=len(cert), card_s=est_s, cpu_s=cpu_s,
+                             trajectory_rel_gap=worst, formula_rel_gap=formula,
+                             bound_slack=slack, average=avg)
+    del out, ref, est_cpu
+
+    # (d) The same build on the CPU.
+    with tempfile.TemporaryDirectory() as workdir:
+        (cpu, cpu_seconds, _c), cpu_s = timed(
+            "cpu", lambda: build_pipeline("cpu", BUILD_CPU_GRID, workdir))
+    same_mu = cpu.mu_space["offline"] == hrom.mu_space["offline"]
+    cpu_dofs = dof_sets(cpu)
+    order = {k: cpu_dofs[k] == v for k, v in dofs.items()}
+    sets = all(sorted(cpu_dofs[k]) == sorted(v) for k, v in dofs.items())
+    with compute_dtype_scope(torch.float64):
+        card_p = rom.solve_batch(small, mode="probes", engine="lanes")
+        cpu_p = cpu.rom.solve_batch(small, mode="probes", engine="lanes")
+    gap = float(np.abs(card_p["probes"] - cpu_p["probes"]).max())
+    scale = float(np.abs(cpu_p["probes"]).max())
+    ok = same_mu and sets and gap <= CERT_F64_REL * scale
+    print(f"  (d) the CPU build ({cpu_s:.1f} s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in cpu_seconds.items())
+          + f"): offline μ identical {same_mu}; dofs identical as sets "
+          f"{sets}, in order " + ", ".join(f"{k} {v}"
+                                            for k, v in order.items())
+          + f"; float64 lanes probes card vs CPU build {gap:.3e} (limit "
+          f"{CERT_F64_REL * scale:.3e}) on {power} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card and CPU builds disagree")
+    info["cpu_build"] = dict(grid=dict(BUILD_CPU_GRID), seconds=cpu_s,
+                             stages=cpu_seconds, same_mu=same_mu,
+                             dofs_same_sets=sets, dofs_same_order=order,
+                             probes_gap=gap, probes_scale=scale)
+    return info
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1978,6 +2229,12 @@ def main():
               f"{fom['launches']} (none: no kernel on the FOM path)")
         if any(fom["launches"]):
             raise AssertionError("the FOM phase launched a serving kernel")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        build = offline_build_phase(mods, dev, power)
+        build["seconds_phase"] = time.perf_counter() - t0
+        print(f"offline build phase: {build['seconds_phase']:.1f} s, "
+              f"launches K1-K5 {build['launches']}")
     for k, v in gkernels.items():
         launches[k] = v.pop("launches")
         kernels[k] = v
@@ -2033,11 +2290,12 @@ def main():
     print(json.dumps({"kernels": [dict(
         name=meta[k][0], route="cuda", source=meta[k][1],
         replaces=meta[k][2], launches=launches[k],
-        max_abs_err=max(errs[k]), library_ms=None, **kernels[k])
-        for k in KERNELS],
+        max_abs_err=max(errs[k]), library_ms=None,
+        offline_build_launches=build["launches"][i], **kernels[k])
+        for i, k in enumerate(KERNELS)],
         "shapes": rows, "serving": serving, "autotune": autotune,
         "fleet": fleet, "certification": certification, "fom": fom,
-        "card": power}))
+        "offline_build": build, "card": power}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

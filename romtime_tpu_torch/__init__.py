@@ -10,9 +10,13 @@ model runs on the card too: ``OneDimensionalBurgers.setup()``/``solve()``
 and the batched sweep ``parallel.solve_fom_batch`` (the BDF-2 loop and
 its compensated dd form, banded assembly and cyclic-reduction solves in
 eager torch; ``convert.piston_fom``, ``convert.fom_from_arrays``). The
-rest of the offline build stays in the JAX package; serving
-configurations are carried across as numpy
-(``convert.serving_from_arrays``, ``convert.global_serving_from_arrays``,
+port builds its own global ROM: ``HyperReducedPiston(grid, fom_params,
+...)``'s offline phases (POD, DEIM/MDEIM/N-MDEIM training, the
+reduced-basis build, the trilinear table, the dumps and the resume),
+whose ROM and S-ROM serve and certify as they are. The windowed and
+μ-local builds stay in the JAX package; their serving configurations
+are carried across as numpy (``convert.serving_from_arrays``,
+``convert.global_serving_from_arrays``,
 ``convert.fleet_serving_from_arrays``, ``convert.estimator_from_arrays``).
 The serving sweeps run the hand-written CUDA kernels K1-K5
 (``csrc/*.cu``) for CUDA tensors and their plain PyTorch twins for CPU

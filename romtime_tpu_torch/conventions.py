@@ -51,6 +51,62 @@ class BoundaryConditions:
     DBL_DT = "dbL_dt"
 
 
+class Treewalk:
+    """Report keys of the POD tree walk (reference ``conventions.py:71``)."""
+
+    BASIS_AFTER_WALK = "basis-shape-after-tree-walk"
+    BASIS_FINAL = "basis-shape-final"
+    BASIS_TIME = "basis-shape-time"
+    ENERGY_MU = "energy-mu"
+    ENERGY_TIME = "energy-time"
+    SPECTRUM_MU = "spectrum-mu"
+    SPECTRUM_TIME = "spectrum-time"
+
+
+class TreewalkNonlinear:
+    """Report keys of the nonlinear-operator tree walk (reference
+    ``conventions.py:83``)."""
+
+    BASIS_AFTER_WALK = "N-basis-shape-after-tree-walk"
+    BASIS_FINAL = "N-basis-shape-final"
+    BASIS_TIME = "N-basis-shape-time"
+    ENERGY_MU = "N-energy-mu"
+    ENERGY_TIME = "N-energy-time"
+    SPECTRUM_MU = "N-spectrum-mu"
+    SPECTRUM_TIME = "N-spectrum-time"
+
+
+class EmpiricalInterpolation:
+    """Hyper-reduction flavours (reference ``conventions.py:96``); also
+    the type part of a collateral basis' pickle name."""
+
+    DEIM = "DEIM"
+    MDEIM = "MDEIM"
+    NONLINEAR = "N-MDEIM"
+
+
+class RomParameters:
+    """ROM and tree-walk configuration keys (reference
+    ``conventions.py:104``)."""
+
+    NUM_SNAPSHOTS = "num_snapshots"
+    NUM_MU = "num_mu"
+    NUM_TIME = "num_time"
+    NUM_BASIS = "num_phi"
+    TOL_MU = "tol_mu"
+    TOL_TIME = "tol_time"
+    TOL_BASIS = "tol_phi"
+    TS = "ts"
+    WEIGHTED_POD = "weighted_pod"
+
+    NUM_ONLINE = "num_online"
+
+    SROM_TRUNCATE = "srom_truncate"
+    SROM_KEEP = "srom_num"
+
+    NMDEIM_SIZE = "mdeim_truncate"
+
+
 class PistonParameters:
     A0 = "a0"
     ALPHA = "alpha"

@@ -1,4 +1,5 @@
-"""Serving state carried across from the JAX package.
+"""Serving state as plain numpy: carried across from the JAX package,
+or from a ROM the port built (``GlobalServing.from_rom``).
 
 A serving configuration travels as a flat ``dict[str, np.ndarray]``:
 
@@ -17,8 +18,7 @@ A serving configuration travels as a flat ``dict[str, np.ndarray]``:
 - global: the :class:`~romtime_tpu_torch.rom.GlobalServing` keys
   (``basis`` (nh, N), ``combine_<source>`` (n_out, k), the reductor's
   folded V·(PᵀU)⁻¹, and ``trilinear`` (N², N), the exact trilinear state
-  table, which the port does not build: its banded assembly is offline
-  work that stays in the JAX package), and, optional, the reductors'
+  table), and, optional, the reductors'
   ``PT_U_<source>`` (k, k) and ``basis_rom_<source>`` (n_out, k), which
   float64 serving on the global basis needs (the PᵀU θ-solve);
 - ``dofs_<source>`` for every θ source: the reductor's interpolation
@@ -40,7 +40,10 @@ DEIM the S-ROM shares) or a :class:`WindowedServing` at N+Δ
 in the fleet payload itself (``serving_ns``).
 
 ``np.savez(path, **payload)`` persists it; the JAX side extracts the same
-payload from a trained ``HyperReducedPiston``.
+payload from a trained ``HyperReducedPiston``, and a port-built one
+serves without it (its ROM's ``global_serving``). Every object here is
+made through the artifact forms ``RomConstructorNonlinear.from_artifacts``
+and ``HyperReducedPiston.from_serving``.
 """
 
 import numpy as np
@@ -152,8 +155,9 @@ def _windowed_object(payload, windows, device):
             if k.startswith(_GLOBAL)}
     fom, reductors = _fom_and_reductors(payload, glob, device)
     gs = GlobalServing.from_arrays(glob) if glob else None
-    return RomConstructorNonlinear(fom, reductors, windows, device=device,
-                                   global_serving=gs, grid=_grid(payload))
+    return RomConstructorNonlinear.from_artifacts(
+        fom, reductors, windows, device=device, global_serving=gs,
+        grid=_grid(payload))
 
 
 def serving_from_arrays(payload, device="cuda"):
@@ -187,8 +191,8 @@ def global_serving_from_arrays(payload, device="cuda"):
     fom, reductors = _fom_and_reductors(payload, payload, device)
     grid = _grid(payload)
     gs = GlobalServing.from_arrays(_serving_arrays(payload))
-    return RomConstructorNonlinear(fom, reductors, device=device,
-                                   global_serving=gs, grid=grid)
+    return RomConstructorNonlinear.from_artifacts(
+        fom, reductors, device=device, global_serving=gs, grid=grid)
 
 
 def _fom_and_dofs_arrays(rom, which):
@@ -263,7 +267,7 @@ def estimator_from_arrays(payload, device="cuda"):
             rom.fom, {name: red.dofs_array()
                       for name, red in rom.reductors.items()},
             _reduced_parts(srom_arrays, PT_U))
-        srom = RomConstructorNonlinear(
+        srom = RomConstructorNonlinear.from_artifacts(
             rom.fom, reductors, device=device,
             global_serving=GlobalServing.from_arrays(srom_arrays),
             grid=rom.grid)
@@ -272,7 +276,8 @@ def estimator_from_arrays(payload, device="cuda"):
     elif srom_arrays:
         raise KeyError("the S-ROM keys hold neither a global configuration "
                        "('srom_basis') nor windows ('srom_bounds')")
-    return HyperReducedPiston(rom, srom=srom, windows_srom=windows_srom)
+    return HyperReducedPiston.from_serving(rom, srom=srom,
+                                           windows_srom=windows_srom)
 
 
 def estimator_to_arrays(est, which="rest"):

@@ -163,6 +163,8 @@ class OneDimensionalSolver(ABC):
 
     # Whether operators integrate over the ALE-scaled domain.
     MOVING_ASSEMBLY = False
+    # Whether the serial offline sweep writes per-μ runtime reports.
+    RUNTIME_PROCESS = False
 
     def __init__(
         self,

@@ -41,6 +41,8 @@ class OneDimensionalBurgers(OneDimensionalSolver):
 
     MOVING_ASSEMBLY = True
     BDF_SCHEME = BDF.TWO
+    # The serial offline sweep writes each μ's probe CSV.
+    RUNTIME_PROCESS = True
 
     def __init__(
         self,

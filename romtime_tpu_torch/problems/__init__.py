@@ -1,3 +1,3 @@
-from .piston import define_piston_problem
+from .piston import define_piston_problem, throughput_profile
 
-__all__ = ["define_piston_problem"]
+__all__ = ["define_piston_problem", "throughput_profile"]

@@ -56,3 +56,52 @@ def define_piston_problem(L=None, nx=None, tf=None, nt=None, which="rest"):
         return torch.zeros_like(x)
 
     return domain, boundary_conditions, None, u0, Lt, dLt_dt
+
+
+def throughput_profile(nx=1000, nt=1500, tf=1.0, n_offline=3, modes=20,
+                       truncate=5, nmdeim=12, tri_mu=2, seed=0,
+                       device="cuda"):
+    """The keyword arguments of ``rom.hrom.HyperReducedPiston`` for
+    ``bench.py``'s throughput profile (``bench.py:117-190``): P1, BDF-2,
+    the μ box a0 ∈ [8, 10], ω ∈ [15, 20], δ ∈ [0.1, 0.15] (α = 1e-6,
+    γ = 1.4), ``n_offline`` offline μ from the Mach-stratified sampler
+    with ``RandomState(seed)``, an S-ROM of ``modes`` modes truncated by
+    ``truncate`` into the ROM, the N-MDEIM kept to ``nmdeim`` modes, the
+    tree walk on every (nt // 100)-th step, the N-MDEIM's on every fourth
+    of those with ``tri_mu`` μ, all six operator models; built on
+    ``device``."""
+    import numpy as np
+
+    from ..conventions import OperatorType, PistonParameters, RomParameters
+    from ..parameters import get_uniform_dist
+
+    domain, bcs, forcing, u0, Lt, dLt_dt = define_piston_problem(
+        L=1.0, nx=nx, tf=tf, nt=nt)
+    grid = {
+        PistonParameters.A0: get_uniform_dist(min=8.0, max=10.0),
+        PistonParameters.OMEGA: get_uniform_dist(min=15.0, max=20.0),
+        PistonParameters.DELTA: get_uniform_dist(min=0.1, max=0.15),
+        PistonParameters.ALPHA: get_uniform_dist(min=1e-6, max=1e-6),
+        PistonParameters.GAMMA: get_uniform_dist(min=1.4, max=1.4),
+    }
+    ts = np.linspace(tf / nt, tf, nt)
+    ts_walk = ts[:: max(1, nt // 100)]
+    walk = {RomParameters.TS: ts_walk, RomParameters.NUM_SNAPSHOTS: n_offline}
+    return dict(
+        grid=grid,
+        fom_params=dict(domain=domain, dirichlet=bcs, forcing_term=forcing,
+                        u0=u0, Lt=Lt, dLt_dt=dLt_dt,
+                        grid_params={k: "uniform" for k in grid}),
+        rom_params={RomParameters.NUM_SNAPSHOTS: n_offline,
+                    RomParameters.NUM_MU: modes,
+                    RomParameters.SROM_TRUNCATE: truncate,
+                    RomParameters.TOL_TIME: None, RomParameters.TOL_MU: None,
+                    RomParameters.NMDEIM_SIZE: nmdeim},
+        deim_params=dict(walk), mdeim_params=dict(walk),
+        mdeim_nonlinear_params={RomParameters.TS: ts_walk[::4],
+                                RomParameters.NUM_SNAPSHOTS: tri_mu},
+        models={k: True for k in (
+            OperatorType.MASS, OperatorType.STIFFNESS, OperatorType.RHS,
+            OperatorType.CONVECTION, OperatorType.NONLINEAR_LIFTING,
+            OperatorType.TRILINEAR)},
+        rnd=np.random.RandomState(seed), device=device)

@@ -88,6 +88,18 @@ class GlobalServing:
                              if k.startswith("combine_")},
                    trilinear=data.get("trilinear"))
 
+    @classmethod
+    def from_rom(cls, rom):
+        """The global configuration of a built and projected ROM: its
+        basis, each θ source's folded combine V·(PᵀU)⁻¹ on the reduced
+        collateral basis (float64) and its trilinear state table (the
+        keys a JAX-built ROM's payload carries)."""
+        basis = np.asarray(rom.basis)
+        return cls(basis=basis,
+                   combines={name: red._combine_matrix(red.ROM)
+                             for name, red in rom._theta_sources().items()},
+                   trilinear=rom._trilinear_state_table(basis))
+
 
 def supported(B, N, dtype, with_trilinear):
     """The reference's routing gate ``_pallas_supported``

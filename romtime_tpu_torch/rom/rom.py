@@ -1,32 +1,63 @@
-"""Piston ROM serving (counterpart of the serving path of
-``romtime_tpu/rom/rom.py``: ``RomConstructorNonlinear.solve_batch`` with
-``mode="probes"`` on windowed serving, the ``"windowed-pallas"`` engine,
-and on the global basis, the ``"pallas"`` engine, behind the reference's
-pivot-free guard ``certify_pivot_free``; the global lanes engine
-``"lanes"`` and the windowed lanes engine ``"windowed"`` in every mode,
-float64 or float32; a μ-local fleet routed by Mach cell,
-``solve_batch_mulocal``).
+"""The piston ROM (counterpart of ``romtime_tpu/rom/rom.py``'s
+``RomConstructorNonlinear``): its offline build and its serving.
 
-The offline build (POD, DEIM training, window construction, the
-trilinear state table) stays in the JAX package; a serving object here is
-made from its artifacts (``convert.serving_from_arrays``,
-``convert.global_serving_from_arrays``,
-``convert.fleet_serving_from_arrays``) or from seeded synthetic data
-(``testing.synthetic``).
+**Build** (the reference's form ``RomConstructorNonlinear(fom=…,
+grid=…, name=…)``, ``device`` the card unless the caller says
+otherwise): ``setup(rnd)``, then ``build_reduced_basis`` (the FOM sweep
+per μ, serially through ``fom.solve()`` or as one batch through
+``parallel.solve_fom_batch`` with ``device_sweep=True``, then the
+σ-weighted hierarchical POD on the host in float64, and the nonlinear
+basis of the FOM-captured trilinear snapshots), ``truncate`` (S-ROM →
+ROM), ``add_hyper_reductor`` and ``project_reductors``; the
+Mach-stratified sampler; the trilinear state table
+(``_trilinear_state_table``: the scale-invariance probe, then the exact
+N-column table, or the N-MDEIM reconstruction under
+``ROMTIME_TRI_TABLE=deim``). A projected ROM serves its own
+:class:`~romtime_tpu_torch.rom.engines.global_fused.GlobalServing`
+(``global_serving``, made at first use). The offline methods run in
+float64 (``deim.deim.OFFLINE_DTYPE``) whatever the serving dtype.
+
+**Serving** ``solve_batch`` with ``mode="probes"`` on windowed serving
+(the ``"windowed-pallas"`` engine) and on the global basis (the
+``"pallas"`` engine), behind the reference's pivot-free guard
+``certify_pivot_free``; the global lanes engine ``"lanes"`` and the
+windowed lanes engine ``"windowed"`` in every mode, float64 or float32;
+a μ-local fleet routed by Mach cell, ``solve_batch_mulocal``. A serving
+object also comes from artifacts (:meth:`RomConstructorNonlinear
+.from_artifacts`: a FOM, serving reductors and the windows and/or the
+global configuration), as ``convert`` and ``testing.synthetic`` make
+them.
 """
+
+import os
+import time
+from copy import deepcopy
 
 import numpy as np
 import torch
 
-from ..conventions import PistonParameters, Stage
-from ..dtypes import asarray, compute_dtype, compute_dtype_scope
+from ..conventions import (
+    OperatorType,
+    PistonParameters,
+    RomParameters,
+    Stage,
+    Treewalk,
+    TreewalkNonlinear,
+)
 from ..deim import (
     DiscreteEmpiricalInterpolation,
     MatrixDiscreteEmpiricalInterpolation,
 )
+from ..deim.deim import offline
+from ..deim.mdeim import project_band
+from ..dtypes import asarray, compute_dtype, compute_dtype_scope
+from ..parameters import ParameterSampler
+from .base import Reductor
+from .pod import orth
 from .engines.autotune import AutotuneMixin
 from .engines.mulocal import MuLocalRoutingMixin
 from .engines.global_fused import (
+    GlobalServing,
     global_prep,
     global_sweep,
     global_tables,
@@ -60,6 +91,22 @@ THETA_SOURCES = {
                           "assemble_nonlinear_lifting"),
 }
 
+#: θ source name → the reference's reductor attribute.
+SOURCE_ATTRS = {"mass": "mdeim_Mh", "stiffness": "mdeim_Ah",
+                "rhs_vec": "deim_rhs", "convection": "mdeim_Ch",
+                "nonlinear_lifting": "mdeim_Nh_hat"}
+
+#: ``add_hyper_reductor``'s operator tags → reductor attribute
+#: (reference ``rom.py:218-242``).
+REDUCTOR_ATTRS = {
+    OperatorType.RHS: "deim_rhs",
+    OperatorType.MASS: "mdeim_Mh",
+    OperatorType.STIFFNESS: "mdeim_Ah",
+    OperatorType.CONVECTION: "mdeim_Ch",
+    OperatorType.TRILINEAR: "mdeim_Nh",
+    OperatorType.NONLINEAR_LIFTING: "mdeim_Nh_hat",
+}
+
 
 def make_reductors(fom, dofs, reduced=None):
     """Serving reductors bound to ``fom`` from per-source dofs;
@@ -73,20 +120,35 @@ def make_reductors(fom, dofs, reduced=None):
     }
 
 
+def grid_box(grid):
+    """The μ box, name → (lo, hi), of a grid of distributions (each
+    ``support()``), of (lo, hi) pairs or of value lists; None for None."""
+    if grid is None:
+        return None
+    box = {}
+    for k, v in grid.items():
+        values = v.support() if hasattr(v, "support") else v
+        box[k] = (float(min(values)), float(max(values)))
+    return box
+
+
 class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
-                              PrecomputePolicy, SolvePolicy):
-    """Piston serving on one device (the card unless ``device`` says
+                              PrecomputePolicy, SolvePolicy, Reductor):
+    """The piston ROM on one device (the card unless ``device`` says
     otherwise).
 
-    ``reductors`` maps every θ source name of :data:`THETA_SOURCES` to a
-    DEIM reductor bound to ``fom``; ``windows`` is the active
+    The reductors sit in the reference's attributes (``mdeim_Mh``,
+    ``mdeim_Ah``, ``deim_rhs``, ``mdeim_Ch``, ``mdeim_Nh_hat``,
+    ``mdeim_Nh``); :attr:`reductors` maps every θ source name of
+    :data:`THETA_SOURCES` to its reductor. ``windows`` is the active
     :class:`~romtime_tpu_torch.rom.windowed.WindowedServing` and
     ``global_serving`` the global-basis
     :class:`~romtime_tpu_torch.rom.engines.global_fused.GlobalServing`:
     one of them, or both (windows then serve by default, as in the
     reference, and the global basis carries the pivot-free guard).
     ``grid`` is the μ box, name → (lo, hi), that the guard and the auto
-    solve policy probe. ``mulocal`` is the attached μ-local fleet
+    solve policy probe (``sampling_grid`` the distributions the build
+    samples). ``mulocal`` is the attached μ-local fleet
     (:class:`~romtime_tpu_torch.rom.windowed.MuLocalWindowed`) or None;
     its cells share the reductors and swap in as the active windows."""
 
@@ -97,36 +159,406 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     PIVOT_FREE_COND_BOUND = 1e4
     PIVOT_GUARD = "auto"
 
-    def __init__(self, fom, reductors, windows=None, device="cuda",
-                 global_serving=None, grid=None):
+    # Forcing bounds of the stratified sampler (reference rom.py:1296-1298)
+    PISTON_MACH_MIN = 0.15
+    PISTON_MACH_MAX = 0.4
+
+    def __init__(self, fom, grid=None, name=None, device="cuda"):
+        """The reference's form: ``grid`` maps μ names to distributions
+        (the sampler draws from them; a (lo, hi) box serves the guard and
+        the policy only)."""
+        Reductor.__init__(self, grid=grid)
+        self.sampling_grid = grid
+        self.grid = grid_box(grid)
+        self.fom = fom
+        self.name = name
+        self.device = torch.device(device)
+
+        self.basis = None
+        self.basis_nonlinear = None
+        self.offline_snapshots = []
+        # Precision of the retained snapshots ("f64" / "device-f32").
+        self.offline_snapshots_build = None
+        # Seconds of the last build's stages ("fom_sweep", "pod").
+        self.build_seconds = {}
+
+        for attr in REDUCTOR_ATTRS.values():
+            setattr(self, attr, None)
+
+        self.windows = None
+        self.mulocal = None
+        self._global_serving = None
+        self._projected = False
+        self._global_tables = None
+        self._pivot_cert = None
+        self._trilinear_table_cache = None
+
+    @classmethod
+    def from_artifacts(cls, fom, reductors, windows=None, device="cuda",
+                       global_serving=None, grid=None):
+        """A serving object from built artifacts: ``reductors`` maps every
+        θ source name of :data:`THETA_SOURCES` to a serving reductor bound
+        to ``fom``, ``windows`` and/or ``global_serving`` what it serves,
+        ``grid`` the μ box (name → (lo, hi))."""
         missing = set(THETA_SOURCES) - set(reductors)
         if missing:
             raise ValueError(f"missing θ sources: {sorted(missing)}")
         if windows is None and global_serving is None:
             raise ValueError("a serving object needs windows or a global "
                              "serving configuration")
-        self.fom = fom
-        self.reductors = dict(reductors)
-        self.device = torch.device(device)
-        self.global_serving = global_serving
-        self.grid = None if grid is None else {
-            k: (float(lo), float(hi)) for k, (lo, hi) in grid.items()}
+        rom = cls(fom, grid=grid, device=device)
+        for name, attr in SOURCE_ATTRS.items():
+            setattr(rom, attr, reductors[name])
+        rom.global_serving = global_serving
+        if global_serving is not None:
+            rom.basis = np.asarray(global_serving.basis)
+        rom._set_serving_windows(windows)
+        return rom
+
+    @property
+    def reductors(self):
+        """θ source name → reductor, in the reference's source order."""
+        return {name: getattr(self, attr)
+                for name, attr in SOURCE_ATTRS.items()}
+
+    @property
+    def global_serving(self):
+        """The global configuration: the one attached, or, on a built and
+        projected ROM, its own (:meth:`GlobalServing.from_rom`, made at
+        first use and kept until the next projection)."""
+        if self._global_serving is None and self._projected:
+            self._global_serving = GlobalServing.from_rom(self)
+        return self._global_serving
+
+    @global_serving.setter
+    def global_serving(self, gs):
+        self._global_serving = gs
         self._global_tables = None
-        self._pivot_cert = None
-        self.mulocal = None
-        self._set_serving_windows(windows)
 
     @property
     def N(self):
-        """The windows' N with windows attached, else the global N."""
+        """The windows' N with windows attached, else the basis's."""
         if self.windows is not None:
             return self.windows.N
-        return self.global_serving.N
+        return self.basis.shape[1]
 
     def _theta_sources(self):
         """name → reductor, in the reference's source order."""
-        return {name: self.reductors[name] for name in THETA_SOURCES}
+        return self.reductors
 
+    # ------------------------------------------------------------------
+    # Projections (reference rom.py:158-176)
+    # ------------------------------------------------------------------
+    def to_fom_vector(self, uN):
+        """u_h = V u_N (numpy)."""
+        return np.asarray(self.basis) @ np.asarray(uN)
+
+    def to_rom_vector(self, uh):
+        """u_N = Vᵀ u_h (numpy)."""
+        return np.asarray(self.basis).T @ np.asarray(uh)
+
+    def to_rom(self, oph):
+        """Vᵀ·A·V of a FOM operator (a banded operator or a dense array),
+        float64 numpy."""
+        V = np.asarray(self.basis, np.float64)
+        if hasattr(oph, "band"):
+            band = oph.band.detach().cpu().numpy()[..., None]
+            return project_band(band, V).reshape(V.shape[1], -1)
+        return V.T @ np.asarray(oph)
+
+    # ------------------------------------------------------------------
+    # Lifecycle
+    # ------------------------------------------------------------------
+    def load_from_basis(self, basis, mu_space):
+        """Adopt an externally built basis (the resume path; reference
+        rom.py:190-198)."""
+        self.basis = deepcopy(np.asarray(basis))
+        mu_space = deepcopy(mu_space)
+        mu_space[Stage.ONLINE] = []
+        mu_space[Stage.VALIDATION] = []
+        self.mu_space = mu_space
+        self._reset_serving()
+
+    def truncate(self, n):
+        """Drop ``n`` modes: the S-ROM → ROM path (reference
+        rom.py:200-216). The reductors are not carried over."""
+        truncated = self.__class__(fom=self.fom, grid=self.sampling_grid,
+                                   name=self.name, device=self.device)
+        truncated.setup(rnd=self.random_state)
+        N = self.N
+        assert n < N, ("You want to remove too many modes from S-ROM to "
+                       "create ROM.")
+        truncated.basis = self.basis[:, : N - n]
+        truncated.mu_space = deepcopy(self.mu_space)
+        truncated.report = deepcopy(self.report)
+        truncated.report[Stage.OFFLINE][Treewalk.BASIS_FINAL] = truncated.N
+        return truncated
+
+    def _reset_serving(self):
+        """Drop what the serving derived from the reductors and the basis
+        (the global configuration, its tables, the pivot certificate)."""
+        self._global_serving = None
+        self._projected = False
+        self._global_tables = None
+        self._pivot_cert = None
+
+    # ------------------------------------------------------------------
+    # Hyper-reduction plumbing
+    # ------------------------------------------------------------------
+    def add_hyper_reductor(self, reductor, which):
+        """Attach a copy of a trained (M)DEIM reductor for an operator
+        (reference rom.py:218-242)."""
+        attr = REDUCTOR_ATTRS.get(which)
+        if attr is None:
+            raise NotImplementedError(f"Which is this reductor? {which}")
+        setattr(self, attr, reductor.copy())
+        self._reset_serving()
+
+    def project_reductors(self):
+        """Project every collateral basis onto the solution basis
+        (reference rom.py:244-266). The reprojected operators form a new
+        reduced family: the global configuration is made anew at its
+        next use and the pivot-free bound re-certified before the next
+        serve."""
+        for attr in REDUCTOR_ATTRS.values():
+            red = getattr(self, attr)
+            if red:
+                red.project_basis(V=self.basis)
+        self._reset_serving()
+        self._projected = all(getattr(self, attr) is not None
+                              for attr in REDUCTOR_ATTRS.values())
+
+    # ------------------------------------------------------------------
+    # Offline: reduced-basis construction
+    # ------------------------------------------------------------------
+    @offline
+    def build_reduced_basis(self, num_snapshots=None, mu_space=None,
+                            num_basis=None, tolerances=dict(),
+                            device_sweep=False, mesh=None):
+        """The FOM sweep per μ and the POD tree walk, with the nonlinear
+        basis of the FOM-captured trilinear snapshots (reference
+        rom.py:336-505). Serially (``fom.solve()`` per μ on the FOM's
+        device, each μ's probe CSV written under ``RUNTIME_PROCESS``), or
+        with ``device_sweep=True`` as one ``solve_fom_batch`` of the
+        whole μ list (a ``dd_sweep`` FOM's low words recombined in
+        float64). Both keep ``offline_snapshots`` and the σ-weighted
+        hierarchical POD (float64, on the host). A multi-device ``mesh``
+        (the reference's sharded sweep) is not ported."""
+        if mesh is not None:
+            raise NotImplementedError("the sharded FOM sweep is not ported")
+        if mu_space:
+            space = mu_space
+        elif num_snapshots:
+            space = self.build_sampling_space(num=num_snapshots,
+                                              rnd=self.random_state)
+        else:
+            raise NotImplementedError(
+                "You need to provide a number of mu-snapshots or a space.")
+
+        fom = self.fom
+        if fom.is_setup is False:
+            fom.setup()
+        collect_nonlinear = hasattr(fom, "nonlinear_snapshots")
+
+        fom_solutions = dict()
+        basis_time = []
+        basis_nonlinear = []
+        tol_t = tolerances.get(RomParameters.TOL_TIME, None)
+        offline_report = self.report[Stage.OFFLINE]
+        pod_seconds = [0.0]
+
+        def ingest(mu_idx, snapshots, uc, nl_rows):
+            """Per-μ POD stages on host-side float64 data."""
+            t0 = time.perf_counter()
+            fom_solutions[mu_idx] = uc
+            self.offline_snapshots.append(np.asarray(snapshots).copy())
+            # Stage-1 modes scaled by their σ (hierarchical weighting).
+            _basis, sigmas_time, energy_time = orth(snapshots, tol=tol_t)
+            basis_time.append(_basis * sigmas_time[: _basis.shape[1]])
+            offline_report[Treewalk.SPECTRUM_TIME][mu_idx] = sigmas_time
+            offline_report[Treewalk.ENERGY_TIME][mu_idx] = energy_time
+            offline_report[Treewalk.BASIS_TIME][mu_idx] = _basis.shape[1]
+            if collect_nonlinear:
+                # The first snapshot dropped: zero initial state.
+                nl = np.array(nl_rows[1:]).T
+                _basis_nl, _sigmas_nl, _energy_nl = orth(nl, tol=tol_t)
+                basis_nonlinear.append(
+                    _basis_nl * _sigmas_nl[: _basis_nl.shape[1]])
+                offline_report[TreewalkNonlinear.SPECTRUM_TIME][mu_idx] = (
+                    _sigmas_nl)
+                offline_report[TreewalkNonlinear.ENERGY_TIME][mu_idx] = (
+                    _energy_nl)
+                offline_report[TreewalkNonlinear.BASIS_TIME][mu_idx] = (
+                    _basis_nl.shape[1])
+            pod_seconds[0] += time.perf_counter() - t0
+
+        t_start = time.perf_counter()
+        if device_sweep:
+            from ..parallel.sweep import solve_fom_batch
+
+            self.offline_snapshots_build = (
+                "f64" if compute_dtype() == torch.float64 else "device-f32")
+            registered = [self.add_mu(mu=mu, step=Stage.OFFLINE)
+                          for mu in space]
+            outs = solve_fom_batch(fom, [mu for _i, mu in registered])
+            t_sweep = time.perf_counter() - t_start
+            for b, (mu_idx, _mu) in enumerate(registered):
+                uh = np.asarray(outs["uh"][b], np.float64).T
+                uc = np.asarray(outs["uc"][b], np.float64).T
+                if "uh_lo" in outs:
+                    lo = np.asarray(outs["uh_lo"][b], np.float64).T
+                    uh = uh + lo
+                    uc = uc + lo
+                ingest(mu_idx, uh, uc,
+                       np.asarray(outs["nonlinear_data"][b], np.float64)
+                       if collect_nonlinear else None)
+        else:
+            self.offline_snapshots_build = "f64"
+            for mu in space:
+                mu_idx, mu = self.add_mu(mu=mu, step=Stage.OFFLINE)
+                fom.setup()
+                fom.update_parametrization(mu)
+                fom.solve()
+                ingest(mu_idx, np.asarray(fom.solutions.snapshots),
+                       fom.solutions.fom.copy(),
+                       list(fom.nonlinear_snapshots)
+                       if collect_nonlinear else None)
+                if fom.RUNTIME_PROCESS and hasattr(fom, "save_probes"):
+                    fom.save_probes(name=f"probes_offline_fom_{mu_idx}.csv")
+            t_sweep = time.perf_counter() - t_start - pod_seconds[0]
+
+        t0 = time.perf_counter()
+        basis = np.hstack(basis_time)
+        offline_report[Treewalk.BASIS_AFTER_WALK] = basis.shape[1]
+        basis, sigmas_mu, energy_mu = orth(
+            basis, num=num_basis, tol=tolerances.get(RomParameters.TOL_MU),
+            normalize=False)
+        offline_report[Treewalk.SPECTRUM_MU] = sigmas_mu
+        offline_report[Treewalk.ENERGY_MU] = energy_mu
+        offline_report[Treewalk.BASIS_FINAL] = basis.shape[1]
+        self.basis = basis
+
+        if collect_nonlinear and basis_nonlinear:
+            basis_nonlinear = np.hstack(basis_nonlinear)
+            offline_report[TreewalkNonlinear.BASIS_AFTER_WALK] = (
+                basis_nonlinear.shape[1])
+            basis_nonlinear, sigmas_nl, energy_nl = orth(basis_nonlinear,
+                                                         normalize=False)
+            offline_report[TreewalkNonlinear.SPECTRUM_MU] = sigmas_nl
+            offline_report[TreewalkNonlinear.ENERGY_MU] = energy_nl
+            offline_report[TreewalkNonlinear.BASIS_FINAL] = (
+                basis_nonlinear.shape[1])
+            self.basis_nonlinear = basis_nonlinear
+        self.build_seconds = {
+            "fom_sweep": t_sweep,
+            "pod": pod_seconds[0] + time.perf_counter() - t0}
+
+        assert self.N != 0, "(ROM) There are no basis vectors."
+        self._reset_serving()
+        return fom_solutions
+
+    # ------------------------------------------------------------------
+    # Mach-stratified sampling (reference rom.py:1308-1348)
+    # ------------------------------------------------------------------
+    def build_sampling_space(self, num, rnd=None):
+        """``num`` μ, one per equal-width Mach bin over
+        [PISTON_MACH_MIN, PISTON_MACH_MAX], the first hit of each bin in
+        a stream of 2·10⁴ draws from ``sampling_grid``, sorted by Mach
+        (each tagged with its ``piston_mach``)."""
+        edges = self.compute_piston_mach_number_space(
+            grid=self.sampling_grid, num=num, mach_min=self.PISTON_MACH_MIN,
+            mach_max=self.PISTON_MACH_MAX)
+        sampler = ParameterSampler(self.sampling_grid, n_iter=int(2e4),
+                                   random_state=rnd)
+        samples = []
+        domains = list(zip(edges, edges[1:]))
+        for sample in sampler:
+            piston_mach = self.compute_piston_mach_number(sample)
+            remove = None
+            for start, end in domains:
+                if start <= piston_mach <= end:
+                    sample[PistonParameters.MACH_PISTON] = piston_mach
+                    samples.append(sample)
+                    remove = (start, end)
+                    break
+            if remove is not None:
+                domains.remove(remove)
+            if len(domains) == 0:
+                break
+        return sorted(samples, key=lambda x: x[PistonParameters.MACH_PISTON])
+
+    # ------------------------------------------------------------------
+    # The trilinear state table: N_N(u*) = b0(μ)·T0 @ u*_N
+    #
+    # The (1,0) trilinear form is scale-invariant under the ALE pull-back
+    # and its DEIM entries are linear in the state, the μ-dependence the
+    # scalar b0 = (γ+1)/2·a0; so the reduced operator is one constant
+    # (N², N) contraction per step. Detected numerically; None where the
+    # invariance does not hold (reference rom.py:1475-1587).
+    # ------------------------------------------------------------------
+    def _trilinear_state_table(self, V_np):
+        """The table of the basis ``V_np``, cached per N-MDEIM object."""
+        cached = self._trilinear_table_cache
+        if cached is not None and cached[0] is self.mdeim_Nh:
+            return cached[1]
+        table = self._build_trilinear_state_table(V_np)
+        self._trilinear_table_cache = (self.mdeim_Nh, table)
+        return table
+
+    def _build_trilinear_state_table(self, V_np):
+        """Float64 whatever the serving dtype (the probe runs at 1e-9),
+        on the FOM's device."""
+        red = self.mdeim_Nh
+        if red is None or red.PT_U_inv is None or red.basis_rom is None:
+            return None
+        with compute_dtype_scope(torch.float64):
+            return self._build_trilinear_state_table_impl(
+                np.asarray(V_np, np.float64), red)
+
+    def _build_trilinear_state_table_impl(self, V_np, red):
+        fom = self.fom
+        N = V_np.shape[1]
+
+        def entries_over_basis(mu, t):
+            # All N unit-coefficient states in one lane-batched assembly.
+            vals = fom.assemble_trilinear(
+                mu=red._mu_tensors(mu), t=red._times(t),
+                u_n=(V_np, red._times(np.eye(N))), entries=red.dofs)
+            return vals.cpu().numpy()  # (n_ent, N)
+
+        mu_a = (dict(self.mu_space[Stage.OFFLINE][0])
+                if self.mu_space[Stage.OFFLINE] else dict(fom.mu))
+        mu_b = {k: v * 1.17 + 0.013 for k, v in mu_a.items()}
+        b0_a = float(fom.nonlinear_coefficient(mu_a))
+        b0_b = float(fom.nonlinear_coefficient(mu_b))
+        T = float(fom.domain[fom.T])
+        E_a = entries_over_basis(mu_a, 0.37 * T) / b0_a
+        E_b = entries_over_basis(mu_b, 0.81 * T) / b0_b
+        scale = max(np.abs(E_a).max(), 1e-30)
+        if not np.allclose(E_a, E_b, atol=1e-9 * scale, rtol=1e-9):
+            return None  # not scale-invariant
+        if os.environ.get("ROMTIME_TRI_TABLE") == "deim":
+            # The N-MDEIM reconstruction (the reference's opt-in
+            # ablation): basis_rom (N², k) · PᵀU⁻¹ (k, n_ent) · E0.
+            return red.basis_rom @ (red.PT_U_inv @ E_a)
+        return self._trilinear_exact_columns(V_np, mu_a, b0_a)
+
+    def _trilinear_exact_columns(self, V_np, mu_a, b0_a):
+        """vec(Vᵀ·N(V e_j)·V)/b0 of every basis column j: one full-band
+        assembly on the FOM's device with the N columns as its trailing
+        batch, then the two-sided projection on the host (reference
+        rom.py:1561-1587). Float64."""
+        red = self.mdeim_Nh
+        with compute_dtype_scope(torch.float64):
+            band = self.fom.assemble_trilinear(
+                mu=red._mu_tensors(mu_a),
+                t=red._times(0.37 * float(self.fom.domain[self.fom.T])),
+                u_n=red._times(V_np)).band                # (2p+1, nh, N)
+        return project_band(band.cpu().numpy(), V_np) / b0_a
+
+    # ------------------------------------------------------------------
+    # Serving
+    # ------------------------------------------------------------------
     def _set_serving_windows(self, win):
         """Swap the active windowed serving configuration. Its device
         tables are cached on the configuration object itself
@@ -402,13 +834,15 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     def compute_piston_mach_number_space(grid, num, mach_min=None,
                                          mach_max=None):
         """``num`` + 1 equal-width bin edges across the admissible Mach
-        range of the μ box ``grid`` (name → (lo, hi)), reference
+        range of the μ box of ``grid`` (name → (lo, hi), or the
+        distributions whose supports span it), reference
         ``rom.py:1359-1379``: δ_min·ω_min/a0_max to δ_max·ω_max/a0_min
         unless ``mach_min``/``mach_max`` say otherwise."""
         A0, OMEGA, DELTA = (PistonParameters.A0, PistonParameters.OMEGA,
                             PistonParameters.DELTA)
-        lo = {k: float(min(grid[k])) for k in (A0, OMEGA, DELTA)}
-        hi = {k: float(max(grid[k])) for k in (A0, OMEGA, DELTA)}
+        box = grid_box({k: grid[k] for k in (A0, OMEGA, DELTA)})
+        lo = {k: box[k][0] for k in box}
+        hi = {k: box[k][1] for k in box}
         if mach_min is None:
             mach_min = lo[DELTA] * lo[OMEGA] / hi[A0]
         if mach_max is None:

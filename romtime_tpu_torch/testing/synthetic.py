@@ -268,8 +268,8 @@ def synthetic_cell(seed=0, nx=1000, nt=1500, tf=1.0, n_windows=50, N=32,
     rng = np.random.default_rng(seed)
     fom, reductors, scales = _base_parts(rng, nx, nt, tf, k)
     win = _draw_windows(rng, fom.mesh.nh, nt, scales, n_windows, N, k)
-    return RomConstructorNonlinear(fom, reductors, win, device=device,
-                                   grid=MU_BOX)
+    return RomConstructorNonlinear.from_artifacts(fom, reductors, win,
+                                                  device=device, grid=MU_BOX)
 
 
 #: The flagship fleet's cell shapes (W, N), ``bench.py``'s
@@ -314,8 +314,8 @@ def synthetic_fleet(cell_wn=FLEET_CELL_WN, register=(5,), seed=0, nx=1000,
         cells_srom = drawn
     edges = RomConstructorNonlinear.compute_piston_mach_number_space(
         MU_BOX, len(cells))
-    rom = RomConstructorNonlinear(fom, reductors, cells[0], device=device,
-                                  grid=MU_BOX)
+    rom = RomConstructorNonlinear.from_artifacts(
+        fom, reductors, cells[0], device=device, grid=MU_BOX)
     rom.mulocal = MuLocalWindowed(edges=edges, cells=cells,
                                   cells_srom=cells_srom)
     return rom
@@ -335,8 +335,8 @@ def synthetic_global_cell(N=15, k=8, nx=1000, nt=1500, seed=0,
     gs = GlobalServing(basis=basis,
                        combines={n: C[0] for n, C in combines.items()},
                        trilinear=0.02 * rng.normal(size=(N * N, N)))
-    return RomConstructorNonlinear(fom, reductors, device=device,
-                                   global_serving=gs, grid=MU_BOX)
+    return RomConstructorNonlinear.from_artifacts(
+        fom, reductors, device=device, global_serving=gs, grid=MU_BOX)
 
 
 def synthetic_estimator(N=15, N_hat=20, k=8, nx=1000, nt=1500, seed=0,
@@ -377,11 +377,11 @@ def synthetic_estimator(N=15, N_hat=20, k=8, nx=1000, nt=1500, seed=0,
             trilinear=np.ascontiguousarray(
                 tri.reshape(N_hat, N_hat, N_hat)[:n, :n, :n]
                 .reshape(n * n, n)))
-        return RomConstructorNonlinear(fom, make_reductors(fom, dofs, lead),
-                                       device=device, global_serving=gs,
-                                       grid=MU_BOX)
+        return RomConstructorNonlinear.from_artifacts(
+            fom, make_reductors(fom, dofs, lead), device=device,
+            global_serving=gs, grid=MU_BOX)
 
-    return HyperReducedPiston(serving(N), srom=serving(N_hat))
+    return HyperReducedPiston.from_serving(serving(N), srom=serving(N_hat))
 
 
 def certification_mus(n_held_out=15, seed=7):

@@ -12,7 +12,8 @@ estimators and the chained lanes variant in float64 against an explicit
 CPU run), and the piston FOM sweep on the card (``solve_fom_batch``,
 plain and dd, BDF-2 and BDF-1, in float64 against the same sweep on the
 CPU; ``solve()`` against its batch row; the float32 sweeps within the
-reference's dd limits).
+reference's dd limits), and the offline build on the card against the
+same build on the CPU (``HyperReducedPiston`` at nx=200, nt=300).
 Needs a CUDA device and nvcc; skips without a device. Imports no JAX, so
 it runs on a machine without it (tests/conftest.py imports JAX,
 hence ``--noconftest``):
@@ -716,7 +717,7 @@ def test_cuda_fleet_estimator():
     for dev in ("cuda", "cpu"):
         rom = synthetic_fleet(cell_wn=((4, 8), (6, 12)), register=(1,),
                               nx=200, nt=120, srom_extra=8, device=dev)
-        hp = HyperReducedPiston(rom)
+        hp = HyperReducedPiston.from_serving(rom)
         before = rom.solve_batch_mulocal(mus)
         with compute_dtype_scope(torch.float64):
             outs[dev] = hp.estimate_batch_mulocal(mus)
@@ -845,3 +846,55 @@ def test_cuda_fom_solve_and_f32_sweep():
     assert drift[True] < 1e-4 and drift[True] < 5.0 * drift[False], drift
     hi, lo = np.abs(out["uh"]).max(), np.abs(out["uh_lo"]).max()
     assert 0 < lo < 1e-5 * hi
+
+
+@pytest.mark.cuda
+def test_cuda_offline_build_card_vs_cpu(tmp_path, monkeypatch):
+    """The port builds bench.py's throughput profile at nx=200, nt=300
+    (``problems.throughput_profile``: 3 offline μ, S-ROM N=20, ROM N=15)
+    on the card and on the CPU, float64, each in its own directory: the
+    same offline μ, the same dofs for every reductor (as sets: a
+    degenerate collateral spectrum leaves the greedy's order to the SVD's
+    rotation), the two builds' float64 lanes probes within 1e-9·scale,
+    and the card build's served K4 (ROM) and K5 (S-ROM) launched."""
+    _need_cuda()
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.problems import throughput_profile
+    from romtime_tpu_torch.rom.hrom import HyperReducedPiston
+
+    builds = {}
+    for dev in ("cuda", "cpu"):
+        workdir = tmp_path / dev
+        workdir.mkdir()
+        monkeypatch.chdir(workdir)
+        hrom = HyperReducedPiston(**throughput_profile(nx=200, nt=300,
+                                                       device=dev))
+        hrom.setup()
+        hrom.setup_hyperreduction()
+        hrom.run_offline_rom(device_sweep=True)
+        hrom.run_offline_hyperreduction(mu_space=hrom.mu_space["offline"],
+                                        evaluate=False)
+        hrom.project_reductors()
+        builds[dev] = hrom
+    card, cpu = builds["cuda"], builds["cpu"]
+    assert card.mu_space["offline"] == cpu.mu_space["offline"]
+    assert (card.rom.N, card.srom.N) == (15, 20) == (cpu.rom.N, cpu.srom.N)
+    for attr in ("mdeim_Mh", "mdeim_Ah", "deim_rhs", "mdeim_Ch",
+                 "mdeim_Nh_hat", "mdeim_Nh"):
+        assert sorted(getattr(card.rom, attr).dofs) == sorted(
+            getattr(cpu.rom, attr).dofs), attr
+    mus = synthetic_mus(8, seed=3)
+    with compute_dtype_scope(torch.float64):
+        got = card.rom.solve_batch(mus, mode="probes", engine="lanes")
+        want = cpu.rom.solve_batch(mus, mode="probes", engine="lanes")
+    scale = np.abs(want["probes"]).max()
+    assert np.abs(got["probes"] - want["probes"]).max() <= 1e-9 * scale
+    k4, k5 = gs.online_sweep_pallas.launches, \
+        gs.online_sweep_theta_pallas.launches
+    batch = synthetic_mus(128, seed=4)
+    card.srom.ONLINE_PRECOMPUTE_BUDGET = 0   # θ per step: K5
+    for rom in (card.rom, card.srom):
+        out = rom.solve_batch(batch, mode="probes", engine="pallas")
+        assert np.isfinite(out["probes"]).all()
+    assert gs.online_sweep_pallas.launches > k4
+    assert gs.online_sweep_theta_pallas.launches > k5
