@@ -109,10 +109,9 @@ Phases, in order; any failure raises and exits non-zero:
    atol 1e-17) and, card against CPU, within the triangle bound of (b)'s
    gaps (tests/test_hrom.py:442-520); (d) ``estimate_batch_mulocal`` in
    float64 at B=16 on the synthetic fleet drawn at N+8
-   (``srom_extra=8``, every cell occupied): shapes, finite positive
+   (``srom_extra=8``, every cell occupied, nt=300 for time): shapes, finite positive
    averages, each estimator row the coefficient-difference norm of its
-   μ's merged trajectories (rtol 1e-12), a permuted batch's rows bit for
-   bit, and the served fleet
+   μ's merged trajectories (rtol 1e-12), and the served fleet
    (``solve_batch_mulocal``) equal before and after bit for bit, with
    the per-cell seconds; (e) the chained lanes variant on a 50x32-recipe
    cell with W=7 unequal windows (214 and 215 steps), float64, B=16,
@@ -162,6 +161,42 @@ Phases, in order; any failure raises and exits non-zero:
    same build on the CPU (``device="cpu"``, full width): the same offline
    μ, the same dofs (as sets; their order printed), and the two builds'
    float64 lanes probes within 1e-9·scale.
+12. fleet build phase: the port builds the flagship μ-local fleet on the
+   card from a global ROM it built itself, in float64 in a temporary
+   directory (``problems.joint_profile``/``joint_fleet``, bench.py:64-115,
+   at full width, its depth cut: 2,2,2,2,5 training μ in cells 0-4 and
+   bench's 24 in the top cell, which is registered): (a) the global build (nx=1000, nt=1500, 8 offline
+   μ, S-ROM N=96, ROM N=88, N-MDEIM 96 modes) by phase 11's stages, with
+   each stage's seconds; (b) ``build_mulocal_serving(device_sweep=True,
+   srom_extra=8)``: six Mach cells (50x32 ×4, 150x48 ×2), the seconds of
+   each stage (``hrom.fleet_seconds``), each cell's training μ, law and
+   training dilations and its predicted floor, peak device memory; (c)
+   ``solve_batch_mulocal(mus, mode="probes")`` at B=2048, a cold and 3
+   warm calls, every counter set to 0 before the cold call and read after
+   the last (one launch of K1's serving design per occupied cell and
+   call, no other launch), routed ≡ direct bit for bit, registered lanes
+   on d > 1 and the others on 1, and on cells 0 and 5 at B=128 the
+   served K1 on its per-step LU (``ROMTIME_PAIRED_LU=0``) within
+   5e-6·scale (``uN_final`` 5e-5) of the float32 lanes engine, the
+   default schedule's gap (paired LU G=5, ``sub1`` followers, which the
+   reference's kernel computes alike on these tables) measured beside
+   it; (d) the float64 windowed lanes engine in ``mode="full"`` on
+   bench's center μ and 4 of its held-out μ against the float64 FOM on
+   the card on each lane's matched grid (T·d on a registered lane): the
+   center under 1e-3 (tests/test_windowed.py:398), a registered lane
+   under 4e-3 (tests/test_registration.py:490); (e)
+   ``estimate_batch_mulocal`` in float64 at B=16 by phase 9 (d)'s
+   contract, each row also the reconstruction-norm formula on its
+   window's basis (a permuted batch's rows: tests/test_torch_estimator.py);
+   (f) a fresh
+   driver's ``start_from_existing_basis`` serving (c)'s last batch bit
+   for bit, cell 0 rebuilt at 30x40 from the trajectory cache with
+   ``fom.solve`` and ``solve_fom_batch`` unreachable (with the box-wide
+   N-MDEIM, ``local_nmdeim=False``), and ``auto_cell_wn``'s shapes and
+   floors on that cache.
+   ``python3 chip_smoke.py --flagship-fleet`` runs this phase alone at the
+   flagship's full depth (12,12,12,12,16,24 training μ, every alignable
+   cell registered, all of bench's held-out μ; no (e) or (f)).
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -169,9 +204,8 @@ kernel's ms, twin ms and bound on the serving path's own inputs (each on
 both designs, in turns). Prints a JSON line of per-kernel results (K1-K5
 on the serving body with their first designs' times, the phase shares,
 the register and spill report, and K1's first design's modes, ablations
-and ledger; the fleet's numbers; the certification and FOM phases'
-numbers),
-then, as the last line,
+and ledger; the fleet's numbers; the certification, FOM, offline build
+and fleet build phases' numbers), then, as the last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -179,6 +213,7 @@ it exits non-zero before printing any result. Imports nothing of JAX.
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -204,8 +239,8 @@ K1_SOLVES = (("sub1", {"paired_lu": GROUP, "paired_mode": "sub1"}),
 K1_TURN_REPS = 2     # calls per turn (first, serving, serving, first)
 KERNEL_REPS = 5
 RESID_REPS = 20
-MODE_REPS = 3        # K1 options phase: timed calls per follower mode
-LEDGER_REPS = 3      # calls per ledger variant (median)
+MODE_REPS = 1        # K1 options phase: timed calls per follower mode
+LEDGER_REPS = 1      # calls per ledger variant (one, for the smoke's time)
 OPTION_WINDOWS = 4   # windows of the option-vs-twin comparisons
 #: Serving runs of the windowed cell: run → (stage-2 branch, calls, batch,
 #: WINDOWED_SOLVE_ITERS on the instance).
@@ -251,6 +286,10 @@ CERT_F64_REL = 1e-9
 #: The synthetic cells' grid (the flagship FOM) and the S-ROM's extra
 #: modes (bench.py's BENCH_WINDOW_SROM_EXTRA default).
 CERT_GRID = {"nx": 1000, "nt": 1500}
+#: (d)'s synthetic nested fleet: full width, its time depth cut to 300
+#: steps for the smoke run's time (phase 12 (e) certifies the built
+#: fleet at nt=1500).
+FLEET_CERT_GRID = {"nx": 1000, "nt": 300}
 SROM_EXTRA = 8
 #: (e): unequal widths (W=7 on nt=1500: 214 and 215 steps) at N=32.
 CHAINED_W = 7
@@ -277,6 +316,28 @@ BUILD_B = 2048
 BUILD_CHECK_B = 16
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+#: Phase 12: the flagship fleet built by the port (bench.py:64-115,
+#: :343-400) at full width, its depth cut: 2,2,2,2,5 training μ in cells
+#: 0-4 (bench's 12,12,12,12,16) and bench's 24 in the top cell (6 left
+#: its served K1 1.4% over (c)'s limit), the top cell registered (bench's
+#: BENCH_REGISTER=top, bench.py:346-348; the flagship registers "auto"),
+#: 4 of bench's 16 held-out μ plus its center μ (bench.py:343, :518-521).
+FLEET_BUILD_GRID = {"nx": 1000, "nt": 1500, "tf": 1.0}
+FLEET_BUILD_PER_CELL = (2, 2, 2, 2, 5, 24)
+FLEET_BUILD_REGISTER = [5]
+FLEET_BUILD_CELL_WN = ((50, 32),) * 4 + ((150, 48),) * 2
+FLEET_BUILD_B = 2048
+FLEET_BUILD_HELD_OUT = 4
+#: (d)'s limits on the matched grid: the center μ
+#: (tests/test_windowed.py:398), a registered lane
+#: (tests/test_registration.py:490).
+FLEET_BUILD_CENTER_REL = 1e-3
+FLEET_BUILD_REGISTERED_REL = 4e-3
+#: (f): cell 0 rebuilt at another shape from the trajectory cache; the
+#: shape candidates and target of auto_cell_wn (bench.py:302-313).
+FLEET_REBUILD_WN = (30, 40)
+AUTO_WN_CANDIDATES = ((50, 32), (30, 40), (150, 48))
+AUTO_WN_TARGET = 1e-5
 
 
 def fail(msg):
@@ -1432,43 +1493,8 @@ def fleet_phase(mods, dev, power):
     info.update(per_cell=per_cell, routed_vs_direct_max_abs=worst)
 
     # (b) served K1 against the float32 lanes engine at B=128.
-    rom.ONLINE_PRECOMPUTE_BUDGET = 0
-    k1 = mods["k1"].online_sweep_windowed_fused
-    checks = []
-    for c in FLEET_LANES_CELLS:
-        win = ml.cells[c]
-        rom._set_serving_windows(win)
-        sub = [dict(mus[int(i)]) for i in np.nonzero(cells == c)[0]]
-        sub = (sub * -(-FLEET_LANES_B // len(sub)))[:FLEET_LANES_B]
-        n0 = k1.serving_launches
-        served = rom.solve_batch(sub, mode="probes")
-        if k1.serving_launches != n0 + 1:
-            raise AssertionError(f"cell {c} at B={FLEET_LANES_B} did not "
-                                 f"serve on K1")
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        lanes = rom.solve_batch(sub, mode="probes", engine="windowed")
-        torch.cuda.synchronize()
-        lanes_s = time.perf_counter() - t
-        scale = max(float(np.abs(lanes["probes"]).max()), 1e-3)
-        perr = float(np.abs(served["probes"] - lanes["probes"]).max())
-        uerr = float(np.abs(served["uN_final"] - lanes["uN_final"]).max())
-        ok = (perr <= FLEET_PROBES_REL * scale and uerr <= FLEET_UN_ATOL
-              and np.isfinite(lanes["probes"]).all())
-        print(f"  (b) cell {c} {win.n_windows}x{win.N}, B={FLEET_LANES_B}: "
-              f"served K1 vs the float32 lanes engine: probes max abs err "
-              f"{perr:.3e} (limit {FLEET_PROBES_REL * scale:.3e}), uN_final "
-              f"{uerr:.3e} (limit {FLEET_UN_ATOL:.0e}); lanes engine "
-              f"{lanes_s:.1f} s on {power} {'ok' if ok else 'FAIL'}")
-        checks.append(dict(cell=c, probes_err=perr, probes_limit=(
-            FLEET_PROBES_REL * scale), uN_err=uerr, lanes_s=lanes_s))
-        if not ok:
-            raise AssertionError(f"fleet cell {c}: served K1 disagrees with "
-                                 f"the lanes engine")
-        del lanes
-        torch.cuda.empty_cache()
-    rom._set_serving_windows(ml.cells[0])
-    info["served_vs_lanes"] = checks
+    info["served_vs_lanes"] = served_vs_lanes(rom, ml, mus, cells, mods,
+                                              power, "(b)")
     return info
 
 
@@ -1620,7 +1646,7 @@ def certification_phase(mods, dev, power):
 
     # (d) The fleet estimator, float64, on the nested synthetic fleet.
     fleet, t_build = timed(dev, lambda: synth.synthetic_fleet(
-        device=dev, srom_extra=SROM_EXTRA, **CERT_GRID))
+        device=dev, srom_extra=SROM_EXTRA, **FLEET_CERT_GRID))
     ml = fleet.mulocal
     hp = HyperReducedPiston.from_serving(fleet)
     # Every cell occupied (the box's draws leave the top Mach cell nearly
@@ -1636,7 +1662,8 @@ def certification_phase(mods, dev, power):
     fmus = [draw[i] for i in picks]
     cells = ml.cell_of([fleet.compute_piston_mach_number(m) for m in fmus])
     print(f"  (d) the nested fleet {ml.cell_wn} over S-ROM cells "
-          f"{[(w.n_windows, w.N) for w in ml.cells_srom]} built in "
+          f"{[(w.n_windows, w.N) for w in ml.cells_srom]} (nt="
+          f"{FLEET_CERT_GRID['nt']}) built in "
           f"{t_build:.1f} s; μ per cell "
           f"{np.bincount(cells, minlength=ml.n_cells).tolist()}")
     served_before = fleet.solve_batch_mulocal(fmus, mode="probes")
@@ -1653,20 +1680,15 @@ def certification_phase(mods, dev, power):
     try:
         with compute_dtype_scope(torch.float64):
             fest, fest_s = timed(dev, lambda: hp.estimate_batch_mulocal(fmus))
-            perm = np.random.default_rng(5).permutation(CERT_SMALL_B)
-            again = hp.estimate_batch_mulocal([fmus[i] for i in perm])
     finally:
         del hp.estimate_batch
     served_after = fleet.solve_batch_mulocal(fmus, mode="probes")
     fe, favg = fest[Errors.ESTIMATOR], fest[Errors.AVERAGE_ESTIMATOR]
-    if (fe.shape != (CERT_SMALL_B, nt) or favg.shape != (CERT_SMALL_B,)
+    if (fe.shape != (CERT_SMALL_B, FLEET_CERT_GRID["nt"])
+            or favg.shape != (CERT_SMALL_B,)
             or not np.isfinite(favg).all() or (favg <= 0).any()):
         raise AssertionError(f"fleet estimator {fe.shape}, averages "
                              f"{favg.shape}: not finite and > 0")
-    if not (np.array_equal(again[Errors.ESTIMATOR], fe[perm])
-            and np.array_equal(again[Errors.AVERAGE_ESTIMATOR], favg[perm])):
-        raise AssertionError("a permuted batch did not return the permuted "
-                             "rows bit for bit")
     for k, v in served_before.items():
         if not all(np.array_equal(a, b) for a, b in
                    zip(v, served_after[k])):
@@ -1693,15 +1715,14 @@ def certification_phase(mods, dev, power):
     print(f"  (d) estimate_batch_mulocal, B={CERT_SMALL_B}, float64: "
           f"{fest_s:.2f} s a call; per cell "
           + ", ".join(f"{r['cell']} {r['seconds']:.2f} s"
-                      for r in per_cell[:len(per_cell) // 2])
+                      for r in per_cell)
           + f"; averages {float(favg.min()):.4e}..{float(favg.max()):.4e}; "
           f"each row the norm of its μ's merged trajectories (largest "
-          f"relative gap {fformula:.2e}, limit 1e-12); "
-          f"the permuted batch's rows bit for bit; the served fleet equal "
-          f"before and after, bit for bit, on {power} ok")
+          f"relative gap {fformula:.2e}, limit 1e-12); the served fleet "
+          f"equal before and after, bit for bit, on {power} ok")
     info["fleet_estimator"] = dict(
         B=CERT_SMALL_B, seconds=fest_s, formula_rel_gap=fformula,
-        per_cell=per_cell[:len(per_cell) // 2],
+        per_cell=per_cell,
         average_min=float(favg.min()), average_max=float(favg.max()))
     del fleet, hp
 
@@ -1950,13 +1971,14 @@ def estimator_contract(out, ref, V_srom, nt):
     return formula_gap, bound_slack, (float(avg.min()), float(avg.max()))
 
 
-def build_pipeline(dev, grid, workdir):
+def build_pipeline(dev, grid, workdir, profile="throughput_profile"):
     """bench.py's offline sequence (bench.py:209-262) with the port on
-    ``dev`` in ``workdir``: returns the pipeline, each stage's seconds and
-    the calls of the snapshot assembly (one per μ and trained operator,
-    the tree walk's times its trailing batch)."""
+    ``dev`` in ``workdir`` for ``problems.<profile>``: returns the
+    pipeline, each stage's seconds and the calls of the snapshot assembly
+    (one per μ and trained operator, the tree walk's times its trailing
+    batch)."""
+    from romtime_tpu_torch import problems
     from romtime_tpu_torch.deim import DiscreteEmpiricalInterpolation
-    from romtime_tpu_torch.problems import throughput_profile
     from romtime_tpu_torch.rom.hrom import HyperReducedPiston
 
     calls = [0]
@@ -1970,7 +1992,8 @@ def build_pipeline(dev, grid, workdir):
     os.chdir(workdir)
     DiscreteEmpiricalInterpolation.assemble_snapshots_batch = counted
     try:
-        hrom = HyperReducedPiston(**throughput_profile(device=dev, **grid))
+        hrom = HyperReducedPiston(**getattr(problems, profile)(device=dev,
+                                                              **grid))
         _, setup_s = timed(dev, lambda: (hrom.setup(),
                                          hrom.setup_hyperreduction()))
         timed(dev, lambda: hrom.run_offline_rom(device_sweep=True))
@@ -2156,6 +2179,452 @@ def offline_build_phase(mods, dev, power):
     return info
 
 
+def held_out_mus(rom, n=None):
+    """``n`` (default all) of bench.py's 16 Mach-stratified held-out μ
+    (``build_sampling_space(16, RandomState(7))``, bench.py:518-521; the
+    bins above the box's largest Mach stay empty), evenly spaced in Mach
+    from the lowest to the highest."""
+    space = rom.build_sampling_space(num=16, rnd=np.random.RandomState(7))
+    n = len(space) if n is None else n
+    pick = np.linspace(0, len(space) - 1, n).round().astype(int)
+    return [{k: float(v) for k, v in space[i].items()
+             if k != "piston_mach"} for i in pick]
+
+
+def fom_references(fom, mus, dils):
+    """Each μ's float64 FOM trajectory (uc, (nt, nh)) on its matched grid
+    (T·d, the same nt steps), in one ``solve_fom_batch`` on the FOM's
+    device with per-lane clocks."""
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.parallel import solve_fom_batch
+
+    with compute_dtype_scope(torch.float64):
+        return list(solve_fom_batch(fom, mus, dilations=dils)["uc"])
+
+
+def routed_rows_equal_direct(rom, ml, out, mus, cells, Bb):
+    """Each occupied cell's direct ``solve_batch`` on its padded
+    sub-batch against the routed rows, bit for bit; the largest
+    difference (0)."""
+    worst = 0.0
+    for c in sorted(set(cells.tolist())):
+        idx = np.nonzero(cells == c)[0]
+        sub = [dict(mus[int(i)]) for i in idx]
+        sub = (sub * -(-Bb // len(sub)))[:Bb]
+        rom._set_serving_windows(ml.cells[c])
+        direct = rom.solve_batch(sub, mode="probes")
+        for k, v in direct.items():
+            for j, i in enumerate(idx):
+                row = np.asarray(out[k][int(i)])
+                want_row = v[j] if len(v) == Bb else v
+                if not np.array_equal(row, want_row):
+                    raise AssertionError(f"cell {c}: routed {k} row {i} "
+                                         f"differs from the direct solve")
+                worst = max(worst, float(np.abs(row - want_row).max()))
+    rom._set_serving_windows(ml.cells[0])
+    return worst
+
+
+@contextlib.contextmanager
+def env_scope(name, value):
+    """The environment variable ``name`` set to ``value`` inside the
+    scope, restored after."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def served_vs_lanes(rom, ml, mus, cells, mods, power, label,
+                    per_step=False):
+    """On the cells of FLEET_LANES_CELLS, each padded to FLEET_LANES_B
+    from its μ of ``mus``, the served K1 (budget 0) against the port's
+    float32 windowed lanes engine, at tests/test_windowed.py:91-94's
+    limits. ``per_step``: the held call runs K1's per-step LU
+    (``ROMTIME_PAIRED_LU=0``), and the gap of the default schedule
+    (paired LU G=5, ``sub1`` followers) is measured beside it, not held."""
+    k1 = mods["k1"].online_sweep_windowed_fused
+    checks = []
+
+    def serve(sub):
+        n0 = k1.serving_launches
+        out = rom.solve_batch(sub, mode="probes")
+        if k1.serving_launches != n0 + 1:
+            raise AssertionError(f"B={FLEET_LANES_B} did not serve on K1")
+        return out
+
+    rom.ONLINE_PRECOMPUTE_BUDGET = 0
+    try:
+        for c in FLEET_LANES_CELLS:
+            win = ml.cells[c]
+            rom._set_serving_windows(win)
+            sub = [dict(mus[int(i)]) for i in np.nonzero(cells == c)[0]]
+            sub = (sub * -(-FLEET_LANES_B // len(sub)))[:FLEET_LANES_B]
+            served = serve(sub)
+            held = served
+            if per_step:
+                with env_scope("ROMTIME_PAIRED_LU", "0"):
+                    held = serve(sub)
+            lanes, lanes_s = timed(rom.device, lambda: rom.solve_batch(
+                sub, mode="probes", engine="windowed"))
+            scale = max(float(np.abs(lanes["probes"]).max()), 1e-3)
+            perr = float(np.abs(held["probes"] - lanes["probes"]).max())
+            uerr = float(np.abs(held["uN_final"] - lanes["uN_final"]).max())
+            ok = (perr <= FLEET_PROBES_REL * scale and uerr <= FLEET_UN_ATOL
+                  and np.isfinite(lanes["probes"]).all())
+            row = dict(cell=c, probes_err=perr, probes_limit=(
+                FLEET_PROBES_REL * scale), uN_err=uerr, lanes_s=lanes_s)
+            extra = ""
+            if per_step:
+                gap = np.abs(served["probes"] - lanes["probes"])
+                steps = np.argsort(gap.max(axis=(0, 2)))[-3:][::-1]
+                row.update(
+                    default_probes_err=float(gap.max()),
+                    default_uN_err=float(np.abs(
+                        served["uN_final"] - lanes["uN_final"]).max()),
+                    default_worst_steps=steps.tolist())
+                extra = (f"; the default paired LU G=5 sub1: probes "
+                         f"{row['default_probes_err']:.3e}, uN_final "
+                         f"{row['default_uN_err']:.3e}, worst at steps "
+                         f"{steps.tolist()} (measured, not held)")
+            print(f"  {label} cell {c} {win.n_windows}x{win.N}, B="
+                  f"{FLEET_LANES_B}: served K1"
+                  f"{' (per-step LU)' if per_step else ''} vs the float32 "
+                  f"lanes engine: probes max abs err {perr:.3e} (limit "
+                  f"{FLEET_PROBES_REL * scale:.3e}), uN_final {uerr:.3e} "
+                  f"(limit {FLEET_UN_ATOL:.0e}); lanes engine {lanes_s:.1f} "
+                  f"s{extra} on {power} {'ok' if ok else 'FAIL'}")
+            checks.append(row)
+            if not ok:
+                raise AssertionError(f"fleet cell {c}: served K1 disagrees "
+                                     f"with the lanes engine")
+            del lanes
+            torch.cuda.empty_cache()
+    finally:
+        del rom.ONLINE_PRECOMPUTE_BUDGET
+        rom._set_serving_windows(ml.cells[0])
+    return checks
+
+
+@contextlib.contextmanager
+def fom_unreachable(fom):
+    """``fom.solve`` and ``solve_fom_batch`` raise inside the scope."""
+    from romtime_tpu_torch.parallel import sweep
+
+    def boom(*a, **k):
+        raise AssertionError("the trajectory cache missed: the FOM ran")
+
+    real = sweep.solve_fom_batch
+    fom.solve = boom
+    sweep.solve_fom_batch = boom
+    try:
+        yield
+    finally:
+        del fom.solve
+        sweep.solve_fom_batch = real
+
+
+def fleet_build_phase(mods, dev, power, flagship=False):
+    """Phase 12 of the module doc: the port builds the flagship fleet on
+    the card (its depth cut), serves it through K1, checks its accuracy
+    against the FOM, certifies it and persists it, in a temporary
+    directory. Nothing falls back to the CPU. ``flagship``: the fleet at
+    its full depth (bench.py's 12,12,12,12,16,24 training μ, every
+    alignable cell registered), its accuracy on all of bench's held-out
+    μ and the center; no (e) or (f)."""
+    import tempfile
+
+    from romtime_tpu_torch.conventions import Errors
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.problems import (
+        JOINT_CENTER_MU,
+        joint_fleet,
+        joint_profile,
+    )
+    from romtime_tpu_torch.rom.hrom import HyperReducedPiston
+    from romtime_tpu_torch.rom.windowed import predict_window_floor
+    from romtime_tpu_torch.utils import compute_rom_difference
+
+    synth = mods["synth"]
+    nt = FLEET_BUILD_GRID["nt"]
+    info = {"card": power, "grid": dict(FLEET_BUILD_GRID),
+            "per_cell": list(FLEET_BUILD_PER_CELL),
+            "register": list(FLEET_BUILD_REGISTER)}
+    workdir = tempfile.mkdtemp()
+    cwd = os.getcwd()
+    try:
+        # (a) The global build of the joint profile.
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        hrom, seconds, calls = build_pipeline(dev, FLEET_BUILD_GRID, workdir,
+                                              profile="joint_profile")
+        rom = hrom.rom
+        print(f"fleet build: the joint profile's global build (nx="
+              f"{FLEET_BUILD_GRID['nx']}, nt={nt}, float64) on the card: ROM "
+              f"N={rom.N}, S-ROM N={hrom.srom.N}; seconds "
+              + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+              + f"; {calls} snapshot-assembly calls; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on "
+              f"{power}")
+        info["global"] = dict(seconds=seconds, snapshot_calls=calls,
+                              N=rom.N, N_srom=hrom.srom.N,
+                              peak_bytes=torch.cuda.max_memory_allocated())
+
+        # (b) The fleet build: one device sweep, the top cell registered.
+        kwargs = (joint_fleet() if flagship else joint_fleet(
+            per_cell=FLEET_BUILD_PER_CELL, register=FLEET_BUILD_REGISTER,
+            cell_wn=FLEET_BUILD_CELL_WN))
+        os.chdir(workdir)
+        torch.cuda.reset_peak_memory_stats()
+        ml, build_s = timed(dev, lambda: hrom.build_mulocal_serving(
+            device_sweep=True, **kwargs))
+        peak = torch.cuda.max_memory_allocated()
+        secs = hrom.fleet_seconds
+        print(f"  (b) build_mulocal_serving(device_sweep=True, srom_extra="
+              f"{kwargs['srom_extra']}): {build_s:.1f} s; per stage "
+              + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+              + f"; fleet {ml.cell_wn} over S-ROM cells "
+              f"{[(w.n_windows, w.N) for w in ml.cells_srom]}, Mach edges "
+              f"{np.round(ml.edges, 6).tolist()}; peak device memory "
+              f"{peak / 2**30:.3f} GiB on {power}")
+        with np.load(os.path.join(workdir, "mulocal_snapshots.npz")) as d:
+            build_tag = str(d["build"])
+            cached = {c: [d[f"snap_{c}_{j}"] for j in range(int(n))]
+                      for c, n in enumerate(d["per_cell"])}
+        cells_info = []
+        for c, win in enumerate(ml.cells):
+            law = win.dilation
+            floor = predict_window_floor(cached[c], win.n_windows, win.N)
+            mach = [rom.compute_piston_mach_number(m)
+                    for m in hrom.cell_mus[c]]
+            row = dict(cell=c, shape=f"{win.n_windows}x{win.N}",
+                       mach=mach, mus=hrom.cell_mus[c],
+                       predicted_floor=floor,
+                       law=None if law is None else dict(
+                           names=list(law.names),
+                           coef=np.asarray(law.coef).tolist(),
+                           training_dilations=np.asarray(
+                               hrom.cell_dilations[c]).tolist()))
+            cells_info.append(row)
+            print(f"    cell {c} {row['shape']}: training μ at Mach "
+                  + ", ".join(f"{x:.4f}" for x in mach)
+                  + f"; predicted floor {floor:.3e} (its standard-clock "
+                  f"trajectories); "
+                  + ("unregistered" if law is None else
+                     f"law {law.names} coef "
+                     f"{np.array2string(np.asarray(law.coef), precision=6)}"
+                     f", training dilations "
+                     f"{np.round(hrom.cell_dilations[c], 5).tolist()}"))
+        want_tag = ("device-f32" if torch.device(dev).type == "cuda"
+                    else "f64")
+        registered = [c for c, w in enumerate(ml.cells)
+                      if w.dilation is not None]
+        if (not flagship and registered != list(FLEET_BUILD_REGISTER)
+                or build_tag != want_tag):
+            raise AssertionError(f"registered cells or cache tag "
+                                 f"({build_tag}) not as asked")
+        info.update(build_s=build_s, stages=secs, peak_bytes=peak,
+                    cells=cells_info, cache_build=build_tag,
+                    edges=np.asarray(ml.edges).tolist())
+
+        # (c) Serving at B=2048: a cold call and warm calls through K1.
+        Bb = FLEET_BUILD_B
+        batches = [synth.synthetic_mus(Bb, seed=61 + r)
+                   for r in range(FLEET_CALLS + 1)]
+        cell_lists = [ml.cell_of([rom.compute_piston_mach_number(m)
+                                  for m in mus]) for mus in batches]
+        for c in counters(mods):
+            c.launches = c.serving_launches = c.first_design_launches = 0
+        times = []
+        for mus in batches:
+            out, sec = timed(dev, lambda: rom.solve_batch_mulocal(
+                mus, mode="probes"))
+            times.append(sec)
+        launches = [c.launches for c in counters(mods)]
+        designs = design_counts(mods)
+        want = [sum(len(set(cl.tolist())) for cl in cell_lists), 0, 0, 0, 0]
+        cells = cell_lists[-1]
+        occupancy = np.bincount(cells, minlength=ml.n_cells).tolist()
+        serve = dict(call_info(Bb, times[1:]), cold_ms=times[0] * 1e3,
+                     cold_solves_per_s=Bb / times[0], occupancy=occupancy,
+                     launches=launches)
+        print(f"  (c) serving B={Bb}: cold {times[0] * 1e3:.1f} ms, warm "
+              f"median {serve['serve_ms_median']:.1f} ms = "
+              f"{serve['solves_per_s']:.1f} solves/s on {power}; occupancy "
+              f"{occupancy}; launches K1-K5 {launches}, (serving design, "
+              f"first design) {designs}")
+        if launches != want or designs["K1"] != (want[0], 0):
+            raise AssertionError(f"the built fleet launched {launches} "
+                                 f"({designs}), expected {want}")
+        check_fleet_rows(out, Bb, ml)
+        dil = np.asarray(out["dil"], np.float64)
+        # Each registered lane on its law's d(μ) (clamped at the law's
+        # floor 1: a μ beyond the training cloud may predict below it),
+        # the others on 1.
+        reg = np.array([ml.cells[c].dilation is not None for c in cells])
+        law_d = np.array([max(float(ml.cells[c].dilation.predict(m)),
+                              ml.cells[c].dilation.floor) if r else 1.0
+                          for m, c, r in zip(batches[-1], cells, reg)])
+        clamped = int((reg & (law_d == 1.0)).sum())
+        if (not np.allclose(dil, law_d, rtol=1e-6, atol=0)
+                or (dil[reg & (law_d > 1.0)] <= 1.0).any()
+                or (dil[~reg] != 1.0).any()
+                or (not flagship and clamped)):
+            raise AssertionError("dilations: registered lanes must carry "
+                                 "their law's d > 1, the others 1")
+        worst = routed_rows_equal_direct(rom, ml, out, batches[-1], cells, Bb)
+        print(f"  (c) routed ≡ direct on every occupied cell (max abs diff "
+              f"{worst}, limit 0); {int(reg.sum())} registered lanes at d "
+              f"{dil[reg].min():.5f}..{dil[reg].max():.5f} (their laws' "
+              f"d(μ), {clamped} at the floor 1), the rest at 1")
+        serve["routed_vs_direct_max_abs"] = worst
+        serve["served_vs_lanes"] = served_vs_lanes(
+            rom, ml, batches[-1], cells, mods, power, "(c)", per_step=True)
+        info["serve"] = serve
+        last_mus, last_out = batches[-1], out
+
+        # (d) Accuracy against the FOM on the matched grid, float64.
+        acc_mus = [dict(JOINT_CENTER_MU)] + held_out_mus(
+            rom, None if flagship else FLEET_BUILD_HELD_OUT)
+        with compute_dtype_scope(torch.float64):
+            full, lanes_s = timed(dev, lambda: rom.solve_batch_mulocal(
+                acc_mus, mode="full", engine="windowed"))
+        dils = [float(d) for d in np.asarray(full["dil"], np.float64)]
+        refs, fom_s = timed(dev, lambda: fom_references(hrom.fom, acc_mus,
+                                                        dils))
+        acc_cells = ml.cell_of([rom.compute_piston_mach_number(m)
+                                for m in acc_mus])
+        rels = [float(np.linalg.norm(np.asarray(full["uc"][i]) - refs[i])
+                      / np.linalg.norm(refs[i]))
+                for i in range(len(acc_mus))]
+        rows = [dict(mach=rom.compute_piston_mach_number(m), cell=int(c),
+                     dil=d, rel_l2=r)
+                for m, c, d, r in zip(acc_mus, acc_cells, dils, rels)]
+        print(f"  (d) rel-L2 against the float64 FOM on the matched grid "
+              f"(f64 windowed lanes {lanes_s:.1f} s, FOM references "
+              f"{fom_s:.1f} s): "
+              + "; ".join(f"{'center' if i == 0 else 'held-out'} Mach "
+                          f"{r['mach']:.4f} cell {r['cell']} d "
+                          f"{r['dil']:.5f}: {r['rel_l2']:.3e}"
+                          for i, r in enumerate(rows)))
+        bad = [r for i, r in enumerate(rows)
+               if (i == 0 and r["rel_l2"] >= FLEET_BUILD_CENTER_REL)
+               or (r["dil"] != 1.0
+                   and r["rel_l2"] >= FLEET_BUILD_REGISTERED_REL)]
+        if bad or not any(r["dil"] != 1.0 for r in rows):
+            raise AssertionError(f"(d) the center μ (limit "
+                                 f"{FLEET_BUILD_CENTER_REL:.0e}) or a "
+                                 f"registered lane (limit "
+                                 f"{FLEET_BUILD_REGISTERED_REL:.0e}) missed, "
+                                 f"or no registered lane: {bad}")
+        print(f"  (d) the center μ under {FLEET_BUILD_CENTER_REL:.0e} and "
+              f"the registered lanes under {FLEET_BUILD_REGISTERED_REL:.0e} "
+              f"on {power} ok")
+        info["accuracy"] = dict(rows=rows, lanes_s=lanes_s, fom_s=fom_s)
+        del full, refs
+
+        if flagship:
+            info["launches"] = launches
+            return info
+
+        # (e) estimate_batch_mulocal, float64, B=16: phase 9 (d)'s
+        # contract.
+        fmus = synth.certification_mus()
+        served_before = rom.solve_batch_mulocal(fmus, mode="probes")
+        with compute_dtype_scope(torch.float64):
+            fest, fest_s = timed(dev, lambda: hrom.estimate_batch_mulocal(
+                fmus))
+        served_after = rom.solve_batch_mulocal(fmus, mode="probes")
+        fe, favg = fest[Errors.ESTIMATOR], fest[Errors.AVERAGE_ESTIMATOR]
+        if (fe.shape != (len(fmus), nt) or not np.isfinite(favg).all()
+                or (favg <= 0).any()):
+            raise AssertionError(f"fleet estimator {fe.shape}: not finite "
+                                 f"and > 0")
+        for k, v in served_before.items():
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(v, served_after[k])):
+                raise AssertionError(f"served {k} changed across the "
+                                     f"estimator")
+        fcells = ml.cell_of([rom.compute_piston_mach_number(m)
+                             for m in fmus])
+        formula = 0.0
+        for b, c in enumerate(fcells):
+            V_srom = np.asarray(ml.cells_srom[int(c)].Vs)
+            uN_b, uNs_b = fest["rom"][b], fest["srom"][b]
+            same = np.array([compute_rom_difference(
+                uN_b[i], uNs_b[i], V_srom[min(np.searchsorted(
+                    ml.cells_srom[int(c)].bounds, i, side="right") - 1,
+                    len(V_srom) - 1)]) for i in range(nt)])
+            if not np.allclose(fe[b], same, rtol=1e-10, atol=1e-17):
+                raise AssertionError(f"fleet μ {b}: the estimator row is "
+                                     f"not the reconstruction-norm formula")
+            formula = max(formula, float(np.max(
+                np.abs(fe[b] - same) / np.maximum(np.abs(same), 1e-300))))
+        print(f"  (e) estimate_batch_mulocal, B={len(fmus)}, float64: "
+              f"{fest_s:.2f} s a call; averages {float(favg.min()):.4e}.."
+              f"{float(favg.max()):.4e}; each row the reconstruction-norm "
+              f"formula on its window's basis (largest relative gap "
+              f"{formula:.2e}, limit 1e-10); the served fleet equal before "
+              f"and after on {power} ok")
+        info["estimator"] = dict(B=len(fmus), seconds=fest_s,
+                                 formula_rel_gap=formula,
+                                 average_min=float(favg.min()),
+                                 average_max=float(favg.max()))
+        del fest
+
+        # (f) Persistence: a fresh driver resumes the directory; a rebuild
+        # at another shape for cell 0 from the trajectory cache; the
+        # shapes auto_cell_wn picks from it.
+        fresh = HyperReducedPiston(**joint_profile(device=dev,
+                                                   **FLEET_BUILD_GRID))
+        fresh.setup()
+        fresh.setup_hyperreduction()
+        fresh.start_from_existing_basis()
+        fresh.project_reductors()
+        resumed, resume_s = timed(dev, lambda: fresh.rom.solve_batch_mulocal(
+            last_mus, mode="probes"))
+        for k, v in last_out.items():
+            if not all(np.array_equal(a, b) for a, b in zip(v, resumed[k])):
+                raise AssertionError(f"the resumed fleet serves another {k}")
+        del fresh, resumed
+        rebuild_wn = [tuple(FLEET_REBUILD_WN)] + list(kwargs["cell_wn"][1:])
+        with fom_unreachable(hrom.fom):
+            rebuilt, rebuild_s = timed(dev, lambda: hrom.build_mulocal_serving(
+                device_sweep=True, dump=False, snapshot_cache=True,
+                local_nmdeim=False,
+                **dict(kwargs, cell_wn=rebuild_wn, register=None)))
+        rom.mulocal = ml
+        if (rebuilt.cell_wn != rebuild_wn
+                or not np.array_equal(rebuilt.cells[1].Vs, ml.cells[1].Vs)):
+            raise AssertionError("the cached rebuild differs")
+        auto_wn, floors = hrom.auto_cell_wn(
+            [tuple(w) for w in AUTO_WN_CANDIDATES], AUTO_WN_TARGET,
+            expect_n_cells=ml.n_cells, expect_edges=ml.edges)
+        print(f"  (f) a fresh driver resumed the directory and served the "
+              f"last batch bit for bit ({resume_s:.2f} s, cold); cell 0 "
+              f"rebuilt at {FLEET_REBUILD_WN[0]}x{FLEET_REBUILD_WN[1]} from "
+              f"the cache with the FOM unreachable in {rebuild_s:.1f} s "
+              f"(cell 1's bases bit for bit); auto_cell_wn(candidates "
+              f"{[f'{w}x{n}' for w, n in AUTO_WN_CANDIDATES]}, target "
+              f"{AUTO_WN_TARGET:.0e}): {auto_wn}, floors "
+              + ", ".join(f"{f:.2e}" for f in floors) + f" on {power} ok")
+        info["persistence"] = dict(resume_cold_s=resume_s,
+                                   rebuild_s=rebuild_s,
+                                   rebuild_stages=hrom.fleet_seconds,
+                                   auto_cell_wn=[list(w) for w in auto_wn],
+                                   auto_floors=floors)
+        info["launches"] = launches
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(workdir, ignore_errors=True)
+    return info
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -2199,6 +2668,20 @@ def main():
             raise AssertionError(f"the serving body spills in {stem}: "
                                  f"{spills}")
 
+    if "--flagship-fleet" in sys.argv[1:]:
+        # The one-off full-depth fleet build (phase 12 uncut), alone.
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            flagship = fleet_build_phase(mods, dev, power, flagship=True)
+            flagship["seconds_phase"] = time.perf_counter() - t0
+        print(f"flagship fleet build: {flagship['seconds_phase']:.1f} s")
+        print(json.dumps({"flagship_fleet": flagship, "card": power},
+                         default=float))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+
     errs = {k: [] for k in KERNELS}
     with torch.inference_mode():
         rich_errs = []
@@ -2235,6 +2718,13 @@ def main():
         build["seconds_phase"] = time.perf_counter() - t0
         print(f"offline build phase: {build['seconds_phase']:.1f} s, "
               f"launches K1-K5 {build['launches']}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fleet_build = fleet_build_phase(mods, dev, power)
+        fleet_build["seconds_phase"] = time.perf_counter() - t0
+        print(f"fleet build phase: {fleet_build['seconds_phase']:.1f} s, "
+              f"launches K1-K5 of its served calls "
+              f"{fleet_build['launches']}")
     for k, v in gkernels.items():
         launches[k] = v.pop("launches")
         kernels[k] = v
@@ -2291,11 +2781,13 @@ def main():
         name=meta[k][0], route="cuda", source=meta[k][1],
         replaces=meta[k][2], launches=launches[k],
         max_abs_err=max(errs[k]), library_ms=None,
-        offline_build_launches=build["launches"][i], **kernels[k])
+        offline_build_launches=build["launches"][i],
+        fleet_build_launches=fleet_build["launches"][i], **kernels[k])
         for i, k in enumerate(KERNELS)],
         "shapes": rows, "serving": serving, "autotune": autotune,
         "fleet": fleet, "certification": certification, "fom": fom,
-        "offline_build": build, "card": power}))
+        "offline_build": build, "fleet_build": fleet_build,
+        "card": power}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,14 +27,16 @@ from .deim import DiscreteEmpiricalInterpolation, offline
 def project_band(band, V):
     """Vᵀ·A_i·V of each operator of a banded stack ``band``
     (2p+1, nh, k), flattened row-major: (N², k) float64 numpy for V
-    (nh, N) (reference ``mdeim.py:24-38``)."""
-    band = np.asarray(band, np.float64)
-    V = np.asarray(V, np.float64)
+    (nh, N) (reference ``mdeim.py:24-38``). Computed in float64 on the
+    band's device where it is a tensor (a table assembled on the card is
+    projected there), on the CPU for an array."""
+    band = torch.as_tensor(band).to(torch.float64)
+    V = torch.as_tensor(np.asarray(V, np.float64), device=band.device)
     p, nh, N = (band.shape[0] - 1) // 2, band.shape[1], V.shape[1]
-    Vpad = np.concatenate([np.zeros((p, N)), V, np.zeros((p, N))])
+    Vpad = torch.nn.functional.pad(V, (0, 0, p, p))
     AV = sum(band[d][:, None, :] * Vpad[d:d + nh][:, :, None]
              for d in range(2 * p + 1))                       # (nh, N, k)
-    return np.einsum("ri,rjk->ijk", V, AV).reshape(N * N, -1)
+    return (V.T @ AV.reshape(nh, -1)).reshape(N * N, -1).cpu().numpy()
 
 
 class MatrixDiscreteEmpiricalInterpolation(DiscreteEmpiricalInterpolation):
@@ -127,10 +129,16 @@ class MatrixDiscreteEmpiricalInterpolation(DiscreteEmpiricalInterpolation):
     # ------------------------------------------------------------------
     def project_basis(self, V):
         """Project every collateral mode, A_N = Vᵀ·A·V, flattened
-        (reference ``mdeim.py:175-192``)."""
+        (reference ``mdeim.py:175-192``), in float64 on the solver's
+        device (a windowed build projects every window's basis)."""
         mesh = self.solver.mesh
-        band = np.zeros((2 * mesh.degree + 1, mesh.nh, self.N))
-        band[self.cols - self.rows + mesh.degree, self.rows] = self.basis_fom
+        device = self._device()
+        band = torch.zeros((2 * mesh.degree + 1, mesh.nh, self.N),
+                           dtype=torch.float64, device=device)
+        rows = torch.as_tensor(np.asarray(self.rows), device=device)
+        cols = torch.as_tensor(np.asarray(self.cols), device=device)
+        band[cols - rows + mesh.degree, rows] = torch.as_tensor(
+            np.asarray(self.basis_fom, np.float64), device=device)
         self.basis_rom = project_band(band, V)
         self.N_V = np.asarray(V).shape[1]
         self._combine_cache = {}

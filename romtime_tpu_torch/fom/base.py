@@ -138,7 +138,8 @@ class _StepOutputs:
             return dict(self.buffers, t=ts)
         out = {name: torch.movedim(v, -1, 0)
                for name, v in self.buffers.items()}
-        out["t"] = ts.expand(batch + ts.shape)
+        # Per-lane clocks (nt, B) come out (B, nt), as one shared clock.
+        out["t"] = ts.T if ts.ndim == 2 else ts.expand(batch + ts.shape)
         return out
 
 
@@ -228,6 +229,8 @@ class OneDimensionalSolver(ABC):
 
     @property
     def dt(self):
+        """T/nt: a float, or a (B,) tensor of per-lane steps where the
+        final time is one (a batch on per-lane clocks)."""
         return self.domain[self.T] / self.domain[self.NT]
 
     @property
@@ -567,9 +570,12 @@ class OneDimensionalSolver(ABC):
 
     def _timesteps(self, nt, dtype, device):
         """t_k = (k+1)·dt in the compute dtype, dt rounded to it first
-        (the reference's ``(k + 1).astype(dtype) * dt``)."""
-        dt = torch.full((), self.dt, dtype=dtype, device=device)
-        return torch.arange(1, nt + 1, dtype=dtype, device=device) * dt
+        (the reference's ``(k + 1).astype(dtype) * dt``): (nt,), or
+        (nt, B) where the final time is a (B,) tensor of per-lane times
+        (``parallel.solve_fom_batch(..., dilations=...)``)."""
+        dt = torch.as_tensor(self.dt, dtype=dtype, device=device)
+        steps = torch.arange(1, nt + 1, dtype=dtype, device=device)
+        return steps * dt if dt.ndim == 0 else steps[:, None] * dt
 
     @contextlib.contextmanager
     def _time_loop(self):

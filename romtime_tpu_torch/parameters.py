@@ -61,10 +61,27 @@ class ParameterSampler:
             sample = dict()
             for key, value in items:
                 if hasattr(value, "rvs"):
-                    sample[key] = value.rvs(random_state=rng)
+                    sample[key] = _draw(value, rng)
                 else:
                     sample[key] = value[rng.randint(len(value))]
             yield sample
+
+
+def _draw(dist, rng):
+    """One draw of the frozen distribution ``dist`` from ``rng``. A
+    uniform one is drawn as scipy draws it, u·scale + loc from one
+    ``rng.uniform(0, 1)`` (a zero scale draws nothing and returns loc),
+    without scipy's per-call overhead (~27 µs: a fleet's candidate pool
+    takes 10⁵-10⁶ draws); any other by its ``rvs``."""
+    kwds = getattr(dist, "kwds", None)
+    if (getattr(getattr(dist, "dist", None), "name", None) == "uniform"
+            and not dist.args and set(kwds) <= {"loc", "scale"}):
+        loc = float(kwds.get("loc", 0.0))
+        scale = float(kwds.get("scale", 1.0))
+        if scale == 0.0:
+            return np.float64(loc)
+        return np.float64(rng.uniform(0.0, 1.0) * scale + loc)
+    return dist.rvs(random_state=rng)
 
 
 def sample_parameters(grid, num, random_state=None):

@@ -1,3 +1,11 @@
-from .piston import define_piston_problem, throughput_profile
+from .piston import (
+    JOINT_CENTER_MU,
+    define_piston_problem,
+    joint_fleet,
+    joint_profile,
+    piston_profile,
+    throughput_profile,
+)
 
-__all__ = ["define_piston_problem", "throughput_profile"]
+__all__ = ["JOINT_CENTER_MU", "define_piston_problem", "joint_fleet",
+           "joint_profile", "piston_profile", "throughput_profile"]

@@ -34,7 +34,9 @@ estimator is fetched. An estimator also comes from artifacts
 """
 
 import os
+import sys
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -51,6 +53,8 @@ from ..deim import (
     MatrixDiscreteEmpiricalInterpolation,
     MatrixDiscreteEmpiricalInterpolationNonlinear,
 )
+from ..deim.deim import offline
+from ..dtypes import compute_dtype_scope
 from ..fom import OneDimensionalBurgers
 from ..utils import dump_json, dump_pickle, read_json, read_pickle
 from ..utils.numeric import time_average
@@ -329,6 +333,522 @@ class HyperReducedPiston:
         self.build_seconds[object.name] = time.perf_counter() - t0
         for rom in (self.rom, self.srom):
             rom.add_hyper_reductor(reductor=object, which=which)
+
+    # ------------------------------------------------------------------
+    # Windowed and μ-local serving builds (reference hrom.py:338-760)
+    # ------------------------------------------------------------------
+    def build_windowed_serving(self, n_windows, num_basis, snapshots=None,
+                               overlap=2, dump=True, srom_extra=None):
+        """The ROM's windowed serving from the retained offline snapshots
+        (reference ``hrom.py:338-376``), dumped to
+        ``StorageNames.WINDOWS``. ``srom_extra``: build at ``num_basis +
+        srom_extra`` modes, keep that build as ``windows_srom`` (dumped to
+        ``StorageNames.WINDOWS_SROM``) and serve its nested truncation
+        (``WindowedServing.truncate``)."""
+        if snapshots is None:
+            snapshots = self.srom.offline_snapshots
+        if srom_extra:
+            enriched = self.rom.build_windowed_serving(
+                n_windows=n_windows, num_basis=num_basis + srom_extra,
+                snapshots=snapshots, overlap=overlap)
+            self.windows_srom = enriched
+            windows = enriched.truncate(num_basis)
+            self.rom._set_serving_windows(windows)
+            if dump:
+                enriched.dump(StorageNames.WINDOWS_SROM)
+        else:
+            windows = self.rom.build_windowed_serving(
+                n_windows=n_windows, num_basis=num_basis,
+                snapshots=snapshots, overlap=overlap)
+        if dump:
+            windows.dump(StorageNames.WINDOWS)
+        return windows
+
+    def build_windowed_srom(self, n_windows, num_basis, snapshots=None,
+                            overlap=2, dump=True):
+        """Only the sacrificial windowed configuration (``windows_srom``),
+        the ROM's serving windows kept (reference ``hrom.py:977-998``)."""
+        if snapshots is None:
+            snapshots = self.srom.offline_snapshots
+        current = self.rom.windows
+        try:
+            self.windows_srom = self.rom.build_windowed_serving(
+                n_windows=n_windows, num_basis=num_basis,
+                snapshots=snapshots, overlap=overlap)
+        finally:
+            self.rom._set_serving_windows(current)
+        if dump:
+            self.windows_srom.dump(StorageNames.WINDOWS_SROM)
+        return self.windows_srom
+
+    def auto_cell_wn(self, candidates, target_floor, overlap=2, margin=1.0,
+                     path=None, expect_n_cells=None, expect_edges=None):
+        """Per-cell (W, N) from the persisted training trajectories
+        (``StorageNames.MULOCAL_SNAPSHOTS``) by
+        ``rom/windowed.py`` :func:`select_fleet_shapes` (reference
+        ``hrom.py:378-436``). Raises ``FileNotFoundError`` without the
+        cache and ``ValueError`` where it holds another number of cells
+        than ``expect_n_cells`` or other edges than ``expect_edges``.
+        Returns ``(cell_wn, floors)``."""
+        from .windowed import select_fleet_shapes
+
+        path = path or StorageNames.MULOCAL_SNAPSHOTS
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"no μ-local snapshot cache at {path} — run "
+                "build_mulocal_serving(snapshot_cache=True) first")
+        cell_snapshots = []
+        with np.load(path) as d:
+            n_cells = len(d["per_cell"])
+            if expect_n_cells is not None and n_cells != int(expect_n_cells):
+                raise ValueError(
+                    f"μ-local snapshot cache at {path} holds {n_cells} "
+                    f"cells but the current build wants "
+                    f"{int(expect_n_cells)} — delete the cache (it is from "
+                    "a different partition) and rebuild")
+            if expect_edges is not None:
+                cached = np.asarray(d["edges"], np.float64)
+                want = np.asarray(expect_edges, np.float64)
+                if cached.shape != want.shape or not np.allclose(cached,
+                                                                 want):
+                    raise ValueError(
+                        f"μ-local snapshot cache at {path} was built for "
+                        f"cell edges {cached.tolist()} but the current "
+                        f"build wants {want.tolist()} — delete the stale "
+                        "cache and rebuild")
+            for c in range(n_cells):
+                cell_snapshots.append(
+                    [np.asarray(d[f"snap_{c}_{j}"], np.float64)
+                     for j in range(int(d["per_cell"][c]))])
+        return select_fleet_shapes(cell_snapshots, candidates, target_floor,
+                                   overlap=overlap, margin=margin)
+
+    def _read_snapshot_cache(self, edges, wanted, local_tri, register,
+                             device_sweep):
+        """The cached per-cell trajectories, nonlinear rows and μ where the
+        cache fits this build (reference ``hrom.py:590-633``): the same
+        edges and per-cell counts, maximin sampling, nonlinear rows where
+        the N-MDEIM is retrained, the μ where a cell registers, and a
+        build precision that serves: an ``"f64"`` cache serves any build,
+        a ``"device-f32"`` one only another device sweep, an untagged one
+        none. None otherwise."""
+        path = StorageNames.MULOCAL_SNAPSHOTS
+        if not os.path.exists(path):
+            return None
+        n_cells = len(edges) - 1
+        try:
+            with np.load(path) as d:
+                cached_build = str(d["build"]) if "build" in d else None
+                want_build = "device-f32" if device_sweep else "f64"
+                if not (cached_build in ("f64", want_build)
+                        and d["edges"].shape == edges.shape
+                        and np.allclose(d["edges"], edges)
+                        and [int(x) for x in d["per_cell"]]
+                        == [wanted[c] for c in range(n_cells)]
+                        and (not local_tri or bool(d["has_nl"]))
+                        and (not register or "mu_keys" in d)
+                        and "sampling" in d
+                        and str(d["sampling"]) == "maximin"):
+                    return None
+                mu_keys = ([str(k) for k in d["mu_keys"]]
+                           if "mu_keys" in d else None)
+                snaps, nls, mus = {}, {}, {}
+                for c in range(n_cells):
+                    snaps[c] = [np.asarray(d[f"snap_{c}_{j}"], np.float64)
+                                for j in range(wanted[c])]
+                    nls[c] = ([np.asarray(d[f"nl_{c}_{j}"], np.float64)
+                               for j in range(wanted[c])]
+                              if local_tri else [])
+                    mus[c] = ([dict(zip(mu_keys, (float(x) for x in row)))
+                               for row in d[f"mus_{c}"]]
+                              if mu_keys is not None and f"mus_{c}" in d
+                              else [])
+                return snaps, nls, mus
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile):
+            return None
+
+    def _training_pool(self, edges, need, rnd):
+        """Up to 8× each cell's count of candidate μ from the sampler,
+        the pool regrown tenfold from an attempt-derived seed while a
+        cell stays short (reference ``hrom.py:667-702``)."""
+        from ..parameters import ParameterSampler
+
+        n_cells = len(edges) - 1
+
+        def cell_of(m):
+            mach = self.rom.compute_piston_mach_number(m)
+            return int(np.clip(np.searchsorted(edges, mach, side="right")
+                               - 1, 0, n_cells - 1))
+
+        oversample = 8
+        cand = {c: [] for c in range(n_cells)}
+        pool_size, attempts = int(2e4), 0
+        pool = iter(ParameterSampler(self.grid, n_iter=pool_size,
+                                     random_state=rnd))
+        while any(len(cand[c]) < oversample * need[c]
+                  for c in range(n_cells) if need[c]):
+            try:
+                m = dict(next(pool))
+            except StopIteration:
+                if all(len(cand[c]) >= need[c] for c in range(n_cells)):
+                    break
+                attempts += 1
+                if attempts > 4:
+                    empty = [c for c in range(n_cells)
+                             if len(cand[c]) < need[c]]
+                    raise ValueError(
+                        f"could not fill Mach cells {empty} (edges "
+                        f"{np.round(edges, 4).tolist()}) from the μ grid "
+                        "— cells too narrow for the admissible range?")
+                # Fresh draws from an attempt-derived seed: restarting
+                # the same state would offer used candidates again.
+                pool_size *= 10
+                pool = iter(ParameterSampler(
+                    self.grid, n_iter=pool_size,
+                    random_state=np.random.RandomState(
+                        rnd.randint(2**31 - 1))))
+                continue
+            c = cell_of(m)
+            if need.get(c, 0) and len(cand[c]) < oversample * need[c]:
+                cand[c].append(m)
+        return cand
+
+    def _maximin_subset(self, pool_c, k):
+        """Greedy maximin in range-normalized μ, in numpy on the host,
+        seeded at the candidate nearest the centroid (reference
+        ``hrom.py:704-745``); a pool smaller than ``k`` is cycled."""
+        spans = {}
+        for key, dist in self.grid.items():
+            sup = dist.support()
+            span = float(max(sup)) - float(min(sup))
+            # A point mass reports a NaN or zero span: unit, so it never
+            # poisons the distances.
+            spans[key] = span if np.isfinite(span) and span > 0 else 1.0
+        X = np.array([[float(m[key]) / spans[key] for key in sorted(spans)]
+                      for m in pool_c])
+        X = np.where(np.isfinite(X), X, 0.0)
+        picked = [int(np.argmin(np.linalg.norm(X - X.mean(axis=0), axis=1)))]
+        dists = np.linalg.norm(X - X[picked[0]], axis=1)
+        while len(picked) < min(k, len(pool_c)):
+            dists[picked] = -1.0
+            nxt = int(np.argmax(dists))
+            picked.append(nxt)
+            dists = np.minimum(dists, np.linalg.norm(X - X[nxt], axis=1))
+        while len(picked) < k:
+            picked.append(picked[len(picked) % len(pool_c)])
+        return [pool_c[i] for i in picked]
+
+    @offline
+    def build_mulocal_serving(self, n_cells, n_windows, num_basis,
+                              snapshots_per_cell=10, overlap=2, dump=True,
+                              rnd=None, local_nmdeim=True,
+                              augment_global=False, augment_weight=1.0,
+                              srom_extra=None, edges=None,
+                              device_sweep=False, mesh=None, cell_wn=None,
+                              snapshot_cache=None, register=None):
+        """The μ-local fleet (reference ``hrom.py:438-945``): K piston-Mach
+        cells, each a windowed configuration built from trajectories of μ
+        inside it, attached as ``rom.mulocal`` and dumped to
+        ``StorageNames.WINDOWS_MULOCAL``.
+
+        Per cell: ``snapshots_per_cell`` (an int or a list per cell)
+        training μ, greedy maximin in range-normalized μ over up to 8× as
+        many candidates from the sampler; their FOM trajectories, in
+        float64 one ``fom.solve()`` each, or with ``device_sweep`` one
+        ``solve_fom_batch`` of the whole fleet on the FOM's device (float32
+        on the card, which tags the cache ``"device-f32"``; float64 on the
+        CPU); the cell's trilinear N-MDEIM retrained on their nonlinear
+        rows (``local_nmdeim``; on the serving copy ``rom.mdeim_Nh``,
+        restored from its pickle in the working directory after); the
+        window POD at the cell's (W, N) (``cell_wn``, else ``n_windows``,
+        ``num_basis``) plus ``srom_extra`` modes, whose nested truncation
+        serves while the enriched build is kept in ``cells_srom``.
+
+        ``register`` (a list of cells, ``"all"`` or ``"auto"``): fit the
+        cell's dilation law on its standard-clock trajectories
+        (``rom/registration.py``) and re-solve them in float64 on their
+        dilated grids (``T·d_j``, the same nt steps; one batched sweep on
+        per-lane clocks); under ``"auto"`` a cell that does not
+        phase-align builds unregistered.
+        ``augment_global`` appends the retained box-wide trajectories
+        (weighted) to every cell's stack; it refuses ``register``.
+        ``snapshot_cache`` (default ``dump``) writes the trajectories to
+        ``StorageNames.MULOCAL_SNAPSHOTS`` and reads them back where the
+        edges, counts, sampling and precision fit. ``edges`` overrides the
+        equal-width Mach edges over [PISTON_MACH_MIN, PISTON_MACH_MAX].
+        A multi-device ``mesh`` is not ported. ``fleet_seconds`` gets the
+        seconds of each stage; ``cell_mus`` and ``cell_dilations`` each
+        cell's training μ and registered training dilations."""
+        from .pod import orth
+        from .registration import fit_dilation_law
+        from .windowed import MuLocalWindowed
+
+        if mesh is not None:
+            raise NotImplementedError("the sharded FOM sweep is not ported")
+        rom = self.rom
+        rnd = rnd if rnd is not None else np.random.RandomState(0)
+        if edges is not None:
+            edges = np.asarray(edges, np.float64)
+            n_cells = len(edges) - 1
+        else:
+            edges = rom.compute_piston_mach_number_space(
+                self.grid, n_cells, mach_min=rom.PISTON_MACH_MIN,
+                mach_max=rom.PISTON_MACH_MAX)
+
+        fom = self.fom
+        # The serving copy: add_hyper_reductor copies, so retraining the
+        # driver's mdeim_trilinear would leave the serving tables as they
+        # were.
+        tri = rom.mdeim_Nh
+        local_tri = (bool(local_nmdeim) and tri is not None
+                     and self.mdeim_trilinear is not None)
+        register_soft = register == "auto"
+        if register in ("all", "auto"):
+            register = set(range(n_cells))
+        elif register:
+            register = {int(c) for c in register}
+        else:
+            register = set()
+        if register and augment_global:
+            raise ValueError(
+                "register + augment_global: box-wide augmentation "
+                "trajectories live on the standard clock and cannot join a "
+                "phase-aligned window stack")
+        per_cell = (list(snapshots_per_cell) if np.ndim(snapshots_per_cell)
+                    else [snapshots_per_cell] * n_cells)
+        if len(per_cell) != n_cells:
+            raise ValueError(f"snapshots_per_cell list ({len(per_cell)}) "
+                             f"must match n_cells ({n_cells})")
+        wn = (list(cell_wn) if cell_wn is not None
+              else [(n_windows, num_basis)] * n_cells)
+        if len(wn) != n_cells:
+            raise ValueError(f"cell_wn ({len(wn)}) must match n_cells "
+                             f"({n_cells})")
+        wanted = {c: int(per_cell[c]) for c in range(n_cells)}
+        if snapshot_cache is None:
+            snapshot_cache = bool(dump)
+        secs = dict.fromkeys(
+            ("pool_maximin", "training_sweep", "snapshot_cache", "law_fit",
+             "registered_resolves", "nmdeim_retrain", "window_pod",
+             "window_projection", "dump"), 0.0)
+
+        cached = (self._read_snapshot_cache(edges, wanted, local_tri,
+                                            register, device_sweep)
+                  if snapshot_cache else None)
+        build_label = "f64"
+        if cached is not None:
+            cell_snaps, cell_nl, cell_mus = cached
+        else:
+            cell_snaps = {c: [] for c in range(n_cells)}
+            cell_nl = {c: [] for c in range(n_cells)}
+            t0 = time.perf_counter()
+            cand = self._training_pool(edges, wanted, rnd)
+            cell_mus = {}
+            for c in range(n_cells):
+                chosen = self._maximin_subset(cand[c], wanted[c])
+                if (len(cand[c]) >= wanted[c]
+                        and len({tuple(sorted(m.items()))
+                                 for m in chosen}) < len(chosen)):
+                    raise AssertionError(
+                        f"cell {c}: duplicate training μ selected from "
+                        f"{len(cand[c])} distinct candidates — maximin "
+                        "selection degenerated")
+                cell_mus[c] = [dict(m) for m in chosen]
+            t1 = time.perf_counter()
+            secs["pool_maximin"] = t1 - t0
+            if device_sweep:
+                build_label = self._sweep_fleet(cell_mus, cell_snaps,
+                                                cell_nl, local_tri)
+            else:
+                for c in range(n_cells):
+                    for m in cell_mus[c]:
+                        fom.setup()
+                        fom.update_parametrization(m)
+                        fom.solve()
+                        cell_snaps[c].append(np.asarray(
+                            fom.solutions.snapshots, np.float64))
+                        if local_tri:
+                            cell_nl[c].append(list(fom.nonlinear_snapshots))
+            secs["training_sweep"] = time.perf_counter() - t1
+            if snapshot_cache:
+                t0 = time.perf_counter()
+                self._write_snapshot_cache(edges, per_cell, local_tri,
+                                           build_label, cell_mus, cell_snaps,
+                                           cell_nl)
+                secs["snapshot_cache"] = time.perf_counter() - t0
+
+        aug = []
+        if augment_global:
+            pool_snaps = self.srom.offline_snapshots
+            m = (len(pool_snaps) if augment_global is True
+                 else min(int(augment_global), len(pool_snaps)))
+            # The retained trajectories are Mach-stratified: an even index
+            # stride keeps the spread.
+            idx = (np.unique(np.linspace(0, len(pool_snaps) - 1, m)
+                             .round().astype(int)) if m else [])
+            aug = [augment_weight * np.asarray(pool_snaps[i], np.float64)
+                   for i in idx]
+
+        keep_tri = self.rom_params.get(RomParameters.NMDEIM_SIZE)
+        prev = rom.windows
+        cells = []
+        cells_srom = [] if srom_extra else None
+        self.cell_mus = cell_mus
+        self.cell_dilations = {}
+        try:
+            for c in range(n_cells):
+                w_c, n_c = int(wn[c][0]), int(wn[c][1])
+                snaps_c, nl_c, law = cell_snaps[c], cell_nl[c], None
+                if c in register:
+                    if len(cell_mus[c]) != len(snaps_c):
+                        raise ValueError(
+                            f"register cell {c}: training μ's are "
+                            "unavailable (stale snapshot cache without mu "
+                            f"payload?) — delete "
+                            f"{StorageNames.MULOCAL_SNAPSHOTS} and rebuild")
+                    t0 = time.perf_counter()
+                    try:
+                        law, dils = fit_dilation_law(snaps_c, cell_mus[c])
+                    except ValueError:
+                        if not register_soft:
+                            raise
+                        print(f"[register] cell {c}: no scalar phase "
+                              "alignment — building unregistered",
+                              file=sys.stderr, flush=True)
+                    secs["law_fit"] += time.perf_counter() - t0
+                    if law is not None:
+                        t0 = time.perf_counter()
+                        snaps_c, nl_c = self._solve_registered_cell(
+                            cell_mus[c], dils, local_tri)
+                        secs["registered_resolves"] += (
+                            time.perf_counter() - t0)
+                        self.cell_dilations[c] = np.asarray(dils)
+                if local_tri:
+                    # The σ-weighted hierarchical POD of the cell's
+                    # nonlinear rows, as build_reduced_basis's.
+                    t0 = time.perf_counter()
+                    stages = []
+                    for nl_rows in nl_c:
+                        nl = np.array(nl_rows[1:], np.float64).T
+                        b, s, _e = orth(nl)
+                        stages.append(b * s[: b.shape[1]])
+                    basis_nl, _s, _e = orth(np.hstack(stages),
+                                            normalize=False)
+                    tri.load_fom_basis(basis=basis_nl, keep=keep_tri)
+                    rom._trilinear_table_cache = None
+                    secs["nmdeim_retrain"] += time.perf_counter() - t0
+                win = rom.build_windowed_serving(
+                    n_windows=w_c, num_basis=n_c + (srom_extra or 0),
+                    snapshots=snaps_c + aug, overlap=overlap)
+                secs["window_pod"] += rom.build_seconds["window_pod"]
+                secs["window_projection"] += (
+                    rom.build_seconds["window_projection"])
+                win.dilation = law
+                if srom_extra:
+                    cells_srom.append(win)
+                    win = win.truncate(n_c)
+                cells.append(win)
+        finally:
+            rom._set_serving_windows(prev)
+            if local_tri:
+                # The box-wide collateral basis from its pickle, projected
+                # onto the global basis again.
+                tri.load_fom_basis(keep=keep_tri)
+                if rom.basis is not None:
+                    tri.project_basis(V=rom.basis)
+                rom._trilinear_table_cache = None
+
+        ml = MuLocalWindowed(edges=np.asarray(edges), cells=cells,
+                             cells_srom=cells_srom)
+        rom.mulocal = ml
+        if dump:
+            t0 = time.perf_counter()
+            ml.dump(StorageNames.WINDOWS_MULOCAL)
+            secs["dump"] = time.perf_counter() - t0
+        self.fleet_seconds = secs
+        return ml
+
+    def _sweep_fleet(self, cell_mus, cell_snaps, cell_nl, local_tri):
+        """Every cell's training μ in one ``solve_fom_batch`` on the FOM's
+        device: float32 on the card (the sweep only; a ``dd_sweep`` FOM's
+        low words recombined in float64), float64 on the CPU. Fills
+        ``cell_snaps`` and ``cell_nl``; returns the cache's build tag."""
+        from ..parallel.sweep import solve_fom_batch
+
+        fom = self.fom
+        order = [(c, j) for c in sorted(cell_mus)
+                 for j in range(len(cell_mus[c]))]
+        if fom.is_setup is False:
+            fom.setup()
+        on_card = fom._compute_device().type != "cpu"
+        with compute_dtype_scope(torch.float32 if on_card
+                                 else torch.float64):
+            outs = solve_fom_batch(fom, [cell_mus[c][j] for c, j in order])
+        for b, (c, _j) in enumerate(order):
+            uh = np.asarray(outs["uh"][b], np.float64).T
+            if "uh_lo" in outs:
+                uh = uh + np.asarray(outs["uh_lo"][b], np.float64).T
+            cell_snaps[c].append(uh)
+            if local_tri:
+                cell_nl[c].append(
+                    np.asarray(outs["nonlinear_data"][b], np.float64))
+        return "device-f32" if on_card else "f64"
+
+    @staticmethod
+    def _write_snapshot_cache(edges, per_cell, local_tri, build, cell_mus,
+                              cell_snaps, cell_nl):
+        """``StorageNames.MULOCAL_SNAPSHOTS`` with the reference's keys
+        (``hrom.py:801-829``): edges, per-cell counts, ``has_nl``, the
+        build precision, ``sampling``, ``mu_keys`` and ``mus_{c}``,
+        ``snap_{c}_{j}`` and ``nl_{c}_{j}``."""
+        n_cells = len(edges) - 1
+        payload = {
+            "edges": np.asarray(edges),
+            "per_cell": np.asarray([int(per_cell[c])
+                                    for c in range(n_cells)]),
+            "has_nl": np.asarray(bool(local_tri)),
+            "build": np.asarray(build),
+            "sampling": np.asarray("maximin"),
+        }
+        if cell_mus[0]:
+            mu_keys = sorted(cell_mus[0][0])
+            payload["mu_keys"] = np.array(mu_keys)
+            for c in range(n_cells):
+                payload[f"mus_{c}"] = np.array(
+                    [[float(m[k]) for k in mu_keys] for m in cell_mus[c]],
+                    np.float64)
+        for c in range(n_cells):
+            for j, snap in enumerate(cell_snaps[c]):
+                payload[f"snap_{c}_{j}"] = np.asarray(snap, np.float64)
+            if local_tri:
+                for j, rows in enumerate(cell_nl[c]):
+                    payload[f"nl_{c}_{j}"] = np.asarray(rows, np.float64)
+        np.savez(StorageNames.MULOCAL_SNAPSHOTS, **payload)
+
+    def _solve_registered_cell(self, mus, dils, want_nl):
+        """A registered cell's training set re-solved in float64, each μ on
+        its own dilated grid (dt_j = d_j·dt over the same nt steps), as
+        one ``solve_fom_batch(..., dilations=dils)`` on the FOM's device:
+        per-lane clocks in one batched loop, the same discrete systems as
+        the reference's one solve per μ (``hrom.py:947-975``, its native
+        loop), each μ's trajectory equal to its own ``fom.solve()`` at
+        T·d_j."""
+        from ..parallel.sweep import solve_fom_batch
+
+        fom = self.fom
+        if fom.is_setup is False:
+            fom.setup()
+        with compute_dtype_scope(torch.float64):
+            outs = solve_fom_batch(fom, mus, dilations=dils)
+        snaps, nls = [], []
+        for b in range(len(mus)):
+            uh = np.asarray(outs["uh"][b], np.float64).T
+            if "uh_lo" in outs:
+                uh = uh + np.asarray(outs["uh_lo"][b], np.float64).T
+            snaps.append(uh)
+            if want_nl:
+                nls.append(np.asarray(outs["nonlinear_data"][b], np.float64))
+        return snaps, nls
 
     # ------------------------------------------------------------------
     # Resume (reference hrom.py:1000-1058, :1571-1586)

@@ -41,6 +41,7 @@ from ..conventions import (
     PistonParameters,
     RomParameters,
     Stage,
+    StorageNames,
     Treewalk,
     TreewalkNonlinear,
 )
@@ -546,15 +547,100 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     def _trilinear_exact_columns(self, V_np, mu_a, b0_a):
         """vec(Vᵀ·N(V e_j)·V)/b0 of every basis column j: one full-band
         assembly on the FOM's device with the N columns as its trailing
-        batch, then the two-sided projection on the host (reference
-        rom.py:1561-1587). Float64."""
+        batch, then the two-sided projection there (reference
+        rom.py:1561-1587, which projects on the host). Float64."""
         red = self.mdeim_Nh
         with compute_dtype_scope(torch.float64):
             band = self.fom.assemble_trilinear(
                 mu=red._mu_tensors(mu_a),
                 t=red._times(0.37 * float(self.fom.domain[self.fom.T])),
                 u_n=red._times(V_np)).band                # (2p+1, nh, N)
-        return project_band(band.cpu().numpy(), V_np) / b0_a
+        return project_band(band, V_np) / b0_a
+
+    # ------------------------------------------------------------------
+    # Offline: time-windowed serving (reference rom.py:945-1041)
+    # ------------------------------------------------------------------
+    def _windowed_trilinear_table(self, V_w):
+        """The trilinear state table of a window's basis (the N-MDEIM
+        already projected onto ``V_w``); exact unless
+        ``ROMTIME_TRI_TABLE=deim`` (reference rom.py:1444-1453)."""
+        return self._build_trilinear_state_table(np.asarray(V_w))
+
+    @offline
+    def build_windowed_serving(self, n_windows, num_basis, snapshots=None,
+                               overlap=2, tol_t=None):
+        """Per-window bases and serving tensors (reference rom.py:949-1005):
+        ``rom/windowed.py`` :func:`build_windowed_basis` on the retained
+        offline snapshots (or ``snapshots``), then per window every
+        reductor projected onto V_w with its folded combine V·(PᵀU)⁻¹, and
+        the window's trilinear table. The global projections are restored
+        after, whatever happens, and what the serving derived from them is
+        made anew at its next use. Attaches and returns the
+        :class:`WindowedServing`; ``build_seconds`` gets the seconds of
+        the window POD (``window_pod``) and of the projections and tables
+        (``window_projection``)."""
+        from .windowed import WindowedServing, build_windowed_basis
+
+        if snapshots is None:
+            snapshots = self.offline_snapshots
+        if not snapshots:
+            raise ValueError("no offline snapshots retained — run "
+                             "build_reduced_basis first or pass snapshots=")
+        sources = self._theta_sources()
+        for name, red in sources.items():
+            if red is None:
+                raise ValueError("windowed serving requires every operator "
+                                 f"hyper-reduced; missing: {name}")
+
+        t0 = time.perf_counter()
+        bounds, Vs, transfers = build_windowed_basis(
+            snapshots, n_windows=n_windows, num_basis=num_basis,
+            overlap=overlap, tol_t=tol_t)
+        t1 = time.perf_counter()
+        tri_red = self.mdeim_Nh
+        combines = {name: [] for name in sources}
+        tri = []
+        try:
+            for V_w in Vs:
+                for name, red in sources.items():
+                    red.project_basis(V=V_w)
+                    combines[name].append(red._combine_matrix(red.ROM))
+                if tri_red is not None:
+                    tri_red.project_basis(V=V_w)
+                    T0w = self._windowed_trilinear_table(V_w)
+                    if T0w is None:
+                        raise ValueError(
+                            "trilinear operator has no fast-path table — "
+                            "windowed serving unsupported for this model")
+                    tri.append(np.asarray(T0w))
+        finally:
+            if self.basis is not None:
+                for red in sources.values():
+                    red.project_basis(V=self.basis)
+                if tri_red is not None:
+                    tri_red.project_basis(V=self.basis)
+            self._trilinear_table_cache = None
+            if self._projected:
+                # A built ROM's own global configuration: made anew.
+                self._global_serving = None
+                self._global_tables = None
+
+        self._set_serving_windows(WindowedServing(
+            bounds=bounds, Vs=Vs, transfers=transfers,
+            combines={k: np.stack(v) for k, v in combines.items()},
+            trilinear=np.stack(tri) if tri_red is not None else None))
+        self.build_seconds.update(window_pod=t1 - t0,
+                                  window_projection=time.perf_counter() - t1)
+        return self.windows
+
+    def load_windowed_serving(self, path=None):
+        """Attach a configuration persisted by ``WindowedServing.dump``
+        (reference rom.py:1032-1041)."""
+        from .windowed import WindowedServing
+
+        self._set_serving_windows(
+            WindowedServing.load(path or StorageNames.WINDOWS))
+        return self.windows
 
     # ------------------------------------------------------------------
     # Serving

@@ -1,5 +1,5 @@
-"""Time-windowed serving artifacts (counterpart of
-``romtime_tpu/rom/windowed.py:59-164`` and ``:298-414``).
+"""Time-windowed serving artifacts and their bases (counterpart of
+``romtime_tpu/rom/windowed.py``).
 
 One ``.npz`` container holds a windowed serving configuration: window
 bounds, per-window bases ``Vs``, boundary transfers T_w = V_{w+1}ᵀV_w,
@@ -10,12 +10,18 @@ holds one such configuration per Mach cell under ``c{c}_`` prefixes.
 each package reads the other's files bit-exactly. The artifacts stay
 host-side numpy (float64); the serving engine moves what it needs onto
 the device (and caches it on the configuration object).
+
+The window bases (:func:`build_windowed_basis`) are a direct SVD of each
+window's stacked snapshot columns on the host (``rom/pod.py``), float64;
+:func:`predict_window_floor` and :func:`select_fleet_shapes` pick a
+cell's (W, N) from the σ-tails of the same stacks.
 """
 
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from .pod import orth
 from .registration import DilationLaw
 
 _GUARD_KEYS = ("guard_feats", "guard_inv_span", "guard_dref")
@@ -210,3 +216,82 @@ class MuLocalWindowed:
     def load(cls, path):
         with np.load(path) as data:
             return cls.from_arrays({k: data[k] for k in data.files})
+
+
+def _window_stacks(snapshots, n_windows, overlap):
+    """(bounds, per-window (nh, m) stacks of every trajectory's columns
+    [bounds[w] − overlap, bounds[w+1] + overlap) clipped to [0, nt))."""
+    snapshots = [np.asarray(s, np.float64) for s in snapshots]
+    nt = snapshots[0].shape[1]
+    bounds = np.linspace(0, nt, n_windows + 1).astype(int)
+    stacks = []
+    for w in range(n_windows):
+        a = max(0, int(bounds[w]) - overlap)
+        b = min(nt, int(bounds[w + 1]) + overlap)
+        stacks.append(np.hstack([s[:, a:b] for s in snapshots]))
+    return bounds, stacks
+
+
+def build_windowed_basis(snapshots, n_windows, num_basis, overlap=2,
+                         tol_t=None):
+    """Per-window POD bases of per-μ (nh, nt) snapshot matrices (reference
+    ``:166-208``): W equal windows, each borrowing ``overlap`` columns of
+    its neighbours, each basis the first ``num_basis`` left singular
+    vectors of the raw stacked window snapshots (no per-μ time stage: its
+    drop tolerance would discard the σ/σ₁ ≈ 1e-7…1e-9 directions the
+    window floor needs). Raises ``ValueError`` where a window's stack has
+    fewer than ``num_basis`` rows or columns. ``tol_t`` is accepted and
+    unused, as in the reference. Returns (bounds, Vs (W, nh, N),
+    transfers (W−1, N, N) = V_{w+1}ᵀ V_w), float64."""
+    bounds, stacks = _window_stacks(snapshots, n_windows, overlap)
+    Vs = []
+    for w, stacked in enumerate(stacks):
+        if min(stacked.shape) < num_basis:
+            raise ValueError(
+                f"window {w}: snapshot matrix {stacked.shape} has rank "
+                f"< num_basis={num_basis} — add training μ or snapshots")
+        V, _sig, _en = orth(stacked, num=num_basis, normalize=False)
+        Vs.append(V)
+    Vs = np.stack(Vs)
+    transfers = (np.stack([Vs[w + 1].T @ Vs[w]
+                           for w in range(n_windows - 1)])
+                 if n_windows > 1 else np.zeros((0, num_basis, num_basis)))
+    return bounds, Vs, transfers
+
+
+def predict_window_floor(snapshots, n_windows, num_basis, overlap=2):
+    """The projection floor of a (W, N) shape on a snapshot stack
+    (reference ``:211-252``): the largest over windows of the relative
+    σ-tail beyond ``num_basis`` modes of the stacked window snapshots;
+    ``inf`` where a window's stack cannot carry ``num_basis`` modes."""
+    _bounds, stacks = _window_stacks(snapshots, n_windows, overlap)
+    worst = 0.0
+    for stacked in stacks:
+        if min(stacked.shape) <= num_basis:
+            return np.inf
+        sig = np.linalg.svd(stacked, compute_uv=False)
+        total = float(np.sum(sig**2))
+        tail = float(np.sum(sig[num_basis:] ** 2))
+        worst = max(worst, np.sqrt(tail / total) if total > 0 else 0.0)
+    return worst
+
+
+def select_fleet_shapes(cell_snapshots, candidates, target_floor, overlap=2,
+                        margin=1.0):
+    """The cheapest (W, N) per cell whose predicted floor meets
+    ``target_floor / margin`` (reference ``:255-296``): candidates ranked
+    by N² (the fused sweep's cost), then fewer windows; a cell no
+    candidate serves takes the one of the smallest floor. Returns
+    ``(cell_wn, floors)``."""
+    by_cost = sorted(candidates, key=lambda wn: (wn[1] * wn[1], wn[0]))
+    cell_wn, floors = [], []
+    for snaps in cell_snapshots:
+        preds = {wn: predict_window_floor(snaps, wn[0], wn[1], overlap)
+                 for wn in by_cost}
+        chosen = next((wn for wn in by_cost
+                       if preds[wn] <= target_floor / margin), None)
+        if chosen is None:
+            chosen = min(by_cost, key=lambda wn: preds[wn])
+        cell_wn.append(chosen)
+        floors.append(preds[chosen])
+    return cell_wn, floors

@@ -12,8 +12,10 @@ estimators and the chained lanes variant in float64 against an explicit
 CPU run), and the piston FOM sweep on the card (``solve_fom_batch``,
 plain and dd, BDF-2 and BDF-1, in float64 against the same sweep on the
 CPU; ``solve()`` against its batch row; the float32 sweeps within the
-reference's dd limits), and the offline build on the card against the
-same build on the CPU (``HyperReducedPiston`` at nx=200, nt=300).
+reference's dd limits), the offline build on the card against the
+same build on the CPU (``HyperReducedPiston`` at nx=200, nt=300), and
+the registered fleet build on the card against the same build on the
+CPU (the conftest-size pipeline, nx=150, nt=96), served through K1.
 Needs a CUDA device and nvcc; skips without a device. Imports no JAX, so
 it runs on a machine without it (tests/conftest.py imports JAX,
 hence ``--noconftest``):
@@ -898,3 +900,70 @@ def test_cuda_offline_build_card_vs_cpu(tmp_path, monkeypatch):
         assert np.isfinite(out["probes"]).all()
     assert gs.online_sweep_pallas.launches > k4
     assert gs.online_sweep_theta_pallas.launches > k5
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_build_card_vs_cpu(tmp_path, monkeypatch):
+    """The port builds the conftest-size piston pipeline (nx=150, nt=96,
+    ``problems.piston_profile``) and its registered two-cell fleet (W=4,
+    N=12, 3 μ a cell, RandomState(2), cell 1 registered; the serial
+    float64 path) on the card and on the CPU, each in its own directory:
+    the same training μ and laws, the two fleets' float64 windowed lanes
+    probes within 1e-9·scale, and the card's fleet served through K1's
+    serving design, one launch per occupied cell."""
+    _need_cuda()
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.problems import piston_profile
+    from romtime_tpu_torch.rom.hrom import HyperReducedPiston
+
+    builds = {}
+    for dev in ("cuda", "cpu"):
+        workdir = tmp_path / dev
+        workdir.mkdir()
+        monkeypatch.chdir(workdir)
+        hrom = HyperReducedPiston(**piston_profile(
+            nx=150, nt=96, tf=0.6, n_offline=3, modes=None, truncate=2,
+            nmdeim=10, tri_mu=2, walk_stride=1, tri_stride=4, device=dev))
+        hrom.setup()
+        hrom.setup_hyperreduction()
+        hrom.run_offline_rom()
+        hrom.run_offline_hyperreduction(mu_space=hrom.mu_space["offline"],
+                                        evaluate=False)
+        hrom.project_reductors()
+        hrom.build_mulocal_serving(n_cells=2, n_windows=4, num_basis=12,
+                                   snapshots_per_cell=3,
+                                   rnd=np.random.RandomState(2),
+                                   register=[1], dump=False)
+        builds[dev] = hrom
+    card, cpu = builds["cuda"], builds["cpu"]
+    assert card.cell_mus == cpu.cell_mus
+    ml, ml_cpu = card.rom.mulocal, cpu.rom.mulocal
+    np.testing.assert_array_equal(ml.edges, ml_cpu.edges)
+    assert ml.cells[0].dilation is None and ml_cpu.cells[0].dilation is None
+    law, law_cpu = ml.cells[1].dilation, ml_cpu.cells[1].dilation
+    assert law.names == law_cpu.names
+    np.testing.assert_allclose(law.coef, law_cpu.coef, rtol=1e-9, atol=0)
+    np.testing.assert_allclose(card.cell_dilations[1],
+                               cpu.cell_dilations[1], rtol=0, atol=1e-10)
+    mus = [dict(a0=9.8, omega=15.5, delta=0.10, alpha=1e-6, gamma=1.4),
+           dict(a0=8.1, omega=19.5, delta=0.148, alpha=1e-6, gamma=1.4),
+           dict(a0=9.3, omega=17.5, delta=0.12, alpha=1e-6, gamma=1.4)]
+    with compute_dtype_scope(torch.float64):
+        got = card.rom.solve_batch_mulocal(mus, mode="probes",
+                                           engine="windowed")
+        want = cpu.rom.solve_batch_mulocal(mus, mode="probes",
+                                           engine="windowed")
+    scale = np.abs(want["probes"]).max()
+    assert np.abs(got["probes"] - want["probes"]).max() <= 1e-9 * scale
+    np.testing.assert_array_equal(got["dil"], want["dil"])
+
+    rom = card.rom
+    rom.ONLINE_PRECOMPUTE_BUDGET = 0     # the fused branch at a small B
+    batch = synthetic_mus(64, seed=6)
+    occupied = len(set(ml.cell_of([rom.compute_piston_mach_number(m)
+                                   for m in batch]).tolist()))
+    n0 = k1.online_sweep_windowed_fused.serving_launches
+    out = rom.solve_batch_mulocal(batch, mode="probes")
+    torch.cuda.synchronize()
+    assert k1.online_sweep_windowed_fused.serving_launches == n0 + occupied
+    assert np.isfinite(out["probes"]).all()

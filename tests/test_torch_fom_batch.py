@@ -9,8 +9,9 @@ float32 plain and dd within the reference's own float32 limit, 1e-4
 (tests/test_fom_dd.py:60-68), with the dd loop's contract of
 tests/test_fom_dd.py held on the port itself (dd f64 ≡ plain f64 at
 1e-11; the f32 dd drift under 1e-4 and under 5× the plain drift; low
-words with 0 < |lo| < 1e-5·|hi|). The sampler reproduces the reference's
-stream bit for bit (tests/test_parameters.py).
+words with 0 < |lo| < 1e-5·|hi|). With per-lane dilations (each μ on
+its own grid T·d) each row equals that μ's own solve. The sampler
+reproduces the reference's stream bit for bit (tests/test_parameters.py).
 """
 
 import json
@@ -174,6 +175,49 @@ def test_one_mu_and_dict_batches(pair):
     assert list(batch) == sorted(MUS[0])
     assert batch["a0"].dtype == torch.float32
     assert batch["a0"].tolist() == pytest.approx([m["a0"] for m in MUS])
+
+
+def test_per_lane_dilations_match_the_serial_solves(pair):
+    """``dilations``: each μ on its own grid T·d over the same nt steps in
+    one sweep (how a registered cell's training set is re-solved), each
+    row equal to that μ's ``solve()`` at T·d as the reference re-solves
+    it (rom/hrom.py:947-975), the reference's sweep on its own dilated
+    grid within 1e-12; T restored; the clock (B, nt) per lane."""
+    ref, port = pair
+    ref.dd_sweep = port.dd_sweep = False
+    dils = [1.0, 1.021, 1.17]
+    T = port.domain[port.T]
+    with compute_dtype_scope(torch.float64):
+        got = solve_fom_batch(port, MUS, dilations=dils)
+    assert port.domain[port.T] == T
+    assert got["t"].shape == (3, GRID["nt"])
+    t_ref = ref.domain[ref.T]
+    for b, (mu, d) in enumerate(zip(MUS, dils)):
+        assert_allclose(got["t"][b], np.arange(1, GRID["nt"] + 1) * T * d
+                        / GRID["nt"], rtol=1e-15)
+        with compute_dtype_scope(torch.float64):
+            port.domain[port.T] = T * d
+            try:
+                port.update_parametrization(mu)
+                port.solve()
+            finally:
+                port.domain[port.T] = T
+        for key, serial in (("uh", port.solutions.snapshots.T),
+                            ("uc", port.solutions.fom.T),
+                            ("nonlinear_data",
+                             np.asarray(port.nonlinear_snapshots))):
+            assert_allclose(got[key][b], serial, rtol=1e-13, atol=1e-16,
+                            err_msg=key)
+        try:
+            ref.domain[ref.T] = t_ref * d
+            ref._solve_jit = {}
+            with ref_dtype_scope(jnp.float64):
+                want = ref_solve_fom_batch(ref, [mu])
+        finally:
+            ref.domain[ref.T] = t_ref
+            ref._solve_jit = {}
+        for key in ("uh", "uc", "probes", "nonlinear_data"):
+            assert per_mu_rel(got[key][b:b + 1], want[key])[0] <= 1e-12, key
 
 
 def test_sweep_refuses_tf32():
