@@ -109,9 +109,10 @@ Phases, in order; any failure raises and exits non-zero:
    atol 1e-17) and, card against CPU, within the triangle bound of (b)'s
    gaps (tests/test_hrom.py:442-520); (d) ``estimate_batch_mulocal`` in
    float64 at B=16 on the synthetic fleet drawn at N+8
-   (``srom_extra=8``, every cell occupied, nt=300 for time): shapes, finite positive
+   (``srom_extra=8``, every cell occupied): shapes, finite positive
    averages, each estimator row the coefficient-difference norm of its
-   μ's merged trajectories (rtol 1e-12), and the served fleet
+   μ's merged trajectories (rtol 1e-12), a permuted batch's rows bit for
+   bit, and the served fleet
    (``solve_batch_mulocal``) equal before and after bit for bit, with
    the per-cell seconds; (e) the chained lanes variant on a 50x32-recipe
    cell with W=7 unequal windows (214 and 215 steps), float64, B=16,
@@ -163,40 +164,37 @@ Phases, in order; any failure raises and exits non-zero:
    float64 lanes probes within 1e-9·scale.
 12. fleet build phase: the port builds the flagship μ-local fleet on the
    card from a global ROM it built itself, in float64 in a temporary
-   directory (``problems.joint_profile``/``joint_fleet``, bench.py:64-115,
-   at full width, its depth cut: 2,2,2,2,5 training μ in cells 0-4 and
-   bench's 24 in the top cell, which is registered): (a) the global build (nx=1000, nt=1500, 8 offline
-   μ, S-ROM N=96, ROM N=88, N-MDEIM 96 modes) by phase 11's stages, with
-   each stage's seconds; (b) ``build_mulocal_serving(device_sweep=True,
+   directory (``problems.joint_profile``/``joint_fleet``,
+   bench.py:64-115, at full width, its depth cut: 2,2,2,2,5 training μ
+   in cells 0-4 and bench's 24 in the top cell, which is registered):
+   (a) the global build (nx=1000, nt=1500, 8 offline μ, S-ROM N=96, ROM
+   N=88, N-MDEIM 96 modes) by phase 11's stages, with each stage's
+   seconds; (b) ``build_mulocal_serving(device_sweep=True,
    srom_extra=8)``: six Mach cells (50x32 ×4, 150x48 ×2), the seconds of
    each stage (``hrom.fleet_seconds``), each cell's training μ, law and
    training dilations and its predicted floor, peak device memory; (c)
    ``solve_batch_mulocal(mus, mode="probes")`` at B=2048, a cold and 3
-   warm calls, every counter set to 0 before the cold call and read after
-   the last (one launch of K1's serving design per occupied cell and
-   call, no other launch), routed ≡ direct bit for bit, registered lanes
-   on d > 1 and the others on 1, and on cells 0 and 5 at B=128 the
-   served K1 on its per-step LU (``ROMTIME_PAIRED_LU=0``) within
-   5e-6·scale (``uN_final`` 5e-5) of the float32 lanes engine, the
-   default schedule's gap (paired LU G=5, ``sub1`` followers, which the
-   reference's kernel computes alike on these tables) measured beside
-   it; (d) the float64 windowed lanes engine in ``mode="full"`` on
-   bench's center μ and 4 of its held-out μ against the float64 FOM on
-   the card on each lane's matched grid (T·d on a registered lane): the
-   center under 1e-3 (tests/test_windowed.py:398), a registered lane
-   under 4e-3 (tests/test_registration.py:490); (e)
-   ``estimate_batch_mulocal`` in float64 at B=16 by phase 9 (d)'s
-   contract, each row also the reconstruction-norm formula on its
-   window's basis (a permuted batch's rows: tests/test_torch_estimator.py);
-   (f) a fresh
+   warm calls, every counter set to 0 before the cold call and read
+   after the last (one launch of K1's serving design per occupied cell
+   and call, no other launch), routed ≡ direct bit for bit, registered
+   lanes on d > 1 and the others on 1, and on cells 0 and 5 at B=128 the
+   served K1 (the port's default schedule, the per-step LU) within
+   5e-6·scale (``uN_final`` 5e-5) of the float32 lanes engine, on cell 5
+   that launch also against K1's twin on the same inputs (ATOL_REL), and
+   the reference's default schedule (``ROMTIME_PAIRED_LU=5``: paired LU
+   G=5, ``sub1`` followers) served beside it, its gap measured; (d) the
+   float64 windowed lanes engine in ``mode="full"`` on bench's center μ
+   and 4 of its held-out μ against the float64 FOM on the card on each
+   lane's matched grid (T·d on a registered lane): the center under 1e-3
+   (tests/test_windowed.py:398), a registered lane under 4e-3
+   (tests/test_registration.py:490); (e) ``estimate_batch_mulocal`` in
+   float64 at B=16 by phase 9 (d)'s contract, each row also the
+   reconstruction-norm formula on its window's basis; (f) a fresh
    driver's ``start_from_existing_basis`` serving (c)'s last batch bit
    for bit, cell 0 rebuilt at 30x40 from the trajectory cache with
    ``fom.solve`` and ``solve_fom_batch`` unreachable (with the box-wide
    N-MDEIM, ``local_nmdeim=False``), and ``auto_cell_wn``'s shapes and
    floors on that cache.
-   ``python3 chip_smoke.py --flagship-fleet`` runs this phase alone at the
-   flagship's full depth (12,12,12,12,16,24 training μ, every alignable
-   cell registered, all of bench's held-out μ; no (e) or (f)).
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -239,8 +237,8 @@ K1_SOLVES = (("sub1", {"paired_lu": GROUP, "paired_mode": "sub1"}),
 K1_TURN_REPS = 2     # calls per turn (first, serving, serving, first)
 KERNEL_REPS = 5
 RESID_REPS = 20
-MODE_REPS = 1        # K1 options phase: timed calls per follower mode
-LEDGER_REPS = 1      # calls per ledger variant (one, for the smoke's time)
+MODE_REPS = 3        # K1 options phase: timed calls per follower mode
+LEDGER_REPS = 3      # calls per ledger variant (median)
 OPTION_WINDOWS = 4   # windows of the option-vs-twin comparisons
 #: Serving runs of the windowed cell: run → (stage-2 branch, calls, batch,
 #: WINDOWED_SOLVE_ITERS on the instance).
@@ -286,10 +284,6 @@ CERT_F64_REL = 1e-9
 #: The synthetic cells' grid (the flagship FOM) and the S-ROM's extra
 #: modes (bench.py's BENCH_WINDOW_SROM_EXTRA default).
 CERT_GRID = {"nx": 1000, "nt": 1500}
-#: (d)'s synthetic nested fleet: full width, its time depth cut to 300
-#: steps for the smoke run's time (phase 12 (e) certifies the built
-#: fleet at nt=1500).
-FLEET_CERT_GRID = {"nx": 1000, "nt": 300}
 SROM_EXTRA = 8
 #: (e): unequal widths (W=7 on nt=1500: 214 and 215 steps) at N=32.
 CHAINED_W = 7
@@ -1176,7 +1170,7 @@ def serving_phase(mods, dev, power, errs, rich_errs):
                             if branch == "matrices" else "")
                   + f"; {W} windows")
 
-    # K2 and K3 against K1 on the same μ (K1's paired-LU tolerance), and
+    # K2 and K3 against K1 on the same μ (the kernels' tolerance), and
     # the Richardson run against the LU schedule (the reference's limit).
     k1_outs = runs["fused"][1]
     for run, rel in (("matrices", ATOL_REL), ("v2", ATOL_REL),
@@ -1646,7 +1640,7 @@ def certification_phase(mods, dev, power):
 
     # (d) The fleet estimator, float64, on the nested synthetic fleet.
     fleet, t_build = timed(dev, lambda: synth.synthetic_fleet(
-        device=dev, srom_extra=SROM_EXTRA, **FLEET_CERT_GRID))
+        device=dev, srom_extra=SROM_EXTRA, **CERT_GRID))
     ml = fleet.mulocal
     hp = HyperReducedPiston.from_serving(fleet)
     # Every cell occupied (the box's draws leave the top Mach cell nearly
@@ -1662,8 +1656,7 @@ def certification_phase(mods, dev, power):
     fmus = [draw[i] for i in picks]
     cells = ml.cell_of([fleet.compute_piston_mach_number(m) for m in fmus])
     print(f"  (d) the nested fleet {ml.cell_wn} over S-ROM cells "
-          f"{[(w.n_windows, w.N) for w in ml.cells_srom]} (nt="
-          f"{FLEET_CERT_GRID['nt']}) built in "
+          f"{[(w.n_windows, w.N) for w in ml.cells_srom]} built in "
           f"{t_build:.1f} s; μ per cell "
           f"{np.bincount(cells, minlength=ml.n_cells).tolist()}")
     served_before = fleet.solve_batch_mulocal(fmus, mode="probes")
@@ -1680,15 +1673,20 @@ def certification_phase(mods, dev, power):
     try:
         with compute_dtype_scope(torch.float64):
             fest, fest_s = timed(dev, lambda: hp.estimate_batch_mulocal(fmus))
+            perm = np.random.default_rng(5).permutation(CERT_SMALL_B)
+            again = hp.estimate_batch_mulocal([fmus[i] for i in perm])
     finally:
         del hp.estimate_batch
     served_after = fleet.solve_batch_mulocal(fmus, mode="probes")
     fe, favg = fest[Errors.ESTIMATOR], fest[Errors.AVERAGE_ESTIMATOR]
-    if (fe.shape != (CERT_SMALL_B, FLEET_CERT_GRID["nt"])
-            or favg.shape != (CERT_SMALL_B,)
+    if (fe.shape != (CERT_SMALL_B, nt) or favg.shape != (CERT_SMALL_B,)
             or not np.isfinite(favg).all() or (favg <= 0).any()):
         raise AssertionError(f"fleet estimator {fe.shape}, averages "
                              f"{favg.shape}: not finite and > 0")
+    if not (np.array_equal(again[Errors.ESTIMATOR], fe[perm])
+            and np.array_equal(again[Errors.AVERAGE_ESTIMATOR], favg[perm])):
+        raise AssertionError("a permuted batch did not return the permuted "
+                             "rows bit for bit")
     for k, v in served_before.items():
         if not all(np.array_equal(a, b) for a, b in
                    zip(v, served_after[k])):
@@ -1715,14 +1713,15 @@ def certification_phase(mods, dev, power):
     print(f"  (d) estimate_batch_mulocal, B={CERT_SMALL_B}, float64: "
           f"{fest_s:.2f} s a call; per cell "
           + ", ".join(f"{r['cell']} {r['seconds']:.2f} s"
-                      for r in per_cell)
+                      for r in per_cell[:len(per_cell) // 2])
           + f"; averages {float(favg.min()):.4e}..{float(favg.max()):.4e}; "
           f"each row the norm of its μ's merged trajectories (largest "
-          f"relative gap {fformula:.2e}, limit 1e-12); the served fleet "
-          f"equal before and after, bit for bit, on {power} ok")
+          f"relative gap {fformula:.2e}, limit 1e-12); "
+          f"the permuted batch's rows bit for bit; the served fleet equal "
+          f"before and after, bit for bit, on {power} ok")
     info["fleet_estimator"] = dict(
         B=CERT_SMALL_B, seconds=fest_s, formula_rel_gap=fformula,
-        per_cell=per_cell,
+        per_cell=per_cell[:len(per_cell) // 2],
         average_min=float(favg.min()), average_max=float(favg.max()))
     del fleet, hp
 
@@ -2179,13 +2178,12 @@ def offline_build_phase(mods, dev, power):
     return info
 
 
-def held_out_mus(rom, n=None):
-    """``n`` (default all) of bench.py's 16 Mach-stratified held-out μ
+def held_out_mus(rom, n):
+    """``n`` of bench.py's 16 Mach-stratified held-out μ
     (``build_sampling_space(16, RandomState(7))``, bench.py:518-521; the
     bins above the box's largest Mach stay empty), evenly spaced in Mach
     from the lowest to the highest."""
     space = rom.build_sampling_space(num=16, rnd=np.random.RandomState(7))
-    n = len(space) if n is None else n
     pick = np.linspace(0, len(space) - 1, n).round().astype(int)
     return [{k: float(v) for k, v in space[i].items()
              if k != "piston_mach"} for i in pick]
@@ -2240,21 +2238,38 @@ def env_scope(name, value):
             os.environ[name] = saved
 
 
-def served_vs_lanes(rom, ml, mus, cells, mods, power, label,
-                    per_step=False):
+def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=False):
     """On the cells of FLEET_LANES_CELLS, each padded to FLEET_LANES_B
-    from its μ of ``mus``, the served K1 (budget 0) against the port's
-    float32 windowed lanes engine, at tests/test_windowed.py:91-94's
-    limits. ``per_step``: the held call runs K1's per-step LU
-    (``ROMTIME_PAIRED_LU=0``), and the gap of the default schedule
-    (paired LU G=5, ``sub1`` followers) is measured beside it, not held."""
-    k1 = mods["k1"].online_sweep_windowed_fused
+    from its μ of ``mus``, the served K1 (budget 0, the port's default
+    schedule: the per-step LU) against the port's float32 windowed lanes
+    engine, at tests/test_windowed.py:91-94's limits. ``built`` (a fleet
+    the port built): on the top cell (150x48) the served launch is also held
+    against K1's twin on the same inputs (ATOL_REL), and the reference's
+    default schedule (``ROMTIME_PAIRED_LU=5``: paired LU G=5, ``sub1``
+    followers) is served beside it, its gap to the lanes engine measured,
+    not held: the port does not serve it by default."""
+    from romtime_tpu_torch.rom.engines import windowed_fused as engine
+
+    k1 = mods["k1"]
+    wrapper = k1.online_sweep_windowed_fused
     checks = []
 
-    def serve(sub):
-        n0 = k1.serving_launches
-        out = rom.solve_batch(sub, mode="probes")
-        if k1.serving_launches != n0 + 1:
+    def serve(sub, capture=None):
+        n0 = wrapper.serving_launches
+        real = engine.online_sweep_windowed_fused
+
+        def spy(*args, **kw):
+            out = real(*args, **kw)
+            capture.update(args=args, kw=kw, out=out)
+            return out
+
+        if capture is not None:
+            engine.online_sweep_windowed_fused = spy
+        try:
+            out = rom.solve_batch(sub, mode="probes")
+        finally:
+            engine.online_sweep_windowed_fused = real
+        if wrapper.serving_launches != n0 + 1:
             raise AssertionError(f"B={FLEET_LANES_B} did not serve on K1")
         return out
 
@@ -2265,44 +2280,54 @@ def served_vs_lanes(rom, ml, mus, cells, mods, power, label,
             rom._set_serving_windows(win)
             sub = [dict(mus[int(i)]) for i in np.nonzero(cells == c)[0]]
             sub = (sub * -(-FLEET_LANES_B // len(sub)))[:FLEET_LANES_B]
-            served = serve(sub)
-            held = served
-            if per_step:
-                with env_scope("ROMTIME_PAIRED_LU", "0"):
-                    held = serve(sub)
+            twin = built and c == FLEET_LANES_CELLS[-1]
+            cap = {}
+            served = serve(sub, cap if twin else None)
             lanes, lanes_s = timed(rom.device, lambda: rom.solve_batch(
                 sub, mode="probes", engine="windowed"))
             scale = max(float(np.abs(lanes["probes"]).max()), 1e-3)
-            perr = float(np.abs(held["probes"] - lanes["probes"]).max())
-            uerr = float(np.abs(held["uN_final"] - lanes["uN_final"]).max())
+            perr = float(np.abs(served["probes"] - lanes["probes"]).max())
+            uerr = float(np.abs(served["uN_final"] - lanes["uN_final"]).max())
             ok = (perr <= FLEET_PROBES_REL * scale and uerr <= FLEET_UN_ATOL
                   and np.isfinite(lanes["probes"]).all())
             row = dict(cell=c, probes_err=perr, probes_limit=(
                 FLEET_PROBES_REL * scale), uN_err=uerr, lanes_s=lanes_s)
-            extra = ""
-            if per_step:
-                gap = np.abs(served["probes"] - lanes["probes"])
-                steps = np.argsort(gap.max(axis=(0, 2)))[-3:][::-1]
-                row.update(
-                    default_probes_err=float(gap.max()),
-                    default_uN_err=float(np.abs(
-                        served["uN_final"] - lanes["uN_final"]).max()),
-                    default_worst_steps=steps.tolist())
-                extra = (f"; the default paired LU G=5 sub1: probes "
-                         f"{row['default_probes_err']:.3e}, uN_final "
-                         f"{row['default_uN_err']:.3e}, worst at steps "
-                         f"{steps.tolist()} (measured, not held)")
             print(f"  {label} cell {c} {win.n_windows}x{win.N}, B="
-                  f"{FLEET_LANES_B}: served K1"
-                  f"{' (per-step LU)' if per_step else ''} vs the float32 "
-                  f"lanes engine: probes max abs err {perr:.3e} (limit "
+                  f"{FLEET_LANES_B}: served K1 vs the float32 lanes engine: "
+                  f"probes max abs err {perr:.3e} (limit "
                   f"{FLEET_PROBES_REL * scale:.3e}), uN_final {uerr:.3e} "
                   f"(limit {FLEET_UN_ATOL:.0e}); lanes engine {lanes_s:.1f} "
-                  f"s{extra} on {power} {'ok' if ok else 'FAIL'}")
-            checks.append(row)
+                  f"s on {power} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"fleet cell {c}: served K1 disagrees "
                                      f"with the lanes engine")
+            if twin:
+                assert cap["kw"]["paired_lu"] is None, cap["kw"]
+                want, row["twin_s"] = timed(
+                    rom.device, lambda: k1.windowed_fused_reference(
+                        *cap["args"], **cap["kw"]))
+                row["kernel_vs_twin"] = check_sweep(
+                    f"  {label} cell {c}: the served K1 launch vs its twin "
+                    f"on the same inputs ({row['twin_s']:.1f} s) on "
+                    f"{power}:", cap["out"], want)
+                del want, cap
+                with env_scope("ROMTIME_PAIRED_LU", str(GROUP)):
+                    paired = serve(sub)
+                gap = np.abs(paired["probes"] - lanes["probes"])
+                steps = np.argsort(gap.max(axis=(0, 2)))[-3:][::-1]
+                row.update(
+                    paired_probes_err=float(gap.max()),
+                    paired_uN_err=float(np.abs(
+                        paired["uN_final"] - lanes["uN_final"]).max()),
+                    paired_worst_steps=steps.tolist())
+                print(f"  {label} cell {c}: the reference's default "
+                      f"schedule (ROMTIME_PAIRED_LU={GROUP}, sub1 "
+                      f"followers) vs the lanes engine: probes "
+                      f"{row['paired_probes_err']:.3e}, uN_final "
+                      f"{row['paired_uN_err']:.3e}, worst at steps "
+                      f"{steps.tolist()} (measured, not served by "
+                      f"default)")
+            checks.append(row)
             del lanes
             torch.cuda.empty_cache()
     finally:
@@ -2329,14 +2354,11 @@ def fom_unreachable(fom):
         sweep.solve_fom_batch = real
 
 
-def fleet_build_phase(mods, dev, power, flagship=False):
+def fleet_build_phase(mods, dev, power):
     """Phase 12 of the module doc: the port builds the flagship fleet on
     the card (its depth cut), serves it through K1, checks its accuracy
     against the FOM, certifies it and persists it, in a temporary
-    directory. Nothing falls back to the CPU. ``flagship``: the fleet at
-    its full depth (bench.py's 12,12,12,12,16,24 training μ, every
-    alignable cell registered), its accuracy on all of bench's held-out
-    μ and the center; no (e) or (f)."""
+    directory. Nothing falls back to the CPU."""
     import tempfile
 
     from romtime_tpu_torch.conventions import Errors
@@ -2376,9 +2398,9 @@ def fleet_build_phase(mods, dev, power, flagship=False):
                               peak_bytes=torch.cuda.max_memory_allocated())
 
         # (b) The fleet build: one device sweep, the top cell registered.
-        kwargs = (joint_fleet() if flagship else joint_fleet(
+        kwargs = joint_fleet(
             per_cell=FLEET_BUILD_PER_CELL, register=FLEET_BUILD_REGISTER,
-            cell_wn=FLEET_BUILD_CELL_WN))
+            cell_wn=FLEET_BUILD_CELL_WN)
         os.chdir(workdir)
         torch.cuda.reset_peak_memory_stats()
         ml, build_s = timed(dev, lambda: hrom.build_mulocal_serving(
@@ -2424,8 +2446,7 @@ def fleet_build_phase(mods, dev, power, flagship=False):
                     else "f64")
         registered = [c for c, w in enumerate(ml.cells)
                       if w.dilation is not None]
-        if (not flagship and registered != list(FLEET_BUILD_REGISTER)
-                or build_tag != want_tag):
+        if registered != list(FLEET_BUILD_REGISTER) or build_tag != want_tag:
             raise AssertionError(f"registered cells or cache tag "
                                  f"({build_tag}) not as asked")
         info.update(build_s=build_s, stages=secs, peak_bytes=peak,
@@ -2474,7 +2495,7 @@ def fleet_build_phase(mods, dev, power, flagship=False):
         if (not np.allclose(dil, law_d, rtol=1e-6, atol=0)
                 or (dil[reg & (law_d > 1.0)] <= 1.0).any()
                 or (dil[~reg] != 1.0).any()
-                or (not flagship and clamped)):
+                or clamped):
             raise AssertionError("dilations: registered lanes must carry "
                                  "their law's d > 1, the others 1")
         worst = routed_rows_equal_direct(rom, ml, out, batches[-1], cells, Bb)
@@ -2484,13 +2505,13 @@ def fleet_build_phase(mods, dev, power, flagship=False):
               f"d(μ), {clamped} at the floor 1), the rest at 1")
         serve["routed_vs_direct_max_abs"] = worst
         serve["served_vs_lanes"] = served_vs_lanes(
-            rom, ml, batches[-1], cells, mods, power, "(c)", per_step=True)
+            rom, ml, batches[-1], cells, mods, power, "(c)", built=True)
         info["serve"] = serve
         last_mus, last_out = batches[-1], out
 
         # (d) Accuracy against the FOM on the matched grid, float64.
         acc_mus = [dict(JOINT_CENTER_MU)] + held_out_mus(
-            rom, None if flagship else FLEET_BUILD_HELD_OUT)
+            rom, FLEET_BUILD_HELD_OUT)
         with compute_dtype_scope(torch.float64):
             full, lanes_s = timed(dev, lambda: rom.solve_batch_mulocal(
                 acc_mus, mode="full", engine="windowed"))
@@ -2527,10 +2548,6 @@ def fleet_build_phase(mods, dev, power, flagship=False):
               f"on {power} ok")
         info["accuracy"] = dict(rows=rows, lanes_s=lanes_s, fom_s=fom_s)
         del full, refs
-
-        if flagship:
-            info["launches"] = launches
-            return info
 
         # (e) estimate_batch_mulocal, float64, B=16: phase 9 (d)'s
         # contract.
@@ -2667,20 +2684,6 @@ def main():
         if spills or not ptxas[stem]["kernels"]:
             raise AssertionError(f"the serving body spills in {stem}: "
                                  f"{spills}")
-
-    if "--flagship-fleet" in sys.argv[1:]:
-        # The one-off full-depth fleet build (phase 12 uncut), alone.
-        with torch.inference_mode():
-            t0 = time.perf_counter()
-            flagship = fleet_build_phase(mods, dev, power, flagship=True)
-            flagship["seconds_phase"] = time.perf_counter() - t0
-        print(f"flagship fleet build: {flagship['seconds_phase']:.1f} s")
-        print(json.dumps({"flagship_fleet": flagship, "card": power},
-                         default=float))
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return
 
     errs = {k: [] for k in KERNELS}
     with torch.inference_mode():

@@ -1,7 +1,7 @@
 """Parameter-space sampling (counterpart of ``romtime_tpu/parameters.py``).
 
-A grid maps parameter names to frozen scipy distributions (anything with
-``.rvs``) or finite lists. Samples come from a
+A grid maps parameter names to frozen scipy uniforms
+(:func:`get_uniform_dist`) or finite lists. Samples come from a
 ``numpy.random.RandomState`` stream with the keys iterated in sorted
 order, which is what makes the stream equal to sklearn's
 ``ParameterSampler`` (and the reference's) draw for draw. Pure numpy; scipy
@@ -43,8 +43,8 @@ def check_random_state(seed):
 class ParameterSampler:
     """Random sampler over a dict of distributions or lists (reference
     ``parameters.py:52-86``): ``n_iter`` dicts, keys in sorted order, a
-    distribution drawn with ``.rvs(random_state=rng)``, a list indexed by
-    ``rng.randint``."""
+    uniform drawn as its ``.rvs(random_state=rng)`` draws (:func:`_draw`),
+    a list indexed by ``rng.randint``."""
 
     def __init__(self, param_distributions, n_iter, random_state=None):
         self.param_distributions = param_distributions
@@ -68,20 +68,22 @@ class ParameterSampler:
 
 
 def _draw(dist, rng):
-    """One draw of the frozen distribution ``dist`` from ``rng``. A
-    uniform one is drawn as scipy draws it, u·scale + loc from one
-    ``rng.uniform(0, 1)`` (a zero scale draws nothing and returns loc),
-    without scipy's per-call overhead (~27 µs: a fleet's candidate pool
-    takes 10⁵-10⁶ draws); any other by its ``rvs``."""
+    """One draw of the frozen uniform ``dist`` from ``rng``, as scipy's
+    ``rvs`` draws it: u·scale + loc from one ``rng.uniform(0, 1)``, and
+    nothing drawn for a zero scale (loc). Drawn here without scipy's
+    per-call overhead (~27 µs: a fleet's candidate pool takes 10⁵-10⁶
+    draws). Raises ``ValueError`` for any other distribution: every μ box
+    of the port is uniform."""
     kwds = getattr(dist, "kwds", None)
-    if (getattr(getattr(dist, "dist", None), "name", None) == "uniform"
-            and not dist.args and set(kwds) <= {"loc", "scale"}):
-        loc = float(kwds.get("loc", 0.0))
-        scale = float(kwds.get("scale", 1.0))
-        if scale == 0.0:
-            return np.float64(loc)
-        return np.float64(rng.uniform(0.0, 1.0) * scale + loc)
-    return dist.rvs(random_state=rng)
+    if (getattr(getattr(dist, "dist", None), "name", None) != "uniform"
+            or dist.args or not set(kwds) <= {"loc", "scale"}):
+        raise ValueError(f"the sampler draws frozen uniforms "
+                         f"(get_uniform_dist) only, not {dist!r}")
+    loc = float(kwds.get("loc", 0.0))
+    scale = float(kwds.get("scale", 1.0))
+    if scale == 0.0:
+        return np.float64(loc)
+    return np.float64(rng.uniform(0.0, 1.0) * scale + loc)
 
 
 def sample_parameters(grid, num, random_state=None):

@@ -60,7 +60,7 @@ def define_piston_problem(L=None, nx=None, tf=None, nt=None, which="rest"):
 
 def piston_profile(nx=1000, nt=1500, tf=1.0, n_offline=3, modes=20,
                    truncate=5, nmdeim=12, tri_mu=2, walk_stride=None,
-                   tri_stride=4, seed=0, device="cuda"):
+                   seed=0, device="cuda"):
     """The keyword arguments of ``rom.hrom.HyperReducedPiston`` for a
     piston build on the reference's μ box (``bench.py:117-190``): P1,
     BDF-2, a0 ∈ [8, 10], ω ∈ [15, 20], δ ∈ [0.1, 0.15] (α = 1e-6,
@@ -69,8 +69,8 @@ def piston_profile(nx=1000, nt=1500, tf=1.0, n_offline=3, modes=20,
     POD's own truncation) truncated by ``truncate`` into the ROM, the
     N-MDEIM kept to ``nmdeim`` modes, the tree walk on every
     ``walk_stride``-th step (default nt // 100), the N-MDEIM's on every
-    ``tri_stride``-th of those with ``tri_mu`` μ, all six operator
-    models; built on ``device``."""
+    fourth of those with ``tri_mu`` μ, all six operator models; built on
+    ``device``."""
     import numpy as np
 
     from ..conventions import OperatorType, PistonParameters, RomParameters
@@ -99,7 +99,7 @@ def piston_profile(nx=1000, nt=1500, tf=1.0, n_offline=3, modes=20,
                     RomParameters.TOL_TIME: None, RomParameters.TOL_MU: None,
                     RomParameters.NMDEIM_SIZE: nmdeim},
         deim_params=dict(walk), mdeim_params=dict(walk),
-        mdeim_nonlinear_params={RomParameters.TS: ts_walk[::tri_stride],
+        mdeim_nonlinear_params={RomParameters.TS: ts_walk[::4],
                                 RomParameters.NUM_SNAPSHOTS: tri_mu},
         models={k: True for k in (
             OperatorType.MASS, OperatorType.STIFFNESS, OperatorType.RHS,

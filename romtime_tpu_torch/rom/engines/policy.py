@@ -12,14 +12,19 @@ materialized tables or K5 on the same test.
 The fused sweep's solve (:class:`SolvePolicy`) is the reference's: the
 per-window Richardson solve when the measured within-window contraction
 reaches the f32 band in few enough iterations (``WINDOWED_SOLVE_ITERS =
-"auto"``), else the pivot-free LU, reusing one factorization per group
-of ``WINDOWED_PAIRED_LU`` steps. ``ROMTIME_PAIRED_MODE`` picks how the
-followers reuse it, one of the reference's six modes (``"sub1"`` by
-default: substitute with the leader's factors and refine once against
+"auto"``), else the pivot-free LU. The port factorizes at every step
+(``WINDOWED_PAIRED_LU = None``), where the reference reuses one
+factorization per group of 5 steps by default: on the flagship's top
+Mach cell, built by the port, the stale factors' follower solves diverge
+in the fast wave phases (‖I − K_lead⁻¹K‖ up to 1.5), and that schedule
+leaves the per-step LU by ~0.17 of the probes where the per-step LU meets
+the served-vs-lanes limit. ``ROMTIME_PAIRED_LU=5`` (any group ≥ 2) opts
+into the reference's schedule; ``ROMTIME_PAIRED_MODE`` picks how its
+followers reuse the leader's factors, one of the reference's six modes
+(``"sub1"`` by default: substitute with them and refine once against
 their own matrix; ``ops/windowed_fused.py`` describes the others). An
 unknown mode raises ``ValueError``, where the reference would serve
-``"sub1"`` without a word. ``ROMTIME_PAIRED_LU=0`` gives the per-step LU
-in both packages.
+``"sub1"`` without a word.
 """
 
 import itertools
@@ -31,7 +36,7 @@ import torch
 from ...dtypes import compute_dtype_scope
 from ...ops.windowed_fused import PAIRED_MODES
 
-WINDOWED_PAIRED_LU = 5
+WINDOWED_PAIRED_LU = None
 WINDOWED_PAIRED_MODE = "sub1"
 
 _UNSET = object()

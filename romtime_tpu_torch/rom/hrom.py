@@ -718,8 +718,12 @@ class HyperReducedPiston:
                     secs["law_fit"] += time.perf_counter() - t0
                     if law is not None:
                         t0 = time.perf_counter()
-                        snaps_c, nl_c = self._solve_registered_cell(
-                            cell_mus[c], dils, local_tri)
+                        # Re-solved in float64, each μ on its own grid
+                        # T·d_j: one batch with per-lane clocks, where the
+                        # reference solves each μ alone (hrom.py:947-975).
+                        snaps_c, nl_c = self._sweep(
+                            cell_mus[c], torch.float64, local_tri,
+                            dilations=dils)
                         secs["registered_resolves"] += (
                             time.perf_counter() - t0)
                         self.cell_dilations[c] = np.asarray(dils)
@@ -768,30 +772,43 @@ class HyperReducedPiston:
         self.fleet_seconds = secs
         return ml
 
-    def _sweep_fleet(self, cell_mus, cell_snaps, cell_nl, local_tri):
-        """Every cell's training μ in one ``solve_fom_batch`` on the FOM's
-        device: float32 on the card (the sweep only; a ``dd_sweep`` FOM's
-        low words recombined in float64), float64 on the CPU. Fills
-        ``cell_snaps`` and ``cell_nl``; returns the cache's build tag."""
+    def _sweep(self, mus, dtype, want_nl, dilations=None):
+        """``mus`` in one ``solve_fom_batch`` on the FOM's device in
+        ``dtype``, each μ on its own grid T·d where ``dilations`` gives d
+        (per-lane clocks over the same nt steps). Returns each μ's float64
+        trajectory (a ``dd_sweep`` FOM's low words recombined) and, with
+        ``want_nl``, its nonlinear rows."""
         from ..parallel.sweep import solve_fom_batch
 
         fom = self.fom
-        order = [(c, j) for c in sorted(cell_mus)
-                 for j in range(len(cell_mus[c]))]
         if fom.is_setup is False:
             fom.setup()
-        on_card = fom._compute_device().type != "cpu"
-        with compute_dtype_scope(torch.float32 if on_card
-                                 else torch.float64):
-            outs = solve_fom_batch(fom, [cell_mus[c][j] for c, j in order])
-        for b, (c, _j) in enumerate(order):
+        with compute_dtype_scope(dtype):
+            outs = solve_fom_batch(fom, mus, dilations=dilations)
+        snaps, nls = [], []
+        for b in range(len(mus)):
             uh = np.asarray(outs["uh"][b], np.float64).T
             if "uh_lo" in outs:
                 uh = uh + np.asarray(outs["uh_lo"][b], np.float64).T
-            cell_snaps[c].append(uh)
+            snaps.append(uh)
+            if want_nl:
+                nls.append(np.asarray(outs["nonlinear_data"][b], np.float64))
+        return snaps, nls
+
+    def _sweep_fleet(self, cell_mus, cell_snaps, cell_nl, local_tri):
+        """Every cell's training μ in one :meth:`_sweep`: float32 on the
+        card, float64 on the CPU. Fills ``cell_snaps`` and ``cell_nl``;
+        returns the cache's build tag."""
+        order = [(c, j) for c in sorted(cell_mus)
+                 for j in range(len(cell_mus[c]))]
+        on_card = self.fom._compute_device().type != "cpu"
+        snaps, nls = self._sweep([cell_mus[c][j] for c, j in order],
+                                 torch.float32 if on_card else torch.float64,
+                                 local_tri)
+        for b, (c, _j) in enumerate(order):
+            cell_snaps[c].append(snaps[b])
             if local_tri:
-                cell_nl[c].append(
-                    np.asarray(outs["nonlinear_data"][b], np.float64))
+                cell_nl[c].append(nls[b])
         return "device-f32" if on_card else "f64"
 
     @staticmethod
@@ -824,31 +841,6 @@ class HyperReducedPiston:
                 for j, rows in enumerate(cell_nl[c]):
                     payload[f"nl_{c}_{j}"] = np.asarray(rows, np.float64)
         np.savez(StorageNames.MULOCAL_SNAPSHOTS, **payload)
-
-    def _solve_registered_cell(self, mus, dils, want_nl):
-        """A registered cell's training set re-solved in float64, each μ on
-        its own dilated grid (dt_j = d_j·dt over the same nt steps), as
-        one ``solve_fom_batch(..., dilations=dils)`` on the FOM's device:
-        per-lane clocks in one batched loop, the same discrete systems as
-        the reference's one solve per μ (``hrom.py:947-975``, its native
-        loop), each μ's trajectory equal to its own ``fom.solve()`` at
-        T·d_j."""
-        from ..parallel.sweep import solve_fom_batch
-
-        fom = self.fom
-        if fom.is_setup is False:
-            fom.setup()
-        with compute_dtype_scope(torch.float64):
-            outs = solve_fom_batch(fom, mus, dilations=dils)
-        snaps, nls = [], []
-        for b in range(len(mus)):
-            uh = np.asarray(outs["uh"][b], np.float64).T
-            if "uh_lo" in outs:
-                uh = uh + np.asarray(outs["uh_lo"][b], np.float64).T
-            snaps.append(uh)
-            if want_nl:
-                nls.append(np.asarray(outs["nonlinear_data"][b], np.float64))
-        return snaps, nls
 
     # ------------------------------------------------------------------
     # Resume (reference hrom.py:1000-1058, :1571-1586)

@@ -923,7 +923,7 @@ def test_cuda_fleet_build_card_vs_cpu(tmp_path, monkeypatch):
         monkeypatch.chdir(workdir)
         hrom = HyperReducedPiston(**piston_profile(
             nx=150, nt=96, tf=0.6, n_offline=3, modes=None, truncate=2,
-            nmdeim=10, tri_mu=2, walk_stride=1, tri_stride=4, device=dev))
+            nmdeim=10, tri_mu=2, walk_stride=1, device=dev))
         hrom.setup()
         hrom.setup_hyperreduction()
         hrom.run_offline_rom()

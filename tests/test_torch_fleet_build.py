@@ -635,16 +635,19 @@ def test_mulocal_device_sweep_matches_serial(port):
 def test_paired_lu_matches_reference_kernel_on_built_cell(port, monkeypatch):
     """On a built cell (the fleet rebuilt from its trajectory cache at
     W=4, N=24: blocked LU, so the paired schedule runs followers), the
-    served K1's default schedule (paired LU G=5, ``sub1`` followers over
-    the reference's kernel chunk, ``paired_lu_period``) against the
+    served K1 on the reference's default schedule, opted into with
+    ROMTIME_PAIRED_LU=5 (paired LU G=5, ``sub1`` followers over the
+    reference's kernel chunk, ``paired_lu_period``) against the
     reference kernel ``online_sweep_windowed_fused`` in interpret mode on
     the same inputs and schedule (its interpret chunk set to that period;
     interpret mode otherwise caps the chunk at 8, where these widths run
     no follower): probes and state within 5e-5·scale
-    (tests/test_pallas_online.py:779). The default schedule's gap to the
+    (tests/test_pallas_online.py:779). That schedule's gap to the
     per-step LU is the reference's, not the port's."""
     import romtime_tpu.ops.pallas_online as po
     import romtime_tpu_torch.rom.engines.windowed_fused as eng
+
+    monkeypatch.setenv("ROMTIME_PAIRED_LU", "5")
 
     hrom, ml, workdir = port
     with pytest.MonkeyPatch.context() as mp:

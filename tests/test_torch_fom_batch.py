@@ -325,3 +325,13 @@ def test_pickle_json_npz_roundtrip(tmp_path):
     io.dump_npz(str(tmp_path / "o.npz"), x=np.eye(2), y=np.arange(2))
     back = io.read_npz(str(tmp_path / "o.npz"))
     assert np.array_equal(back["x"], np.eye(2)) and list(back) == ["x", "y"]
+
+
+def test_sampler_refuses_other_distributions():
+    """The sampler draws frozen uniforms as scipy does and raises for any
+    other distribution rather than drawing it another way."""
+    from scipy.stats import norm
+
+    with pytest.raises(ValueError, match="uniforms"):
+        list(params.ParameterSampler({"a": norm(0.0, 1.0)}, 2,
+                                     random_state=0))

@@ -2,7 +2,7 @@
 ``resample_time``, ``optimal_dilation``, ``fit_dilation_law`` with its
 auto feature selection and guard, ``resample_to_standard``) and the
 registered μ-local build (``HyperReducedPiston.build_mulocal_serving(
-register=...)``, ``_solve_registered_cell``) against the JAX package's.
+register=...)``, its float64 re-solves on each μ's dilated grid) against the JAX package's.
 
 Each unit test of tests/test_registration.py is mirrored on the same
 inputs through both packages' functions: dilations within 1e-10, law

@@ -357,7 +357,9 @@ def test_unported_solver_options_raise(piston_cell, monkeypatch, env,
     setting, and the mode reaches the K1 wrapper. The cell's N=12 runs
     the Gauss-Jordan solve, where both packages turn pairing off; the
     kernel-level tests (test_torch_follower_modes.py) carry the modes'
-    numerics."""
+    numerics. The port opts into the paired schedule with
+    ROMTIME_PAIRED_LU=5, the reference's default."""
+    monkeypatch.setenv("ROMTIME_PAIRED_LU", "5")
     seen = _served_with_env(piston_cell, monkeypatch, env, value, seed=12)
     assert seen == {"paired_lu": 5, "paired_mode": value,
                     "solve_iters": None}

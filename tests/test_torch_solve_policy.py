@@ -100,8 +100,10 @@ def test_auto_iters_count_and_caps(piston_cell, monkeypatch, rho, iters):
     (None, 6, 6), (None, None, None)])
 def test_solve_iters_override(piston_cell, monkeypatch, env, setting, want):
     """ROMTIME_SOLVE_ITERS wins (0 → LU, n → n); otherwise the instance's
-    WINDOWED_SOLVE_ITERS (a count, or None for the LU)."""
+    WINDOWED_SOLVE_ITERS (a count, or None for the LU). The LU is the
+    per-step one (group None) unless ROMTIME_PAIRED_LU names a group."""
     _rom, payload = piston_cell
+    monkeypatch.delenv("ROMTIME_PAIRED_LU", raising=False)
     if env is None:
         monkeypatch.delenv("ROMTIME_SOLVE_ITERS", raising=False)
     else:
@@ -110,7 +112,7 @@ def test_solve_iters_override(piston_cell, monkeypatch, env, setting, want):
     port.WINDOWED_SOLVE_ITERS = setting
     assert port._windowed_solve_iters() == want
     iters, group, mode = port.windowed_solve()
-    assert iters == want and (group, mode) == (5, "sub1")
+    assert iters == want and (group, mode) == (None, "sub1")
     assert RomConstructorNonlinear.WINDOWED_SOLVE_ITERS == "auto"
 
 
@@ -246,8 +248,10 @@ def test_paired_lu_period_matches_reference_chunk(N, K8):
 
 @pytest.mark.parametrize("nt,N,period", [(60, 32, 30), (150, 24, 25)])
 def test_serving_passes_the_period(monkeypatch, nt, N, period):
-    """Two windows of width nt/2 on the fused branch: K1 gets the whole
-    window at width 30, N=32, and 25 at width 75, N=24."""
+    """Two windows of width nt/2 on the fused branch, the paired schedule
+    opted into (ROMTIME_PAIRED_LU=5): K1 gets the whole window at width
+    30, N=32, and 25 at width 75, N=24."""
+    monkeypatch.setenv("ROMTIME_PAIRED_LU", "5")
     from romtime_tpu_torch.rom.engines import windowed_fused as engine
     from romtime_tpu_torch.testing.synthetic import (
         synthetic_cell,
