@@ -179,10 +179,16 @@ Phases, in order; any failure raises and exits non-zero:
    and call, no other launch), routed ≡ direct bit for bit, registered
    lanes on d > 1 and the others on 1, and on cells 0 and 5 at B=128 the
    served K1 (the port's default schedule, the per-step LU) within
-   5e-6·scale (``uN_final`` 5e-5) of the float32 lanes engine, on cell 5
-   that launch also against K1's twin on the same inputs (ATOL_REL), and
-   the reference's default schedule (``ROMTIME_PAIRED_LU=5``: paired LU
-   G=5, ``sub1`` followers) served beside it, its gap measured; (d) the
+   5e-6·scale (``uN_final`` 5e-5) of the float32 lanes engine, and on
+   cell 5 the reference's default schedule (``ROMTIME_PAIRED_LU=5``:
+   paired LU G=5, ``sub1`` followers) served beside it, its gap
+   measured; on cell 5 also the paired-LU probe's lanes
+   (scripts/paired_lu_probe.py: the batch's μ of the cell, its 24
+   training μ and 40 more of its μ, cycled to 128): the served K1's
+   gaps to the float32 and float64 lanes engines printed, not held (the
+   reference's kernel misses the float32 limit there by the same amount,
+   PERF.md §6), and that launch held against K1's twin on the
+   same inputs (ATOL_REL); (d) the
    float64 windowed lanes engine in ``mode="full"`` on bench's center μ
    and 4 of its held-out μ against the float64 FOM on the card on each
    lane's matched grid (T·d on a registered lane): the center under 1e-3
@@ -195,6 +201,23 @@ Phases, in order; any failure raises and exits non-zero:
    ``fom.solve`` and ``solve_fom_batch`` unreachable (with the box-wide
    N-MDEIM, ``local_nmdeim=False``), and ``auto_cell_wn``'s shapes and
    floors on that cache.
+13. online single-μ and evaluation phase, on phase 11's built ROM (N=15,
+   S-ROM N=20, nx=1000, nt=1500), every launch counter set to 0 before
+   it and read after (none: the reference computes all of it outside
+   Pallas): (a) ``rom.solve(mu_val)`` (bench's center μ) in float64, cold
+   and warm, within 1e-12 of the ``solve_batch([mu_val], mode="full",
+   engine="lanes")`` row (tests/test_rom.py:114) and within 1e-9·scale of
+   the same ROM's solve on the CPU (carried there by
+   ``convert.estimator_to_arrays``); (b) the float32 solve (the
+   double-word residual step) against (a), its drift and bench's
+   ``serve_drift`` (bench.py:993-996, over the float64 FOM's norm); (c)
+   the vmap engine at B=4 on the ROM without its convection MDEIM (the
+   projection stands in, ``_resolve_engine`` → "vmap"), each row within
+   1e-12 of ``solve`` on its μ; (d) ``hrom.evaluate_validation()`` and
+   ``evaluate_online({"num": 2})`` in float64 in a temporary directory:
+   each μ's ROM error mean under 5e-3 (tests/test_hrom.py:349), a finite
+   estimator, the CSVs the reference names, and ``generate_summary``;
+   with the ms of each call.
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -202,8 +225,8 @@ kernel's ms, twin ms and bound on the serving path's own inputs (each on
 both designs, in turns). Prints a JSON line of per-kernel results (K1-K5
 on the serving body with their first designs' times, the phase shares,
 the register and spill report, and K1's first design's modes, ablations
-and ledger; the fleet's numbers; the certification, FOM, offline build
-and fleet build phases' numbers), then, as the last line,
+and ledger; the fleet's numbers; the certification, FOM, offline build,
+fleet build and online single-μ phases' numbers), then, as the last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -270,6 +293,7 @@ FLEET_CALLS = 3      # warm fleet calls after the cold one
 #: (tests/test_windowed.py:77-94).
 FLEET_LANES_CELLS = (0, 5)
 FLEET_LANES_B = 128
+FLEET_PROBE_EXTRA = 40   # the paired-LU probe's lanes: more μ of the top cell
 FLEET_PROBES_REL = 5e-6
 FLEET_UN_ATOL = 5e-5
 #: Phase 9, certification: (a) the global lanes engine at the serving
@@ -332,6 +356,12 @@ FLEET_BUILD_REGISTERED_REL = 4e-3
 FLEET_REBUILD_WN = (30, 40)
 AUTO_WN_CANDIDATES = ((50, 32), (30, 40), (150, 48))
 AUTO_WN_TARGET = 1e-5
+# Phase 13: the single-μ path and the evaluation on phase 11's ROM.
+SINGLE_VS_LANES = 1e-12   # tests/test_rom.py:114
+F32_DRIFT_MAX = 1e-5      # a guard: a float32 solve that left float64
+VMAP_B = 4
+EVAL_ONLINE = 2
+EVAL_ROM_MEAN = 5e-3      # tests/test_hrom.py:349
 
 
 def fail(msg):
@@ -986,7 +1016,7 @@ def serve_branch(rom, run, batches, mods, power):
     nt = int(rom.fom.domain[rom.fom.NT])
     Bb = len(batches[0])
     with branch_scope(branch):
-        got = stage2_branch(nt, mods["k1"].pad_dim(rom.N), Bb,
+        got = stage2_branch(nt, mods["k1"].pad_dim(rom.windows.N), Bb,
                             rom.precompute_choice)
         if got != branch:
             raise AssertionError(f"B={Bb} routes to {got}, not {branch}")
@@ -1010,7 +1040,7 @@ def serve_branch(rom, run, batches, mods, power):
         raise AssertionError(f"{run} run launched {launches} (Richardson "
                              f"{rich}, designs {designs}), expected {want} "
                              f"({want_rich}, {want_designs})")
-    check_served(outs, Bb, rom.N)
+    check_served(outs, Bb, rom.windows.N)
     return launches, outs, info
 
 
@@ -1155,7 +1185,7 @@ def serving_phase(mods, dev, power, errs, rich_errs):
         run_errs = [check_sweep(
             f"{run} run sweep vs its twins (B={info['B']}):", got, want),
             served_vs(f"{run} run served outputs vs its twins' sweep:",
-                      outs[-1], want[0], want[1][0], rom.N, dev)]
+                      outs[-1], want[0], want[1][0], rom.windows.N, dev)]
         errs[kname] += run_errs
         if iters:
             rich_errs += run_errs
@@ -2175,7 +2205,7 @@ def offline_build_phase(mods, dev, power):
                              stages=cpu_seconds, same_mu=same_mu,
                              dofs_same_sets=sets, dofs_same_order=order,
                              probes_gap=gap, probes_scale=scale)
-    return info
+    return info, hrom
 
 
 def held_out_mus(rom, n):
@@ -2238,16 +2268,45 @@ def env_scope(name, value):
             os.environ[name] = saved
 
 
-def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=False):
+def probe_lanes(rom, ml, cell, batch_mus, train_mus):
+    """The paired-LU probe's lanes on ``cell``
+    (scripts/paired_lu_probe.py): the cell's μ of ``batch_mus``, its
+    training μ ``train_mus`` and
+    FLEET_PROBE_EXTRA more of its μ (seeded draws), cycled to
+    FLEET_LANES_B lanes; and the number of distinct μ."""
+    from romtime_tpu_torch.testing.synthetic import synthetic_mus
+
+    def in_cell(mus):
+        cells = ml.cell_of([rom.compute_piston_mach_number(m) for m in mus])
+        return [dict(mus[int(i)]) for i in np.nonzero(cells == cell)[0]]
+
+    batch = in_cell(batch_mus)
+    train = [{k: v for k, v in m.items() if k != "piston_mach"}
+             for m in train_mus]
+    extra, seed = [], 200
+    while len(extra) < FLEET_PROBE_EXTRA and seed < 260:
+        extra += in_cell(synthetic_mus(2048, seed=seed))
+        seed += 1
+    distinct = batch + train + extra[:FLEET_PROBE_EXTRA]
+    lanes = distinct * -(-FLEET_LANES_B // len(distinct))
+    return lanes[:FLEET_LANES_B], len(distinct)
+
+
+def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=None):
     """On the cells of FLEET_LANES_CELLS, each padded to FLEET_LANES_B
     from its μ of ``mus``, the served K1 (budget 0, the port's default
     schedule: the per-step LU) against the port's float32 windowed lanes
-    engine, at tests/test_windowed.py:91-94's limits. ``built`` (a fleet
-    the port built): on the top cell (150x48) the served launch is also held
-    against K1's twin on the same inputs (ATOL_REL), and the reference's
-    default schedule (``ROMTIME_PAIRED_LU=5``: paired LU G=5, ``sub1``
-    followers) is served beside it, its gap to the lanes engine measured,
-    not held: the port does not serve it by default."""
+    engine, at tests/test_windowed.py:91-94's limits. ``built`` (the
+    pipeline of a fleet the port built): on the top cell (150x48) the
+    reference's default schedule (``ROMTIME_PAIRED_LU=5``: paired LU G=5,
+    ``sub1`` followers) is served beside it, its gap to the lanes engine
+    measured, not held (the port does not serve it by default); and the
+    cell is served on the paired-LU probe's lanes (:func:`probe_lanes`),
+    the gaps of the served K1 to the float32 and float64 lanes engines
+    printed, not
+    held (the reference's kernel misses the float32 limit there by the
+    same amount, PERF.md §6), and that launch held against K1's
+    twin on the same inputs (ATOL_REL)."""
     from romtime_tpu_torch.rom.engines import windowed_fused as engine
 
     k1 = mods["k1"]
@@ -2280,9 +2339,8 @@ def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=False):
             rom._set_serving_windows(win)
             sub = [dict(mus[int(i)]) for i in np.nonzero(cells == c)[0]]
             sub = (sub * -(-FLEET_LANES_B // len(sub)))[:FLEET_LANES_B]
-            twin = built and c == FLEET_LANES_CELLS[-1]
-            cap = {}
-            served = serve(sub, cap if twin else None)
+            top = built is not None and c == FLEET_LANES_CELLS[-1]
+            served = serve(sub)
             lanes, lanes_s = timed(rom.device, lambda: rom.solve_batch(
                 sub, mode="probes", engine="windowed"))
             scale = max(float(np.abs(lanes["probes"]).max()), 1e-3)
@@ -2292,6 +2350,9 @@ def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=False):
                   and np.isfinite(lanes["probes"]).all())
             row = dict(cell=c, probes_err=perr, probes_limit=(
                 FLEET_PROBES_REL * scale), uN_err=uerr, lanes_s=lanes_s)
+            if top:
+                row.update(served_vs_probe_lanes(rom, ml, c, mus, built, serve,
+                                           k1, power, label))
             print(f"  {label} cell {c} {win.n_windows}x{win.N}, B="
                   f"{FLEET_LANES_B}: served K1 vs the float32 lanes engine: "
                   f"probes max abs err {perr:.3e} (limit "
@@ -2301,16 +2362,7 @@ def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=False):
             if not ok:
                 raise AssertionError(f"fleet cell {c}: served K1 disagrees "
                                      f"with the lanes engine")
-            if twin:
-                assert cap["kw"]["paired_lu"] is None, cap["kw"]
-                want, row["twin_s"] = timed(
-                    rom.device, lambda: k1.windowed_fused_reference(
-                        *cap["args"], **cap["kw"]))
-                row["kernel_vs_twin"] = check_sweep(
-                    f"  {label} cell {c}: the served K1 launch vs its twin "
-                    f"on the same inputs ({row['twin_s']:.1f} s) on "
-                    f"{power}:", cap["out"], want)
-                del want, cap
+            if top:
                 with env_scope("ROMTIME_PAIRED_LU", str(GROUP)):
                     paired = serve(sub)
                 gap = np.abs(paired["probes"] - lanes["probes"])
@@ -2334,6 +2386,46 @@ def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=False):
         del rom.ONLINE_PRECOMPUTE_BUDGET
         rom._set_serving_windows(ml.cells[0])
     return checks
+
+
+def served_vs_probe_lanes(rom, ml, c, mus, hrom, serve, k1, power, label):
+    """Cell ``c`` on the paired-LU probe's lanes: the served K1's gaps to
+    the float32 and float64 lanes engines, printed; the launch against
+    K1's twin on
+    the same inputs, held (ATOL_REL)."""
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+
+    lanes_mus, distinct = probe_lanes(rom, ml, c, mus, hrom.cell_mus[c])
+    cap = {}
+    served = serve(lanes_mus, cap)
+    assert cap["kw"]["paired_lu"] is None, cap["kw"]
+    l32, s32 = timed(rom.device, lambda: rom.solve_batch(
+        lanes_mus, mode="probes", engine="windowed"))
+    with compute_dtype_scope(torch.float64):
+        l64, s64 = timed(rom.device, lambda: rom.solve_batch(
+            lanes_mus, mode="probes", engine="windowed"))
+    scale = float(np.abs(l32["probes"]).max())
+    g32 = float(np.abs(served["probes"] - l32["probes"]).max())
+    g64 = float(np.abs(served["probes"] - l64["probes"]).max())
+    l_gap = float(np.abs(l32["probes"] - l64["probes"]).max())
+    print(f"  {label} cell {c}, the paired-LU probe's lanes ({distinct} "
+          f"distinct μ: the batch's, the {len(hrom.cell_mus[c])} training "
+          f"μ and {FLEET_PROBE_EXTRA} more, cycled to {FLEET_LANES_B}): "
+          f"served K1 "
+          f"vs the float32 lanes engine {g32:.3e} (the float32 limit "
+          f"{FLEET_PROBES_REL * scale:.3e}, not held here), vs the float64 "
+          f"lanes engine {g64:.3e}; the two lanes engines {l_gap:.3e} apart "
+          f"(lanes {s32:.1f} s float32, {s64:.1f} s float64) on {power}")
+    want, twin_s = timed(rom.device, lambda: k1.windowed_fused_reference(
+        *cap["args"], **cap["kw"]))
+    err = check_sweep(f"  {label} cell {c}: the served K1 launch on the "
+                      f"probe's lanes vs its twin on the same inputs "
+                      f"({twin_s:.1f} s) on {power}:", cap["out"], want)
+    return dict(probe_distinct=distinct, probe_vs_lanes_f32=g32,
+                probe_vs_lanes_f64=g64, probe_lanes_f32_vs_f64=l_gap,
+                probe_scale=scale, probe_limit=FLEET_PROBES_REL * scale,
+                probe_lanes_s=[s32, s64], twin_s=twin_s,
+                kernel_vs_twin=err)
 
 
 @contextlib.contextmanager
@@ -2505,7 +2597,7 @@ def fleet_build_phase(mods, dev, power):
               f"d(μ), {clamped} at the floor 1), the rest at 1")
         serve["routed_vs_direct_max_abs"] = worst
         serve["served_vs_lanes"] = served_vs_lanes(
-            rom, ml, batches[-1], cells, mods, power, "(c)", built=True)
+            rom, ml, batches[-1], cells, mods, power, "(c)", built=hrom)
         info["serve"] = serve
         last_mus, last_out = batches[-1], out
 
@@ -2642,6 +2734,179 @@ def fleet_build_phase(mods, dev, power):
     return info
 
 
+def online_single_phase(mods, dev, power, hrom):
+    """Phase 13 of the module doc: the single-μ online path, the vmap
+    engine and the evaluation half on phase 11's built ROM (the
+    throughput profile, float64 built), every launch counter set to 0
+    before the phase and read after (no kernel: the reference computes
+    all of it outside Pallas)."""
+    import tempfile
+
+    from romtime_tpu_torch.conventions import Errors, OperatorType, Stage
+    from romtime_tpu_torch.convert import (
+        estimator_from_arrays,
+        estimator_to_arrays,
+    )
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.problems import JOINT_CENTER_MU
+
+    rom = hrom.rom
+    mu_val = dict(JOINT_CENTER_MU)
+    info = {"card": power, "N": rom.N, "N_srom": hrom.srom.N}
+    for c in counters(mods):
+        c.launches = c.serving_launches = c.first_design_launches = 0
+
+    # (a) solve in float64 against the lanes engine's row and against the
+    # same ROM's solve on the CPU (carried there by its payload).
+    f64 = torch.float64
+    with compute_dtype_scope(f64):
+        _, cold = timed(dev, lambda: rom.solve(mu_val, Stage.ONLINE))
+        _, solve_s = timed(dev, lambda: rom.solve(mu_val, Stage.ONLINE))
+        sol = rom.solutions
+        u64 = np.array(sol.fom)
+        lanes, lanes_s = timed(dev, lambda: rom.solve_batch(
+            [mu_val], step=Stage.ONLINE, mode="full", engine="lanes"))
+        cpu = estimator_from_arrays(estimator_to_arrays(hrom), device="cpu")
+        _, cpu_s = timed("cpu", lambda: cpu.rom.solve(mu_val,
+                                                      Stage.ONLINE))
+    scale = float(np.abs(u64).max())
+    vs_lanes = max(float(np.abs(lanes["uc"][0].T - u64).max()),
+                   float(np.abs(lanes["uN"][0].T - sol.rom).max()))
+    vs_cpu = float(np.abs(cpu.rom.solutions.fom - u64).max())
+    ok = vs_lanes <= SINGLE_VS_LANES and vs_cpu <= CERT_F64_REL * scale
+    print(f"online single μ: phase 11's ROM (N={rom.N}, S-ROM "
+          f"N={hrom.srom.N}, nt={u64.shape[1]}), bench's mu_val")
+    print(f"  (a) solve float64: cold {cold * 1e3:.1f} ms, warm "
+          f"{solve_s * 1e3:.1f} ms; vs the lanes engine's row "
+          f"({lanes_s * 1e3:.1f} ms) max abs {vs_lanes:.3e} (limit "
+          f"{SINGLE_VS_LANES:.0e}); vs the CPU solve ({cpu_s * 1e3:.1f} ms) "
+          f"{vs_cpu:.3e} (limit {CERT_F64_REL * scale:.3e}) on {power} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("solve disagrees with the lanes engine or the "
+                             "CPU")
+    info["solve"] = dict(cold_ms=cold * 1e3, warm_ms=solve_s * 1e3,
+                         lanes_ms=lanes_s * 1e3, cpu_ms=cpu_s * 1e3,
+                         vs_lanes=vs_lanes, vs_cpu=vs_cpu, scale=scale)
+    del lanes, cpu
+
+    # (b) float32 (the double-word residual step) against float64; the
+    # drift as tests/test_hrom.py:409 and as bench.py:993-996 (over the
+    # float64 FOM's norm).
+    with compute_dtype_scope(torch.float32):
+        _, f32_s = timed(dev, lambda: rom.solve(mu_val, Stage.ONLINE))
+    u32 = rom.solutions.fom
+    fom = hrom.fom
+    with compute_dtype_scope(f64):
+        fom.setup()
+        fom.update_parametrization(mu_val)
+        _, fom_s = timed(dev, fom.solve)
+    uh_fom = np.asarray(fom.solutions.fom)
+    drift = float(np.linalg.norm(u32 - u64) / np.linalg.norm(u64))
+    serve_drift = float(np.linalg.norm(u32 - u64) / np.linalg.norm(uh_fom))
+    rel_fom = float(np.linalg.norm(u64 - uh_fom) / np.linalg.norm(uh_fom))
+    print(f"  (b) solve float32 (residual form): {f32_s * 1e3:.1f} ms; drift "
+          f"from float64 {drift:.3e}; bench's serve_drift (over the "
+          f"float64 FOM, {fom_s:.1f} s) {serve_drift:.3e}; the float64 ROM "
+          f"vs that FOM {rel_fom:.3e} on {power}")
+    if not np.isfinite(u32).all() or drift > F32_DRIFT_MAX:
+        raise AssertionError(f"float32 solve drift {drift:.3e}")
+    info["f32"] = dict(ms=f32_s * 1e3, drift=drift, serve_drift=serve_drift,
+                       fom_s=fom_s, rom_vs_fom=rel_fom)
+
+    # (c) the vmap engine: the ROM without its convection MDEIM (the
+    # projection stands in), each row against solve.
+    vrom = rom.truncate(0)
+    for red, which in ((hrom.mdeim_mass, OperatorType.MASS),
+                       (hrom.mdeim_stiffness, OperatorType.STIFFNESS),
+                       (hrom.deim_rhs, OperatorType.RHS),
+                       (hrom.mdeim_trilinear_lifting,
+                        OperatorType.NONLINEAR_LIFTING),
+                       (hrom.mdeim_trilinear, OperatorType.TRILINEAR)):
+        vrom.add_hyper_reductor(reductor=red, which=which)
+    vrom.project_reductors()
+    mus = mods["synth"].synthetic_mus(VMAP_B, seed=71)
+    engine = vrom._resolve_engine("full", VMAP_B)
+    if engine != "vmap":
+        raise AssertionError(f"resolved {engine}, not vmap")
+    with compute_dtype_scope(f64):
+        out, vmap_s = timed(dev, lambda: vrom.solve_batch(mus, mode="full"))
+        worst, row_s = 0.0, []
+        for i, mu in enumerate(mus):
+            _, s = timed(dev, lambda: vrom.solve(mu, Stage.ONLINE))
+            row_s.append(s)
+            worst = max(worst,
+                        float(np.abs(out["uc"][i].T
+                                     - vrom.solutions.fom).max()),
+                        float(np.abs(out["uN"][i].T
+                                     - vrom.solutions.rom).max()))
+    ok = worst <= SINGLE_VS_LANES
+    print(f"  (c) vmap engine (no convection MDEIM: resolved {engine!r}), "
+          f"B={VMAP_B}, float64: {vmap_s * 1e3:.1f} ms a call; each row vs "
+          f"solve ({np.median(row_s) * 1e3:.1f} ms each) max abs "
+          f"{worst:.3e} (limit {SINGLE_VS_LANES:.0e}) on {power} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("vmap rows disagree with solve")
+    info["vmap"] = dict(B=VMAP_B, ms=vmap_s * 1e3,
+                        solve_ms_median=float(np.median(row_s)) * 1e3,
+                        vs_solve=worst)
+    del vrom, out
+
+    # (d) the evaluation half in a temporary directory, float64.
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as workdir:
+        os.chdir(workdir)
+        try:
+            with compute_dtype_scope(f64):
+                _, val_s = timed(dev, hrom.evaluate_validation)
+                _, onl_s = timed(dev, lambda: hrom.evaluate_online(
+                    {"num": EVAL_ONLINE}, rnd=np.random.RandomState(5)))
+            hrom.generate_summary()
+            files = sorted(os.listdir(workdir))
+        finally:
+            os.chdir(cwd)
+    rows = []
+    for which in (Stage.VALIDATION, Stage.ONLINE):
+        for idx, e in hrom.errors[which].items():
+            rows.append(dict(which=which, idx=idx,
+                             rom_mean=float(e[Errors.ROM].mean()),
+                             estimator_mean=float(
+                                 e[Errors.ESTIMATOR].mean()),
+                             finite=bool(np.isfinite(
+                                 e[Errors.ESTIMATOR]).all())))
+    n_off = len(hrom.rom.mu_space[Stage.OFFLINE])
+    online = sorted(hrom.errors[Stage.ONLINE])
+    want = ([f"mass_conservation_{w}_fom_{i}.csv"
+             for w, idx in ((Stage.VALIDATION, range(n_off)),
+                            (Stage.ONLINE, online)) for i in idx]
+            + [f"probes_{Stage.ONLINE}_fom_{i}.csv" for i in online]
+            + [f"{loc}_probes_comparison_rom_{rom.N}_srom_{hrom.srom.N}_"
+               f"trilinear_{hrom.mdeim_trilinear.N}_{Stage.ONLINE}_{i}.csv"
+               for loc in ("outflow", "halfway") for i in online])
+    missing = sorted(set(want) - set(files))
+    ok = (not missing and len(online) == EVAL_ONLINE
+          and all(r["rom_mean"] < EVAL_ROM_MEAN and r["finite"]
+                  for r in rows))
+    print(f"  (d) evaluate_validation ({n_off} μ) {val_s:.1f} s, "
+          f"evaluate_online({{'num': {EVAL_ONLINE}}}) {onl_s:.1f} s (the "
+          f"float64 FOM per μ): ROM error means "
+          + ", ".join(f"{r['which'][:3]} {r['idx']} {r['rom_mean']:.3e}"
+                      for r in rows)
+          + f" (limit {EVAL_ROM_MEAN:.0e}); estimator means "
+          + ", ".join(f"{r['estimator_mean']:.3e}" for r in rows)
+          + f", finite; {len(files)} files, the reference's names "
+          f"{'present' if not missing else 'MISSING ' + str(missing)}; "
+          f"generate_summary: {len(hrom.summary_basis['index'])} bases on "
+          f"{power} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the evaluation missed")
+    info["evaluation"] = dict(validation_s=val_s, online_s=onl_s, rows=rows,
+                              files=len(files))
+    info["launches"] = [c.launches for c in counters(mods)]
+    return info
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -2717,7 +2982,7 @@ def main():
             raise AssertionError("the FOM phase launched a serving kernel")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        build = offline_build_phase(mods, dev, power)
+        build, built = offline_build_phase(mods, dev, power)
         build["seconds_phase"] = time.perf_counter() - t0
         print(f"offline build phase: {build['seconds_phase']:.1f} s, "
               f"launches K1-K5 {build['launches']}")
@@ -2728,6 +2993,17 @@ def main():
         print(f"fleet build phase: {fleet_build['seconds_phase']:.1f} s, "
               f"launches K1-K5 of its served calls "
               f"{fleet_build['launches']}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        single = online_single_phase(mods, dev, power, built)
+        single["seconds_phase"] = time.perf_counter() - t0
+        del built
+        print(f"online single-μ and evaluation phase: "
+              f"{single['seconds_phase']:.1f} s, launches K1-K5 "
+              f"{single['launches']} (none: no kernel on this path)")
+        if any(single["launches"]):
+            raise AssertionError("the single-μ phase launched a serving "
+                                 "kernel")
     for k, v in gkernels.items():
         launches[k] = v.pop("launches")
         kernels[k] = v
@@ -2785,11 +3061,13 @@ def main():
         replaces=meta[k][2], launches=launches[k],
         max_abs_err=max(errs[k]), library_ms=None,
         offline_build_launches=build["launches"][i],
-        fleet_build_launches=fleet_build["launches"][i], **kernels[k])
+        fleet_build_launches=fleet_build["launches"][i],
+        online_single_launches=single["launches"][i], **kernels[k])
         for i, k in enumerate(KERNELS)],
         "shapes": rows, "serving": serving, "autotune": autotune,
         "fleet": fleet, "certification": certification, "fom": fom,
         "offline_build": build, "fleet_build": fleet_build,
+        "online_single": single,
         "card": power}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -137,6 +137,14 @@ class MassConservation:
     OUTFLOW = "outflow"
 
 
+class ProbeLocations:
+    """Probe naming (reference ``conventions.py:167-172``)."""
+
+    OUTFLOW = "outflow"
+    MIDDLE = "halfway"
+    PISTON = "piston"
+
+
 class SolutionsStorageNames:
     """Solution storage attributes (reference ``base.py:14-22``)."""
 

@@ -168,6 +168,11 @@ class DiscreteEmpiricalInterpolation(Reductor):
         return self.assemble.__self__
 
     @property
+    def Nh(self):
+        """Rows of the collateral basis (reference ``deim.py:153-155``)."""
+        return self.basis_fom.shape[0]
+
+    @property
     def N(self):
         return self.basis_fom.shape[1]
 
@@ -351,6 +356,11 @@ class DiscreteEmpiricalInterpolation(Reductor):
         """Gathered local assembly at the interpolation dofs:
         (k, *batch) for μ/t tensors of batch shape ``batch``."""
         return self.assemble(mu=mu, t=t, entries=self.dofs)
+
+    def compute_thetas(self, rhs):
+        """θ from PᵀU θ = f|dofs, float64 numpy (reference
+        ``deim.py:379-381``)."""
+        return np.linalg.solve(self.PT_U, rhs)
 
     def _folded_serving(self):
         """The reference's predicate (``deim.py:379``): float32 serving

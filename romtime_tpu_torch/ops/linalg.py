@@ -242,13 +242,12 @@ def gauss_solve_lanes(A, b):
     if A.ndim == 2:
         A = A[:, :, None].expand(N, N, b.shape[-1]).to(b.dtype)
     M = torch.cat([A, b[:, None, :]], dim=1)          # (N, N+1, B)
-    row_ids = torch.arange(N, device=b.device)
     for k in range(N):
         pivot_row = M[k] / M[k, k][None, :]           # (N+1, B)
-        factor = M[:, k][:, None, :]                  # (N, 1, B)
-        eliminated = M - factor * pivot_row[None, :, :]
-        is_k = (row_ids == k)[:, None, None]
-        M = torch.where(is_k, pivot_row[None], eliminated)
+        # Every row eliminated in place, then row k replaced by the
+        # normalized pivot row: the reference's select, in fewer launches.
+        M -= M[:, k][:, None, :] * pivot_row[None, :, :]
+        M[k] = pivot_row
     return M[:, N, :]
 
 

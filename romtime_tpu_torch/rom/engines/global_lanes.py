@@ -101,11 +101,13 @@ def lanes_branch(nt, N, B, dtype, precompute_choice):
             else "thetas")
 
 
-def online_scan_batch(fom, gs, sources, tables, mu, mode, precompute_choice):
+def online_scan_batch(fom, gs, sources, tables, mu, mode, precompute_choice,
+                      compensated=None):
     """The lanes sweep over the whole time grid. ``mu`` maps names to (B,)
-    tensors, whose dtype is the sweep's (float32 steps in the residual
-    form, float64 plainly); ``precompute_choice(bytes)`` is the serving
-    object's policy. Returns (nt, …, B) tensors: ``t`` and, by mode,
+    tensors, whose dtype is the sweep's; ``precompute_choice(bytes)`` is
+    the serving object's policy; ``compensated`` the serving object's
+    ``_compensated_active()`` (None: the residual form in float32, the
+    plain step in float64, its ``"auto"``). Returns (nt, …, B) tensors: ``t`` and, by mode,
     ``probes`` (nt, 2, B) and ``uN_final`` (N, B) ("probes"), ``uN``
     (nt, N, B) and ``probes`` ("reduced"), ``uN``, ``uc`` and ``x``
     (nt, nh, B) ("full")."""
@@ -116,7 +118,8 @@ def online_scan_batch(fom, gs, sources, tables, mu, mode, precompute_choice):
     B = ref.shape[0]
     nt = int(fom.domain[fom.NT])
     bdf2 = fom.BDF_SCHEME == BDF.TWO
-    compensated = dtype == torch.float32
+    if compensated is None:
+        compensated = dtype == torch.float32
     N = gs.N
     dt = torch.tensor(float(fom.dt), dtype=dtype, device=device)
     ts = time_grid(fom, None, dtype, device)

@@ -21,6 +21,18 @@ serve their own global configurations (``engine="pallas"`` through K4
 and K5, ``engine="lanes"``). ``build_seconds`` holds the last build's
 seconds per stage.
 
+**Evaluation** (reference ``hrom.py:1060-1147``, ``:1261-1368``,
+``:1588-1650``): ``evaluate_validation`` (the offline μ against the
+build's FOM trajectories) and ``evaluate_online`` (fresh μ against the
+FOM solved for each) run ``solve`` on the ROM and the S-ROM per μ and
+keep the per-step errors and the S-ROM estimator in ``errors``,
+computed from the fetched trajectories; the piston's probe and
+mass-conservation CSVs; ``evaluate_deim``; the dumps
+(``dump_validation_fom``, ``dump_errors``, ``dump_errors_deim``,
+``dump_setup``) and ``generate_summary``, whose tables are dicts of
+columns (no pandas). The CSVs carry the reference's names, columns and
+index.
+
 **Certification.** A sacrificial ROM (S-ROM) carries Δ more modes than
 the ROM it certifies, its basis nesting the ROM's. Per (μ, t) the
 estimator is the RMS of the reconstruction of the two trajectories'
@@ -37,6 +49,7 @@ import os
 import sys
 import time
 import zipfile
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -44,9 +57,13 @@ import torch
 from ..conventions import (
     Errors,
     OperatorType,
+    ProbeLocations,
+    ProblemType,
     RomParameters,
     Stage,
     StorageNames,
+    Treewalk,
+    TreewalkNonlinear,
 )
 from ..deim import (
     DiscreteEmpiricalInterpolation,
@@ -56,9 +73,25 @@ from ..deim import (
 from ..deim.deim import offline
 from ..dtypes import compute_dtype_scope
 from ..fom import OneDimensionalBurgers
-from ..utils import dump_json, dump_pickle, read_json, read_pickle
+from ..utils import dump_csv, dump_json, dump_pickle, read_json, read_pickle
+from ..utils.io import write_table
 from ..utils.numeric import time_average
+from .base import SUMMARY_COLUMNS
 from .rom import RomConstructorNonlinear
+
+
+def _rms_columns(e):
+    """The RMS of each column of ``e`` (nh, nt): the reference's
+    ``Reductor._compute_error`` (``rom/base.py:46-51``) at every step at
+    once."""
+    return np.linalg.norm(e, axis=0) / np.sqrt(e.shape[0])
+
+
+def _write_indexed(path, table):
+    """A dict of columns with its row labels under ``"index"`` as the
+    reference's ``DataFrame.to_csv`` writes it."""
+    write_table(path, {k: v for k, v in table.items() if k != "index"},
+                table["index"])
 
 
 class HyperReducedPiston:
@@ -94,6 +127,13 @@ class HyperReducedPiston:
         self.mdeim_trilinear_lifting = None
 
         self.errors = dict()
+        self.online_params = None
+        self.summary_basis = defaultdict(dict)
+        self._summary_basis = defaultdict(dict)
+        self.summary_errors = defaultdict(dict)
+        self.summary_errors_deim = defaultdict(dict)
+        self.summary_sigmas = defaultdict(dict)
+        self.summary_energy = defaultdict(dict)
         self.mu_space_deim = dict()
         self.validation_solutions = None
         self.windows_srom = None
@@ -894,6 +934,236 @@ class HyperReducedPiston:
                 [OperatorType.RHS, OperatorType.MASS, OperatorType.STIFFNESS,
                  OperatorType.CONVECTION, OperatorType.NONLINEAR_LIFTING,
                  OperatorType.TRILINEAR])
+
+    # ------------------------------------------------------------------
+    # Evaluation (reference hrom.py:1060-1147, :1588-1650)
+    # ------------------------------------------------------------------
+    def solve(self, mu, step):
+        self.rom.solve(mu, step)
+
+    def evaluate_validation(self):
+        """The ROM and S-ROM on the offline μ against the FOM
+        trajectories of the build (``validation_solutions``)."""
+        self._evaluate(which=Stage.VALIDATION,
+                       mu_space=self.rom.mu_space[Stage.OFFLINE])
+
+    def evaluate_online(self, params, rnd=None):
+        """The ROM and S-ROM on ``params["num"]`` fresh μ from the
+        Mach-stratified sampler against the FOM solved for each, in the
+        compute dtype (``fom.solve()``)."""
+        self.online_params = params
+        space = self.rom.build_sampling_space(num=params["num"], rnd=rnd)
+        self._evaluate(which=Stage.ONLINE, mu_space=space)
+
+    def _evaluate(self, which, mu_space=None):
+        """Per μ: ``solve`` on the ROM and the S-ROM (each solution
+        pickled as ``solutions_{rom,srom}_<N>_<which>_<idx>``), the FOM
+        truth, and from the fetched numpy trajectories the per-step RMS
+        errors of both against it and the S-ROM estimator
+        ‖V_srom·(u_srom − pad(u_N))‖₂/√Nh
+        (``utils.numeric.compute_rom_difference`` for every step at once);
+        then :meth:`_postprocess_mu`. ``errors[which]`` maps each μ index
+        to its ``estimator``, ``rom`` and ``sacrificial`` series (the ROM's
+        exact-solution errors instead where the FOM has an exact
+        solution); ``errors[f"{which}-vs-fom"]`` always the former."""
+        fom, rom, srom = self.fom, self.rom, self.srom
+        rom_fom_errors = dict()
+        for mu in list(mu_space):
+            idx_mu = rom.solve(mu=mu, step=which)
+            srom.solve(mu=mu, step=which)
+            rom.solutions.to_pickle(f"solutions_rom_{rom.N}_{which}_{idx_mu}")
+            srom.solutions.to_pickle(
+                f"solutions_srom_{srom.N}_{which}_{idx_mu}")
+            if which == Stage.VALIDATION:
+                uh_fom = self.validation_solutions[idx_mu]
+            else:
+                fom.setup()
+                fom.update_parametrization(mu)
+                fom.solve()
+                uh_fom = fom.solutions.fom
+            uh_fom = np.asarray(uh_fom)
+            V_srom = np.asarray(srom.basis)
+            uN, uN_srom = rom.solutions.rom, srom.solutions.rom
+            diff = np.array(uN_srom, np.float64)
+            diff[:uN.shape[0]] -= uN
+            rom_fom_errors[idx_mu] = {
+                Errors.ESTIMATOR: (np.linalg.norm(V_srom @ diff, axis=0)
+                                   / np.sqrt(V_srom.shape[0])),
+                Errors.ROM: _rms_columns(uh_fom - rom.solutions.fom),
+                Errors.SACRIFICIAL: _rms_columns(uh_fom
+                                                 - srom.solutions.fom),
+            }
+            self._postprocess_mu(which, idx_mu, mu, uh_fom)
+        if fom.exact_solution is None:
+            self.errors[which] = rom_fom_errors
+        else:
+            self.errors[which] = dict(rom.errors)
+        self.errors[f"{which}-vs-fom"] = rom_fom_errors
+
+    def _postprocess_mu(self, which, idx_mu, mu, uh_fom):
+        """The piston's reports of one evaluated μ (reference
+        hrom.py:1588-1624): online, the FOM probes
+        (``probes_<which>_fom_<idx>.csv``) and the FOM/ROM/S-ROM
+        comparisons at the outflow and halfway
+        (:meth:`save_fom_rom_probes`); always, the mass conservation of
+        the ROM and of the FOM truth."""
+        fom, rom, srom = self.fom, self.rom, self.srom
+        n_tri = self.mdeim_trilinear.N
+        if fom.RUNTIME_PROCESS and which == Stage.ONLINE:
+            probes = fom.save_probes(name=f"probes_{which}_fom_{idx_mu}.csv")
+            name = (f"probes_comparison_rom_{rom.N}_srom_{srom.N}_trilinear_"
+                    f"{n_tri}_{which}_{idx_mu}.csv")
+            self.save_fom_rom_probes(name=name,
+                                     piston=np.asarray(probes["L"]),
+                                     fom=fom, rom=rom, srom=srom)
+        ts = rom.timesteps
+        dump_csv(f"mass_conservation_rom_{rom.N}_srom_{srom.N}_mdeim_{n_tri}_"
+                 f"{which}_rom_{idx_mu}.csv",
+                 obj=fom.compute_mass_conservation(
+                     mu=mu, ts=ts, solutions=rom.solutions.fom.T,
+                     which=ProblemType.ROM))
+        dump_csv(f"mass_conservation_{which}_fom_{idx_mu}.csv",
+                 obj=fom.compute_mass_conservation(
+                     mu=mu, ts=ts, solutions=np.asarray(uh_fom).T,
+                     which=ProblemType.FOM))
+
+    @staticmethod
+    def compare_models(x, piston, ts, fom, rom, srom):
+        """The FOM, ROM and S-ROM physical values at ``x`` over time and
+        the piston's position, as the reference's table (hrom.py:1626-1637):
+        a dict of its columns ``fom``, ``rom``, ``srom``, ``piston`` and
+        its index (``"index"``, the times)."""
+        return {"index": np.asarray(ts),
+                ProblemType.FOM: fom.solutions.compute_at(x=x),
+                ProblemType.ROM: rom.solutions.compute_at(x=x),
+                ProblemType.SROM: srom.solutions.compute_at(x=x),
+                ProbeLocations.PISTON: np.asarray(piston)}
+
+    def save_fom_rom_probes(self, name, piston, fom, rom, srom):
+        """:meth:`compare_models` at the outflow (x=0) and halfway
+        (x=0.5), written as ``outflow_<name>`` and ``halfway_<name>``
+        (reference hrom.py:1639-1650)."""
+        ts = rom.solutions.ts
+        outflow = self.compare_models(0.0, piston, ts, fom, rom, srom)
+        half = self.compare_models(0.5, piston, ts, fom, rom, srom)
+        for loc, table in ((ProbeLocations.OUTFLOW, outflow),
+                           (ProbeLocations.MIDDLE, half)):
+            _write_indexed("_".join([loc, name]), table)
+        return outflow, half
+
+    # ------------------------------------------------------------------
+    # DEIM evaluation and the reports (reference hrom.py:166-197,
+    # :1261-1368)
+    # ------------------------------------------------------------------
+    def evaluate_deim(self):
+        """Every trained reductor's interpolation error on the offline μ
+        (each reductor's ``errors_rom``)."""
+        mu_space = self.mu_space[Stage.OFFLINE]
+        for obj in (self.deim_rhs, self.mdeim_mass, self.mdeim_stiffness,
+                    self.mdeim_convection, self.mdeim_trilinear_lifting,
+                    self.mdeim_trilinear):
+            if obj is not None:
+                self.evaluate_deim_model(object=obj, mu_space=mu_space)
+
+    def dump_validation_fom(self, path=None):
+        dump_pickle(path or StorageNames.VALIDATION_SOLUTIONS,
+                    self.validation_solutions)
+
+    def dump_errors(self, which, path=None):
+        """``errors_<which>.csv`` in ``path`` (default the working
+        directory): the reference's ``DataFrame(errors[which])``, a column
+        per μ index and a row per error series, each cell its series as
+        numpy prints it."""
+        if which not in self.errors:
+            raise Warning(f"These errors ({which}) have not been computed "
+                          "yet.")
+        errors = self.errors[which]
+        rows = list(dict.fromkeys(k for v in errors.values() for k in v))
+        write_table(os.path.join(path or ".", f"errors_{which}.csv"),
+                    {idx: [v.get(r, np.nan) for r in rows]
+                     for idx, v in errors.items()}, rows)
+
+    def dump_errors_deim(self, path=None):
+        """``errors_deim_<operator>.csv`` for every operator of
+        ``summary_errors_deim`` with errors: a column per μ index, a row
+        per time."""
+        for operator, errors in self.summary_errors_deim.items():
+            if errors:
+                dump_csv(os.path.join(path or ".", "errors_deim_"
+                                      f"{operator.lower()}.csv"), errors)
+
+    def dump_setup(self, path):
+        """The configuration as JSON (``StorageNames.SETUP`` without a
+        path): the FOM's domain, the μ box's distributions, the ROM, DEIM
+        and MDEIM parameters (without their time grids) and the online
+        evaluation's."""
+        def without_ts(params):
+            return {k: v for k, v in params.items() if k != RomParameters.TS}
+
+        dump_json(path or StorageNames.SETUP, {
+            "fom_params": self.fom_params.get("domain"),
+            "mu_space": self.fom_params.get("grid_params"),
+            "rom_params": self.rom_params,
+            "deim_params": without_ts(self.deim_params),
+            "mdeim_params": without_ts(self.mdeim_params),
+            "online_params": self.online_params})
+
+    def generate_summary(self):
+        """The build's summaries, as dicts of columns with their row
+        labels under ``"index"`` where the reference builds DataFrames
+        (a stated departure, as ``Reductor.create_errors_summary``):
+        ``summary_basis`` (a row per basis: the reduced basis, the
+        trilinear N-MDEIM's and each trained reductor's, columns the
+        tree walk's and the final basis size), ``summary_errors`` (a row
+        per μ of the ROM's exact-solution errors: mean, median, max,
+        min); ``summary_sigmas``, ``summary_energy``,
+        ``summary_errors_deim`` and ``mu_space_deim`` per operator."""
+        basis = self._summary_basis
+        sig, energy = self.summary_sigmas, self.summary_energy
+        report = self.rom.report[Stage.OFFLINE]
+        WALK, FINAL = Treewalk.BASIS_AFTER_WALK, Treewalk.BASIS_FINAL
+        SPECTRUM, ENERGY = Treewalk.SPECTRUM_MU, Treewalk.ENERGY_MU
+        RB, TRI = OperatorType.REDUCED_BASIS, OperatorType.TRILINEAR
+        basis[RB][WALK] = report[WALK]
+        basis[RB][FINAL] = report[FINAL]
+        sig[RB][SPECTRUM] = report[SPECTRUM]
+        energy[RB][ENERGY] = report[ENERGY]
+        basis[TRI][WALK] = report[TreewalkNonlinear.BASIS_AFTER_WALK]
+        basis[TRI][FINAL] = report[TreewalkNonlinear.BASIS_FINAL]
+        sig[TRI][SPECTRUM] = report[TreewalkNonlinear.SPECTRUM_MU]
+        energy[TRI][ENERGY] = report[TreewalkNonlinear.ENERGY_MU]
+        for operator in (self.deim_rhs, self.mdeim_mass,
+                         self.mdeim_stiffness, self.mdeim_convection,
+                         self.mdeim_trilinear_lifting):
+            if operator is not None:
+                self.generate_operator_summary(
+                    operator, basis=basis, sigma=sig, energy=energy,
+                    errors_deim=self.summary_errors_deim,
+                    mu_space_deim=self.mu_space_deim)
+        self.summary_basis = {"index": list(basis), **{
+            col: [basis[name].get(col) for name in basis]
+            for col in (WALK, FINAL)}}
+        reducers = dict(zip(SUMMARY_COLUMNS,
+                            (np.mean, np.median, np.max, np.min)))
+        index = list(self.rom.errors)
+        self.summary_errors = {"index": index, **{
+            col: [float(fn(self.rom.errors[i])) for i in index]
+            for col, fn in reducers.items()}}
+
+    @staticmethod
+    def generate_operator_summary(operator, basis, sigma, energy, errors_deim,
+                                  mu_space_deim):
+        """One reductor's rows of the summaries (reference
+        hrom.py:1351-1366)."""
+        WALK, FINAL = Treewalk.BASIS_AFTER_WALK, Treewalk.BASIS_FINAL
+        name = operator.name
+        report = operator.report[Stage.OFFLINE]
+        basis[name][WALK] = report[WALK]
+        basis[name][FINAL] = report[FINAL]
+        sigma[name][Treewalk.SPECTRUM_MU] = report[Treewalk.SPECTRUM_MU]
+        energy[name][Treewalk.ENERGY_MU] = report[Treewalk.ENERGY_MU]
+        errors_deim[name] = dict(operator.errors_rom)
+        mu_space_deim[name] = operator.mu_space
 
     # ------------------------------------------------------------------
     # S-ROM certification (reference hrom.py:1149-1258)

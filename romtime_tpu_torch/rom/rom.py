@@ -17,6 +17,16 @@ N-column table, or the N-MDEIM reconstruction under
 (``global_serving``, made at first use). The offline methods run in
 float64 (``deim.deim.OFFLINE_DTYPE``) whatever the serving dtype.
 
+**Online, one μ** (``solve``, reference ``rom.py:1139-1166``): the
+BDF-1/2 loop of ``_online_scan`` in eager torch on the ROM's device, θ
+of every trained reductor over the whole time grid hoisted out of it,
+each operator without a reductor projected from the FOM's assembly
+(``assemble_*``, on the device), the trilinear term from the exact state
+table; the double-word residual step in float32 (``COMPENSATED``), the
+plain step in float64. The same loop over a μ batch in the last axis is
+the ``"vmap"`` engine, which ``solve_batch`` takes where an operator has
+no reductor (``_lanes_supported``).
+
 **Serving** ``solve_batch`` with ``mode="probes"`` on windowed serving
 (the ``"windowed-pallas"`` engine) and on the global basis (the
 ``"pallas"`` engine), behind the reference's pivot-free guard
@@ -36,7 +46,9 @@ from copy import deepcopy
 import numpy as np
 import torch
 
+from ..base import RomSolutionsStorage
 from ..conventions import (
+    BDF,
     OperatorType,
     PistonParameters,
     RomParameters,
@@ -52,6 +64,8 @@ from ..deim import (
 from ..deim.deim import offline
 from ..deim.mdeim import project_band
 from ..dtypes import asarray, compute_dtype, compute_dtype_scope
+from ..ops.linalg import gauss_solve_lanes
+from ..ops.windowed_fused import _no_tf32
 from ..parameters import ParameterSampler
 from .base import Reductor
 from .pod import orth
@@ -64,9 +78,15 @@ from .engines.global_fused import (
     global_tables,
     supported,
 )
-from .engines.global_lanes import global_lanes_tables, online_scan_batch
+from .engines.global_lanes import (
+    global_lanes_tables,
+    online_scan_batch,
+    theta_tables,
+)
 from .engines.policy import PrecomputePolicy, SolvePolicy, box_corners
 from .engines.windowed_fused import (
+    RHS,
+    time_grid,
     windowed_prep,
     windowed_sweep,
     windowed_tables,
@@ -74,7 +94,12 @@ from .engines.windowed_fused import (
 )
 from .engines.windowed_lanes import (
     MODES,
+    dd_correct,
+    dd_predict,
     online_sweep_windowed,
+    output_dofs,
+    stack_outputs,
+    step_outputs,
     windowed_lanes_tables,
 )
 
@@ -96,6 +121,14 @@ THETA_SOURCES = {
 SOURCE_ATTRS = {"mass": "mdeim_Mh", "stiffness": "mdeim_Ah",
                 "rhs_vec": "deim_rhs", "convection": "mdeim_Ch",
                 "nonlinear_lifting": "mdeim_Nh_hat"}
+
+#: θ source name → the reduced assembly that stands in for its reductor
+#: where none is attached (reference ``rom.py:525-534``, ``:1277-1280``,
+#: ``:1421-1427``): the FOM operator projected onto the basis.
+FALLBACKS = {"mass": "assemble_mass", "stiffness": "assemble_stiffness",
+             "rhs_vec": "assemble_lifting",
+             "convection": "assemble_convection",
+             "nonlinear_lifting": "assemble_nonlinear_lifting"}
 
 #: ``add_hyper_reductor``'s operator tags → reductor attribute
 #: (reference ``rom.py:218-242``).
@@ -160,6 +193,12 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     PIVOT_FREE_COND_BOUND = 1e4
     PIVOT_GUARD = "auto"
 
+    # The residual-form double-word step is a precision tool for float32
+    # serving: "auto" takes it in float32 and the plain step in float64
+    # (reference rom.py:518-523, engines/policy.py:62); True or False
+    # forces it. Read by ``_online_scan`` and the global lanes engine.
+    COMPENSATED = "auto"
+
     # Forcing bounds of the stratified sampler (reference rom.py:1296-1298)
     PISTON_MACH_MIN = 0.15
     PISTON_MACH_MAX = 0.4
@@ -193,6 +232,13 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         self._global_tables = None
         self._pivot_cert = None
         self._trilinear_table_cache = None
+        self._device_cache = {}
+
+        # The last single-μ solution (``solve``) and, where the FOM has an
+        # exact solution, each solved μ's error series.
+        self.solutions = dict()
+        self.errors = dict()
+        self.exact = dict()
 
     @classmethod
     def from_artifacts(cls, fom, reductors, windows=None, device="cuda",
@@ -238,14 +284,26 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
 
     @property
     def N(self):
-        """The windows' N with windows attached, else the basis's."""
-        if self.windows is not None:
-            return self.windows.N
+        """The basis's N (reference rom.py:145-147); a windowed
+        configuration's is ``windows.N``."""
         return self.basis.shape[1]
+
+    @property
+    def timesteps(self):
+        """The times of the last single-μ solution."""
+        return self.solutions.ts
 
     def _theta_sources(self):
         """name → reductor, in the reference's source order."""
         return self.reductors
+
+    def _reduction_sources(self):
+        """name → (reductor or None, its reduced-assembly fallback), the
+        reference's ``_theta_sources`` (rom.py:525-534, :1421-1427): the
+        single-μ loop and the eager assembly API read the fallback where
+        no reductor is attached."""
+        return {name: (red, getattr(self, FALLBACKS[name]))
+                for name, red in self.reductors.items()}
 
     # ------------------------------------------------------------------
     # Projections (reference rom.py:158-176)
@@ -258,14 +316,35 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         """u_N = Vᵀ u_h (numpy)."""
         return np.asarray(self.basis).T @ np.asarray(uh)
 
+    def _on_device(self, key, array, like):
+        """``array`` (numpy) as a tensor of ``like``'s dtype and device,
+        kept while ``array`` is the same object."""
+        key = (key, like.dtype, str(like.device))
+        hit = self._device_cache.get(key)
+        if hit is None or hit[0] is not array:
+            hit = self._device_cache[key] = (array, torch.as_tensor(
+                np.asarray(array), dtype=like.dtype, device=like.device))
+        return hit[1]
+
     def to_rom(self, oph):
-        """Vᵀ·A·V of a FOM operator (a banded operator or a dense array),
-        float64 numpy."""
-        V = np.asarray(self.basis, np.float64)
+        """Vᵀ·A·V of a banded FOM operator (2p+1, nh, …) as (N, N, …), or
+        Vᵀ·f of a vector (nh, …) as (N, …): on the operator's device in
+        its dtype (the reference projects in the compute dtype,
+        rom.py:168-174), its batch axes trailing."""
         if hasattr(oph, "band"):
-            band = oph.band.detach().cpu().numpy()[..., None]
-            return project_band(band, V).reshape(V.shape[1], -1)
-        return V.T @ np.asarray(oph)
+            band = oph.band
+            V = self._on_device("basis", self.basis, band)
+            p, nh, N = (band.shape[0] - 1) // 2, band.shape[1], V.shape[1]
+            flat = band.reshape(band.shape[0], nh, -1)
+            Vpad = torch.nn.functional.pad(V, (0, 0, p, p))
+            AV = sum(flat[d][:, None, :] * Vpad[d:d + nh][:, :, None]
+                     for d in range(2 * p + 1))               # (nh, N, K)
+            return (V.T @ AV.reshape(nh, -1)).reshape(
+                (N, N) + tuple(band.shape[2:]))
+        f = torch.as_tensor(oph)
+        V = self._on_device("basis", self.basis, f)
+        return (V.T @ f.reshape(f.shape[0], -1)).reshape(
+            (V.shape[1],) + tuple(f.shape[1:]))
 
     # ------------------------------------------------------------------
     # Lifecycle
@@ -498,7 +577,12 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     # invariance does not hold (reference rom.py:1475-1587).
     # ------------------------------------------------------------------
     def _trilinear_state_table(self, V_np):
-        """The table of the basis ``V_np``, cached per N-MDEIM object."""
+        """The table of the basis ``V_np``, cached per N-MDEIM object; on
+        a serving object without the N-MDEIM, its global configuration's
+        (None without one)."""
+        if self.mdeim_Nh is None:
+            gs = self._global_serving
+            return None if gs is None else gs.trilinear
         cached = self._trilinear_table_cache
         if cached is not None and cached[0] is self.mdeim_Nh:
             return cached[1]
@@ -556,6 +640,271 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
                 t=red._times(0.37 * float(self.fom.domain[self.fom.T])),
                 u_n=red._times(V_np)).band                # (2p+1, nh, N)
         return project_band(band, V_np) / b0_a
+
+    # ------------------------------------------------------------------
+    # Reduced operators (reference rom.py:268-331, :1273-1275,
+    # :1384-1427): the reductor's interpolation where one is attached,
+    # else the FOM operator projected onto the basis (``to_rom``). μ and t
+    # are numbers or tensors; the results are tensors on the ROM's device
+    # in the compute dtype, their batch axes trailing.
+    # ------------------------------------------------------------------
+    def _reduced_args(self, mu, t):
+        """μ and t as tensors in the compute dtype on the ROM's device
+        (tensors pass through)."""
+        dtype = compute_dtype()
+
+        def tensor(v):
+            if torch.is_tensor(v):
+                return v
+            return torch.tensor(float(v), dtype=dtype, device=self.device)
+
+        return {k: tensor(v) for k, v in mu.items()}, tensor(t)
+
+    def _reduced_matrix(self, mdeim, fom_assemble, mu, t, u_n=None):
+        mu, t = self._reduced_args(mu, t)
+        if mdeim is not None:
+            state = () if u_n is None else (u_n,)
+            values = mdeim._interpolate_traced(mu, t, *state,
+                                               which=mdeim.ROM)
+            return values.reshape((self.N, self.N) + tuple(values.shape[1:]))
+        if u_n is None:
+            return self.to_rom(fom_assemble(mu, t))
+        return self.to_rom(fom_assemble(mu=mu, t=t, u_n=u_n))
+
+    def _reduced_vector(self, deim, fom_assemble, mu, t):
+        mu, t = self._reduced_args(mu, t)
+        if deim is not None:
+            return deim._interpolate_traced(mu, t, which=deim.ROM)
+        return self.to_rom(fom_assemble(mu, t))
+
+    def assemble_mass(self, mu, t):
+        return self._reduced_matrix(self.mdeim_Mh, self.fom.assemble_mass,
+                                    mu, t)
+
+    def assemble_stiffness(self, mu, t):
+        return self._reduced_matrix(self.mdeim_Ah,
+                                    self.fom.assemble_stiffness, mu, t)
+
+    def assemble_convection(self, mu, t):
+        return self._reduced_matrix(self.mdeim_Ch,
+                                    self.fom.assemble_convection, mu, t)
+
+    def assemble_trilinear(self, mu, t, uh):
+        """N_N(u*) (reference rom.py:1384-1387)."""
+        return self._reduced_matrix(self.mdeim_Nh,
+                                    self.fom.assemble_trilinear, mu, t,
+                                    u_n=uh)
+
+    def assemble_nonlinear_lifting(self, mu, t):
+        """N̂_N (reference rom.py:1389-1393)."""
+        return self._reduced_matrix(self.mdeim_Nh_hat,
+                                    self.fom.assemble_nonlinear_lifting,
+                                    mu, t)
+
+    def assemble_forcing(self, mu, t):
+        return self._reduced_vector(None, self.fom.assemble_forcing, mu, t)
+
+    def assemble_lifting(self, mu, t):
+        """The piston's right-hand side, the lifting vector (reference
+        rom.py:1415-1419)."""
+        return self._reduced_vector(self.deim_rhs, self.fom.assemble_lifting,
+                                    mu, t)
+
+    def assemble_rhs(self, mu, t):
+        """Forcing + lifting (reference rom.py:295-301)."""
+        if self.deim_rhs is not None:
+            return self._reduced_vector(self.deim_rhs, None, mu, t)
+        return self.assemble_forcing(mu, t) + self.assemble_lifting(mu, t)
+
+    def assemble_system(self, mu, t, bdf=1.0, uh=None, uh_n1=None):
+        """(M_N, K_N = bdf·M_N + dt·S_N) through :meth:`_system_matrices`
+        with the eager reduced assembly (reference rom.py:309-323)."""
+        sources = self._reduction_sources()
+
+        def get(name):
+            return sources[name][1](mu=mu, t=t)
+
+        return self._system_matrices(get, mu, t, bdf, uh, uh_n1)
+
+    def assemble_system_rhs(self, mu, t, MN_mat, uN_n, uN_n1=None):
+        """b_N = M_N·(2u_N − ½u_N₋₁) + dt·f_gN, or M_N·u_N + dt·f_gN
+        without a history (reference rom.py:1405-1413)."""
+        fgN = self.assemble_lifting(mu=mu, t=t)
+        if uN_n1 is None:
+            bdf_term = MN_mat @ uN_n
+        else:
+            bdf_term = MN_mat @ (2.0 * uN_n - 0.5 * uN_n1)
+        return bdf_term + self.fom.dt * fgN
+
+    # ------------------------------------------------------------------
+    # The step's parts (reference rom.py:510-549, :1395-1403, :1589-1634)
+    # ------------------------------------------------------------------
+    def runtime_process(self, u=None, mu=None, t=None):
+        pass
+
+    def _has_state_table(self):
+        """The trilinear state table is at hand: the N-MDEIM's, or a
+        serving object's global configuration's."""
+        gs = self._global_serving
+        return self.mdeim_Nh is not None or (
+            gs is not None and gs.trilinear is not None)
+
+    def _state_representation(self, V, uN):
+        """The state handed to the trilinear operator: the factorized
+        (basis, u_N) where the state table is at hand (the loop stays
+        Nh-free), else the FOM vector V·u_N for the projection fallback."""
+        if self._has_state_table():
+            return (np.asarray(self.basis), uN)
+        return V @ uN
+
+    def _compensated_active(self):
+        """The residual-form double-word step: on in float32 under
+        ``COMPENSATED = "auto"``, else as forced."""
+        if self.COMPENSATED == "auto":
+            return compute_dtype() == torch.float32
+        return bool(self.COMPENSATED)
+
+    def _system_parts(self, get, mu, t, uh, uh_n1):
+        """(M_N, dt·(A_N + C_N + N_N(u*) + N̂_N)) from the per-step operator
+        getter, u* = 2u_n − u_{n−1} (u_n without a history). The trilinear
+        term comes from the exact state table b0·(T0 @ u*_N) wherever the
+        state is factorized, as in the lanes engines (their S-ROM
+        estimates would part otherwise); else from ``assemble_trilinear``."""
+        MN = get("mass")
+        AN = get("stiffness")
+        CN = get("convection")
+        NhatN = get("nonlinear_lifting")
+        if uh_n1 is None:
+            u_star = uh
+        elif isinstance(uh, tuple):
+            u_star = (uh[0], 2.0 * uh[1] - uh_n1[1])
+        else:
+            u_star = 2.0 * uh - uh_n1
+        NN = None
+        if isinstance(u_star, tuple):
+            cN = u_star[1]
+            T0 = self._trilinear_state_table(u_star[0])
+            if T0 is not None:
+                T0 = self._on_device("trilinear", T0, cN)
+                NN = (T0 @ cN).reshape((self.N, self.N) + tuple(
+                    cN.shape[1:])) * self.fom.nonlinear_coefficient(mu)
+        if NN is None:
+            NN = self.assemble_trilinear(mu=mu, t=t, uh=u_star)
+        return MN, self.fom.dt * (AN + CN + NN + NhatN)
+
+    def _system_matrices(self, get, mu, t, bdf, uh, uh_n1):
+        """(M_N, K_N = bdf·M_N + dt·S_N)."""
+        MN, dtS = self._system_parts(get, mu, t, uh, uh_n1)
+        return MN, bdf * MN + dtS
+
+    # ------------------------------------------------------------------
+    # Online: the single-μ loop, and the same loop over a μ batch (the
+    # "vmap" engine); reference rom.py:550-679, :1139-1166
+    # ------------------------------------------------------------------
+    def _lanes_supported(self):
+        """The lanes engines need every operator hyper-reduced and the
+        trilinear term's state table (reference rom.py:1051-1060, whose
+        table comes from the N-MDEIM)."""
+        return (all(red is not None for red in self.reductors.values())
+                and self._has_state_table())
+
+    def _online_scan(self, mu, mode="full"):
+        """The reduced BDF-1/2 loop over the whole time grid for ``mu``
+        (name → (B,) tensors on the ROM's device, whose dtype is the
+        loop's), eager torch, the μ batch in the last axis: θ of every
+        attached reductor over the grid hoisted out of the loop, the
+        other operators assembled and projected at each step; the
+        residual-form double-word step where :meth:`_compensated_active`,
+        else the plain BDF step; the lifting on the moving domain. The BDF
+        branch and every scalar are fixed before the loop, which reads
+        nothing back from the device.
+
+        Returns (nt, …, B) tensors by mode, as the lanes engines: ``t``
+        (nt,) and ``uN`` (nt, N, B) and, by mode, ``uc`` and ``x``
+        (nt, nh, B) and, where the FOM has an exact solution, ``error``
+        (nt, B) ("full"); ``probes`` (nt, 2, B) ("reduced", "probes");
+        ``uN_final`` (N, B) without ``uN`` ("probes")."""
+        fom = self.fom
+        ref = next(iter(mu.values()))
+        dtype, device, B = ref.dtype, ref.device, ref.shape[0]
+        if device.type == "cuda":
+            _no_tf32()
+        nt = int(fom.domain[fom.NT])
+        bdf2 = fom.BDF_SCHEME == BDF.TWO
+        V = self._on_device("basis", self.basis, ref)
+        N = V.shape[1]
+        dt = torch.tensor(float(fom.dt), dtype=dtype, device=device)
+        ts = time_grid(fom, None, dtype, device)
+        sources = self._reduction_sources()
+        trained = {name: red for name, (red, _fb) in sources.items()
+                   if red is not None}
+        thetas = theta_tables(trained, mu, ts) if trained else {}
+        combines = {name: torch.as_tensor(
+            np.asarray(red._serving_combine(red.ROM)), dtype=dtype,
+            device=device) for name, red in trained.items()}
+        compensated = self._compensated_active()
+        V_ends = V[[0, -1]]
+        x_dofs = output_dofs(fom, mode, dtype, device)
+        exact = mode == "full" and fom.exact_solution is not None
+        zeros = torch.zeros((N, B), dtype=dtype, device=device)
+        carry = (zeros, zeros, zeros, zeros)
+        steps = []
+        for k in range(nt):
+            uN_n, lo_n, uN_n1, _ = carry
+            t = ts[k]
+
+            def get(name, k=k, t=t):
+                if name in combines:
+                    values = combines[name] @ thetas[name][k]
+                    return (values if name == RHS
+                            else values.reshape(N, N, B))
+                return sources[name][1](mu=mu, t=t)
+
+            uh = self._state_representation(V, uN_n)
+            uh_n1 = self._state_representation(V, uN_n1) if bdf2 else None
+            MN, dtS = self._system_parts(get, mu, t, uh, uh_n1)
+            fN = dt * get(RHS)
+            if compensated:
+                pred_hi, pred_lo, d, bdf = dd_predict(carry, bdf2 and k > 0)
+                uN, lo = dd_correct(MN, dtS, fN, bdf, pred_hi, pred_lo, d)
+            else:
+                bdf = 1.5 if bdf2 and k > 0 else 1.0
+                combo = 2.0 * uN_n - 0.5 * uN_n1 if bdf2 else uN_n
+                uN = gauss_solve_lanes(
+                    bdf * MN + dtS,
+                    torch.einsum("ijB,jB->iB", MN, combo) + fN)
+                lo = zeros
+            out = step_outputs(fom, mu, t, uN, mode, V_ends,
+                               V if mode == "full" else None, x_dofs)
+            if exact:
+                e = out["uc"] - fom._eval_field(fom.exact_solution, out["x"],
+                                                mu, t)
+                out["error"] = (torch.linalg.vector_norm(e, dim=0)
+                                / float(np.sqrt(e.shape[0])))
+            steps.append(out)
+            carry = (uN, lo, uN_n, lo_n)
+        return stack_outputs(steps, mode, carry[0])
+
+    def solve(self, mu, step):
+        """Solve the reduced problem for one μ (reference rom.py:1139-1166):
+        :meth:`_online_scan` in mode "full" in the compute dtype, the μ
+        recorded under ``step``; ``solutions`` is its
+        :class:`~romtime_tpu_torch.base.RomSolutionsStorage` (numpy: ``ts``
+        (nt,), ``fom`` and ``domain`` (nh, nt), ``rom`` (N, nt)) and, where
+        the FOM has an exact solution, ``errors[idx]`` its error series.
+        Returns the μ's index."""
+        idx_mu, mu = self.add_mu(mu=mu, step=step)
+        self._ensure_pivot_free_certified()
+        outs = self._online_scan(self._mu_batch([mu]), mode="full")
+        host = {k: (v if k == "t" else v[..., 0]).cpu().numpy()
+                for k, v in outs.items()}
+        self.solutions = RomSolutionsStorage(
+            ts=host["t"], mu=mu, domain=host["x"].T, fom=host["uc"].T,
+            rom=host["uN"].T)
+        if "error" in host:
+            self.errors[idx_mu] = host["error"]
+            self.exact[idx_mu] = None
+        return idx_mu
 
     # ------------------------------------------------------------------
     # Offline: time-windowed serving (reference rom.py:945-1041)
@@ -673,8 +1022,21 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         float64 numpy: each operator is its folded combine times its raw
         gathered entries (the reference's ``assemble_*``), S_N = A_N +
         C_N + N̂_N (the trilinear term vanishes at the zero state,
-        rom.py:1589-1634)."""
+        rom.py:1589-1634). Without a global configuration (an operator
+        without its reductor) the reduced assembly itself,
+        :meth:`_system_parts` at the zero state, as the reference's
+        guard (rom.py:905-917)."""
         gs = self.global_serving
+        if gs is None:
+            with compute_dtype_scope(torch.float64):
+                sources = self._reduction_sources()
+                zero = torch.zeros(self.N, dtype=torch.float64,
+                                   device=self.device)
+                V = self._on_device("basis", self.basis, zero)
+                MN, dtS = self._system_parts(
+                    lambda name: sources[name][1](mu=mu, t=t), mu, t,
+                    self._state_representation(V, zero), None)
+            return (MN.cpu().numpy(), dtS.cpu().numpy())
         N = gs.N
         with compute_dtype_scope(torch.float64):
             mu_b = {k: torch.tensor([float(v)], dtype=torch.float64)
@@ -731,7 +1093,8 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     def _ensure_pivot_free_certified(self):
         """Run the conditioning sweep once per instance (``"auto"``);
         skipped with ``PIVOT_GUARD = "off"`` or without a global basis."""
-        if self.PIVOT_GUARD == "off" or self.global_serving is None:
+        if self.PIVOT_GUARD == "off" or (self.global_serving is None
+                                         and self.basis is None):
             return
         if self._pivot_cert is None:
             self.certify_pivot_free()
@@ -789,12 +1152,11 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         """The reference's engine choice (``rom.py:1262-1267``): windows
         attached and ``mode="probes"`` → ``"windowed-pallas"``; the global
         engine's gate holds → ``"pallas"``; otherwise the global lanes
-        engine, ``"lanes"``. The reference's vmap engine, taken only where
-        an operator has no trained reductor (``rom.py:1051-1061``), is not
-        ported (ROADMAP Queue 1, item 4): a serving object holds every
-        reductor, so it never resolves there. The windowed lanes engine,
-        ``"windowed"``, is taken only when asked for, as in the
-        reference."""
+        engine, ``"lanes"``, where every operator is hyper-reduced
+        (:meth:`_lanes_supported`) or there is no global basis (it then
+        raises), else ``"vmap"`` (:meth:`_online_scan` over the batch, its
+        operators projected where no reductor is attached). The windowed lanes engine, ``"windowed"``, is taken
+        only when asked for, as in the reference."""
         if self.windows is not None and mode == "probes":
             return "windowed-pallas"
         gs = self.global_serving
@@ -802,7 +1164,9 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
                 and supported(B, gs.N, compute_dtype(),
                               gs.trilinear is not None)):
             return "pallas"
-        return "lanes"
+        if self._lanes_supported() or self.basis is None:
+            return "lanes"
+        return "vmap"
 
     def _serve(self, mus, engine, mode="probes"):
         """Stages 1 and 2 of ``engine`` on the device: (nt, …, B) tensors
@@ -823,11 +1187,16 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
             return online_scan_batch(
                 self.fom, gs, self._theta_sources(),
                 self._global_lanes_tables(mode), self._mu_batch(mus), mode,
-                self.precompute_choice)
+                self.precompute_choice, self._compensated_active())
+        if engine == "vmap":
+            if self.basis is None:
+                raise ValueError("the vmap engine needs the global basis")
+            self._ensure_pivot_free_certified()
+            return self._online_scan(self._mu_batch(mus), mode)
         if mode != "probes":
             raise NotImplementedError(
                 f"engine {engine!r} serves mode='probes'; mode {mode!r} is "
-                f"served by engine='lanes' or 'windowed'")
+                f"served by engine='lanes', 'vmap' or 'windowed'")
         if engine == "windowed-pallas":
             if self.windows is None:
                 raise ValueError("no windowed serving configuration "
@@ -846,10 +1215,9 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
             prepped = self.prep(mus, engine="pallas")
             return global_sweep(self.fom, gs, prepped, tables,
                                 self.precompute_choice)
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported (ported: 'windowed-pallas', "
-            f"'pallas', 'lanes', 'windowed'; the reference's 'vmap' engine "
-            f"is ROADMAP Queue 1, item 4)")
+        raise ValueError(
+            f"unknown engine {engine!r} (the engines: 'windowed-pallas', "
+            f"'pallas', 'lanes', 'vmap', 'windowed')")
 
     def solve_batch(self, mus, step=Stage.ONLINE, mode="reduced", engine=None,
                     host=True, probe_reduce=None):
@@ -863,26 +1231,31 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         (``engines/global_fused.global_sweep``): K4 over the materialized
         tables on the same test, else K5. Those serve ``mode="probes"``.
         ``engine="lanes"`` (``engines/global_lanes``), the reference's
-        global lanes engine, and ``engine="windowed"``
-        (``engines/windowed_lanes``), its windowed certification engine,
-        serve ``"probes"``, ``"reduced"`` and ``"full"`` in the compute
-        dtype (float64 under ``compute_dtype_scope``, else float32 with
-        the dd carry). Without an engine, ``"reduced"`` and ``"full"``,
-        and ``"probes"`` outside the global kernels' gate, resolve to
-        ``"lanes"`` (:meth:`_resolve_engine`); it raises ``ValueError``
-        where no global configuration is attached.
+        global lanes engine, ``engine="vmap"`` (:meth:`_online_scan` over
+        the batch: each row that of ``solve`` on its μ) and
+        ``engine="windowed"`` (``engines/windowed_lanes``), its windowed
+        certification engine, serve ``"probes"``, ``"reduced"`` and
+        ``"full"`` in the compute dtype (float64 under
+        ``compute_dtype_scope``, else float32 with the dd carry). Without
+        an engine, ``"reduced"`` and ``"full"``, and ``"probes"`` outside
+        the global kernels' gate, resolve to ``"lanes"``, or to ``"vmap"``
+        where an operator has no reductor (:meth:`_resolve_engine`);
+        ``"lanes"`` raises ``ValueError`` where no global configuration is
+        attached.
 
         Returns batch-first numpy arrays: ``t``, ``probes`` (B, nt, 2) —
         or (B, 2) / (B, nt//k, 2) with ``probe_reduce`` "mean" / k —
         ``uN_final`` (B, N) (probes), ``uN`` (B, nt, N) (reduced, full),
         ``uc`` and ``x`` (B, nt, nh) (full), and ``dil``/``dil_oor`` with
         a dilation law. ``host=False`` returns the (nt, …, B) device
-        tensors unmoved instead, the device synchronized. ``step`` is the
-        reference's stage tag; serving keeps no record of the μ it
-        served."""
+        tensors unmoved instead, the device synchronized. Each μ is
+        recorded under the stage ``step`` (``add_mu``, reference
+        rom.py:1206-1207), a repeated μ in a slot of its own."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; the modes are "
                              f"{', '.join(MODES)}")
+        for mu in mus:
+            self.add_mu(mu=mu, step=step)
         if engine is None:
             engine = self._resolve_engine(mode, len(mus))
         outs = self._serve(mus, engine, mode)

@@ -204,12 +204,18 @@ def test_gauss_solve_matches_reference(pivot):
 
 
 def test_lanes_refusals(global_cell):
-    """No trilinear table: NotImplementedError naming the in-body
+    """No trilinear table: a bare call resolves to the vmap engine, as
+    the reference's does without its N-MDEIM (rom.py:1051-1060, the
+    trilinear term projected from the FOM's assembly), and serves; the
+    lanes engine asked for raises NotImplementedError naming the in-body
     N-MDEIM fallback's ROADMAP item; float64 without PᵀU: ValueError."""
     _rom, payload, mus, _seen = global_cell
-    bare = {k: v for k, v in payload.items() if k != "trilinear"}
+    bare = _port({k: v for k, v in payload.items() if k != "trilinear"},
+                 "matrices")
+    assert bare._resolve_engine("reduced", 2) == "vmap"
+    assert np.isfinite(bare.solve_batch(mus[:2], mode="reduced")["uN"]).all()
     with pytest.raises(NotImplementedError, match="N-MDEIM.*Queue 1"):
-        _port(bare, "matrices").solve_batch(mus[:2], mode="reduced")
+        bare.solve_batch(mus[:2], mode="reduced", engine="lanes")
     no_ptu = {k: v for k, v in payload.items() if not k.startswith("PT_U_")}
     port = _port(no_ptu, "matrices")
     with port_dtype_scope(torch.float64):
