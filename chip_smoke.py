@@ -109,7 +109,8 @@ Phases, in order; any failure raises and exits non-zero:
    atol 1e-17) and, card against CPU, within the triangle bound of (b)'s
    gaps (tests/test_hrom.py:442-520); (d) ``estimate_batch_mulocal`` in
    float64 at B=16 on the synthetic fleet drawn at N+8
-   (``srom_extra=8``, every cell occupied): shapes, finite positive
+   (``srom_extra=8``, every cell occupied; its time grid cut to nt=750,
+   the windows each half as wide): shapes, finite positive
    averages, each estimator row the coefficient-difference norm of its
    μ's merged trajectories (rtol 1e-12), a permuted batch's rows bit for
    bit, and the served fleet
@@ -217,7 +218,29 @@ Phases, in order; any failure raises and exits non-zero:
    ``evaluate_online({"num": 2})`` in float64 in a temporary directory:
    each μ's ROM error mean under 5e-3 (tests/test_hrom.py:349), a finite
    estimator, the CSVs the reference names, and ``generate_summary``;
-   with the ms of each call.
+   with the ms of each call. The float64 ``fom.solve()`` of (b) and of
+   ``evaluate_online`` runs the native host loop
+   (romtime_tpu_torch/csrc/host/, built with g++ into build/native/),
+   each call counted; (b) also runs the eager loop on the card
+   (``ROMTIME_NATIVE_FOM=0``) and holds the two within 1e-12 relative.
+14. heat phase, the MFP1 heat family at the pinned heat size (nx=500,
+   nt=1000; tests/goldens/mfp1_convergence_*.csv), fixed and moving:
+   (a) the float64 FOM on the card against the same solve on the CPU
+   (1e-9·scale), its log10 error at tf against the JAX package's value
+   (1e-6) and as close to the golden row as that value is; (b) the port
+   builds the HROM on the card in float64 (tests/test_hrom.py
+   ``_heat_config`` at that grid, the offline μ in one batched sweep); (c) ``solve_batch(mode="probes")`` at
+   B=2048 in float32 through K4 (the default budget) and K5 (budget 0),
+   ``with_trilinear=False`` and BDF-1, counters zeroed before each branch
+   and read after, each launch against its twin (5e-5·scale), the served
+   results within 3e-5·scale (``uN_final`` 1e-4·max(|uN|, 1)) of the
+   float32 global lanes engine and K5 within 3e-6·scale of K4; (d) on
+   the fixed ROM, 4 windows of N=8 served at B=2048 through K1 (budget
+   0), one launch, against its twin and within 5e-6·scale (``uN_final``
+   5e-5) of the float32 windowed lanes engine, and the float64
+   ``engine="windowed"`` within 1e-4 of the FOM; (e) ``estimate_batch``
+   in float64 at B=16, the card against the pair carried to the CPU, by
+   phase 9's contract.
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -226,7 +249,8 @@ both designs, in turns). Prints a JSON line of per-kernel results (K1-K5
 on the serving body with their first designs' times, the phase shares,
 the register and spill report, and K1's first design's modes, ablations
 and ledger; the fleet's numbers; the certification, FOM, offline build,
-fleet build and online single-μ phases' numbers), then, as the last line,
+fleet build, online single-μ and heat phases' numbers), then, as the
+last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -260,8 +284,8 @@ K1_SOLVES = (("sub1", {"paired_lu": GROUP, "paired_mode": "sub1"}),
 K1_TURN_REPS = 2     # calls per turn (first, serving, serving, first)
 KERNEL_REPS = 5
 RESID_REPS = 20
-MODE_REPS = 3        # K1 options phase: timed calls per follower mode
-LEDGER_REPS = 3      # calls per ledger variant (median)
+MODE_REPS = 2        # K1 options phase: timed calls per follower mode
+LEDGER_REPS = 2      # calls per ledger variant (median)
 OPTION_WINDOWS = 4   # windows of the option-vs-twin comparisons
 #: Serving runs of the windowed cell: run → (stage-2 branch, calls, batch,
 #: WINDOWED_SOLVE_ITERS on the instance).
@@ -308,6 +332,10 @@ CERT_F64_REL = 1e-9
 #: The synthetic cells' grid (the flagship FOM) and the S-ROM's extra
 #: modes (bench.py's BENCH_WINDOW_SROM_EXTRA default).
 CERT_GRID = {"nx": 1000, "nt": 1500}
+# (d)'s nested fleet at half the steps (the windows keep their count and
+# N, each half as wide): its two 6-cell float64 estimator calls were 122 s
+# of the phase at nt=1500, and the smoke run keeps within its clock.
+CERT_FLEET_GRID = {"nx": 1000, "nt": 750}
 SROM_EXTRA = 8
 #: (e): unequal widths (W=7 on nt=1500: 214 and 215 steps) at N=32.
 CHAINED_W = 7
@@ -362,6 +390,29 @@ F32_DRIFT_MAX = 1e-5      # a guard: a float32 solve that left float64
 VMAP_B = 4
 EVAL_ONLINE = 2
 EVAL_ROM_MEAN = 5e-3      # tests/test_hrom.py:349
+NATIVE_VS_EAGER = 1e-12   # tests/test_native_fom.py:62-67
+
+# Phase 14: the MFP1 heat family at the pinned heat size of
+# tests/goldens/mfp1_convergence_{fixed,moving}.csv (nx=500, nt=1000).
+HEAT_GRID = {"L": 2.0, "nx": 500, "nt": 1000}
+HEAT_GOLDEN = {False: -3.360653614949263, True: -4.72751886228184}
+# The JAX package's own log10 errors at that size on the CPU
+# (scripts/mfp1_golden_gap.py): the goldens predate it by 9.2e-6 and
+# 2.2e-5.
+HEAT_REF_LOG10 = {False: -3.36066282368192, True: -4.727496660946824}
+# A 1e-12 relative trajectory difference (another rounding order) moves
+# the log10 of a 1.9e-5 error by ~5e-8; the reference's own note gives
+# 7e-7 between two of its solvers (tests/test_fom_heat.py:112-113).
+HEAT_LOG10_ATOL = 1e-6
+HEAT_B = 2048
+HEAT_CALLS = 2
+HEAT_SMALL_B = 16
+HEAT_WINDOWS = (4, 8)        # tests/test_windowed.py:276
+HEAT_WINDOWED_FOM_REL = 1e-4  # tests/test_windowed.py:299
+GLOBAL_PROBES_REL = 3e-5     # tests/test_rom.py:196-200
+GLOBAL_UN_REL = 1e-4
+WINDOWED_PROBES_REL = 5e-6   # tests/test_windowed.py:91-94
+WINDOWED_UN_ATOL = 5e-5
 
 
 def fail(msg):
@@ -1670,7 +1721,7 @@ def certification_phase(mods, dev, power):
 
     # (d) The fleet estimator, float64, on the nested synthetic fleet.
     fleet, t_build = timed(dev, lambda: synth.synthetic_fleet(
-        device=dev, srom_extra=SROM_EXTRA, **CERT_GRID))
+        device=dev, srom_extra=SROM_EXTRA, **CERT_FLEET_GRID))
     ml = fleet.mulocal
     hp = HyperReducedPiston.from_serving(fleet)
     # Every cell occupied (the box's draws leave the top Mach cell nearly
@@ -1709,7 +1760,8 @@ def certification_phase(mods, dev, power):
         del hp.estimate_batch
     served_after = fleet.solve_batch_mulocal(fmus, mode="probes")
     fe, favg = fest[Errors.ESTIMATOR], fest[Errors.AVERAGE_ESTIMATOR]
-    if (fe.shape != (CERT_SMALL_B, nt) or favg.shape != (CERT_SMALL_B,)
+    if (fe.shape != (CERT_SMALL_B, CERT_FLEET_GRID["nt"])
+            or favg.shape != (CERT_SMALL_B,)
             or not np.isfinite(favg).all() or (favg <= 0).any()):
         raise AssertionError(f"fleet estimator {fe.shape}, averages "
                              f"{favg.shape}: not finite and > 0")
@@ -2797,11 +2849,27 @@ def online_single_phase(mods, dev, power, hrom):
         _, f32_s = timed(dev, lambda: rom.solve(mu_val, Stage.ONLINE))
     u32 = rom.solutions.fom
     fom = hrom.fom
+    native = mods["native"]
     with compute_dtype_scope(f64):
         fom.setup()
         fom.update_parametrization(mu_val)
+        calls = native.calls["piston_fom_solve"]
         _, fom_s = timed(dev, fom.solve)
-    uh_fom = np.asarray(fom.solutions.fom)
+        if native.calls["piston_fom_solve"] != calls + 1:
+            raise AssertionError("the float64 fom.solve() missed the native "
+                                 "loop")
+        uh_fom = np.array(fom.solutions.fom)
+        with env_scope("ROMTIME_NATIVE_FOM", "0"):
+            _, eager_s = timed(dev, fom.solve)
+    eager = np.asarray(fom.solutions.fom)
+    native_gap = float(np.linalg.norm(uh_fom - eager) / np.linalg.norm(eager))
+    print(f"  (b) the float64 FOM: fom.solve() on the native host loop "
+          f"{fom_s * 1e3:.1f} ms, the eager loop on the card "
+          f"{eager_s * 1e3:.1f} ms ({eager_s / fom_s:.1f}×); native vs "
+          f"eager {native_gap:.3e} relative (limit {NATIVE_VS_EAGER:.0e}) "
+          f"on {power} {'ok' if native_gap <= NATIVE_VS_EAGER else 'FAIL'}")
+    if not native_gap <= NATIVE_VS_EAGER:
+        raise AssertionError("the native loop disagrees with the eager loop")
     drift = float(np.linalg.norm(u32 - u64) / np.linalg.norm(u64))
     serve_drift = float(np.linalg.norm(u32 - u64) / np.linalg.norm(uh_fom))
     rel_fom = float(np.linalg.norm(u64 - uh_fom) / np.linalg.norm(uh_fom))
@@ -2813,6 +2881,8 @@ def online_single_phase(mods, dev, power, hrom):
         raise AssertionError(f"float32 solve drift {drift:.3e}")
     info["f32"] = dict(ms=f32_s * 1e3, drift=drift, serve_drift=serve_drift,
                        fom_s=fom_s, rom_vs_fom=rel_fom)
+    info["native"] = dict(fom_native_s=fom_s, fom_eager_s=eager_s,
+                          native_vs_eager=native_gap)
 
     # (c) the vmap engine: the ROM without its convection MDEIM (the
     # projection stands in), each row against solve.
@@ -2901,9 +2971,392 @@ def online_single_phase(mods, dev, power, hrom):
           f"{power} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the evaluation missed")
+    online_native = native.calls["piston_fom_solve"] - calls - 1
+    print(f"  evaluate_online's {EVAL_ONLINE} FOM solves on the native "
+          f"loop: {online_native} of {EVAL_ONLINE}")
+    if online_native != EVAL_ONLINE:
+        raise AssertionError("evaluate_online's FOM solves missed the native "
+                             "loop")
     info["evaluation"] = dict(validation_s=val_s, online_s=onl_s, rows=rows,
-                              files=len(files))
+                              files=len(files), native_solves=online_native)
     info["launches"] = [c.launches for c in counters(mods)]
+    return info
+
+
+
+def heat_config(nx, nt, tf=10.0, L=2.0, moving=False):
+    """tests/test_hrom.py ``_heat_config`` with the port's callables: the
+    driver's keyword arguments (MFP1, 4 offline μ, S-ROM truncated by 2,
+    DEIM and MDEIM on 6 μ over every step)."""
+    from romtime_tpu_torch.conventions import OperatorType, RomParameters
+    from romtime_tpu_torch.parameters import get_uniform_dist
+    from romtime_tpu_torch.problems import define_mfp1_problem
+
+    domain, bcs, forcing, u0, ue, Lt, dLt_dt = define_mfp1_problem(L, nx, tf,
+                                                                   nt)
+    grid = {"delta": get_uniform_dist(min=0.01, max=2.0),
+            "beta": get_uniform_dist(min=1.0, max=10.0),
+            "alpha_0": get_uniform_dist(min=0.01, max=2.0)}
+    if moving:
+        omegas = [(1.0 / tf) * np.arcsin(1.0 - n) for n in (0.5, 0.8)]
+        grid["omega"] = get_uniform_dist(min=min(omegas), max=max(omegas))
+    fom_params = dict(domain=domain, dirichlet=bcs, forcing_term=forcing,
+                      u0=u0, exact_solution=ue,
+                      grid_params={k: "uniform" for k in grid})
+    if moving:
+        fom_params.update(Lt=Lt, dLt_dt=dLt_dt)
+    ts = np.linspace(tf / nt, tf, nt)
+    return dict(
+        grid=grid, fom_params=fom_params,
+        rom_params={RomParameters.NUM_SNAPSHOTS: 4,
+                    RomParameters.SROM_TRUNCATE: 2,
+                    RomParameters.TOL_TIME: None,
+                    RomParameters.TOL_MU: None},
+        deim_params={RomParameters.TS: ts, RomParameters.NUM_SNAPSHOTS: 6},
+        mdeim_params={RomParameters.TS: ts, RomParameters.NUM_SNAPSHOTS: 6},
+        models={OperatorType.MASS: True, OperatorType.STIFFNESS: True,
+                OperatorType.RHS: True, OperatorType.CONVECTION: moving})
+
+
+def heat_golden_fom(dev, power, moving):
+    """(a): the MFP1 convergence study's nt=1000 row on the card in
+    float64 (nx=500, tf to 99% decay), against the JAX package's value
+    and the golden, and the trajectory against the same solve on the
+    CPU."""
+    from romtime_tpu_torch.convert import heat_fom
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+
+    beta = 5.0
+    tf = -np.log(1.0 - 0.99) / beta
+    mu = dict(delta=1.0, beta=beta, alpha_0=1.0)
+    if moving:
+        mu["omega"] = 2.0 * np.pi / (8.0 * tf)
+    out = {}
+    for device in (dev, "cpu"):
+        fom = heat_fom(HEAT_GRID["L"], HEAT_GRID["nx"], tf, HEAT_GRID["nt"],
+                       moving=moving, device=device)
+        fom.update_parametrization(mu)
+        with compute_dtype_scope(torch.float64):
+            _, sec = timed(device, fom.solve)
+        out[device] = (np.array(fom.solutions.fom), sec,
+                       float(np.log10(fom.errors[fom.timesteps[-1]])))
+    u, sec, lg = out[dev]
+    u_cpu, cpu_s, _ = out["cpu"]
+    vs_cpu = float(np.abs(u - u_cpu).max() / np.abs(u_cpu).max())
+    vs_ref = abs(lg - HEAT_REF_LOG10[moving])
+    golden = abs(lg - HEAT_GOLDEN[moving])
+    ref_golden = abs(HEAT_REF_LOG10[moving] - HEAT_GOLDEN[moving])
+    ok = (vs_cpu <= CERT_F64_REL and vs_ref <= HEAT_LOG10_ATOL
+          and golden <= ref_golden + HEAT_LOG10_ATOL)
+    name = "moving" if moving else "fixed"
+    print(f"  (a) {name} FOM float64, nx={HEAT_GRID['nx']}, "
+          f"nt={HEAT_GRID['nt']}: {sec * 1e3:.1f} ms on the card (CPU "
+          f"{cpu_s * 1e3:.1f} ms, trajectories {vs_cpu:.3e} apart, limit "
+          f"{CERT_F64_REL:.0e}); log10 error at tf {lg:.9f}: the JAX "
+          f"package's {HEAT_REF_LOG10[moving]:.9f} ({vs_ref:.2e}, limit "
+          f"{HEAT_LOG10_ATOL:.0e}), the golden {HEAT_GOLDEN[moving]:.9f} "
+          f"({golden:.2e}; the JAX package's own gap {ref_golden:.2e}) on "
+          f"{power} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {name} heat FOM missed its golden row")
+    return dict(card_ms=sec * 1e3, cpu_ms=cpu_s * 1e3, vs_cpu=vs_cpu,
+                log10_error=lg, vs_reference=vs_ref, vs_golden=golden)
+
+
+def heat_build(dev, moving, workdir):
+    """(b): the port builds the fixed or moving heat HROM on ``dev`` in
+    float64 (its 4 offline μ in one batched FOM sweep), in ``workdir``;
+    returns (hrom, stage seconds)."""
+    from romtime_tpu_torch.conventions import Stage
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.rom import (
+        HyperReducedOrderModelFixed,
+        HyperReducedOrderModelMoving,
+    )
+
+    cls = HyperReducedOrderModelMoving if moving else HyperReducedOrderModelFixed
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        seconds = {}
+        with compute_dtype_scope(torch.float64):
+            hrom, seconds["setup"] = timed(dev, lambda: cls(
+                **heat_config(HEAT_GRID["nx"], HEAT_GRID["nt"],
+                              moving=moving),
+                rnd=np.random.RandomState(0), device=dev))
+            for stage, fn in (
+                    ("setup", hrom.setup),
+                    ("setup_hyperreduction", hrom.setup_hyperreduction),
+                    ("offline_rom", lambda: hrom.run_offline_rom(
+                        device_sweep=True)),
+                    ("hyperreduction", lambda: hrom.run_offline_hyperreduction(
+                        mu_space=hrom.mu_space[Stage.OFFLINE],
+                        evaluate=False)),
+                    ("projection", hrom.project_reductors)):
+                _, sec = timed(dev, fn)
+                seconds[stage] = seconds.get(stage, 0.0) + sec
+    finally:
+        os.chdir(cwd)
+    return hrom, seconds
+
+
+def heat_global(mods, dev, power, hrom, name, kernels):
+    """(c): B=2048 float32 through K4 (the default budget) and K5 (budget
+    0) at ``with_trilinear=False`` and BDF-1, every counter zeroed before
+    each branch and read after; each launch on the last batch against its
+    twin, the served results against the float32 global lanes engine and
+    K5 against K4."""
+    import romtime_tpu_torch.rom.engines.global_fused as engine
+    import romtime_tpu_torch.rom.engines.windowed_fused as products
+    from romtime_tpu_torch.conventions import Stage
+
+    rom = hrom.rom
+    batches = [[dict(m) for m in rom.build_sampling_space(
+        num=HEAT_B, rnd=np.random.RandomState(40 + c))]
+        for c in range(HEAT_CALLS)]
+    mus = batches[-1]
+    if rom._resolve_engine("probes", HEAT_B) != "pallas":
+        raise AssertionError(f"{name}: the heat ROM does not route to the "
+                             f"global kernels")
+    lanes, lanes_s = timed(dev, lambda: rom.solve_batch(
+        mus, step=Stage.ONLINE, mode="probes", engine="lanes"))
+    info, served = {"lanes_s": lanes_s}, {}
+    for kname, budget in (("K4", None), ("K5", 0)):
+        if budget is not None:
+            rom.ONLINE_PRECOMPUTE_BUDGET = budget
+        try:
+            branch = engine.global_branch(HEAT_GRID["nt"],
+                                          mods["k1"].pad_dim(rom.N), HEAT_B,
+                                          rom.precompute_choice)
+            if branch != ("matrices" if kname == "K4" else "thetas"):
+                raise AssertionError(f"{name}: {kname} routed to {branch}")
+            launches, outs, call = serve_global(
+                rom, f"heat {name} {kname} (N={rom.N})", batches, mods,
+                power, kname)
+            out = rom.solve_batch(mus, step=Stage.ONLINE, mode="probes")
+            prepped = rom.prep(mus, engine="pallas")
+            tables = rom._global_serving_tables()
+            (THm, THk, THf, g, b0), kw = engine.window_inputs(
+                rom.fom, rom.global_serving, prepped)
+            if kw["with_trilinear"] or kw["bdf2"]:
+                raise AssertionError(f"{name}: not the no-trilinear BDF-1 "
+                                     f"instantiation ({kw})")
+            if kname == "K4":
+                args = (*engine.window_operators_lanes(
+                    tables, 0, THm, THk, THf, 0, HEAT_GRID["nt"]), g,
+                    tables["T0"][0], tables["VE"][0], b0)
+                kw = dict(kw, lane_major=True)
+                wrapper = mods["gs"].online_sweep_pallas
+                twin = mods["gs"].sweep_reference
+                # The bound counts the reference layout's bytes, as the
+                # kernel phases do.
+                bound_args = (*products.window_operators(
+                    tables, 0, THm, THk, THf, 0, HEAT_GRID["nt"]), *args[3:])
+            else:
+                args = (THm, THk, THf, g, tables["Bm"][0], tables["Bk"][0],
+                        tables["Bf"][0], tables["T0"][0], tables["VE"][0], b0)
+                kw.update(engine.live_rows(tables))
+                wrapper = mods["gs"].online_sweep_theta_pallas
+                twin = mods["gs"].theta_sweep_reference
+                bound_args = args
+        finally:
+            if budget is not None:
+                del rom.ONLINE_PRECOMPUTE_BUDGET
+        ms, got = cuda_ms(lambda: wrapper(*args, **kw), GLOBAL_REPS)
+        plain_ms, want = cuda_ms(lambda: twin(*args, **kw), 1, warmup=False)
+        err = check_global(f"  heat {name} {kname} launch vs its twin "
+                           f"(B={HEAT_B}, N={rom.N}):", got, want)
+        bms, by = GLOBAL_BOUND[kname](bound_args, kw)
+        served[kname] = out
+        row = kernels.setdefault(kname, dict(max_abs_err=0.0))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         N=rom.N, launches=launches[KERNELS.index(kname)],
+                         **call)
+        print(f"  heat {name} {kname}: {ms:.3f} ms a sweep, twin "
+              f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by}); served "
+              f"{call['solves_per_s']:.1f} solves/s on {power}")
+        del args, got, want, prepped, bound_args
+    scale = np.abs(lanes["probes"]).max()
+    uscale = max(np.abs(lanes["uN_final"]).max(), 1.0)
+    gaps = {}
+    for kname, out in served.items():
+        gaps[kname] = (float(np.abs(out["probes"] - lanes["probes"]).max()),
+                       float(np.abs(out["uN_final"]
+                                    - lanes["uN_final"]).max()))
+    k5k4 = (float(np.abs(served["K5"]["probes"]
+                         - served["K4"]["probes"]).max()),
+            float(np.abs(served["K5"]["uN_final"]
+                         - served["K4"]["uN_final"]).max()))
+    k4scale = max(np.abs(served["K4"]["uN_final"]).max(), 1.0)
+    ok = (all(p <= GLOBAL_PROBES_REL * scale and u <= GLOBAL_UN_REL * uscale
+              for p, u in gaps.values())
+          and k5k4[0] <= THETA_VS_TABLES_REL * scale
+          and k5k4[1] <= THETA_VS_TABLES_REL * k4scale)
+    print(f"  heat {name} served vs the float32 global lanes engine "
+          f"({lanes_s * 1e3:.1f} ms): "
+          + ", ".join(f"{k} probes {p:.3e} uN {u:.3e}"
+                      for k, (p, u) in gaps.items())
+          + f" (limits {GLOBAL_PROBES_REL * scale:.3e}, "
+          f"{GLOBAL_UN_REL * uscale:.3e}); K5 vs K4 {k5k4[0]:.3e} / "
+          f"{k5k4[1]:.3e} (limit {THETA_VS_TABLES_REL:.0e}·scale) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"heat {name}: the served results disagree")
+    info.update(vs_lanes=gaps, k5_vs_k4=k5k4)
+    return info
+
+
+def heat_windowed(mods, dev, power, hrom, kernels):
+    """(d): the fixed heat ROM's windows (4 of N=8) served at B=2048
+    through K1 (budget 0: the fused branch) against the float32 windowed
+    lanes engine, the launch against its twin; the float64
+    ``engine="windowed"`` against the FOM."""
+    import romtime_tpu_torch.rom.engines.windowed_fused as wengine
+    from romtime_tpu_torch.conventions import Stage
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+
+    rom = hrom.rom
+    W, N = HEAT_WINDOWS
+    _, build_s = timed(dev, lambda: hrom.build_windowed_serving(
+        n_windows=W, num_basis=N, dump=False))
+    if rom.windows.trilinear is not None:
+        raise AssertionError("the heat windows carry a trilinear table")
+    mus = [dict(m) for m in rom.build_sampling_space(
+        num=HEAT_B, rnd=np.random.RandomState(50))]
+    rom.ONLINE_PRECOMPUTE_BUDGET = 0
+    try:
+        k1 = mods["k1"].online_sweep_windowed_fused
+        rom.solve_batch(mus, mode="probes")
+        for c in counters(mods):
+            c.launches = c.serving_launches = c.first_design_launches = 0
+        out, serve_s = timed(dev, lambda: rom.solve_batch(
+            mus, step=Stage.ONLINE, mode="probes"))
+        launches = [c.launches for c in counters(mods)]
+        if launches != [1, 0, 0, 0, 0] or k1.serving_launches != 1:
+            raise AssertionError(f"heat windowed: launches {launches}")
+        prepped = rom.prep(mus)
+        args, kw = wengine.sweep_inputs(rom.fom, rom.windows, prepped,
+                                        rom._windowed_tables(),
+                                        rom.windowed_solve())
+    finally:
+        del rom.ONLINE_PRECOMPUTE_BUDGET
+    if kw["with_trilinear"] or kw["bdf2"]:
+        raise AssertionError(f"heat windowed: not the no-trilinear BDF-1 "
+                             f"instantiation ({kw})")
+    ms, got = cuda_ms(lambda: k1(*args, **kw), KERNEL_REPS)
+    plain_ms, want = cuda_ms(
+        lambda: mods["k1"].windowed_fused_reference(*args, **kw), 1,
+        warmup=False)
+    err = check_sweep(f"  heat windowed K1 launch vs its twin (B={HEAT_B}, "
+                      f"W={W}, N={N}):", got, want)
+    bms, by = k1_bound(args, kw)
+    lanes, lanes_s = timed(dev, lambda: rom.solve_batch(
+        mus, step=Stage.ONLINE, mode="probes", engine="windowed"))
+    scale = max(np.abs(lanes["probes"]).max(), 1e-3)
+    p_gap = float(np.abs(out["probes"] - lanes["probes"]).max())
+    u_gap = float(np.abs(out["uN_final"] - lanes["uN_final"]).max())
+    mu_val = dict(delta=0.9, beta=4.5, alpha_0=1.1)
+    fom = hrom.fom
+    fom.setup()
+    fom.update_parametrization(mu_val)
+    with compute_dtype_scope(torch.float64):
+        fom.solve()
+        full, f64_s = timed(dev, lambda: rom.solve_batch(
+            [mu_val], step=Stage.VALIDATION, mode="full", engine="windowed"))
+    uh = np.asarray(fom.solutions.fom)
+    fom_rel = float(np.linalg.norm(full["uc"][0].T - uh) / np.linalg.norm(uh))
+    ok = (p_gap <= WINDOWED_PROBES_REL * scale and u_gap <= WINDOWED_UN_ATOL
+          and fom_rel <= HEAT_WINDOWED_FOM_REL)
+    print(f"  (d) heat windowed serving ({W} windows of N={N}, built in "
+          f"{build_s:.2f} s): one K1 launch, {serve_s * 1e3:.1f} ms a call "
+          f"= {HEAT_B / serve_s:.1f} solves/s; K1 {ms:.3f} ms, twin "
+          f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by}); vs the float32 "
+          f"windowed lanes engine ({lanes_s * 1e3:.1f} ms) probes "
+          f"{p_gap:.3e} (limit {WINDOWED_PROBES_REL * scale:.3e}), uN "
+          f"{u_gap:.3e} (limit {WINDOWED_UN_ATOL:.0e}); float64 "
+          f"engine='windowed' vs the FOM {fom_rel:.3e} (limit "
+          f"{HEAT_WINDOWED_FOM_REL:.0e}) on {power} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("heat windowed serving disagrees")
+    row = kernels.setdefault("K1", dict(max_abs_err=0.0))
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["windowed"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by, W=W, N=N, launches=launches[0],
+                           serve_ms=serve_s * 1e3)
+    return dict(build_s=build_s, serve_ms=serve_s * 1e3, vs_lanes=(p_gap,
+                u_gap), vs_fom=fom_rel, f64_full_s=f64_s)
+
+
+def heat_certify(dev, power, hrom, name):
+    """(e): ``estimate_batch`` in float64 at B=16 on the card against the
+    same ROM pair carried to the CPU, by tests/test_hrom.py:442-520's
+    contract."""
+    from romtime_tpu_torch.convert import (
+        global_serving_from_arrays,
+        global_serving_to_arrays,
+    )
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+
+    which = "mfp1-moving" if name == "moving" else "mfp1"
+    rom_cpu, srom_cpu = (global_serving_from_arrays(
+        global_serving_to_arrays(r, which=which), device="cpu")
+        for r in (hrom.rom, hrom.srom))
+    cpu = type(hrom).from_serving(rom_cpu, srom=srom_cpu)
+    mus = [dict(m) for m in hrom.rom.build_sampling_space(
+        num=HEAT_SMALL_B, rnd=np.random.RandomState(60))]
+    with compute_dtype_scope(torch.float64):
+        out, card_s = timed(dev, lambda: hrom.estimate_batch(mus))
+        ref, cpu_s = timed("cpu", lambda: cpu.estimate_batch(mus))
+    gaps = [max_gap(out[k]["uN"], ref[k]["uN"]) for k in ("rom", "srom")]
+    sweep_gap = max(g / s for g, s in gaps)
+    formula, slack, avg = estimator_contract(
+        out, ref, np.asarray(hrom.srom.basis), HEAT_GRID["nt"])
+    ok = sweep_gap <= CERT_F64_REL
+    print(f"  (e) heat {name} estimate_batch float64, B={HEAT_SMALL_B}: card "
+          f"{card_s:.2f} s, CPU {cpu_s:.2f} s; the sweeps {sweep_gap:.3e} "
+          f"apart (limit {CERT_F64_REL:.0e}·scale); the estimator the "
+          f"formula within {formula:.2e}, the triangle bound's slack "
+          f"{slack:.2e}, averages {avg[0]:.3e}..{avg[1]:.3e} on {power} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"heat {name}: the card's certification "
+                             f"disagrees with the CPU")
+    return dict(card_s=card_s, cpu_s=cpu_s, sweep_gap=sweep_gap,
+                formula_gap=formula, bound_slack=slack)
+
+
+def heat_phase(mods, dev, power):
+    """Phase 14 of the module doc: the MFP1 heat family, fixed and moving,
+    at nx=500, nt=1000, every launch counter zeroed before each served
+    run and read after."""
+    import tempfile
+
+    info = {"card": power, "grid": HEAT_GRID}
+    kernels = {}
+    print(f"heat phase: MFP1 at nx={HEAT_GRID['nx']}, nt={HEAT_GRID['nt']}")
+    for moving in (False, True):
+        name = "moving" if moving else "fixed"
+        part = info[name] = {"fom": heat_golden_fom(dev, power, moving)}
+        with tempfile.TemporaryDirectory() as workdir:
+            hrom, seconds = heat_build(dev, moving, workdir)
+            print(f"  (b) heat {name} HROM built on the card: ROM N="
+                  f"{hrom.rom.N}, S-ROM N={hrom.srom.N}; "
+                  + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+            part["build"] = dict(seconds=seconds, N=hrom.rom.N,
+                                 N_srom=hrom.srom.N)
+            part["global"] = heat_global(mods, dev, power, hrom, name,
+                                         kernels)
+            if not moving:
+                part["windowed"] = heat_windowed(mods, dev, power, hrom,
+                                                 kernels)
+            part["certify"] = heat_certify(dev, power, hrom, name)
+        del hrom
+        torch.cuda.empty_cache()
+    info["kernels"] = kernels
+    info["launches"] = {k: sum(v.get(n, {}).get("launches", 0)
+                               for n in ("fixed", "moving", "windowed"))
+                        for k, v in kernels.items()}
     return info
 
 
@@ -2917,6 +3370,7 @@ def main():
         from romtime_tpu_torch.ops import kernel_build
         from romtime_tpu_torch.ops import resid_sweep as rs
         from romtime_tpu_torch.ops import windowed_fused as k1
+        from romtime_tpu_torch import native
         from romtime_tpu_torch.testing import synthetic as synth
     except ImportError as exc:
         fail(f"the romtime_tpu_torch package is missing beside "
@@ -2924,7 +3378,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
-    mods = {"k1": k1, "rs": rs, "gs": gs, "synth": synth}
+    mods = {"k1": k1, "rs": rs, "gs": gs, "synth": synth, "native": native}
 
     power = card()
     print(power)
@@ -3004,6 +3458,17 @@ def main():
         if any(single["launches"]):
             raise AssertionError("the single-μ phase launched a serving "
                                  "kernel")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        heat = heat_phase(mods, dev, power)
+        heat["seconds_phase"] = time.perf_counter() - t0
+        print(f"heat phase: {heat['seconds_phase']:.1f} s, launches "
+              f"{heat['launches']} (K1 windowed, K4 and K5 global, "
+              f"with_trilinear=False, BDF-1)")
+        for k in ("K1", "K4", "K5"):
+            if not heat["launches"].get(k):
+                raise AssertionError(f"the heat phase never launched {k}")
+            errs[k].append(heat["kernels"][k]["max_abs_err"])
     for k, v in gkernels.items():
         launches[k] = v.pop("launches")
         kernels[k] = v
@@ -3062,12 +3527,16 @@ def main():
         max_abs_err=max(errs[k]), library_ms=None,
         offline_build_launches=build["launches"][i],
         fleet_build_launches=fleet_build["launches"][i],
-        online_single_launches=single["launches"][i], **kernels[k])
+        online_single_launches=single["launches"][i],
+        heat_launches=heat["launches"].get(k, 0),
+        heat={n: v for n, v in heat["kernels"].get(k, {}).items()
+              if n != "max_abs_err"}, **kernels[k])
         for i, k in enumerate(KERNELS)],
         "shapes": rows, "serving": serving, "autotune": autotune,
         "fleet": fleet, "certification": certification, "fom": fom,
         "offline_build": build, "fleet_build": fleet_build,
         "online_single": single,
+        "heat": {k: v for k, v in heat.items() if k != "kernels"},
         "card": power}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,9 +27,12 @@ A serving configuration travels as a flat ``dict[str, np.ndarray]``:
   serving object's parameter order (the guard and the solve policy
   probe the box's corners);
 - the FOM configuration: ``fom_L0``, ``fom_nx``, ``fom_tf``, ``fom_nt``,
-  ``fom_degree``, ``fom_bdf``, the piston regime ``fom_which`` and,
-  where it is set, ``fom_project_u0``; :func:`fom_from_arrays` builds
-  the FOM from these keys alone, ready to ``solve()``.
+  ``fom_degree``, ``fom_bdf``, the problem ``fom_which`` (the piston
+  regimes "rest" and "sudden", or the MFP1 heat problem, "mfp1" on the
+  fixed domain and "mfp1-moving" on the moving one, which also picks
+  the ROM family, :data:`FAMILIES`) and, where it is set,
+  ``fom_project_u0``; :func:`fom_from_arrays` builds the FOM from these
+  keys alone, ready to ``solve()``.
 
 An estimator (:func:`estimator_from_arrays`) is a ROM payload of any of
 these forms plus its S-ROM under an ``srom_`` prefix: a global
@@ -42,17 +45,27 @@ in the fleet payload itself (``serving_ns``).
 ``np.savez(path, **payload)`` persists it; the JAX side extracts the same
 payload from a trained ``HyperReducedPiston``, and a port-built one
 serves without it (its ROM's ``global_serving``). Every object here is
-made through the artifact forms ``RomConstructorNonlinear.from_artifacts``
-and ``HyperReducedPiston.from_serving``.
+made through the artifact forms ``from_artifacts`` of the payload's ROM
+family and ``HyperReducedPiston.from_serving`` (the estimator payloads
+are the piston's).
 """
 
 import numpy as np
 
-from .fom import OneDimensionalBurgers
-from .problems import define_piston_problem
+from .fom import (
+    HeatEquationMovingSolver,
+    HeatEquationSolver,
+    OneDimensionalBurgers,
+)
+from .problems import define_mfp1_problem, define_piston_problem
 from .rom.engines.global_fused import GlobalServing
 from .rom.hrom import HyperReducedPiston
-from .rom.rom import THETA_SOURCES, RomConstructorNonlinear, make_reductors
+from .rom.rom import (
+    RomConstructor,
+    RomConstructorMoving,
+    RomConstructorNonlinear,
+    make_reductors,
+)
 from .rom.windowed import MuLocalWindowed, WindowedServing
 
 _FOM_KEYS = ("fom_L0", "fom_nx", "fom_tf", "fom_nt", "fom_degree",
@@ -60,6 +73,19 @@ _FOM_KEYS = ("fom_L0", "fom_nx", "fom_tf", "fom_nt", "fom_degree",
 _GLOBAL = "global_"
 _SROM = "srom_"
 _REDUCED = ("PT_U", "basis_rom")
+
+#: ``fom_which`` of the MFP1 heat problem → its ROM family; every other
+#: value names a piston regime (:class:`RomConstructorNonlinear`).
+FAMILIES = {"mfp1": RomConstructor, "mfp1-moving": RomConstructorMoving}
+
+
+def _which(payload):
+    return str(np.asarray(payload.get("fom_which", "rest")))
+
+
+def _family(payload):
+    """The ROM class of a payload's problem."""
+    return FAMILIES.get(_which(payload), RomConstructorNonlinear)
 
 
 def piston_fom(L0, nx, tf, nt, degree=1, bdf="2", which="rest",
@@ -77,12 +103,39 @@ def piston_fom(L0, nx, tf, nt, degree=1, bdf="2", which="rest",
     return fom
 
 
+def heat_fom(L0, nx, tf, nt, degree=1, bdf="1", moving=False,
+             project_u0=False, device="cuda"):
+    """The MFP1 heat FOM (``moving``: on the ALE-scaled domain) for a
+    domain configuration, with its exact solution, set up."""
+    domain, bcs, forcing, u0, ue, Lt, dLt_dt = define_mfp1_problem(
+        L=float(L0), nx=int(nx), tf=float(tf), nt=int(nt))
+    cls, extra = HeatEquationSolver, {}
+    if moving:
+        cls, extra = HeatEquationMovingSolver, dict(Lt=Lt, dLt_dt=dLt_dt)
+    fom = cls(domain, dirichlet=bcs, forcing_term=forcing, u0=u0,
+              exact_solution=ue, degrees=int(degree), bdf_scheme=str(bdf),
+              project_u0=bool(project_u0), device=device, **extra)
+    fom.setup()
+    return fom
+
+
 def fom_from_arrays(payload, device="cuda"):
-    """The piston FOM of a payload's ``fom_*`` keys (``fom_which``
-    default "rest", ``fom_project_u0`` default False), on ``device``."""
+    """The FOM of a payload's ``fom_*`` keys (``fom_which`` default
+    "rest", ``fom_project_u0`` default False), on ``device``: the MFP1
+    heat FOM for "mfp1"/"mfp1-moving", else the piston's."""
     missing = [k for k in _FOM_KEYS[:-1] if k not in payload]
     if missing:
         raise KeyError(f"FOM payload lacks {missing}")
+    if _which(payload) in FAMILIES:
+        return heat_fom(
+            L0=payload["fom_L0"], nx=payload["fom_nx"],
+            tf=payload["fom_tf"], nt=payload["fom_nt"],
+            degree=payload["fom_degree"],
+            bdf=str(np.asarray(payload["fom_bdf"])),
+            moving=_which(payload) == "mfp1-moving",
+            project_u0=bool(np.asarray(payload.get("fom_project_u0",
+                                                   False))),
+            device=device)
     return piston_fom(
         L0=payload["fom_L0"], nx=payload["fom_nx"], tf=payload["fom_tf"],
         nt=payload["fom_nt"], degree=payload["fom_degree"],
@@ -97,7 +150,7 @@ def _reduced_parts(arrays, PT_U=None):
     global configuration's keys (``PT_U`` from the mapping ``PT_U`` where
     the keys lack it)."""
     parts = {}
-    for name in THETA_SOURCES:
+    for name in RomConstructorNonlinear.SOURCES:
         got = {attr: arrays[f"{attr}_{name}"] for attr in _REDUCED
                if f"{attr}_{name}" in arrays}
         if PT_U is not None and "PT_U" not in got and name in PT_U:
@@ -120,14 +173,14 @@ def _reduced_arrays(rom):
 def _fom_and_reductors(payload, reduced=None, device="cuda"):
     """The FOM and the serving reductors of a payload (``reduced``: the
     global configuration's keys that carry PᵀU and ``basis_rom``)."""
+    sources = _family(payload).SOURCES
     missing = [k for k in _FOM_KEYS[:-1] if k not in payload]
-    missing += [f"dofs_{n}" for n in THETA_SOURCES
-                if f"dofs_{n}" not in payload]
+    missing += [f"dofs_{n}" for n in sources if f"dofs_{n}" not in payload]
     if missing:
         raise KeyError(f"serving payload lacks {missing}")
     fom = fom_from_arrays(payload, device)
     reductors = make_reductors(
-        fom, {n: np.asarray(payload[f"dofs_{n}"]) for n in THETA_SOURCES},
+        fom, {n: np.asarray(payload[f"dofs_{n}"]) for n in sources},
         _reduced_parts(reduced or {}))
     return fom, reductors
 
@@ -155,7 +208,7 @@ def _windowed_object(payload, windows, device):
             if k.startswith(_GLOBAL)}
     fom, reductors = _fom_and_reductors(payload, glob, device)
     gs = GlobalServing.from_arrays(glob) if glob else None
-    return RomConstructorNonlinear.from_artifacts(
+    return _family(payload).from_artifacts(
         fom, reductors, windows, device=device, global_serving=gs,
         grid=_grid(payload))
 
@@ -191,7 +244,7 @@ def global_serving_from_arrays(payload, device="cuda"):
     fom, reductors = _fom_and_reductors(payload, payload, device)
     grid = _grid(payload)
     gs = GlobalServing.from_arrays(_serving_arrays(payload))
-    return RomConstructorNonlinear.from_artifacts(
+    return _family(payload).from_artifacts(
         fom, reductors, device=device, global_serving=gs, grid=grid)
 
 

@@ -11,7 +11,7 @@ Two ways to make a reductor:
   the time grid rides as the assembly's trailing batch axis, where the
   reference vmaps), PODs them on the host in float64 (``rom.pod.orth``),
   and selects the interpolation dofs by the greedy recursion in float64
-  numpy (``deim.py:60-88``; the port has no native library);
+  (``deim.py:51-88``: the port's native host kernel, ``native.py``);
 - serving, from a trained reductor's dofs alone
   (``assemble=..., dofs=..., PT_U=..., basis_rom=...``), as
   ``rom.rom.make_reductors`` builds them from a payload.
@@ -68,11 +68,26 @@ def greedy_interpolation_points(Vf, forbidden=None):
     """Greedy DEIM point selection (reference ``deim.py:38-88``): per
     basis vector, the dof maximizing the residual of the current
     interpolant, the positions in ``forbidden`` (Dirichlet-convention
-    entries, whose basis values are zero) masked out of the argmax. The
-    reference's numpy recursion in float64; returns (dofs, P).
+    entries, whose basis values are zero) masked out of the argmax.
+    Through the native host kernel (``native.deim_greedy``), as the
+    reference; :func:`greedy_numpy` is its plain version. Returns
+    (dofs, P)."""
+    from .. import native
 
-    A stated departure: the argmax takes the first position within
-    :data:`TIE_RTOL` of the largest |residual|. The reference's
+    Vf = np.asarray(Vf, dtype=np.float64)
+    Nh, Ns = Vf.shape
+    dofs = native.deim_greedy(Vf, forbidden if forbidden is not None else ())
+    P = np.zeros((Nh, Ns))
+    P[dofs, np.arange(Ns)] = 1.0
+    return dofs, P
+
+
+def greedy_numpy(Vf, forbidden=None):
+    """The greedy recursion in float64 numpy (reference ``deim.py:60-88``),
+    the native kernel's plain version; returns (dofs, P).
+
+    A stated departure, in both: the argmax takes the first position
+    within :data:`TIE_RTOL` of the largest |residual|. The reference's
     ``np.argmax`` takes the first exact maximum, so among entries equal
     up to rounding (the rank-1 mass and stiffness families, whose
     interior diagonals are all alike) its pick follows the SVD's

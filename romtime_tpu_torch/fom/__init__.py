@@ -1,5 +1,6 @@
 from .base import BandedOperator, OneDimensionalSolver, move_mesh
+from .heat import HeatEquationMovingSolver, HeatEquationSolver
 from .nonlinear import OneDimensionalBurgers
 
-__all__ = ["BandedOperator", "OneDimensionalSolver", "OneDimensionalBurgers",
-           "move_mesh"]
+__all__ = ["BandedOperator", "HeatEquationMovingSolver", "HeatEquationSolver",
+           "OneDimensionalSolver", "OneDimensionalBurgers", "move_mesh"]

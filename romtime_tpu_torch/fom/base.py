@@ -322,13 +322,17 @@ class OneDimensionalSolver(ABC):
         return ()
 
     def _as_scale(self, scale, mu, t=None):
-        """``scale`` as a tensor of μ's dtype and device, broadcast to μ's
-        batch shape where it is a scalar (coefficients then broadcast
-        against batched parameters, as in the reference's lane layout)."""
+        """``scale`` as a tensor of μ's dtype and device, broadcast to the
+        batch shape of μ and t where it is a scalar (coefficients then
+        broadcast against batched parameters and times, as in the
+        reference's lane layout; a fixed domain's unit scale carries the
+        time grid's axis as a moving domain's Lt(μ, t) does)."""
         dtype, device = self._like(mu, t)
         if not torch.is_tensor(scale):
             scale = torch.full((), float(scale), dtype=dtype, device=device)
         bshape = self._mu_batch_shape(mu)
+        if torch.is_tensor(t) and t.ndim:
+            bshape = torch.broadcast_shapes(bshape, t.shape)
         if bshape and scale.ndim == 0:
             scale = scale.expand(bshape)
         return scale
@@ -713,16 +717,22 @@ class OneDimensionalSolver(ABC):
 
     def solve(self):
         """Integrate the problem in time for ``self.mu`` on the solver's
-        device; fills ``self.solutions`` (nh, nt) as the reference does. A
-        dd sweep's trajectory is its hi and lo words recombined in
-        float64 on the host."""
+        device; fills ``self.solutions`` (nh, nt) as the reference does.
+        A float64 solve that is not a dd sweep takes the native host loop
+        where the solver has one (:meth:`_solve_native`), as the reference
+        does on any backend; everything else steps the eager loop. A dd
+        sweep's trajectory is its hi and lo words recombined in float64
+        on the host."""
         mu = self.mu
         device = self._compute_device()
-        outs = self._solve_native(mu)
-        if outs is None:
+        got = None
+        if (compute_dtype() == torch.float64
+                and not getattr(self, "dd_sweep", False)):
+            got = self._solve_native(mu)
+        if got is None:
             with full_f32_matmul(), torch.no_grad():
                 got = self._solve_impl(self._mu_array(mu, device))
-            outs = {k: v.cpu().numpy() for k, v in got.items()}
+        outs = {k: v.cpu().numpy() for k, v in got.items()}
 
         ts = outs["t"]
         snapshots = outs["uh"].T  # (nh, nt)
@@ -746,8 +756,9 @@ class OneDimensionalSolver(ABC):
         return self.solutions
 
     def _solve_native(self, mu):
-        """Native fast-path hook: the ``_solve_impl`` output dict (numpy)
-        or None. The port has no native loop yet: always None."""
+        """Native fast-path hook: the ``_solve_impl`` output dict (tensors
+        on the compute device), or None where the solver has no native
+        loop."""
         return None
 
     def _collect_runtime_outputs(self, outs):

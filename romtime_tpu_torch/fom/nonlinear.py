@@ -328,6 +328,13 @@ class OneDimensionalBurgers(OneDimensionalSolver):
         """RHS = lifting only (no forcing for the piston)."""
         return self.assemble_lifting(mu=mu, t=t, entries=entries)
 
+    def _solve_native(self, mu):
+        """The native float64 loop (``fom/native_sweep.py``) where this
+        solver is eligible, else None."""
+        from .native_sweep import outputs_native
+
+        return outputs_native(self, mu)
+
     # ------------------------------------------------------------------
     # Time-loop hooks: nonlinear snapshots + probes
     # ------------------------------------------------------------------

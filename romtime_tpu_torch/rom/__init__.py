@@ -1,8 +1,14 @@
 from .engines.global_fused import GlobalServing
-from .hrom import HyperReducedPiston
+from .hrom import (
+    HyperReducedOrderModelFixed,
+    HyperReducedOrderModelMoving,
+    HyperReducedPiston,
+)
 from .registration import DilationLaw
-from .rom import RomConstructorNonlinear
+from .rom import RomConstructor, RomConstructorMoving, RomConstructorNonlinear
 from .windowed import MuLocalWindowed, WindowedServing
 
-__all__ = ["DilationLaw", "GlobalServing", "HyperReducedPiston",
-           "MuLocalWindowed", "RomConstructorNonlinear", "WindowedServing"]
+__all__ = ["DilationLaw", "GlobalServing", "HyperReducedOrderModelFixed",
+           "HyperReducedOrderModelMoving", "HyperReducedPiston",
+           "MuLocalWindowed", "RomConstructor", "RomConstructorMoving",
+           "RomConstructorNonlinear", "WindowedServing"]

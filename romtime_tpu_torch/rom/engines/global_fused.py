@@ -51,7 +51,7 @@ GATE_N = 64
 class GlobalServing:
     """Global serving artifacts: the basis, the folded combine per θ
     source (V·(PᵀU)⁻¹ of its reductor, float64) and the trilinear state
-    table."""
+    table (None for a family without a state-dependent term)."""
 
     basis: np.ndarray                              # (nh, N)
     combines: dict = field(default_factory=dict)   # name → (n_out, k)
@@ -101,13 +101,15 @@ class GlobalServing:
                    trilinear=rom._trilinear_state_table(basis))
 
 
-def supported(B, N, dtype, with_trilinear):
+def supported(B, N, dtype, state_dependent, with_trilinear):
     """The reference's routing gate ``_pallas_supported``
     (``pallas_global.py:49-66``): N ≤ 64, whole 128-lane blocks, float32
-    compute and the trilinear state table present (every operator is
-    hyper-reduced in a port serving object)."""
+    compute and, for a family with a state-dependent term (the piston's
+    trilinear), its state table present; a linear family serves with
+    ``with_trilinear=False`` (every operator is hyper-reduced in a port
+    serving object)."""
     return (N <= GATE_N and B % GATE_LANES == 0 and dtype == torch.float32
-            and with_trilinear)
+            and (with_trilinear or not state_dependent))
 
 
 def global_tables(gs, nt, dt, stiff_names, device):

@@ -13,8 +13,9 @@ Plain torch on the serving object's device, the μ batch in the last
 2. While 2·nt·N²·B·itemsize bytes fit the precompute policy, MN, KLIN =
    dt·Σ(stiffness side) and fN = dt·rhs are materialized as (nt, N², B)
    tables; otherwise the operators are recombined from θ at every step.
-3. Each step adds the trilinear term b0·(T0 @ u*) with u* = 2u_n − u_{n−1}
-   (BDF-2; the reference's T0 fast path, ``rom.py:1454-1473``) and solves
+3. Each step adds, for the piston family, the trilinear term
+   b0·(T0 @ u*) with u* = 2u_n − u_{n−1} (u_n under BDF-1; the
+   reference's T0 fast path, ``rom.py:1454-1473``), and solves
    K = bdf·M_N + dt·S_N by the unpivoted lanes elimination: in float32 in
    the residual form against the double-word carry (the windowed lanes
    engine's step, ``dd_predict``/``dd_correct``), in float64 on the plain
@@ -46,15 +47,17 @@ from .windowed_lanes import (
 )
 
 
-def global_lanes_tables(gs, sources, mode, dtype, device):
+def global_lanes_tables(gs, sources, mode, dtype, device,
+                        state_dependent=True):
     """Constant device tables of the engine in ``dtype``: each source's
     combine ``C_<source>`` (n_out, k) that pairs with its θ (the global
     configuration's folded ``combine_<source>`` under float32, the
-    reductor's ``basis_rom`` in float64), the trilinear
-    state table ``T0`` (N², N), the basis end rows ``V_ends`` (2, N) and,
-    in mode "full", the basis ``V`` (nh, N). Raises where the
-    configuration has no trilinear state table."""
-    if gs.trilinear is None:
+    reductor's ``basis_rom`` in float64), the trilinear state table
+    ``T0`` (N², N) where the configuration has one, the basis end rows
+    ``V_ends`` (2, N) and, in mode "full", the basis ``V`` (nh, N).
+    Raises where a ``state_dependent`` family's configuration has no
+    trilinear state table."""
+    if state_dependent and gs.trilinear is None:
         raise NotImplementedError(
             "the global lanes engine needs the trilinear state table T0 "
             "(payload key 'trilinear'); the reference's in-body N-MDEIM "
@@ -67,7 +70,8 @@ def global_lanes_tables(gs, sources, mode, dtype, device):
     tbl = {f"C_{name}": dev(gs.combines[name] if red._folded_serving()
                             else red._serving_combine())
            for name, red in sources.items()}
-    tbl["T0"] = dev(gs.trilinear)
+    if gs.trilinear is not None:
+        tbl["T0"] = dev(gs.trilinear)
     tbl["V_ends"] = dev(np.asarray(gs.basis)[[0, -1], :])
     if mode == "full":
         tbl["V"] = dev(gs.basis)
@@ -99,6 +103,10 @@ def lanes_branch(nt, N, B, dtype, precompute_choice):
     recombination), as the policy decides on :func:`table_bytes`."""
     return ("matrices" if precompute_choice(table_bytes(nt, N, B, dtype))
             else "thetas")
+
+
+#: The stiffness-side source that follows the trilinear term in the sum.
+NONLINEAR_LIFTING = "nonlinear_lifting"
 
 
 def online_scan_batch(fom, gs, sources, tables, mu, mode, precompute_choice,
@@ -137,8 +145,10 @@ def online_scan_batch(fom, gs, sources, tables, mu, mode, precompute_choice,
         fN_tab = dt * combined(RHS)
         del thetas
 
-    b0 = fom.nonlinear_coefficient(mu)
-    T0 = tables["T0"]
+    T0 = tables.get("T0")
+    b0 = fom.nonlinear_coefficient(mu) if T0 is not None else None
+    lin = [n for n in stiff if n != NONLINEAR_LIFTING]
+    tail = [n for n in stiff if n == NONLINEAR_LIFTING]
     x_dofs = output_dofs(fom, mode, dtype, device)
     V_full = tables.get("V")
     zeros = torch.zeros((N, B), dtype=dtype, device=device)
@@ -146,11 +156,15 @@ def online_scan_batch(fom, gs, sources, tables, mu, mode, precompute_choice,
     steps = []
     for k in range(nt):
         uN_n, _, uN_n1, _ = carry
-        u_star = 2.0 * uN_n - uN_n1 if bdf2 else uN_n
-        NN = (T0 @ u_star).reshape(N, N, B) * b0
+        NN = None
+        if T0 is not None:
+            u_star = 2.0 * uN_n - uN_n1 if bdf2 else uN_n
+            NN = (T0 @ u_star).reshape(N, N, B) * b0
         if precompute:
             MN = MN_tab[k].reshape(N, N, B)
-            dtS = KLIN_tab[k].reshape(N, N, B) + dt * NN
+            dtS = KLIN_tab[k].reshape(N, N, B)
+            if NN is not None:
+                dtS = dtS + dt * NN
             fN = fN_tab[k]
         else:
             def get(name):
@@ -158,8 +172,13 @@ def online_scan_batch(fom, gs, sources, tables, mu, mode, precompute_choice,
                     N, N, B)
 
             MN = get(MASS)
-            dtS = dt * (get("stiffness") + get("convection") + NN
-                        + get("nonlinear_lifting"))
+            # The reference's order: A + C + N(u*) + N̂.
+            terms = ([get(n) for n in lin] + ([NN] if NN is not None else [])
+                     + [get(n) for n in tail])
+            S = terms[0]
+            for term in terms[1:]:
+                S = S + term
+            dtS = dt * S
             fN = dt * (tables[f"C_{RHS}"] @ thetas[RHS][k])
         if compensated:
             pred_hi, pred_lo, d, bdf = dd_predict(carry, bdf2 and k > 0)

@@ -1,9 +1,16 @@
-"""The piston pipeline (counterpart of ``romtime_tpu/rom/hrom.py``):
-the offline build and the S-ROM error certification.
+"""The HROM drivers (counterpart of ``romtime_tpu/rom/hrom.py``): the
+offline build and the S-ROM error certification of the heat family on
+the fixed domain (:class:`HyperReducedOrderModelFixed`: mass, stiffness
+and RHS reductors) and the moving one
+(:class:`HyperReducedOrderModelMoving`: plus the convection), and of the
+piston (:class:`HyperReducedPiston`, a subclass of the fixed driver as
+in the reference: plus the convection, the nonlinear lifting and the
+trilinear N-MDEIM, and the μ-local fleet).
 
-**Build** (the reference's form, ``HyperReducedPiston(grid, fom_params,
-rom_params, deim_params, mdeim_params, mdeim_nonlinear_params, models,
-rnd)``, on the card unless ``device="cpu"``)::
+**Build** (the reference's forms, ``HyperReducedOrderModelFixed(grid,
+fom_params, rom_params, deim_params, mdeim_params, models, rnd)`` and
+``HyperReducedPiston(..., mdeim_nonlinear_params, models, rnd)``, on
+the card unless ``device="cpu"``)::
 
     hrom.setup()
     hrom.setup_hyperreduction()
@@ -72,12 +79,16 @@ from ..deim import (
 )
 from ..deim.deim import offline
 from ..dtypes import compute_dtype_scope
-from ..fom import OneDimensionalBurgers
+from ..fom import (
+    HeatEquationMovingSolver,
+    HeatEquationSolver,
+    OneDimensionalBurgers,
+)
 from ..utils import dump_csv, dump_json, dump_pickle, read_json, read_pickle
 from ..utils.io import write_table
 from ..utils.numeric import time_average
 from .base import SUMMARY_COLUMNS
-from .rom import RomConstructorNonlinear
+from .rom import RomConstructor, RomConstructorMoving, RomConstructorNonlinear
 
 
 def _rms_columns(e):
@@ -94,23 +105,19 @@ def _write_indexed(path, table):
                 table["index"])
 
 
-class HyperReducedPiston:
-    """The full nonlinear pipeline (reference ``hrom.py:57-337``,
-    ``:1000-1058`` and ``:1425-1586``, the base pipeline's machinery and the
-    piston's in one class: the heat path is not ported): the ROM and
-    S-ROM pair, the RHS-DEIM, the mass, stiffness, convection and
-    nonlinear-lifting MDEIM and the trilinear N-MDEIM."""
+class HyperReducedOrderModelFixed:
+    """The heat driver on the fixed domain (reference ``hrom.py:57-1366``):
+    the ROM and S-ROM pair, the RHS-DEIM and the mass and stiffness
+    MDEIM; the base of every driver."""
 
     def __init__(self, grid: dict, fom_params: dict, rom_params: dict,
-                 deim_params: dict, mdeim_params: dict,
-                 mdeim_nonlinear_params: dict, models: dict, rnd=None,
-                 device="cuda") -> None:
+                 deim_params: dict, mdeim_params: dict, models: dict,
+                 rnd=None, device="cuda") -> None:
         self.grid = grid
         self.fom_params = fom_params
         self.rom_params = rom_params
         self.deim_params = deim_params
         self.mdeim_params = mdeim_params
-        self.mdeim_nonlinear_params = dict(mdeim_nonlinear_params)
         self.models = models
         self.rnd = rnd
         self.device = device
@@ -125,6 +132,9 @@ class HyperReducedPiston:
         self.mdeim_nonlinear = None
         self.mdeim_trilinear = None
         self.mdeim_trilinear_lifting = None
+
+        self.deim_runned = False
+        self.rom_runned = False
 
         self.errors = dict()
         self.online_params = None
@@ -141,14 +151,13 @@ class HyperReducedPiston:
 
     @classmethod
     def from_serving(cls, rom, srom=None, windows_srom=None):
-        """An estimator on serving objects: ``rom`` the serving
-        :class:`RomConstructorNonlinear`, ``srom`` the global S-ROM
-        serving object (its basis nesting the ROM's) or None,
-        ``windows_srom`` the :class:`~romtime_tpu_torch.rom.windowed
-        .WindowedServing` at N+Δ whose windows nest the ROM's, or None."""
+        """An estimator on serving objects: ``rom`` the serving ROM,
+        ``srom`` the global S-ROM serving object (its basis nesting the
+        ROM's) or None, ``windows_srom`` the
+        :class:`~romtime_tpu_torch.rom.windowed.WindowedServing` at N+Δ
+        whose windows nest the ROM's, or None."""
         hrom = cls(grid=rom.grid, fom_params=None, rom_params=None,
-                   deim_params=None, mdeim_params=None,
-                   mdeim_nonlinear_params={}, models=None,
+                   deim_params=None, mdeim_params=None, models=None,
                    device=rom.device)
         hrom.fom = rom.fom
         hrom.rom = rom
@@ -204,10 +213,6 @@ class HyperReducedPiston:
         self.srom.offline_snapshots_build = build
         return True
 
-    def dump_nonlinear_basis(self, path=None):
-        dump_pickle(f"basis_fom_n-mdeim_{OperatorType.TRILINEAR}.pkl",
-                    np.asarray(self.srom.basis_nonlinear))
-
     def load_validation_fom(self, path=None):
         try:
             self.validation_solutions = read_pickle(
@@ -216,20 +221,22 @@ class HyperReducedPiston:
             print("Validation solutions are not defined.")
 
     # ------------------------------------------------------------------
-    # Setup (reference hrom.py:210-274, :1452-1510)
+    # Setup (reference hrom.py:210-274)
     # ------------------------------------------------------------------
-    def _create_fom(self):
+    def _fom_kwargs(self):
         fp = self.fom_params
-        return OneDimensionalBurgers(
+        return dict(
             domain=fp.get("domain"), dirichlet=fp.get("dirichlet"),
             parameters=fp.get("parameters", None),
             forcing_term=fp.get("forcing_term"), u0=fp.get("u0"),
-            exact_solution=fp.get("exact_solution", None),
-            Lt=fp.get("Lt"), dLt_dt=fp.get("dLt_dt"), device=self.device)
+            exact_solution=fp.get("exact_solution", None), device=self.device)
+
+    def _create_fom(self):
+        return HeatEquationSolver(**self._fom_kwargs())
 
     def _create_rom(self, fom, name="ROM"):
-        return RomConstructorNonlinear(fom=fom, grid=self.grid, name=name,
-                                       device=self.device)
+        return RomConstructor(fom=fom, grid=self.grid, name=name,
+                              device=self.device)
 
     def setup(self):
         """Create the FOM and the ROM and S-ROM structures."""
@@ -244,13 +251,9 @@ class HyperReducedPiston:
         self.fom = fom
 
     def setup_hyperreduction(self):
-        """The RHS-DEIM, the mass, stiffness, convection and
-        nonlinear-lifting MDEIM and the trilinear and nonlinear N-MDEIM,
-        each with its topology probed."""
-        fom, grid = self.fom, self.grid
-        lin, nl = self.mdeim_params, self.mdeim_nonlinear_params
+        """The RHS-DEIM and the mass and stiffness MDEIM."""
+        fom, grid, lin = self.fom, self.grid, self.mdeim_params
         MDEIM = MatrixDiscreteEmpiricalInterpolation
-        NMDEIM = MatrixDiscreteEmpiricalInterpolationNonlinear
         self.deim_rhs = DiscreteEmpiricalInterpolation(
             name="RHS", assemble=fom.assemble_rhs, grid=grid,
             tree_walk_params=self.deim_params)
@@ -259,22 +262,7 @@ class HyperReducedPiston:
         self.mdeim_stiffness = MDEIM(
             name="Stiffness", assemble=fom.assemble_stiffness, grid=grid,
             tree_walk_params=lin)
-        self.mdeim_convection = MDEIM(
-            name=OperatorType.CONVECTION, assemble=fom.assemble_convection,
-            grid=grid, tree_walk_params=lin)
-        self.mdeim_trilinear_lifting = MDEIM(
-            name=OperatorType.NONLINEAR_LIFTING,
-            assemble=fom.assemble_nonlinear_lifting, grid=grid,
-            tree_walk_params=lin)
-        self.mdeim_trilinear = NMDEIM(
-            name=OperatorType.TRILINEAR, assemble=fom.assemble_trilinear,
-            grid=grid, tree_walk_params=nl)
-        self.mdeim_nonlinear = NMDEIM(
-            name=OperatorType.NONLINEAR, assemble=fom.assemble_nonlinear,
-            grid=grid, tree_walk_params=nl)
-        for obj in (self.deim_rhs, self.mdeim_mass, self.mdeim_stiffness,
-                    self.mdeim_convection, self.mdeim_trilinear_lifting,
-                    self.mdeim_trilinear, self.mdeim_nonlinear):
+        for obj in (self.deim_rhs, self.mdeim_mass, self.mdeim_stiffness):
             obj.setup(rnd=self.rnd)
 
     # ------------------------------------------------------------------
@@ -298,30 +286,20 @@ class HyperReducedPiston:
         rom.name = "ROM"
         self.rom = rom
         self.validation_solutions = fom_solutions
+        self.rom_runned = True
 
-    def run_offline_hyperreduction(self, mu_space=None, u_n=None,
-                                   evaluate=True):
-        """The collateral bases: stiffness, mass, RHS, convection, the
-        nonlinear lifting, then the trilinear N-MDEIM (its basis the
-        FOM-captured nonlinear snapshots' when the S-ROM has one)."""
+    def run_offline_hyperreduction(self, mu_space=None, evaluate=True):
+        """The collateral bases of the linear operators: stiffness, mass
+        and RHS, each as ``models`` asks."""
         for which, obj, run in (
                 (OperatorType.STIFFNESS, self.mdeim_stiffness,
                  self._run_mdeim),
                 (OperatorType.MASS, self.mdeim_mass, self._run_mdeim),
-                (OperatorType.RHS, self.deim_rhs, self._run_deim),
-                (OperatorType.CONVECTION, self.mdeim_convection,
-                 self._run_mdeim),
-                (OperatorType.NONLINEAR_LIFTING,
-                 self.mdeim_trilinear_lifting, self._run_mdeim)):
+                (OperatorType.RHS, self.deim_rhs, self._run_deim)):
             if self.models.get(which):
                 run(object=obj, which=which, evaluate=evaluate,
                     mu_space=mu_space)
-        if self.models.get(OperatorType.TRILINEAR):
-            self._run_mdeim_nonlinear(
-                object=self.mdeim_trilinear, mu_space=mu_space,
-                evaluate=evaluate, which=OperatorType.TRILINEAR,
-                u_n=self.basis if u_n is None else u_n,
-                basis=self.srom.basis_nonlinear)
+        self.deim_runned = True
 
     def project_reductors(self):
         t0 = time.perf_counter()
@@ -351,31 +329,8 @@ class HyperReducedPiston:
         self._run_deim(object=object, which=which, mu_space=mu_space,
                        evaluate=evaluate)
 
-    def _run_mdeim_nonlinear(self, object, u_n, which, mu_space,
-                             evaluate=False, basis=None):
-        """Train the N-MDEIM, or adopt ``basis`` (the FOM-captured
-        nonlinear basis) kept to ``NMDEIM_SIZE`` columns; either is
-        pickled (reference ``hrom.py:1548-1569``)."""
-        t0 = time.perf_counter()
-        if basis is None:
-            object.run(u_n=u_n, mu_space=mu_space)
-            object.dump_fom_basis()
-            if evaluate:
-                self.evaluate_deim_model(object=object, mu_space=mu_space)
-        else:
-            object.u_n = None if u_n is None else np.asarray(u_n)
-            if object.u_n is not None and object.u_n.ndim == 1:
-                object.u_n = object.u_n.reshape((-1, 1))
-            object.load_fom_basis(
-                basis=basis,
-                keep=self.rom_params.get(RomParameters.NMDEIM_SIZE))
-            object.dump_fom_basis()
-        self.build_seconds[object.name] = time.perf_counter() - t0
-        for rom in (self.rom, self.srom):
-            rom.add_hyper_reductor(reductor=object, which=which)
-
     # ------------------------------------------------------------------
-    # Windowed and μ-local serving builds (reference hrom.py:338-760)
+    # Windowed serving builds (reference hrom.py:338-376, :977-998)
     # ------------------------------------------------------------------
     def build_windowed_serving(self, n_windows, num_basis, snapshots=None,
                                overlap=2, dump=True, srom_extra=None):
@@ -421,6 +376,467 @@ class HyperReducedPiston:
             self.windows_srom.dump(StorageNames.WINDOWS_SROM)
         return self.windows_srom
 
+    # ------------------------------------------------------------------
+    # Resume (reference hrom.py:1000-1058, :1571-1586)
+    # ------------------------------------------------------------------
+    def start_from_existing_basis(self):
+        """Resume from the working directory's dumps: the μ space, the
+        S-ROM basis (kept to ``SROM_KEEP``) truncated into the ROM, every
+        reductor's collateral basis, and the windowed configurations and
+        offline snapshots where they were persisted."""
+        from .windowed import MuLocalWindowed, WindowedServing
+
+        self.load_validation_fom()
+        try:
+            mu_space = read_json(StorageNames.MU_SPACE)
+        except FileNotFoundError:
+            mu_space = {Stage.OFFLINE: list(), Stage.ONLINE: list(),
+                        Stage.VALIDATION: list()}
+        basis_srom = read_pickle(StorageNames.SROM)
+        N_srom = self.rom_params.get(RomParameters.SROM_KEEP)
+        if N_srom is not None:
+            basis_srom = basis_srom[:, :N_srom]
+        self.srom.load_from_basis(basis=basis_srom, mu_space=mu_space)
+        self.rom = self.srom.truncate(
+            self.rom_params[RomParameters.SROM_TRUNCATE])
+
+        for reductor, which in zip(*self._resume_reductors()):
+            if reductor is None:
+                continue
+            for _rom in (self.rom, self.srom):
+                _rom.add_hyper_reductor(reductor=reductor, which=which)
+
+        if os.path.exists(StorageNames.WINDOWS):
+            self.rom._set_serving_windows(
+                WindowedServing.load(StorageNames.WINDOWS))
+        if os.path.exists(StorageNames.WINDOWS_SROM):
+            self.windows_srom = WindowedServing.load(
+                StorageNames.WINDOWS_SROM)
+        if os.path.exists(StorageNames.WINDOWS_MULOCAL):
+            self.rom.mulocal = MuLocalWindowed.load(
+                StorageNames.WINDOWS_MULOCAL)
+        self.load_offline_snapshots()
+
+    def _resume_reductors(self):
+        """The RHS-DEIM and the mass and stiffness MDEIM from their
+        pickles."""
+        deims = [self.deim_rhs, self.mdeim_mass, self.mdeim_stiffness]
+        for obj in deims:
+            obj.load_fom_basis()
+        return deims, [OperatorType.RHS, OperatorType.MASS,
+                       OperatorType.STIFFNESS]
+
+    # ------------------------------------------------------------------
+    # Evaluation (reference hrom.py:1060-1147, :1588-1650)
+    # ------------------------------------------------------------------
+    def solve(self, mu, step):
+        self.rom.solve(mu, step)
+
+    def evaluate_validation(self):
+        """The ROM and S-ROM on the offline μ against the FOM
+        trajectories of the build (``validation_solutions``)."""
+        self._evaluate(which=Stage.VALIDATION,
+                       mu_space=self.rom.mu_space[Stage.OFFLINE])
+
+    def evaluate_online(self, params, rnd=None):
+        """The ROM and S-ROM on ``params["num"]`` fresh μ from the
+        Mach-stratified sampler against the FOM solved for each, in the
+        compute dtype (``fom.solve()``)."""
+        self.online_params = params
+        space = self.rom.build_sampling_space(num=params["num"], rnd=rnd)
+        self._evaluate(which=Stage.ONLINE, mu_space=space)
+
+    def _evaluate(self, which, mu_space=None):
+        """Per μ: ``solve`` on the ROM and the S-ROM (each solution
+        pickled as ``solutions_{rom,srom}_<N>_<which>_<idx>``), the FOM
+        truth, and from the fetched numpy trajectories the per-step RMS
+        errors of both against it and the S-ROM estimator
+        ‖V_srom·(u_srom − pad(u_N))‖₂/√Nh
+        (``utils.numeric.compute_rom_difference`` for every step at once);
+        then :meth:`_postprocess_mu`. ``errors[which]`` maps each μ index
+        to its ``estimator``, ``rom`` and ``sacrificial`` series (the ROM's
+        exact-solution errors instead where the FOM has an exact
+        solution); ``errors[f"{which}-vs-fom"]`` always the former."""
+        fom, rom, srom = self.fom, self.rom, self.srom
+        rom_fom_errors = dict()
+        for mu in list(mu_space):
+            idx_mu = rom.solve(mu=mu, step=which)
+            srom.solve(mu=mu, step=which)
+            rom.solutions.to_pickle(f"solutions_rom_{rom.N}_{which}_{idx_mu}")
+            srom.solutions.to_pickle(
+                f"solutions_srom_{srom.N}_{which}_{idx_mu}")
+            if which == Stage.VALIDATION:
+                uh_fom = self.validation_solutions[idx_mu]
+            else:
+                fom.setup()
+                fom.update_parametrization(mu)
+                fom.solve()
+                uh_fom = fom.solutions.fom
+            uh_fom = np.asarray(uh_fom)
+            V_srom = np.asarray(srom.basis)
+            uN, uN_srom = rom.solutions.rom, srom.solutions.rom
+            diff = np.array(uN_srom, np.float64)
+            diff[:uN.shape[0]] -= uN
+            rom_fom_errors[idx_mu] = {
+                Errors.ESTIMATOR: (np.linalg.norm(V_srom @ diff, axis=0)
+                                   / np.sqrt(V_srom.shape[0])),
+                Errors.ROM: _rms_columns(uh_fom - rom.solutions.fom),
+                Errors.SACRIFICIAL: _rms_columns(uh_fom
+                                                 - srom.solutions.fom),
+            }
+            self._postprocess_mu(which, idx_mu, mu, uh_fom)
+        if fom.exact_solution is None:
+            self.errors[which] = rom_fom_errors
+        else:
+            self.errors[which] = dict(rom.errors)
+        self.errors[f"{which}-vs-fom"] = rom_fom_errors
+
+    def _postprocess_mu(self, which, idx_mu, mu, uh_fom):
+        """Hook: the piston's probe and mass-conservation reports."""
+        pass
+
+    # ------------------------------------------------------------------
+    # DEIM evaluation and the reports (reference hrom.py:166-197,
+    # :1261-1368)
+    # ------------------------------------------------------------------
+    def evaluate_deim(self):
+        """Every trained reductor's interpolation error on the offline μ
+        (each reductor's ``errors_rom``)."""
+        mu_space = self.mu_space[Stage.OFFLINE]
+        for obj in (self.deim_rhs, self.mdeim_mass, self.mdeim_stiffness,
+                    self.mdeim_convection, self.mdeim_trilinear_lifting,
+                    self.mdeim_trilinear):
+            if obj is not None:
+                self.evaluate_deim_model(object=obj, mu_space=mu_space)
+
+    def dump_validation_fom(self, path=None):
+        dump_pickle(path or StorageNames.VALIDATION_SOLUTIONS,
+                    self.validation_solutions)
+
+    def dump_errors(self, which, path=None):
+        """``errors_<which>.csv`` in ``path`` (default the working
+        directory): the reference's ``DataFrame(errors[which])``, a column
+        per μ index and a row per error series, each cell its series as
+        numpy prints it."""
+        if which not in self.errors:
+            raise Warning(f"These errors ({which}) have not been computed "
+                          "yet.")
+        errors = self.errors[which]
+        rows = list(dict.fromkeys(k for v in errors.values() for k in v))
+        write_table(os.path.join(path or ".", f"errors_{which}.csv"),
+                    {idx: [v.get(r, np.nan) for r in rows]
+                     for idx, v in errors.items()}, rows)
+
+    def dump_errors_deim(self, path=None):
+        """``errors_deim_<operator>.csv`` for every operator of
+        ``summary_errors_deim`` with errors: a column per μ index, a row
+        per time."""
+        for operator, errors in self.summary_errors_deim.items():
+            if errors:
+                dump_csv(os.path.join(path or ".", "errors_deim_"
+                                      f"{operator.lower()}.csv"), errors)
+
+    def dump_setup(self, path):
+        """The configuration as JSON (``StorageNames.SETUP`` without a
+        path): the FOM's domain, the μ box's distributions, the ROM, DEIM
+        and MDEIM parameters (without their time grids) and the online
+        evaluation's."""
+        def without_ts(params):
+            return {k: v for k, v in params.items() if k != RomParameters.TS}
+
+        dump_json(path or StorageNames.SETUP, {
+            "fom_params": self.fom_params.get("domain"),
+            "mu_space": self.fom_params.get("grid_params"),
+            "rom_params": self.rom_params,
+            "deim_params": without_ts(self.deim_params),
+            "mdeim_params": without_ts(self.mdeim_params),
+            "online_params": self.online_params})
+
+    def generate_summary(self):
+        """The build's summaries, as dicts of columns with their row
+        labels under ``"index"`` where the reference builds DataFrames
+        (a stated departure, as ``Reductor.create_errors_summary``):
+        ``summary_basis`` (a row per basis: the reduced basis, the
+        trilinear N-MDEIM's and each trained reductor's, columns the
+        tree walk's and the final basis size), ``summary_errors`` (a row
+        per μ of the ROM's exact-solution errors: mean, median, max,
+        min); ``summary_sigmas``, ``summary_energy``,
+        ``summary_errors_deim`` and ``mu_space_deim`` per operator."""
+        basis = self._summary_basis
+        sig, energy = self.summary_sigmas, self.summary_energy
+        report = self.rom.report[Stage.OFFLINE]
+        WALK, FINAL = Treewalk.BASIS_AFTER_WALK, Treewalk.BASIS_FINAL
+        SPECTRUM, ENERGY = Treewalk.SPECTRUM_MU, Treewalk.ENERGY_MU
+        RB, TRI = OperatorType.REDUCED_BASIS, OperatorType.TRILINEAR
+        basis[RB][WALK] = report[WALK]
+        basis[RB][FINAL] = report[FINAL]
+        sig[RB][SPECTRUM] = report[SPECTRUM]
+        energy[RB][ENERGY] = report[ENERGY]
+        basis[TRI][WALK] = report[TreewalkNonlinear.BASIS_AFTER_WALK]
+        basis[TRI][FINAL] = report[TreewalkNonlinear.BASIS_FINAL]
+        sig[TRI][SPECTRUM] = report[TreewalkNonlinear.SPECTRUM_MU]
+        energy[TRI][ENERGY] = report[TreewalkNonlinear.ENERGY_MU]
+        for operator in (self.deim_rhs, self.mdeim_mass,
+                         self.mdeim_stiffness, self.mdeim_convection,
+                         self.mdeim_trilinear_lifting):
+            if operator is not None:
+                self.generate_operator_summary(
+                    operator, basis=basis, sigma=sig, energy=energy,
+                    errors_deim=self.summary_errors_deim,
+                    mu_space_deim=self.mu_space_deim)
+        self.summary_basis = {"index": list(basis), **{
+            col: [basis[name].get(col) for name in basis]
+            for col in (WALK, FINAL)}}
+        reducers = dict(zip(SUMMARY_COLUMNS,
+                            (np.mean, np.median, np.max, np.min)))
+        index = list(self.rom.errors)
+        self.summary_errors = {"index": index, **{
+            col: [float(fn(self.rom.errors[i])) for i in index]
+            for col, fn in reducers.items()}}
+
+    @staticmethod
+    def generate_operator_summary(operator, basis, sigma, energy, errors_deim,
+                                  mu_space_deim):
+        """One reductor's rows of the summaries (reference
+        hrom.py:1351-1366)."""
+        WALK, FINAL = Treewalk.BASIS_AFTER_WALK, Treewalk.BASIS_FINAL
+        name = operator.name
+        report = operator.report[Stage.OFFLINE]
+        basis[name][WALK] = report[WALK]
+        basis[name][FINAL] = report[FINAL]
+        sigma[name][Treewalk.SPECTRUM_MU] = report[Treewalk.SPECTRUM_MU]
+        energy[name][Treewalk.ENERGY_MU] = report[Treewalk.ENERGY_MU]
+        errors_deim[name] = dict(operator.errors_rom)
+        mu_space_deim[name] = operator.mu_space
+
+    # ------------------------------------------------------------------
+    # S-ROM certification (reference hrom.py:1149-1258)
+    # ------------------------------------------------------------------
+    def estimate_batch(self, mus, step=Stage.ONLINE, engine=None):
+        """Batched S-ROM certification (reference ``hrom.py:1149-1217``):
+        one lanes sweep per ROM in ``mode="reduced"``, in the compute dtype
+        (float64 under ``compute_dtype_scope``, as the reference certifies
+        with x64 on).
+
+        ``engine="windowed"``: both sweeps on the windowed lanes engine,
+        the second with ``windows_srom`` swapped in as the active windows
+        (restored after, whatever happens); Nh is the windows' row count.
+        Otherwise ``rom`` and ``srom`` each serve ``solve_batch(mode=
+        "reduced")``, which resolves to the global lanes engine; Nh is the
+        S-ROM basis's row count.
+
+        Returns ``estimator`` (B, nt) and ``average`` (B,) (trapezoid time
+        averages, each over its μ's own clock on registered windows) as
+        numpy, and the two sweeps' raw outputs under ``"rom"``
+        and ``"srom"`` as their (nt, …, B) device tensors (the reference
+        returns them batch-first on the host; here only the estimator
+        crosses to the host)."""
+        rom = self.rom
+        if engine == "windowed":
+            if rom.windows is None or self.windows_srom is None:
+                raise ValueError("windowed estimation needs the ROM's windows "
+                                 "and the nested S-ROM windows "
+                                 "(windows_srom)")
+            out_rom = rom.solve_batch(mus, step=step, mode="reduced",
+                                      engine="windowed", host=False)
+            serving = rom.windows
+            rom._set_serving_windows(self.windows_srom)
+            try:
+                out_srom = rom.solve_batch(mus, step=step, mode="reduced",
+                                           engine="windowed", host=False)
+            finally:
+                rom._set_serving_windows(serving)
+            Nh = np.asarray(serving.Vs).shape[1]
+        else:
+            if self.srom is None:
+                raise ValueError("global estimation needs the S-ROM serving "
+                                 "object (srom)")
+            out_rom = rom.solve_batch(mus, step=step, mode="reduced",
+                                      host=False)
+            out_srom = self.srom.solve_batch(mus, step=step, mode="reduced",
+                                             host=False)
+            Nh = np.asarray(self.srom.global_serving.basis).shape[0]
+
+        uN = out_rom["uN"]                          # (nt, N, B)
+        diff = out_srom["uN"].clone()               # (nt, N̂, B)
+        diff[:, :uN.shape[1]] -= uN
+        estimator = (torch.linalg.vector_norm(diff, dim=1)
+                     / np.sqrt(Nh)).T.cpu().numpy()  # (B, nt)
+        ts = out_rom["t"].cpu().numpy()
+        if ts.ndim == 2:
+            # Registered windows: each lane on its own dilated clock
+            # (nt, B). The reference broadcasts every lane's clock against
+            # each series there and returns a (B, B) average; each μ is
+            # averaged over its own clock here.
+            average = np.array([time_average(ts[:, b], e)
+                                for b, e in enumerate(estimator)])
+        else:
+            average = np.array([time_average(ts, e) for e in estimator])
+        self.errors[f"{step}-estimator"] = {
+            idx: estimator[idx] for idx in range(len(mus))}
+        return {Errors.ESTIMATOR: estimator,
+                Errors.AVERAGE_ESTIMATOR: average,
+                "rom": out_rom, "srom": out_srom}
+
+
+class HyperReducedOrderModelMoving(HyperReducedOrderModelFixed):
+    """The heat driver on the moving domain: adds the convection MDEIM
+    (reference ``hrom.py:1369-1422``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.deim_moving_runned = False
+
+    def _create_fom(self):
+        fp = self.fom_params
+        return HeatEquationMovingSolver(**self._fom_kwargs(), Lt=fp.get("Lt"),
+                                        dLt_dt=fp.get("dLt_dt"))
+
+    def _create_rom(self, fom, name="ROM"):
+        return RomConstructorMoving(fom=fom, grid=self.grid, name=name,
+                                    device=self.device)
+
+    def setup_hyperreduction(self):
+        super().setup_hyperreduction()
+        self.mdeim_convection = MatrixDiscreteEmpiricalInterpolation(
+            name=OperatorType.CONVECTION,
+            assemble=self.fom.assemble_convection, grid=self.grid,
+            tree_walk_params=self.mdeim_params)
+        self.mdeim_convection.setup(rnd=self.rnd)
+
+    def run_offline_hyperreduction(self, mu_space=None, evaluate=True):
+        super().run_offline_hyperreduction(mu_space=mu_space,
+                                           evaluate=evaluate)
+        if self.models.get(OperatorType.CONVECTION):
+            self._run_mdeim(object=self.mdeim_convection, mu_space=mu_space,
+                            evaluate=evaluate, which=OperatorType.CONVECTION)
+        self.deim_moving_runned = True
+
+    def _resume_reductors(self):
+        deims, operators = super()._resume_reductors()
+        self.mdeim_convection.load_fom_basis()
+        return (deims + [self.mdeim_convection],
+                operators + [OperatorType.CONVECTION])
+
+
+class HyperReducedPiston(HyperReducedOrderModelFixed):
+    """The full nonlinear pipeline (reference ``hrom.py:1425-1650``): the
+    base driver's machinery with the RHS-DEIM, the mass, stiffness,
+    convection and nonlinear-lifting MDEIM and the trilinear N-MDEIM,
+    the piston's reports and the μ-local fleet build."""
+
+    def __init__(self, grid: dict, fom_params: dict, rom_params: dict,
+                 deim_params: dict, mdeim_params: dict,
+                 mdeim_nonlinear_params: dict = None, models: dict = None,
+                 rnd=None, device="cuda") -> None:
+        super().__init__(grid=grid, fom_params=fom_params,
+                         rom_params=rom_params, deim_params=deim_params,
+                         mdeim_params=mdeim_params, models=models, rnd=rnd,
+                         device=device)
+        self.mdeim_nonlinear_params = dict(mdeim_nonlinear_params or {})
+        self.deim_moving_runned = False
+
+    def dump_nonlinear_basis(self, path=None):
+        dump_pickle(f"basis_fom_n-mdeim_{OperatorType.TRILINEAR}.pkl",
+                    np.asarray(self.srom.basis_nonlinear))
+
+    # ------------------------------------------------------------------
+    # Setup (reference hrom.py:1452-1510)
+    # ------------------------------------------------------------------
+    def _create_fom(self):
+        fp = self.fom_params
+        return OneDimensionalBurgers(**self._fom_kwargs(), Lt=fp.get("Lt"),
+                                     dLt_dt=fp.get("dLt_dt"))
+
+    def _create_rom(self, fom, name="ROM"):
+        return RomConstructorNonlinear(fom=fom, grid=self.grid, name=name,
+                                       device=self.device)
+
+    def setup_hyperreduction(self):
+        """The RHS-DEIM, the mass, stiffness, convection and
+        nonlinear-lifting MDEIM and the trilinear and nonlinear N-MDEIM,
+        each with its topology probed."""
+        fom, grid = self.fom, self.grid
+        lin, nl = self.mdeim_params, self.mdeim_nonlinear_params
+        MDEIM = MatrixDiscreteEmpiricalInterpolation
+        NMDEIM = MatrixDiscreteEmpiricalInterpolationNonlinear
+        self.deim_rhs = DiscreteEmpiricalInterpolation(
+            name="RHS", assemble=fom.assemble_rhs, grid=grid,
+            tree_walk_params=self.deim_params)
+        self.mdeim_mass = MDEIM(name="Mass", assemble=fom.assemble_mass,
+                                grid=grid, tree_walk_params=lin)
+        self.mdeim_stiffness = MDEIM(
+            name="Stiffness", assemble=fom.assemble_stiffness, grid=grid,
+            tree_walk_params=lin)
+        self.mdeim_convection = MDEIM(
+            name=OperatorType.CONVECTION, assemble=fom.assemble_convection,
+            grid=grid, tree_walk_params=lin)
+        self.mdeim_trilinear_lifting = MDEIM(
+            name=OperatorType.NONLINEAR_LIFTING,
+            assemble=fom.assemble_nonlinear_lifting, grid=grid,
+            tree_walk_params=lin)
+        self.mdeim_trilinear = NMDEIM(
+            name=OperatorType.TRILINEAR, assemble=fom.assemble_trilinear,
+            grid=grid, tree_walk_params=nl)
+        self.mdeim_nonlinear = NMDEIM(
+            name=OperatorType.NONLINEAR, assemble=fom.assemble_nonlinear,
+            grid=grid, tree_walk_params=nl)
+        for obj in (self.deim_rhs, self.mdeim_mass, self.mdeim_stiffness,
+                    self.mdeim_convection, self.mdeim_trilinear_lifting,
+                    self.mdeim_trilinear, self.mdeim_nonlinear):
+            obj.setup(rnd=self.rnd)
+
+    def run_offline_hyperreduction(self, mu_space=None, u_n=None,
+                                   evaluate=True):
+        """The collateral bases: stiffness, mass, RHS, convection, the
+        nonlinear lifting, then the trilinear N-MDEIM (its basis the
+        FOM-captured nonlinear snapshots' when the S-ROM has one)."""
+        for which, obj, run in (
+                (OperatorType.STIFFNESS, self.mdeim_stiffness,
+                 self._run_mdeim),
+                (OperatorType.MASS, self.mdeim_mass, self._run_mdeim),
+                (OperatorType.RHS, self.deim_rhs, self._run_deim),
+                (OperatorType.CONVECTION, self.mdeim_convection,
+                 self._run_mdeim),
+                (OperatorType.NONLINEAR_LIFTING,
+                 self.mdeim_trilinear_lifting, self._run_mdeim)):
+            if self.models.get(which):
+                run(object=obj, which=which, evaluate=evaluate,
+                    mu_space=mu_space)
+        if self.models.get(OperatorType.TRILINEAR):
+            self._run_mdeim_nonlinear(
+                object=self.mdeim_trilinear, mu_space=mu_space,
+                evaluate=evaluate, which=OperatorType.TRILINEAR,
+                u_n=self.basis if u_n is None else u_n,
+                basis=self.srom.basis_nonlinear)
+        self.deim_runned = True
+
+    def _run_mdeim_nonlinear(self, object, u_n, which, mu_space,
+                             evaluate=False, basis=None):
+        """Train the N-MDEIM, or adopt ``basis`` (the FOM-captured
+        nonlinear basis) kept to ``NMDEIM_SIZE`` columns; either is
+        pickled (reference ``hrom.py:1548-1569``)."""
+        t0 = time.perf_counter()
+        if basis is None:
+            object.run(u_n=u_n, mu_space=mu_space)
+            object.dump_fom_basis()
+            if evaluate:
+                self.evaluate_deim_model(object=object, mu_space=mu_space)
+        else:
+            object.u_n = None if u_n is None else np.asarray(u_n)
+            if object.u_n is not None and object.u_n.ndim == 1:
+                object.u_n = object.u_n.reshape((-1, 1))
+            object.load_fom_basis(
+                basis=basis,
+                keep=self.rom_params.get(RomParameters.NMDEIM_SIZE))
+            object.dump_fom_basis()
+        self.build_seconds[object.name] = time.perf_counter() - t0
+        for rom in (self.rom, self.srom):
+            rom.add_hyper_reductor(reductor=object, which=which)
+
+    # ------------------------------------------------------------------
+    # μ-local serving build (reference hrom.py:378-760)
+    # ------------------------------------------------------------------
     def auto_cell_wn(self, candidates, target_floor, overlap=2, margin=1.0,
                      path=None, expect_n_cells=None, expect_edges=None):
         """Per-cell (W, N) from the persisted training trajectories
@@ -883,44 +1299,8 @@ class HyperReducedPiston:
         np.savez(StorageNames.MULOCAL_SNAPSHOTS, **payload)
 
     # ------------------------------------------------------------------
-    # Resume (reference hrom.py:1000-1058, :1571-1586)
+    # Resume and evaluation (reference hrom.py:1571-1650)
     # ------------------------------------------------------------------
-    def start_from_existing_basis(self):
-        """Resume from the working directory's dumps: the μ space, the
-        S-ROM basis (kept to ``SROM_KEEP``) truncated into the ROM, every
-        reductor's collateral basis, and the windowed configurations and
-        offline snapshots where they were persisted."""
-        from .windowed import MuLocalWindowed, WindowedServing
-
-        self.load_validation_fom()
-        try:
-            mu_space = read_json(StorageNames.MU_SPACE)
-        except FileNotFoundError:
-            mu_space = {Stage.OFFLINE: list(), Stage.ONLINE: list(),
-                        Stage.VALIDATION: list()}
-        basis_srom = read_pickle(StorageNames.SROM)
-        N_srom = self.rom_params.get(RomParameters.SROM_KEEP)
-        if N_srom is not None:
-            basis_srom = basis_srom[:, :N_srom]
-        self.srom.load_from_basis(basis=basis_srom, mu_space=mu_space)
-        self.rom = self.srom.truncate(
-            self.rom_params[RomParameters.SROM_TRUNCATE])
-
-        for reductor, which in zip(*self._resume_reductors()):
-            for _rom in (self.rom, self.srom):
-                _rom.add_hyper_reductor(reductor=reductor, which=which)
-
-        if os.path.exists(StorageNames.WINDOWS):
-            self.rom._set_serving_windows(
-                WindowedServing.load(StorageNames.WINDOWS))
-        if os.path.exists(StorageNames.WINDOWS_SROM):
-            self.windows_srom = WindowedServing.load(
-                StorageNames.WINDOWS_SROM)
-        if os.path.exists(StorageNames.WINDOWS_MULOCAL):
-            self.rom.mulocal = MuLocalWindowed.load(
-                StorageNames.WINDOWS_MULOCAL)
-        self.load_offline_snapshots()
-
     def _resume_reductors(self):
         """Every reductor's collateral basis from its pickle (the
         trilinear N-MDEIM kept to ``NMDEIM_SIZE``)."""
@@ -934,71 +1314,6 @@ class HyperReducedPiston:
                 [OperatorType.RHS, OperatorType.MASS, OperatorType.STIFFNESS,
                  OperatorType.CONVECTION, OperatorType.NONLINEAR_LIFTING,
                  OperatorType.TRILINEAR])
-
-    # ------------------------------------------------------------------
-    # Evaluation (reference hrom.py:1060-1147, :1588-1650)
-    # ------------------------------------------------------------------
-    def solve(self, mu, step):
-        self.rom.solve(mu, step)
-
-    def evaluate_validation(self):
-        """The ROM and S-ROM on the offline μ against the FOM
-        trajectories of the build (``validation_solutions``)."""
-        self._evaluate(which=Stage.VALIDATION,
-                       mu_space=self.rom.mu_space[Stage.OFFLINE])
-
-    def evaluate_online(self, params, rnd=None):
-        """The ROM and S-ROM on ``params["num"]`` fresh μ from the
-        Mach-stratified sampler against the FOM solved for each, in the
-        compute dtype (``fom.solve()``)."""
-        self.online_params = params
-        space = self.rom.build_sampling_space(num=params["num"], rnd=rnd)
-        self._evaluate(which=Stage.ONLINE, mu_space=space)
-
-    def _evaluate(self, which, mu_space=None):
-        """Per μ: ``solve`` on the ROM and the S-ROM (each solution
-        pickled as ``solutions_{rom,srom}_<N>_<which>_<idx>``), the FOM
-        truth, and from the fetched numpy trajectories the per-step RMS
-        errors of both against it and the S-ROM estimator
-        ‖V_srom·(u_srom − pad(u_N))‖₂/√Nh
-        (``utils.numeric.compute_rom_difference`` for every step at once);
-        then :meth:`_postprocess_mu`. ``errors[which]`` maps each μ index
-        to its ``estimator``, ``rom`` and ``sacrificial`` series (the ROM's
-        exact-solution errors instead where the FOM has an exact
-        solution); ``errors[f"{which}-vs-fom"]`` always the former."""
-        fom, rom, srom = self.fom, self.rom, self.srom
-        rom_fom_errors = dict()
-        for mu in list(mu_space):
-            idx_mu = rom.solve(mu=mu, step=which)
-            srom.solve(mu=mu, step=which)
-            rom.solutions.to_pickle(f"solutions_rom_{rom.N}_{which}_{idx_mu}")
-            srom.solutions.to_pickle(
-                f"solutions_srom_{srom.N}_{which}_{idx_mu}")
-            if which == Stage.VALIDATION:
-                uh_fom = self.validation_solutions[idx_mu]
-            else:
-                fom.setup()
-                fom.update_parametrization(mu)
-                fom.solve()
-                uh_fom = fom.solutions.fom
-            uh_fom = np.asarray(uh_fom)
-            V_srom = np.asarray(srom.basis)
-            uN, uN_srom = rom.solutions.rom, srom.solutions.rom
-            diff = np.array(uN_srom, np.float64)
-            diff[:uN.shape[0]] -= uN
-            rom_fom_errors[idx_mu] = {
-                Errors.ESTIMATOR: (np.linalg.norm(V_srom @ diff, axis=0)
-                                   / np.sqrt(V_srom.shape[0])),
-                Errors.ROM: _rms_columns(uh_fom - rom.solutions.fom),
-                Errors.SACRIFICIAL: _rms_columns(uh_fom
-                                                 - srom.solutions.fom),
-            }
-            self._postprocess_mu(which, idx_mu, mu, uh_fom)
-        if fom.exact_solution is None:
-            self.errors[which] = rom_fom_errors
-        else:
-            self.errors[which] = dict(rom.errors)
-        self.errors[f"{which}-vs-fom"] = rom_fom_errors
 
     def _postprocess_mu(self, which, idx_mu, mu, uh_fom):
         """The piston's reports of one evaluated μ (reference
@@ -1051,189 +1366,6 @@ class HyperReducedPiston:
             _write_indexed("_".join([loc, name]), table)
         return outflow, half
 
-    # ------------------------------------------------------------------
-    # DEIM evaluation and the reports (reference hrom.py:166-197,
-    # :1261-1368)
-    # ------------------------------------------------------------------
-    def evaluate_deim(self):
-        """Every trained reductor's interpolation error on the offline μ
-        (each reductor's ``errors_rom``)."""
-        mu_space = self.mu_space[Stage.OFFLINE]
-        for obj in (self.deim_rhs, self.mdeim_mass, self.mdeim_stiffness,
-                    self.mdeim_convection, self.mdeim_trilinear_lifting,
-                    self.mdeim_trilinear):
-            if obj is not None:
-                self.evaluate_deim_model(object=obj, mu_space=mu_space)
-
-    def dump_validation_fom(self, path=None):
-        dump_pickle(path or StorageNames.VALIDATION_SOLUTIONS,
-                    self.validation_solutions)
-
-    def dump_errors(self, which, path=None):
-        """``errors_<which>.csv`` in ``path`` (default the working
-        directory): the reference's ``DataFrame(errors[which])``, a column
-        per μ index and a row per error series, each cell its series as
-        numpy prints it."""
-        if which not in self.errors:
-            raise Warning(f"These errors ({which}) have not been computed "
-                          "yet.")
-        errors = self.errors[which]
-        rows = list(dict.fromkeys(k for v in errors.values() for k in v))
-        write_table(os.path.join(path or ".", f"errors_{which}.csv"),
-                    {idx: [v.get(r, np.nan) for r in rows]
-                     for idx, v in errors.items()}, rows)
-
-    def dump_errors_deim(self, path=None):
-        """``errors_deim_<operator>.csv`` for every operator of
-        ``summary_errors_deim`` with errors: a column per μ index, a row
-        per time."""
-        for operator, errors in self.summary_errors_deim.items():
-            if errors:
-                dump_csv(os.path.join(path or ".", "errors_deim_"
-                                      f"{operator.lower()}.csv"), errors)
-
-    def dump_setup(self, path):
-        """The configuration as JSON (``StorageNames.SETUP`` without a
-        path): the FOM's domain, the μ box's distributions, the ROM, DEIM
-        and MDEIM parameters (without their time grids) and the online
-        evaluation's."""
-        def without_ts(params):
-            return {k: v for k, v in params.items() if k != RomParameters.TS}
-
-        dump_json(path or StorageNames.SETUP, {
-            "fom_params": self.fom_params.get("domain"),
-            "mu_space": self.fom_params.get("grid_params"),
-            "rom_params": self.rom_params,
-            "deim_params": without_ts(self.deim_params),
-            "mdeim_params": without_ts(self.mdeim_params),
-            "online_params": self.online_params})
-
-    def generate_summary(self):
-        """The build's summaries, as dicts of columns with their row
-        labels under ``"index"`` where the reference builds DataFrames
-        (a stated departure, as ``Reductor.create_errors_summary``):
-        ``summary_basis`` (a row per basis: the reduced basis, the
-        trilinear N-MDEIM's and each trained reductor's, columns the
-        tree walk's and the final basis size), ``summary_errors`` (a row
-        per μ of the ROM's exact-solution errors: mean, median, max,
-        min); ``summary_sigmas``, ``summary_energy``,
-        ``summary_errors_deim`` and ``mu_space_deim`` per operator."""
-        basis = self._summary_basis
-        sig, energy = self.summary_sigmas, self.summary_energy
-        report = self.rom.report[Stage.OFFLINE]
-        WALK, FINAL = Treewalk.BASIS_AFTER_WALK, Treewalk.BASIS_FINAL
-        SPECTRUM, ENERGY = Treewalk.SPECTRUM_MU, Treewalk.ENERGY_MU
-        RB, TRI = OperatorType.REDUCED_BASIS, OperatorType.TRILINEAR
-        basis[RB][WALK] = report[WALK]
-        basis[RB][FINAL] = report[FINAL]
-        sig[RB][SPECTRUM] = report[SPECTRUM]
-        energy[RB][ENERGY] = report[ENERGY]
-        basis[TRI][WALK] = report[TreewalkNonlinear.BASIS_AFTER_WALK]
-        basis[TRI][FINAL] = report[TreewalkNonlinear.BASIS_FINAL]
-        sig[TRI][SPECTRUM] = report[TreewalkNonlinear.SPECTRUM_MU]
-        energy[TRI][ENERGY] = report[TreewalkNonlinear.ENERGY_MU]
-        for operator in (self.deim_rhs, self.mdeim_mass,
-                         self.mdeim_stiffness, self.mdeim_convection,
-                         self.mdeim_trilinear_lifting):
-            if operator is not None:
-                self.generate_operator_summary(
-                    operator, basis=basis, sigma=sig, energy=energy,
-                    errors_deim=self.summary_errors_deim,
-                    mu_space_deim=self.mu_space_deim)
-        self.summary_basis = {"index": list(basis), **{
-            col: [basis[name].get(col) for name in basis]
-            for col in (WALK, FINAL)}}
-        reducers = dict(zip(SUMMARY_COLUMNS,
-                            (np.mean, np.median, np.max, np.min)))
-        index = list(self.rom.errors)
-        self.summary_errors = {"index": index, **{
-            col: [float(fn(self.rom.errors[i])) for i in index]
-            for col, fn in reducers.items()}}
-
-    @staticmethod
-    def generate_operator_summary(operator, basis, sigma, energy, errors_deim,
-                                  mu_space_deim):
-        """One reductor's rows of the summaries (reference
-        hrom.py:1351-1366)."""
-        WALK, FINAL = Treewalk.BASIS_AFTER_WALK, Treewalk.BASIS_FINAL
-        name = operator.name
-        report = operator.report[Stage.OFFLINE]
-        basis[name][WALK] = report[WALK]
-        basis[name][FINAL] = report[FINAL]
-        sigma[name][Treewalk.SPECTRUM_MU] = report[Treewalk.SPECTRUM_MU]
-        energy[name][Treewalk.ENERGY_MU] = report[Treewalk.ENERGY_MU]
-        errors_deim[name] = dict(operator.errors_rom)
-        mu_space_deim[name] = operator.mu_space
-
-    # ------------------------------------------------------------------
-    # S-ROM certification (reference hrom.py:1149-1258)
-    # ------------------------------------------------------------------
-    def estimate_batch(self, mus, step=Stage.ONLINE, engine=None):
-        """Batched S-ROM certification (reference ``hrom.py:1149-1217``):
-        one lanes sweep per ROM in ``mode="reduced"``, in the compute dtype
-        (float64 under ``compute_dtype_scope``, as the reference certifies
-        with x64 on).
-
-        ``engine="windowed"``: both sweeps on the windowed lanes engine,
-        the second with ``windows_srom`` swapped in as the active windows
-        (restored after, whatever happens); Nh is the windows' row count.
-        Otherwise ``rom`` and ``srom`` each serve ``solve_batch(mode=
-        "reduced")``, which resolves to the global lanes engine; Nh is the
-        S-ROM basis's row count.
-
-        Returns ``estimator`` (B, nt) and ``average`` (B,) (trapezoid time
-        averages, each over its μ's own clock on registered windows) as
-        numpy, and the two sweeps' raw outputs under ``"rom"``
-        and ``"srom"`` as their (nt, …, B) device tensors (the reference
-        returns them batch-first on the host; here only the estimator
-        crosses to the host)."""
-        rom = self.rom
-        if engine == "windowed":
-            if rom.windows is None or self.windows_srom is None:
-                raise ValueError("windowed estimation needs the ROM's windows "
-                                 "and the nested S-ROM windows "
-                                 "(windows_srom)")
-            out_rom = rom.solve_batch(mus, step=step, mode="reduced",
-                                      engine="windowed", host=False)
-            serving = rom.windows
-            rom._set_serving_windows(self.windows_srom)
-            try:
-                out_srom = rom.solve_batch(mus, step=step, mode="reduced",
-                                           engine="windowed", host=False)
-            finally:
-                rom._set_serving_windows(serving)
-            Nh = np.asarray(serving.Vs).shape[1]
-        else:
-            if self.srom is None:
-                raise ValueError("global estimation needs the S-ROM serving "
-                                 "object (srom)")
-            out_rom = rom.solve_batch(mus, step=step, mode="reduced",
-                                      host=False)
-            out_srom = self.srom.solve_batch(mus, step=step, mode="reduced",
-                                             host=False)
-            Nh = np.asarray(self.srom.global_serving.basis).shape[0]
-
-        uN = out_rom["uN"]                          # (nt, N, B)
-        diff = out_srom["uN"].clone()               # (nt, N̂, B)
-        diff[:, :uN.shape[1]] -= uN
-        estimator = (torch.linalg.vector_norm(diff, dim=1)
-                     / np.sqrt(Nh)).T.cpu().numpy()  # (B, nt)
-        ts = out_rom["t"].cpu().numpy()
-        if ts.ndim == 2:
-            # Registered windows: each lane on its own dilated clock
-            # (nt, B). The reference broadcasts every lane's clock against
-            # each series there and returns a (B, B) average; each μ is
-            # averaged over its own clock here.
-            average = np.array([time_average(ts[:, b], e)
-                                for b, e in enumerate(estimator)])
-        else:
-            average = np.array([time_average(ts, e) for e in estimator])
-        self.errors[f"{step}-estimator"] = {
-            idx: estimator[idx] for idx in range(len(mus))}
-        return {Errors.ESTIMATOR: estimator,
-                Errors.AVERAGE_ESTIMATOR: average,
-                "rom": out_rom, "srom": out_srom}
-
     def estimate_batch_mulocal(self, mus, step=Stage.ONLINE):
         """S-ROM certification of the μ-local fleet (reference
         ``hrom.py:1219-1258``): each μ is routed to its Mach cell
@@ -1266,4 +1398,3 @@ class HyperReducedPiston:
         self.errors[f"{step}-estimator"] = {
             idx: merged[Errors.ESTIMATOR][idx] for idx in range(len(mus))}
         return merged
-

@@ -1,5 +1,11 @@
-"""The piston ROM (counterpart of ``romtime_tpu/rom/rom.py``'s
-``RomConstructorNonlinear``): its offline build and its serving.
+"""The reduced-order models (counterpart of ``romtime_tpu/rom/rom.py``):
+:class:`RomConstructor`, the base (fixed-domain heat) family,
+:class:`RomConstructorMoving`, which adds the ALE convection, and
+:class:`RomConstructorNonlinear`, the piston ROM, which adds the
+nonlinear lifting and the trilinear term. Each family has its own θ
+sources (``SOURCES``), its own reduced-assembly fallbacks
+(``FALLBACKS``: the base family's right-hand side is forcing plus
+lifting, the piston's the lifting alone) and its own system parts.
 
 **Build** (the reference's form ``RomConstructorNonlinear(fom=…,
 grid=…, name=…)``, ``device`` the card unless the caller says
@@ -105,7 +111,8 @@ from .engines.windowed_lanes import (
 
 #: θ source name → (reductor class, FOM assembly method), in the
 #: reference's ``_theta_sources`` order (rom.py:525, :1277, :1421), which
-#: fixes the stiffness-side row order of the θ tables.
+#: fixes the stiffness-side row order of the θ tables. Every family's
+#: sources are the leading ones of this order (``SOURCES``).
 THETA_SOURCES = {
     "mass": (MatrixDiscreteEmpiricalInterpolation, "assemble_mass"),
     "stiffness": (MatrixDiscreteEmpiricalInterpolation,
@@ -123,8 +130,9 @@ SOURCE_ATTRS = {"mass": "mdeim_Mh", "stiffness": "mdeim_Ah",
                 "nonlinear_lifting": "mdeim_Nh_hat"}
 
 #: θ source name → the reduced assembly that stands in for its reductor
-#: where none is attached (reference ``rom.py:525-534``, ``:1277-1280``,
-#: ``:1421-1427``): the FOM operator projected onto the basis.
+#: where none is attached, the piston's (reference ``rom.py:1421-1427``):
+#: the FOM operator projected onto the basis. The base family's
+#: right-hand side is ``assemble_rhs`` (``:525-534``).
 FALLBACKS = {"mass": "assemble_mass", "stiffness": "assemble_stiffness",
              "rhs_vec": "assemble_lifting",
              "convection": "assemble_convection",
@@ -143,14 +151,15 @@ REDUCTOR_ATTRS = {
 
 
 def make_reductors(fom, dofs, reduced=None):
-    """Serving reductors bound to ``fom`` from per-source dofs;
-    ``reduced`` maps a source name to its optional ``PT_U`` and
-    ``basis_rom`` (the global basis's float64 θ-solve)."""
+    """Serving reductors bound to ``fom`` from per-source dofs (the
+    sources ``dofs`` names, in :data:`THETA_SOURCES` order); ``reduced``
+    maps a source name to its optional ``PT_U`` and ``basis_rom`` (the
+    global basis's float64 θ-solve)."""
     reduced = reduced or {}
     return {
         name: cls(assemble=getattr(fom, method), dofs=dofs[name], name=name,
                   **reduced.get(name, {}))
-        for name, (cls, method) in THETA_SOURCES.items()
+        for name, (cls, method) in THETA_SOURCES.items() if name in dofs
     }
 
 
@@ -166,25 +175,33 @@ def grid_box(grid):
     return box
 
 
-class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
-                              PrecomputePolicy, SolvePolicy, Reductor):
-    """The piston ROM on one device (the card unless ``device`` says
-    otherwise).
+class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
+                     Reductor):
+    """The base (fixed-domain heat) ROM on one device (the card unless
+    ``device`` says otherwise; reference ``rom.py:75-1267``).
 
     The reductors sit in the reference's attributes (``mdeim_Mh``,
-    ``mdeim_Ah``, ``deim_rhs``, ``mdeim_Ch``, ``mdeim_Nh_hat``,
-    ``mdeim_Nh``); :attr:`reductors` maps every θ source name of
-    :data:`THETA_SOURCES` to its reductor. ``windows`` is the active
-    :class:`~romtime_tpu_torch.rom.windowed.WindowedServing` and
-    ``global_serving`` the global-basis
+    ``mdeim_Ah``, ``deim_rhs``, and in the subclasses ``mdeim_Ch``,
+    ``mdeim_Nh_hat``, ``mdeim_Nh``); :attr:`reductors` maps every θ
+    source name of the family's ``SOURCES`` to its reductor. ``windows``
+    is the active :class:`~romtime_tpu_torch.rom.windowed.WindowedServing`
+    and ``global_serving`` the global-basis
     :class:`~romtime_tpu_torch.rom.engines.global_fused.GlobalServing`:
     one of them, or both (windows then serve by default, as in the
     reference, and the global basis carries the pivot-free guard).
     ``grid`` is the μ box, name → (lo, hi), that the guard and the auto
     solve policy probe (``sampling_grid`` the distributions the build
-    samples). ``mulocal`` is the attached μ-local fleet
-    (:class:`~romtime_tpu_torch.rom.windowed.MuLocalWindowed`) or None;
-    its cells share the reductors and swap in as the active windows."""
+    samples)."""
+
+    #: θ sources of the family, in the reference's order.
+    SOURCES = ("mass", "stiffness", "rhs_vec")
+    #: θ source → its reduced-assembly fallback (reference rom.py:525-534).
+    FALLBACKS = {"mass": "assemble_mass", "stiffness": "assemble_stiffness",
+                 "rhs_vec": "assemble_rhs"}
+    #: Whether the family has a state-dependent (trilinear) term, which the
+    #: global kernels and the global lanes engine serve only from the
+    #: trilinear state table.
+    STATE_DEPENDENT = False
 
     # The online engines eliminate without pivoting, justified by the
     # M-dominance of K_N = bdf·M_N + dt·S_N; the certifiable proxy is
@@ -199,9 +216,6 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     # forces it. Read by ``_online_scan`` and the global lanes engine.
     COMPENSATED = "auto"
 
-    # Forcing bounds of the stratified sampler (reference rom.py:1296-1298)
-    PISTON_MACH_MIN = 0.15
-    PISTON_MACH_MAX = 0.4
 
     def __init__(self, fom, grid=None, name=None, device="cuda"):
         """The reference's form: ``grid`` maps μ names to distributions
@@ -244,18 +258,18 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     def from_artifacts(cls, fom, reductors, windows=None, device="cuda",
                        global_serving=None, grid=None):
         """A serving object from built artifacts: ``reductors`` maps every
-        θ source name of :data:`THETA_SOURCES` to a serving reductor bound
+        θ source name of the family's ``SOURCES`` to a serving reductor bound
         to ``fom``, ``windows`` and/or ``global_serving`` what it serves,
         ``grid`` the μ box (name → (lo, hi))."""
-        missing = set(THETA_SOURCES) - set(reductors)
+        missing = set(cls.SOURCES) - set(reductors)
         if missing:
             raise ValueError(f"missing θ sources: {sorted(missing)}")
         if windows is None and global_serving is None:
             raise ValueError("a serving object needs windows or a global "
                              "serving configuration")
         rom = cls(fom, grid=grid, device=device)
-        for name, attr in SOURCE_ATTRS.items():
-            setattr(rom, attr, reductors[name])
+        for name in cls.SOURCES:
+            setattr(rom, SOURCE_ATTRS[name], reductors[name])
         rom.global_serving = global_serving
         if global_serving is not None:
             rom.basis = np.asarray(global_serving.basis)
@@ -265,8 +279,8 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     @property
     def reductors(self):
         """θ source name → reductor, in the reference's source order."""
-        return {name: getattr(self, attr)
-                for name, attr in SOURCE_ATTRS.items()}
+        return {name: getattr(self, SOURCE_ATTRS[name])
+                for name in self.SOURCES}
 
     @property
     def global_serving(self):
@@ -299,10 +313,10 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
 
     def _reduction_sources(self):
         """name → (reductor or None, its reduced-assembly fallback), the
-        reference's ``_theta_sources`` (rom.py:525-534, :1421-1427): the
-        single-μ loop and the eager assembly API read the fallback where
-        no reductor is attached."""
-        return {name: (red, getattr(self, FALLBACKS[name]))
+        reference's ``_theta_sources`` (rom.py:525-534, :1277-1280,
+        :1421-1427): the single-μ loop and the eager assembly API read the
+        fallback where no reductor is attached."""
+        return {name: (red, getattr(self, self.FALLBACKS[name]))
                 for name, red in self.reductors.items()}
 
     # ------------------------------------------------------------------
@@ -406,7 +420,12 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
                 red.project_basis(V=self.basis)
         self._reset_serving()
         self._projected = all(getattr(self, attr) is not None
-                              for attr in REDUCTOR_ATTRS.values())
+                              for attr in self._serving_attrs())
+
+    def _serving_attrs(self):
+        """The reductor attributes a global configuration needs: every θ
+        source's."""
+        return [SOURCE_ATTRS[name] for name in self.SOURCES]
 
     # ------------------------------------------------------------------
     # Offline: reduced-basis construction
@@ -537,109 +556,18 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         self._reset_serving()
         return fom_solutions
 
-    # ------------------------------------------------------------------
-    # Mach-stratified sampling (reference rom.py:1308-1348)
-    # ------------------------------------------------------------------
     def build_sampling_space(self, num, rnd=None):
-        """``num`` μ, one per equal-width Mach bin over
-        [PISTON_MACH_MIN, PISTON_MACH_MAX], the first hit of each bin in
-        a stream of 2·10⁴ draws from ``sampling_grid``, sorted by Mach
-        (each tagged with its ``piston_mach``)."""
-        edges = self.compute_piston_mach_number_space(
-            grid=self.sampling_grid, num=num, mach_min=self.PISTON_MACH_MIN,
-            mach_max=self.PISTON_MACH_MAX)
-        sampler = ParameterSampler(self.sampling_grid, n_iter=int(2e4),
-                                   random_state=rnd)
-        samples = []
-        domains = list(zip(edges, edges[1:]))
-        for sample in sampler:
-            piston_mach = self.compute_piston_mach_number(sample)
-            remove = None
-            for start, end in domains:
-                if start <= piston_mach <= end:
-                    sample[PistonParameters.MACH_PISTON] = piston_mach
-                    samples.append(sample)
-                    remove = (start, end)
-                    break
-            if remove is not None:
-                domains.remove(remove)
-            if len(domains) == 0:
-                break
-        return sorted(samples, key=lambda x: x[PistonParameters.MACH_PISTON])
+        """``num`` random μ from the sampling distributions (reference
+        ``rom/base.py:98-120``; ``grid`` here is their (lo, hi) box)."""
+        return ParameterSampler(param_distributions=self.sampling_grid,
+                                n_iter=num, random_state=rnd)
 
     # ------------------------------------------------------------------
-    # The trilinear state table: N_N(u*) = b0(μ)·T0 @ u*_N
-    #
-    # The (1,0) trilinear form is scale-invariant under the ALE pull-back
-    # and its DEIM entries are linear in the state, the μ-dependence the
-    # scalar b0 = (γ+1)/2·a0; so the reduced operator is one constant
-    # (N², N) contraction per step. Detected numerically; None where the
-    # invariance does not hold (reference rom.py:1475-1587).
+    # The trilinear state table: the nonlinear family's
     # ------------------------------------------------------------------
     def _trilinear_state_table(self, V_np):
-        """The table of the basis ``V_np``, cached per N-MDEIM object; on
-        a serving object without the N-MDEIM, its global configuration's
-        (None without one)."""
-        if self.mdeim_Nh is None:
-            gs = self._global_serving
-            return None if gs is None else gs.trilinear
-        cached = self._trilinear_table_cache
-        if cached is not None and cached[0] is self.mdeim_Nh:
-            return cached[1]
-        table = self._build_trilinear_state_table(V_np)
-        self._trilinear_table_cache = (self.mdeim_Nh, table)
-        return table
-
-    def _build_trilinear_state_table(self, V_np):
-        """Float64 whatever the serving dtype (the probe runs at 1e-9),
-        on the FOM's device."""
-        red = self.mdeim_Nh
-        if red is None or red.PT_U_inv is None or red.basis_rom is None:
-            return None
-        with compute_dtype_scope(torch.float64):
-            return self._build_trilinear_state_table_impl(
-                np.asarray(V_np, np.float64), red)
-
-    def _build_trilinear_state_table_impl(self, V_np, red):
-        fom = self.fom
-        N = V_np.shape[1]
-
-        def entries_over_basis(mu, t):
-            # All N unit-coefficient states in one lane-batched assembly.
-            vals = fom.assemble_trilinear(
-                mu=red._mu_tensors(mu), t=red._times(t),
-                u_n=(V_np, red._times(np.eye(N))), entries=red.dofs)
-            return vals.cpu().numpy()  # (n_ent, N)
-
-        mu_a = (dict(self.mu_space[Stage.OFFLINE][0])
-                if self.mu_space[Stage.OFFLINE] else dict(fom.mu))
-        mu_b = {k: v * 1.17 + 0.013 for k, v in mu_a.items()}
-        b0_a = float(fom.nonlinear_coefficient(mu_a))
-        b0_b = float(fom.nonlinear_coefficient(mu_b))
-        T = float(fom.domain[fom.T])
-        E_a = entries_over_basis(mu_a, 0.37 * T) / b0_a
-        E_b = entries_over_basis(mu_b, 0.81 * T) / b0_b
-        scale = max(np.abs(E_a).max(), 1e-30)
-        if not np.allclose(E_a, E_b, atol=1e-9 * scale, rtol=1e-9):
-            return None  # not scale-invariant
-        if os.environ.get("ROMTIME_TRI_TABLE") == "deim":
-            # The N-MDEIM reconstruction (the reference's opt-in
-            # ablation): basis_rom (N², k) · PᵀU⁻¹ (k, n_ent) · E0.
-            return red.basis_rom @ (red.PT_U_inv @ E_a)
-        return self._trilinear_exact_columns(V_np, mu_a, b0_a)
-
-    def _trilinear_exact_columns(self, V_np, mu_a, b0_a):
-        """vec(Vᵀ·N(V e_j)·V)/b0 of every basis column j: one full-band
-        assembly on the FOM's device with the N columns as its trailing
-        batch, then the two-sided projection there (reference
-        rom.py:1561-1587, which projects on the host). Float64."""
-        red = self.mdeim_Nh
-        with compute_dtype_scope(torch.float64):
-            band = self.fom.assemble_trilinear(
-                mu=red._mu_tensors(mu_a),
-                t=red._times(0.37 * float(self.fom.domain[self.fom.T])),
-                u_n=red._times(V_np)).band                # (2p+1, nh, N)
-        return project_band(band, V_np) / b0_a
+        """None: the family has no state-dependent term."""
+        return None
 
     # ------------------------------------------------------------------
     # Reduced operators (reference rom.py:268-331, :1273-1275,
@@ -685,30 +613,12 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         return self._reduced_matrix(self.mdeim_Ah,
                                     self.fom.assemble_stiffness, mu, t)
 
-    def assemble_convection(self, mu, t):
-        return self._reduced_matrix(self.mdeim_Ch,
-                                    self.fom.assemble_convection, mu, t)
-
-    def assemble_trilinear(self, mu, t, uh):
-        """N_N(u*) (reference rom.py:1384-1387)."""
-        return self._reduced_matrix(self.mdeim_Nh,
-                                    self.fom.assemble_trilinear, mu, t,
-                                    u_n=uh)
-
-    def assemble_nonlinear_lifting(self, mu, t):
-        """N̂_N (reference rom.py:1389-1393)."""
-        return self._reduced_matrix(self.mdeim_Nh_hat,
-                                    self.fom.assemble_nonlinear_lifting,
-                                    mu, t)
-
     def assemble_forcing(self, mu, t):
         return self._reduced_vector(None, self.fom.assemble_forcing, mu, t)
 
     def assemble_lifting(self, mu, t):
-        """The piston's right-hand side, the lifting vector (reference
-        rom.py:1415-1419)."""
-        return self._reduced_vector(self.deim_rhs, self.fom.assemble_lifting,
-                                    mu, t)
+        """The lifting vector, projected (reference rom.py:306-307)."""
+        return self._reduced_vector(None, self.fom.assemble_lifting, mu, t)
 
     def assemble_rhs(self, mu, t):
         """Forcing + lifting (reference rom.py:295-301)."""
@@ -727,14 +637,15 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         return self._system_matrices(get, mu, t, bdf, uh, uh_n1)
 
     def assemble_system_rhs(self, mu, t, MN_mat, uN_n, uN_n1=None):
-        """b_N = M_N·(2u_N − ½u_N₋₁) + dt·f_gN, or M_N·u_N + dt·f_gN
-        without a history (reference rom.py:1405-1413)."""
-        fgN = self.assemble_lifting(mu=mu, t=t)
+        """b_N = M_N·(2u_N − ½u_N₋₁) + dt·f_N, or M_N·u_N + dt·f_N without
+        a history, f_N the forcing plus the lifting (reference
+        rom.py:325-331)."""
+        fN = self.assemble_rhs(mu=mu, t=t)
         if uN_n1 is None:
             bdf_term = MN_mat @ uN_n
         else:
             bdf_term = MN_mat @ (2.0 * uN_n - 0.5 * uN_n1)
-        return bdf_term + self.fom.dt * fgN
+        return bdf_term + self.fom.dt * fN
 
     # ------------------------------------------------------------------
     # The step's parts (reference rom.py:510-549, :1395-1403, :1589-1634)
@@ -742,20 +653,10 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     def runtime_process(self, u=None, mu=None, t=None):
         pass
 
-    def _has_state_table(self):
-        """The trilinear state table is at hand: the N-MDEIM's, or a
-        serving object's global configuration's."""
-        gs = self._global_serving
-        return self.mdeim_Nh is not None or (
-            gs is not None and gs.trilinear is not None)
-
     def _state_representation(self, V, uN):
-        """The state handed to the trilinear operator: the factorized
-        (basis, u_N) where the state table is at hand (the loop stays
-        Nh-free), else the FOM vector V·u_N for the projection fallback."""
-        if self._has_state_table():
-            return (np.asarray(self.basis), uN)
-        return V @ uN
+        """How the state enters the reduced operators: a linear family's
+        ignore it (reference rom.py:513-516)."""
+        return None
 
     def _compensated_active(self):
         """The residual-form double-word step: on in float32 under
@@ -765,32 +666,12 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         return bool(self.COMPENSATED)
 
     def _system_parts(self, get, mu, t, uh, uh_n1):
-        """(M_N, dt·(A_N + C_N + N_N(u*) + N̂_N)) from the per-step operator
-        getter, u* = 2u_n − u_{n−1} (u_n without a history). The trilinear
-        term comes from the exact state table b0·(T0 @ u*_N) wherever the
-        state is factorized, as in the lanes engines (their S-ROM
-        estimates would part otherwise); else from ``assemble_trilinear``."""
+        """(M_N, dt·A_N) from the per-step operator getter, kept apart so
+        that the residual-form step never forms S from K − bdf·M
+        (reference rom.py:536-543)."""
         MN = get("mass")
         AN = get("stiffness")
-        CN = get("convection")
-        NhatN = get("nonlinear_lifting")
-        if uh_n1 is None:
-            u_star = uh
-        elif isinstance(uh, tuple):
-            u_star = (uh[0], 2.0 * uh[1] - uh_n1[1])
-        else:
-            u_star = 2.0 * uh - uh_n1
-        NN = None
-        if isinstance(u_star, tuple):
-            cN = u_star[1]
-            T0 = self._trilinear_state_table(u_star[0])
-            if T0 is not None:
-                T0 = self._on_device("trilinear", T0, cN)
-                NN = (T0 @ cN).reshape((self.N, self.N) + tuple(
-                    cN.shape[1:])) * self.fom.nonlinear_coefficient(mu)
-        if NN is None:
-            NN = self.assemble_trilinear(mu=mu, t=t, uh=u_star)
-        return MN, self.fom.dt * (AN + CN + NN + NhatN)
+        return MN, self.fom.dt * AN
 
     def _system_matrices(self, get, mu, t, bdf, uh, uh_n1):
         """(M_N, K_N = bdf·M_N + dt·S_N)."""
@@ -802,11 +683,9 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     # "vmap" engine); reference rom.py:550-679, :1139-1166
     # ------------------------------------------------------------------
     def _lanes_supported(self):
-        """The lanes engines need every operator hyper-reduced and the
-        trilinear term's state table (reference rom.py:1051-1060, whose
-        table comes from the N-MDEIM)."""
-        return (all(red is not None for red in self.reductors.values())
-                and self._has_state_table())
+        """The lanes engines need every operator hyper-reduced (reference
+        rom.py:1051-1061)."""
+        return all(red is not None for red in self.reductors.values())
 
     def _online_scan(self, mu, mode="full"):
         """The reduced BDF-1/2 loop over the whole time grid for ``mu``
@@ -909,12 +788,6 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
     # ------------------------------------------------------------------
     # Offline: time-windowed serving (reference rom.py:945-1041)
     # ------------------------------------------------------------------
-    def _windowed_trilinear_table(self, V_w):
-        """The trilinear state table of a window's basis (the N-MDEIM
-        already projected onto ``V_w``); exact unless
-        ``ROMTIME_TRI_TABLE=deim`` (reference rom.py:1444-1453)."""
-        return self._build_trilinear_state_table(np.asarray(V_w))
-
     @offline
     def build_windowed_serving(self, n_windows, num_basis, snapshots=None,
                                overlap=2, tol_t=None):
@@ -1049,7 +922,7 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
                         @ theta.numpy()[:, 0]).reshape(N, N)
 
             MN = op("mass")
-            S = sum(op(n) for n in stiffness_side(THETA_SOURCES))
+            S = sum(op(n) for n in stiffness_side(self.SOURCES))
         return MN, float(self.fom.dt) * S
 
     def certify_pivot_free(self, time_probes=4, bound=None, margin=1.3):
@@ -1120,7 +993,7 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
         gs, dtype = self.global_serving, compute_dtype()
         return self._cell_tables(gs, ("lanes", mode, dtype), lambda: (
             global_lanes_tables(gs, self._theta_sources(), mode, dtype,
-                                self.device)))
+                                self.device, self.STATE_DEPENDENT)))
 
     def _global_serving_tables(self):
         if self._global_tables is None:
@@ -1161,7 +1034,7 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
             return "windowed-pallas"
         gs = self.global_serving
         if (mode == "probes" and gs is not None
-                and supported(B, gs.N, compute_dtype(),
+                and supported(B, gs.N, compute_dtype(), self.STATE_DEPENDENT,
                               gs.trilinear is not None)):
             return "pallas"
         if self._lanes_supported() or self.basis is None:
@@ -1281,6 +1154,240 @@ class RomConstructorNonlinear(MuLocalRoutingMixin, AutotuneMixin,
             return probes[k - 1::k]
         raise ValueError(f"probe_reduce must be 'mean' or a positive int "
                          f"stride, got {probe_reduce!r}")
+
+
+class RomConstructorMoving(RomConstructor):
+    """The moving-domain heat ROM: adds the reduced ALE convection
+    (reference ``rom.py:1269-1288``)."""
+
+    SOURCES = RomConstructor.SOURCES + ("convection",)
+    FALLBACKS = dict(RomConstructor.FALLBACKS,
+                     convection="assemble_convection")
+
+    def assemble_convection(self, mu, t):
+        return self._reduced_matrix(self.mdeim_Ch,
+                                    self.fom.assemble_convection, mu, t)
+
+    def _system_parts(self, get, mu, t, uh, uh_n1):
+        """(M_N, dt·(A_N + C_N)) (reference rom.py:1282-1288)."""
+        MN = get("mass")
+        AN = get("stiffness")
+        CN = get("convection")
+        return MN, self.fom.dt * (AN + CN)
+
+
+class RomConstructorNonlinear(MuLocalRoutingMixin, RomConstructorMoving):
+    """The piston ROM (reference ``rom.py:1291-1634``): the Mach-stratified
+    sampler, the nonlinear lifting and the trilinear term N_N(u*), served
+    from the trilinear state table, BDF-2; the right-hand side is the
+    lifting alone. ``mulocal`` is the attached μ-local fleet
+    (:class:`~romtime_tpu_torch.rom.windowed.MuLocalWindowed`) or None;
+    its cells share the reductors and swap in as the active windows."""
+
+    SOURCES = tuple(THETA_SOURCES)
+    FALLBACKS = FALLBACKS
+    STATE_DEPENDENT = True
+
+    # Forcing bounds of the stratified sampler (reference rom.py:1296-1298)
+    PISTON_MACH_MIN = 0.15
+    PISTON_MACH_MAX = 0.4
+
+    def _serving_attrs(self):
+        """Every θ source's reductor and the trilinear N-MDEIM."""
+        return super()._serving_attrs() + [
+            REDUCTOR_ATTRS[OperatorType.TRILINEAR]]
+
+    # ------------------------------------------------------------------
+    # Mach-stratified sampling (reference rom.py:1308-1348)
+    # ------------------------------------------------------------------
+    def build_sampling_space(self, num, rnd=None):
+        """``num`` μ, one per equal-width Mach bin over
+        [PISTON_MACH_MIN, PISTON_MACH_MAX], the first hit of each bin in
+        a stream of 2·10⁴ draws from ``sampling_grid``, sorted by Mach
+        (each tagged with its ``piston_mach``)."""
+        edges = self.compute_piston_mach_number_space(
+            grid=self.sampling_grid, num=num, mach_min=self.PISTON_MACH_MIN,
+            mach_max=self.PISTON_MACH_MAX)
+        sampler = ParameterSampler(self.sampling_grid, n_iter=int(2e4),
+                                   random_state=rnd)
+        samples = []
+        domains = list(zip(edges, edges[1:]))
+        for sample in sampler:
+            piston_mach = self.compute_piston_mach_number(sample)
+            remove = None
+            for start, end in domains:
+                if start <= piston_mach <= end:
+                    sample[PistonParameters.MACH_PISTON] = piston_mach
+                    samples.append(sample)
+                    remove = (start, end)
+                    break
+            if remove is not None:
+                domains.remove(remove)
+            if len(domains) == 0:
+                break
+        return sorted(samples, key=lambda x: x[PistonParameters.MACH_PISTON])
+
+    # ------------------------------------------------------------------
+    # The trilinear state table: N_N(u*) = b0(μ)·T0 @ u*_N
+    #
+    # The (1,0) trilinear form is scale-invariant under the ALE pull-back
+    # and its DEIM entries are linear in the state, the μ-dependence the
+    # scalar b0 = (γ+1)/2·a0; so the reduced operator is one constant
+    # (N², N) contraction per step. Detected numerically; None where the
+    # invariance does not hold (reference rom.py:1475-1587).
+    # ------------------------------------------------------------------
+    def _trilinear_state_table(self, V_np):
+        """The table of the basis ``V_np``, cached per N-MDEIM object; on
+        a serving object without the N-MDEIM, its global configuration's
+        (None without one)."""
+        if self.mdeim_Nh is None:
+            gs = self._global_serving
+            return None if gs is None else gs.trilinear
+        cached = self._trilinear_table_cache
+        if cached is not None and cached[0] is self.mdeim_Nh:
+            return cached[1]
+        table = self._build_trilinear_state_table(V_np)
+        self._trilinear_table_cache = (self.mdeim_Nh, table)
+        return table
+
+    def _build_trilinear_state_table(self, V_np):
+        """Float64 whatever the serving dtype (the probe runs at 1e-9),
+        on the FOM's device."""
+        red = self.mdeim_Nh
+        if red is None or red.PT_U_inv is None or red.basis_rom is None:
+            return None
+        with compute_dtype_scope(torch.float64):
+            return self._build_trilinear_state_table_impl(
+                np.asarray(V_np, np.float64), red)
+
+    def _build_trilinear_state_table_impl(self, V_np, red):
+        fom = self.fom
+        N = V_np.shape[1]
+
+        def entries_over_basis(mu, t):
+            # All N unit-coefficient states in one lane-batched assembly.
+            vals = fom.assemble_trilinear(
+                mu=red._mu_tensors(mu), t=red._times(t),
+                u_n=(V_np, red._times(np.eye(N))), entries=red.dofs)
+            return vals.cpu().numpy()  # (n_ent, N)
+
+        mu_a = (dict(self.mu_space[Stage.OFFLINE][0])
+                if self.mu_space[Stage.OFFLINE] else dict(fom.mu))
+        mu_b = {k: v * 1.17 + 0.013 for k, v in mu_a.items()}
+        b0_a = float(fom.nonlinear_coefficient(mu_a))
+        b0_b = float(fom.nonlinear_coefficient(mu_b))
+        T = float(fom.domain[fom.T])
+        E_a = entries_over_basis(mu_a, 0.37 * T) / b0_a
+        E_b = entries_over_basis(mu_b, 0.81 * T) / b0_b
+        scale = max(np.abs(E_a).max(), 1e-30)
+        if not np.allclose(E_a, E_b, atol=1e-9 * scale, rtol=1e-9):
+            return None  # not scale-invariant
+        if os.environ.get("ROMTIME_TRI_TABLE") == "deim":
+            # The N-MDEIM reconstruction (the reference's opt-in
+            # ablation): basis_rom (N², k) · PᵀU⁻¹ (k, n_ent) · E0.
+            return red.basis_rom @ (red.PT_U_inv @ E_a)
+        return self._trilinear_exact_columns(V_np, mu_a, b0_a)
+
+    def _trilinear_exact_columns(self, V_np, mu_a, b0_a):
+        """vec(Vᵀ·N(V e_j)·V)/b0 of every basis column j: one full-band
+        assembly on the FOM's device with the N columns as its trailing
+        batch, then the two-sided projection there (reference
+        rom.py:1561-1587, which projects on the host). Float64."""
+        red = self.mdeim_Nh
+        with compute_dtype_scope(torch.float64):
+            band = self.fom.assemble_trilinear(
+                mu=red._mu_tensors(mu_a),
+                t=red._times(0.37 * float(self.fom.domain[self.fom.T])),
+                u_n=red._times(V_np)).band                # (2p+1, nh, N)
+        return project_band(band, V_np) / b0_a
+
+    # ------------------------------------------------------------------
+    # The piston's reduced operators (reference rom.py:1384-1419)
+    # ------------------------------------------------------------------
+    def assemble_trilinear(self, mu, t, uh):
+        """N_N(u*) (reference rom.py:1384-1387)."""
+        return self._reduced_matrix(self.mdeim_Nh,
+                                    self.fom.assemble_trilinear, mu, t,
+                                    u_n=uh)
+
+    def assemble_nonlinear_lifting(self, mu, t):
+        """N̂_N (reference rom.py:1389-1393)."""
+        return self._reduced_matrix(self.mdeim_Nh_hat,
+                                    self.fom.assemble_nonlinear_lifting,
+                                    mu, t)
+
+    def assemble_lifting(self, mu, t):
+        """The piston's right-hand side, the lifting vector (reference
+        rom.py:1415-1419)."""
+        return self._reduced_vector(self.deim_rhs, self.fom.assemble_lifting,
+                                    mu, t)
+
+    def assemble_system_rhs(self, mu, t, MN_mat, uN_n, uN_n1=None):
+        """b_N = M_N·(2u_N − ½u_N₋₁) + dt·f_gN, or M_N·u_N + dt·f_gN
+        without a history (reference rom.py:1405-1413)."""
+        fgN = self.assemble_lifting(mu=mu, t=t)
+        if uN_n1 is None:
+            bdf_term = MN_mat @ uN_n
+        else:
+            bdf_term = MN_mat @ (2.0 * uN_n - 0.5 * uN_n1)
+        return bdf_term + self.fom.dt * fgN
+
+    def _has_state_table(self):
+        """The trilinear state table is at hand: the N-MDEIM's, or a
+        serving object's global configuration's."""
+        gs = self._global_serving
+        return self.mdeim_Nh is not None or (
+            gs is not None and gs.trilinear is not None)
+
+    def _state_representation(self, V, uN):
+        """The state handed to the trilinear operator: the factorized
+        (basis, u_N) where the state table is at hand (the loop stays
+        Nh-free), else the FOM vector V·u_N for the projection fallback."""
+        if self._has_state_table():
+            return (np.asarray(self.basis), uN)
+        return V @ uN
+
+    def _system_parts(self, get, mu, t, uh, uh_n1):
+        """(M_N, dt·(A_N + C_N + N_N(u*) + N̂_N)) from the per-step operator
+        getter, u* = 2u_n − u_{n−1} (u_n without a history). The trilinear
+        term comes from the exact state table b0·(T0 @ u*_N) wherever the
+        state is factorized, as in the lanes engines (their S-ROM
+        estimates would part otherwise); else from ``assemble_trilinear``."""
+        MN = get("mass")
+        AN = get("stiffness")
+        CN = get("convection")
+        NhatN = get("nonlinear_lifting")
+        if uh_n1 is None:
+            u_star = uh
+        elif isinstance(uh, tuple):
+            u_star = (uh[0], 2.0 * uh[1] - uh_n1[1])
+        else:
+            u_star = 2.0 * uh - uh_n1
+        NN = None
+        if isinstance(u_star, tuple):
+            cN = u_star[1]
+            T0 = self._trilinear_state_table(u_star[0])
+            if T0 is not None:
+                T0 = self._on_device("trilinear", T0, cN)
+                NN = (T0 @ cN).reshape((self.N, self.N) + tuple(
+                    cN.shape[1:])) * self.fom.nonlinear_coefficient(mu)
+        if NN is None:
+            NN = self.assemble_trilinear(mu=mu, t=t, uh=u_star)
+        return MN, self.fom.dt * (AN + CN + NN + NhatN)
+
+    def _lanes_supported(self):
+        """The lanes engines need every operator hyper-reduced and the
+        trilinear term's state table (reference rom.py:1051-1060, whose
+        table comes from the N-MDEIM)."""
+        return (all(red is not None for red in self.reductors.values())
+                and self._has_state_table())
+
+    def _windowed_trilinear_table(self, V_w):
+        """The trilinear state table of a window's basis (the N-MDEIM
+        already projected onto ``V_w``); exact unless
+        ``ROMTIME_TRI_TABLE=deim`` (reference rom.py:1444-1453)."""
+        return self._build_trilinear_state_table(np.asarray(V_w))
+
 
     @staticmethod
     def compute_piston_mach_number(sample):

@@ -155,11 +155,14 @@ def test_bdf1_matches_reference(dd):
     assert per_mu_rel(got["probes"], want["probes"]).max() < 1e-12
 
 
-def test_one_mu_and_dict_batches(pair):
+def test_one_mu_and_dict_batches(pair, monkeypatch):
     """A one-μ list gives a leading axis of 1; a dict of arrays is a
-    batch as it stands; solve() equals its batch row."""
+    batch as it stands; solve() on the eager loop equals its batch row
+    (the native loop, a float64 solve's default, is held against the
+    eager loop in tests/test_torch_native.py)."""
     _ref, port = pair
     port.dd_sweep = False
+    monkeypatch.setenv("ROMTIME_NATIVE_FOM", "0")
     with compute_dtype_scope(torch.float64):
         one = solve_fom_batch(port, MUS[:1])
         as_dict = solve_fom_batch(port, {k: np.array([MUS[0][k]])
@@ -177,14 +180,17 @@ def test_one_mu_and_dict_batches(pair):
     assert batch["a0"].tolist() == pytest.approx([m["a0"] for m in MUS])
 
 
-def test_per_lane_dilations_match_the_serial_solves(pair):
+def test_per_lane_dilations_match_the_serial_solves(pair, monkeypatch):
     """``dilations``: each μ on its own grid T·d over the same nt steps in
     one sweep (how a registered cell's training set is re-solved), each
-    row equal to that μ's ``solve()`` at T·d as the reference re-solves
-    it (rom/hrom.py:947-975), the reference's sweep on its own dilated
-    grid within 1e-12; T restored; the clock (B, nt) per lane."""
+    row equal to that μ's ``solve()`` at T·d on the eager loop as the
+    reference re-solves it (rom/hrom.py:947-975; the native loop is held
+    against the eager one in tests/test_torch_native.py), the reference's
+    sweep on its own dilated grid within 1e-12; T restored; the clock
+    (B, nt) per lane."""
     ref, port = pair
     ref.dd_sweep = port.dd_sweep = False
+    monkeypatch.setenv("ROMTIME_NATIVE_FOM", "0")
     dils = [1.0, 1.021, 1.17]
     T = port.domain[port.T]
     with compute_dtype_scope(torch.float64):

@@ -313,7 +313,10 @@ def test_device_sweep_matches_serial(port_hrom, tmp_path):
     """``run_offline_rom(device_sweep=True)`` (one ``solve_fom_batch``)
     against the serial ``fom.solve()`` per μ: the snapshots within
     1e-12 relative, the same bases and dofs; the serial path alone writes
-    the probe CSVs."""
+    the probe CSVs. The serial float64 solves take the native loop
+    (Thomas) and the sweep the eager one (PCR): the bases' projectors are
+    held at the reference's own limit for that pair, 1e-8
+    (tests/test_parallel.py:163-167)."""
     serial, serial_dir = port_hrom
     batch = port_build(tmp_path, device_sweep=True)
     for a, b in zip(batch.srom.offline_snapshots,
@@ -321,7 +324,7 @@ def test_device_sweep_matches_serial(port_hrom, tmp_path):
         assert np.linalg.norm(a - b) <= 1e-12 * np.linalg.norm(b)
     np.testing.assert_allclose(_projector(batch.srom.basis),
                                _projector(serial.srom.basis), rtol=0,
-                               atol=1e-10)
+                               atol=1e-8)
     for attr in REDUCTORS:
         assert sorted(getattr(batch.rom, attr).dofs) == sorted(
             getattr(serial.rom, attr).dofs)

@@ -6,12 +6,22 @@ stage-2 branch the way tests/test_windowed.py runs it."""
 import contextlib
 import io
 import os
+import shutil
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from romtime_tpu.conventions import Stage
 from romtime_tpu.dtypes import compute_dtype_scope
+
+# One intra-op thread per test process: the tier-1 run puts six xdist
+# workers on the machine's cores, and torch's default (a thread per core,
+# spinning between the port's many small ops) slows every port file by
+# 7-12x there. Every worker collects every test module, so this import
+# sets it for the whole run.
+torch.set_num_threads(1)
 
 #: The reference's trained reductors (HyperReducedPiston
 #: attributes) whose POD spectra a parity cell must have finite.
@@ -23,13 +33,44 @@ def _numpy_svd(a, full_matrices=False):
     return tuple(np.linalg.svd(np.asarray(a), full_matrices=full_matrices))
 
 
-def build_piston_hrom(workdir):
-    """The conftest windowed piston pipeline (nx=150, nt=96, W=4 windows
-    of N=12 beside the global basis), built in ``workdir`` with the POD's
-    SVD routed through numpy: the jax CPU SVD returns NaN spectra on some
-    exactly-rank-1 snapshot matrices under threaded OpenBLAS (ROADMAP
-    Queue 3), which leaves an MDEIM without dofs. Asserts that every
-    trained reductor has finite spectra and every serving reductor dofs."""
+def shared_dir(workdir):
+    """The directory every process of this test run shares: the parent
+    of the xdist workers' base temp directories (``popen-gw<N>``), else
+    the base temp directory that holds ``workdir``."""
+    path = Path(workdir).resolve()
+    for parent in path.parents:
+        if parent.name.startswith("popen-gw"):
+            return parent.parent
+    return path.parent
+
+
+def cached_build(workdir, key, build):
+    """``build(builddir)`` once per test run, shared by every worker: the
+    first caller builds under a file lock in the run's shared directory
+    (:func:`shared_dir`) and pickles the result (cloudpickle) beside the
+    files the build wrote; every caller gets a fresh unpickled copy, and
+    those files copied into its ``workdir`` (the reductors' pickles and
+    the dumps the resume tests read)."""
+    import cloudpickle
+    from filelock import FileLock
+
+    root = shared_dir(workdir) / f"build_cache_{key}"
+    blob = root / "object.pkl"
+    files = root / "files"
+    with FileLock(str(root) + ".lock"):
+        if not blob.exists():
+            files.mkdir(parents=True, exist_ok=True)
+            obj = build(files)
+            tmp = root / "object.pkl.tmp"
+            tmp.write_bytes(cloudpickle.dumps(obj))
+            os.replace(tmp, blob)
+    if Path(workdir).resolve() != files.resolve():
+        shutil.copytree(files, workdir, dirs_exist_ok=True)
+    with open(blob, "rb") as fh:
+        return cloudpickle.load(fh)
+
+
+def _build_piston_hrom(workdir):
     import pytest
     from conftest import _piston_windowed_setup
 
@@ -48,6 +89,21 @@ def build_piston_hrom(workdir):
         hrom.project_reductors()
         hrom.build_windowed_serving(n_windows=4, num_basis=12,
                                     srom_extra=4)
+    for rom in (hrom.rom, hrom.srom):
+        clear_serving_caches(rom)
+    return hrom
+
+
+def build_piston_hrom(workdir):
+    """The conftest windowed piston pipeline (nx=150, nt=96, W=4 windows
+    of N=12 beside the global basis), built once per test run
+    (:func:`cached_build`) with the POD's SVD routed through numpy: the
+    jax CPU SVD returns NaN spectra on some exactly-rank-1 snapshot
+    matrices under threaded OpenBLAS (ROADMAP Queue 3), which leaves an
+    MDEIM without dofs; its dumps are copied into ``workdir``. Asserts
+    that every trained reductor has finite spectra and every serving
+    reductor dofs."""
+    hrom = cached_build(workdir, "piston_hrom", _build_piston_hrom)
     for name in TRAINED_REDUCTORS:
         sigmas = getattr(hrom, name).sigmas
         assert sigmas is not None and np.isfinite(np.asarray(sigmas)).all(), (
@@ -154,6 +210,28 @@ def global_payload_from_rom(rom, which="rest"):
     combine V·(PᵀU)⁻¹ on the ROM basis and the trilinear state table."""
     return dict(_dofs_payload(rom), **fom_payload(rom, which),
                 **grid_payload(rom), **_global_arrays(rom))
+
+
+def heat_payload_from_rom(rom, windows=False):
+    """The port's payload of a JAX heat ROM (``RomConstructor`` or
+    ``RomConstructorMoving``): the global configuration with no trilinear
+    table (the family has no state-dependent term) and, with ``windows``,
+    the active windows with the global configuration under ``global_``
+    (``convert.serving_from_arrays``). ``fom_which`` names the MFP1
+    family."""
+    from romtime_tpu.fom import HeatEquationMovingSolver
+
+    which = ("mfp1-moving" if isinstance(rom.fom, HeatEquationMovingSolver)
+             else "mfp1")
+    glob = _global_arrays(rom, with_trilinear=False)
+    payload = dict(_dofs_payload(rom), **fom_payload(rom, which),
+                   **grid_payload(rom))
+    if windows:
+        payload.update(npz_arrays(rom.windows))
+        payload.update({f"global_{k}": v for k, v in glob.items()})
+    else:
+        payload.update(glob)
+    return payload
 
 
 def estimator_payload_from_hrom(hrom, engine=None, fleet=None):
