@@ -39,8 +39,9 @@ Phases, in order; any failure raises and exits non-zero:
    each on both designs in turns as K2 and K3, with the phase clocks at
    N=15 (K4) and N=20 (K5). Errors against 5e-5·scale; ms per call of the
    kernel and of the twin, and the bound;
-4. K1 options phase (the first design), at both windowed shapes
-   (B=2048) on the same tables: the first design's cost ledger
+4. K1 options phase (the first design), at both windowed shapes' N and
+   window width over half their windows (25x32 and 75x48, B=2048): the
+   first design's cost ledger
    (romtime_tpu_torch/kernel_ledger.py: every ablated variant with the
    LU schedule and with Richardson, and the derived components), then
    each paired-LU follower mode (warm1, warm2, warmx, inv1, inv2; G=5)
@@ -287,6 +288,11 @@ RESID_REPS = 20
 MODE_REPS = 2        # K1 options phase: timed calls per follower mode
 LEDGER_REPS = 2      # calls per ledger variant (median)
 OPTION_WINDOWS = 4   # windows of the option-vs-twin comparisons
+# The K1 options phase (the first design's modes, ablations and ledger)
+# sweeps half of each serving shape's windows, at its width and N: the
+# ledger's per-step costs stand as they are, and the smoke run keeps
+# within its clock.
+OPTION_SHAPES = tuple((W // 2, width, N) for W, width, N in SHAPES)
 #: Serving runs of the windowed cell: run → (stage-2 branch, calls, batch,
 #: WINDOWED_SOLVE_ITERS on the instance).
 SERVE_RUNS = {"fused": ("fused", 5, 2048, None),
@@ -864,7 +870,8 @@ def kernel_phase(mods, dev, power, errs, rich_errs):
 
 def k1_options_phase(mods, dev, power):
     """Every paired-LU follower mode and every ablation of K1, at both
-    windowed shapes on the kernel-phase tables: each mode's time, bound
+    windowed shapes' N and width over half their windows
+    (:data:`OPTION_SHAPES`): each mode's time, bound
     and probe gap to the per-step LU and to sub1 over a whole sweep; each
     mode and each ablation (with the LU schedule and with Richardson)
     against its twin on the first OPTION_WINDOWS windows; the cost ledger
@@ -875,7 +882,7 @@ def k1_options_phase(mods, dev, power):
     k1, synth = mods["k1"], mods["synth"]
     wrapper, twin = k1.online_sweep_windowed_fused, k1.windowed_fused_reference
     modes, ablations, ledgers = [], [], {}
-    for W, width, N in SHAPES:
+    for W, width, N in OPTION_SHAPES:
         shape = f"{W}x{N}"
         args, kw = synth.kernel_tables(N, W, width, B, seed=W, device=dev)
         tri_off = synth.kernel_tables(N, W, width, B, seed=W, device=dev,
