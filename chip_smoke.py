@@ -8,7 +8,9 @@ Phases, in order; any failure raises and exits non-zero:
 2. build of every kernel of the serving paths with nvcc for sm_90a, one
    nvcc per source, all at once, with each source's nvcc seconds: the
    serving body (romtime_tpu_torch/csrc/serving_body.cuh) in K1's serving
-   design and K3 (romtime_tpu_torch/csrc/windowed_serving.cu), in K5
+   design and K3 (romtime_tpu_torch/csrc/windowed_serving.cu at NP
+   8-32, windowed_serving_np48.cu at 40-48, windowed_serving_np64.cu at
+   56-64: three units that build in parallel), in K5
    (romtime_tpu_torch/csrc/global_serving.cu), and over materialized
    tables in K2 (romtime_tpu_torch/csrc/resid_tables_serving.cu) and K4
    (romtime_tpu_torch/csrc/global_tables_serving.cu); K1's first design
@@ -312,8 +314,11 @@ GLOBAL_SHAPES = (("K4", 15, 2048, {}), ("K5", 15, 2048, {}),
                  ("K4", 9, 2048, NO_TRI_BDF1), ("K5", 9, 2048, NO_TRI_BDF1),
                  ("K4", 15, 1000, {}), ("K5", 20, 1000, {}))
 #: Sources of the serving body: no instantiation may spill.
-SERVING_SOURCES = ("windowed_serving", "global_serving",
+SERVING_SOURCES = ("windowed_serving", "windowed_serving_np48",
+                   "windowed_serving_np64", "global_serving",
                    "resid_tables_serving", "global_tables_serving")
+#: K1's serving design and K3: one source per NP range, built in parallel.
+WINDOWED_SERVING_UNITS = SERVING_SOURCES[:3]
 #: The reference's own limit between its K5 and K4 branches
 #: (tests/test_rom.py:226-227).
 THETA_VS_TABLES_REL = 3e-6
@@ -483,13 +488,16 @@ def check_global(label, got, want):
 
 # ----------------------------------------------------------------------
 # Work bounds: operations and bytes each kernel's call needs, from its
-# inputs' shapes and the θ rows its constants use (no loop of these
-# kernels ends early).
+# inputs' shapes and values (no loop of these kernels ends early). Both
+# count the real n×n block (n = ``n_real``) of the padded NP×NP
+# operators, the θ rows that feed it and the real probe rows: the padded
+# rows and columns hold zeros and the identity, which the work does not
+# need to read or compute.
 # ----------------------------------------------------------------------
-def lu_fmas(NP):
-    """FMAs of one lane's pivot-free LU of an NP×NP matrix and its two
+def lu_fmas(n):
+    """FMAs of one lane's pivot-free LU of an n×n matrix and its two
     triangular solves: the least a solve needs (no explicit inverse)."""
-    return sum((NP - k - 1) * (NP - k) for k in range(NP)) + NP * NP
+    return sum((n - k - 1) * (n - k) for k in range(n)) + n * n
 
 
 def live_rows(table, NP, n):
@@ -497,8 +505,7 @@ def live_rows(table, NP, n):
     entries (i, j) of MN or KL, or the NP entries of fN) feeds into the
     real n×n block (the n real rows of fN). A θ row whose column is zero
     there is no work: a row that pads the extent to a multiple of 8, or
-    the constant-1 row that carries only the padded diagonal. The windowed
-    kernels count the whole padded block (n = NP, see step_fmas)."""
+    the constant-1 row that carries only the padded diagonal."""
     k = table.shape[-1]
     if table.shape[-2] == NP * NP:
         t = table.reshape(-1, NP, NP, k)[:, :n, :n]
@@ -507,16 +514,22 @@ def live_rows(table, NP, n):
     return int((t != 0).reshape(-1, k).any(dim=0).sum())
 
 
-def step_fmas(NP, km, kk, kf, with_trilinear, solve):
-    """FMAs of one lane's residual BDF step with each operator formed once
-    from its live θ rows (live_rows): MN = Bm·θm and KL = Bk·θk
-    (NP²·(km + kk)), fN = Bf·θf (NP·kf), the trilinear NN = T0·pred and
-    dtS (NP³ + NP²), KN, MN·d and dtS·pred (3·NP²), the solve, and the
-    probes (8·NP). K1, K2 and K3 compute this same step; K2 reads MN, KL
-    and fN instead (km = kk = kf = 0)."""
-    tri = NP ** 3 + NP * NP if with_trilinear else 0
-    return (NP * NP * (km + kk) + NP * kf + tri + 3 * NP * NP + solve
-            + 8 * NP)
+def probe_rows(VE, n):
+    """Probe rows of VE (…, PROBE_P, NP) that read the real n columns:
+    the probes the work writes (the other rows are zero)."""
+    P, NP = VE.shape[-2], VE.shape[-1]
+    return int((VE.reshape(-1, P, NP)[:, :, :n] != 0).any(dim=(0, 2)).sum())
+
+
+def step_fmas(n, km, kk, kf, with_trilinear, solve, p):
+    """FMAs of one lane's residual BDF step on the real n×n block with
+    each operator formed once from its live θ rows (live_rows): MN = Bm·θm
+    and KL = Bk·θk (n²·(km + kk)), fN = Bf·θf (n·kf), the trilinear NN =
+    T0·pred and dtS (n³ + n²), KN, MN·d and dtS·pred (3·n²), the solve, and
+    the p real probes (p·n). K1, K2 and K3 compute this same step; K2 reads
+    MN, KL and fN instead (km = kk = kf = 0)."""
+    tri = n ** 3 + n * n if with_trilinear else 0
+    return n * n * (km + kk) + n * kf + tri + 3 * n * n + solve + p * n
 
 
 def bound(flops, nbytes):
@@ -526,125 +539,147 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
-#: NP² multiples of a paired-LU follower's solve, by mode: one
-#: substitution is NP² (forward and back), one residual matvec NP².
+#: n² multiples of a paired-LU follower's solve, by mode: one
+#: substitution is n² (forward and back), one residual matvec n².
 FOLLOWER_NP2 = {"sub1": 3, "warm1": 2, "warm2": 4, "warmx": 2, "inv1": 3,
                 "inv2": 5}
 
 
-def solve_fmas(role, mode, NP):
+def solve_fmas(role, mode, n):
     """FMAs of one lane's solve in a step of ``role`` under paired-LU
     ``mode``: a follower per :data:`FOLLOWER_NP2` (a warmx follower also
-    forms 2·δₙ₋₁ − δₙ₋₂, NP), an inv leader's inversion and matvec
-    (NP³ + NP²), otherwise an LU with its substitutions."""
+    forms 2·δₙ₋₁ − δₙ₋₂, n), an inv leader's inversion and matvec
+    (n³ + n²), otherwise an LU with its substitutions."""
     if role == "follow":
-        return FOLLOWER_NP2[mode] * NP * NP + (NP if mode == "warmx" else 0)
+        return FOLLOWER_NP2[mode] * n * n + (n if mode == "warmx" else 0)
     if role == "lead" and mode in ("inv1", "inv2"):
-        return NP ** 3 + NP * NP
-    return lu_fmas(NP)
+        return n ** 3 + n * n
+    return lu_fmas(n)
+
+
+def stream_bytes(nt, Bn, n, p, with_trilinear, carry):
+    """Float32 words of what every sweep reads and writes beside its
+    operators: g in and the probes out (p real rows a step), T0 (n³, with
+    the trilinear term), VE's real block, b0, and the state: the dd carry
+    in and out (4 rows each, ``carry``) or the final uN out."""
+    return (2 * nt * p * Bn + (n ** 3 if with_trilinear else 0) + p * n
+            + Bn + (2 * 4 * n * Bn if carry else n * Bn))
 
 
 def k1_bound(args, kw):
     """K1 over a whole sweep. A paired-LU step solves as
     :func:`solve_fmas` counts for its role and mode. The Richardson solve
-    (``solve_iters`` = n) takes 2n NP² matvecs per step, and per window
+    (``solve_iters`` = m) takes 2m n² matvecs per step, and per window
     K̄'s build from the live θ rows and the trilinear block, its inverse
-    (NP³, the least an inversion needs) and the δ transfer (NP²). The
+    (n³, the least an inversion needs) and the δ transfer (n²). The
     window transfers are two dd matvecs through Tp[w] (~10 operations per
-    entry)."""
+    entry). Bytes: the live θ rows and the real g rows of TH, and per
+    window the live rows of Bmk and Bf on the real block, T0's n³, Tp's
+    n² and VE's real rows (the factored BmF/BkF and TQ carry the same
+    constants again)."""
     from romtime_tpu_torch.ops.windowed_fused import step_roles
 
-    TH, Bmk, BfT = args[0], args[1], args[4]
+    TH, Bmk, BfT, VE = args[0], args[1], args[4], args[6]
     nt, _K8, Bn = TH.shape
-    W, NP = args[6].shape[0], args[6].shape[2]       # VE (W, P, NP)
+    W, NP = VE.shape[0], VE.shape[2]                  # VE (W, P, NP)
+    n, tri = kw["n_real"], kw["with_trilinear"]
+    p = probe_rows(VE, n)
     width = nt // W
     iters = kw.get("solve_iters")
     group = kw.get("paired_lu") or 0
-    group = group if group >= 2 and kw["n_real"] > 20 else 0
+    group = group if group >= 2 and n > 20 else 0
     mode = kw.get("paired_mode", "sub1")
     roles = step_roles(kw.get("period") or width, group)
-    solve = sum(solve_fmas(r, mode, NP) for r in roles) / len(roles)
+    solve = sum(solve_fmas(r, mode, n) for r in roles) / len(roles)
     km8, kk8 = kw["km8"], kw["kk8"]                  # Bmk (W, kfold, NP²)
-    km = live_rows(Bmk[:, :km8].transpose(1, 2), NP, NP)
-    kk = live_rows(Bmk[:, km8:km8 + kk8].transpose(1, 2), NP, NP)
-    per_window = 2 * 10 * NP * NP
+    km = live_rows(Bmk[:, :km8].transpose(1, 2), NP, n)
+    kk = live_rows(Bmk[:, km8:km8 + kk8].transpose(1, 2), NP, n)
+    kf = live_rows(BfT.transpose(1, 2), NP, n)
+    per_window = 2 * 10 * n * n
     if group and mode in ("warm1", "warm2", "warmx"):     # δ transfers
-        per_window += NP * NP * (2 if mode == "warmx" else 1)
+        per_window += n * n * (2 if mode == "warmx" else 1)
     if iters:
-        solve = 2 * iters * NP * NP
-        tri = NP if kw["with_trilinear"] else 0
-        per_window += NP * NP * (km + kk + tri) + NP ** 3 + NP * NP
-    per_step = step_fmas(NP, km, kk, live_rows(BfT.transpose(1, 2), NP, NP),
-                         kw["with_trilinear"], solve)
+        solve = 2 * iters * n * n
+        per_window += n * n * (km + kk + (n if tri else 0)) + n ** 3 + n * n
+    per_step = step_fmas(n, km, kk, kf, tri, solve, p)
     flops = 2 * Bn * (nt * per_step + W * per_window)
-    nbytes = 4 * (TH.numel() + sum(a.numel() for a in args[1:8])
-                  + Bn + 2 * 4 * NP * Bn + nt * 8 * Bn)
+    nbytes = 4 * (nt * (km + kk + kf) * Bn
+                  + W * (n * n * (km + kk) + n * kf + n * n)
+                  + stream_bytes(nt, Bn, n, p, tri, True)
+                  + (W - 1) * ((n ** 3 if tri else 0) + p * n))
     return bound(flops, nbytes)
 
 
 def k2_bound(args, kw):
-    MN, _KL, fN, g = args[:4]
-    nt, NP, _, Bn = MN.shape
-    per_step = step_fmas(NP, 0, 0, 0, kw["with_trilinear"], lu_fmas(NP))
+    MN, VE = args[0], args[5]
+    nt, _NP, _, Bn = MN.shape
+    n, tri = kw["n_real"], kw["with_trilinear"]
+    p = probe_rows(VE, n)
+    per_step = step_fmas(n, 0, 0, 0, tri, lu_fmas(n), p)
     flops = 2 * Bn * nt * per_step
-    nbytes = 4 * (2 * MN.numel() + fN.numel() + 2 * g.numel()
-                  + (NP ** 3 if kw["with_trilinear"] else 0) + 8 * NP + Bn
-                  + 2 * 4 * NP * Bn)
+    nbytes = 4 * (nt * (2 * n * n + n) * Bn
+                  + stream_bytes(nt, Bn, n, p, tri, True))
     return bound(flops, nbytes)
+
+
+def theta_words(args, n, nt, Bn):
+    """(km, kk, kf, words of the θ rows and constants on the real block)
+    of a θ-streaming launch (K3, K5): THm, THk, THf, g, Bm, Bk, Bf, …"""
+    Bm, Bk, Bf = args[4:7]
+    NP = Bf.shape[0]
+    km, kk, kf = (live_rows(Bm, NP, n), live_rows(Bk, NP, n),
+                  live_rows(Bf, NP, n))
+    return km, kk, kf, (nt * (km + kk + kf) * Bn + n * n * (km + kk)
+                        + n * kf)
 
 
 def k3_bound(args, kw):
-    THm, THk, THf, g, Bm, Bk, Bf = args[:7]
+    THm, VE = args[0], args[8]
     nt, _km8, Bn = THm.shape
-    NP = Bf.shape[0]
-    per_step = step_fmas(NP, live_rows(Bm, NP, NP), live_rows(Bk, NP, NP),
-                         live_rows(Bf, NP, NP), kw["with_trilinear"],
-                         lu_fmas(NP))
+    n, tri = kw["n_real"], kw["with_trilinear"]
+    p = probe_rows(VE, n)
+    km, kk, kf, words = theta_words(args, n, nt, Bn)
+    per_step = step_fmas(n, km, kk, kf, tri, lu_fmas(n), p)
     flops = 2 * Bn * nt * per_step
-    nbytes = 4 * (THm.numel() + THk.numel() + THf.numel() + 2 * g.numel()
-                  + Bm.numel() + Bk.numel() + Bf.numel()
-                  + (NP ** 3 if kw["with_trilinear"] else 0) + 8 * NP + Bn
-                  + 2 * 4 * NP * Bn)
+    nbytes = 4 * (words + stream_bytes(nt, Bn, n, p, tri, True))
     return bound(flops, nbytes)
 
 
-def global_step_fmas(n, km, kk, kf, with_trilinear):
+def global_step_fmas(n, km, kk, kf, with_trilinear, p):
     """FMAs of one lane's plain-f32 global BDF step on n real rows (the
     padded rows and columns hold zeros and the identity, no work): the
     operators MN = Bm·θm, KL = Bk·θk (n²·(km + kk)) and fN = Bf·θf (n·kf)
     over their live θ rows (live_rows) when they are formed, the
     trilinear NN = T0·u* (n³) and its scaled add (n²), KN and the
     MN·combo product (2·n²), a solve (LU and its two substitutions) and
-    the two real probe rows (2·n). K4 reads MN, KL and fN instead
+    the p real probe rows (p·n). K4 reads MN, KL and fN instead
     (km = kk = kf = 0)."""
     tri = n ** 3 + n * n if with_trilinear else 0
     return (n * n * (km + kk) + n * kf + tri + 2 * n * n + lu_fmas(n)
-            + 2 * n)
+            + p * n)
 
 
 def k4_bound(args, kw):
-    MN, _KL, fN, g = args[:4]
-    nt, NP, _, Bn = MN.shape
-    per_step = global_step_fmas(kw["n_real"], 0, 0, 0, kw["with_trilinear"])
+    MN, VE = args[0], args[5]
+    nt, _NP, _, Bn = MN.shape
+    n, tri = kw["n_real"], kw["with_trilinear"]
+    p = probe_rows(VE, n)
+    per_step = global_step_fmas(n, 0, 0, 0, tri, p)
     flops = 2 * Bn * nt * per_step
-    nbytes = 4 * (2 * MN.numel() + fN.numel() + 2 * g.numel()
-                  + (NP ** 3 if kw["with_trilinear"] else 0) + 8 * NP + Bn
-                  + NP * Bn)
+    nbytes = 4 * (nt * (2 * n * n + n) * Bn
+                  + stream_bytes(nt, Bn, n, p, tri, False))
     return bound(flops, nbytes)
 
 
 def k5_bound(args, kw):
-    THm, THk, THf, g, Bm, Bk, Bf = args[:7]
+    THm, VE = args[0], args[8]
     nt, _km8, Bn = THm.shape
-    NP = Bf.shape[0]
-    n = kw["n_real"]
-    per_step = global_step_fmas(n, live_rows(Bm, NP, n), live_rows(Bk, NP, n),
-                                live_rows(Bf, NP, n), kw["with_trilinear"])
+    n, tri = kw["n_real"], kw["with_trilinear"]
+    p = probe_rows(VE, n)
+    km, kk, kf, words = theta_words(args, n, nt, Bn)
+    per_step = global_step_fmas(n, km, kk, kf, tri, p)
     flops = 2 * Bn * nt * per_step
-    nbytes = 4 * (THm.numel() + THk.numel() + THf.numel() + 2 * g.numel()
-                  + Bm.numel() + Bk.numel() + Bf.numel()
-                  + (NP ** 3 if kw["with_trilinear"] else 0) + 8 * NP + Bn
-                  + NP * Bn)
+    nbytes = 4 * (words + stream_bytes(nt, Bn, n, p, tri, False))
     return bound(flops, nbytes)
 
 
@@ -3410,6 +3445,14 @@ def main():
         if spills or not ptxas[stem]["kernels"]:
             raise AssertionError(f"the serving body spills in {stem}: "
                                  f"{spills}")
+
+    # K1's and K3's units under one key: the longest unit's seconds, each
+    # unit's, and every instantiation of the three.
+    units = {u: ptxas.pop(u) for u in WINDOWED_SERVING_UNITS}
+    ptxas["windowed_serving"] = dict(
+        nvcc_s=max(u["nvcc_s"] for u in units.values()),
+        units_nvcc_s={name: u["nvcc_s"] for name, u in units.items()},
+        kernels=[r for u in units.values() for r in u["kernels"]])
 
     errs = {k: [] for k in KERNELS}
     with torch.inference_mode():

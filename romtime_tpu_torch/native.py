@@ -4,8 +4,8 @@ counterpart of ``romtime_tpu/native.py``).
 
 The library is built with the host compiler at its first use,
 ``g++ -O3 -shared -fPIC -std=c++17``, into ``build/native/`` at the root
-of the checkout (listed in ``.gitignore``), and rebuilt when a source is
-newer than it. A failed build raises with g++'s log: the sandbox and the
+of the checkout (listed in ``.gitignore``), and rebuilt at a process's
+first load when a source is newer than it. A failed build raises with g++'s log: the sandbox and the
 card's machine both have a host compiler, so no consumer falls back
 quietly. ``calls`` counts each entry's calls (the card run checks that
 the f64 FOM solves went through the native loop).
@@ -75,10 +75,11 @@ def build():
 
 
 def load():
-    """The loaded library, built first where needed."""
+    """The loaded library, built at the first load where needed; later
+    calls return the same library."""
     global _LIB
     with _LOCK:
-        if _LIB is None or _stale():
+        if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             lib.deim_greedy.restype = ctypes.c_int
             lib.deim_greedy.argtypes = [_DPTR, ctypes.c_int64, ctypes.c_int64,

@@ -62,6 +62,7 @@ from .windowed_fused import (
     pad_dim,
     pad_rows,
     serving_tile,
+    serving_unit,
     split_build,
     split_combine,
 )
@@ -590,7 +591,7 @@ def _launch_theta_v2(args, kw, design, clocked=False):
                                len(SERVING_PHASES) + 1), dtype=torch.int64,
                               device=THm.device)
         out = kernel_build.launch(
-            "windowed_serving", _bind_serving, "romtime_theta_resid_serving",
+            serving_unit(NP), _bind_serving, "romtime_theta_resid_serving",
             "theta resid serving (K3)",
             list(zip(("TH", "Bmk", "Bf", "VE", "b0", "state0"),
                      (TH, Bmk, BfT, VE, b0, state0))),
@@ -616,7 +617,7 @@ def online_sweep_theta_pallas_v2(THm, THk, THf, g_p, Bm, Bk, Bf, T0_p,
                     the padded extents)
 
     CPU tensors run the twin; CUDA tensors launch K3 on the serving body
-    (``csrc/windowed_serving.cu``), counted in
+    (``csrc/windowed_serving.cu`` and its NP 48 and 64 units), counted in
     ``online_sweep_theta_pallas_v2.launches`` and ``.serving_launches``
     (the first design, on request only, in ``.first_design_launches``)."""
     kw = _theta_v2_options(dt, step0, bdf2, with_trilinear, n_real, km, kk)

@@ -586,8 +586,10 @@ def _bind(lib):
 
 
 def _bind_serving(lib):
-    """Every entry of ``csrc/windowed_serving.cu``: K1's serving design,
-    K3 on the serving body (``ops/resid_sweep.py``) and the tile query."""
+    """Every entry of a serving unit (``csrc/windowed_serving.cu`` and its
+    NP 48 and 64 units, ``csrc/windowed_serving_entries.cuh``): K1's
+    serving design, K3 on the serving body (``ops/resid_sweep.py``) and
+    the tile query."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.romtime_windowed_serving.argtypes = (
         [ptr] * 11 + [i32] * 14 + [ctypes.c_float, ptr])
@@ -612,10 +614,30 @@ def k1_design(group, paired_mode, ablate):
     return "first"
 
 
+#: The serving design's translation units, each with the largest NP it
+#: instantiates: split so that nvcc builds them in parallel.
+SERVING_LIBRARIES = ((32, "windowed_serving"), (48, "windowed_serving_np48"),
+                     (64, "windowed_serving_np64"))
+
+
+def serving_unit(NP):
+    """The name of the serving design's unit that instantiates NP."""
+    for top, name in SERVING_LIBRARIES:
+        if NP <= top:
+            return name
+    raise ValueError(f"NP {NP} above the serving design's largest "
+                     f"({SERVING_LIBRARIES[-1][0]})")
+
+
+def serving_library(NP):
+    """The ctypes library of :func:`serving_unit` (built on first use)."""
+    return kernel_build.load(serving_unit(NP), _bind_serving)
+
+
 def serving_tile(NP, km8, kk8, kf8):
     """Launch shape of the serving design for NP and the θ extents:
     {"lanes", "threads", "ks", "smem_bytes"} (builds the library)."""
-    lib = kernel_build.load("windowed_serving", _bind_serving)
+    lib = serving_library(NP)
     out = (ctypes.c_int * 4)()
     err = lib.romtime_windowed_serving_tile(NP, km8, kk8, kf8, out)
     kernel_build.check_launch(lib, err, "windowed_serving tile")
@@ -686,7 +708,7 @@ def _launch(args, kw, design=None, clocked=False):
     clk = None
     with torch.cuda.device(dev):
         if design == "serving":
-            lib = kernel_build.load("windowed_serving", _bind_serving)
+            lib = serving_library(NP)
             Bmk = pad_rows(Bmk, W, Bmk.shape[1], NP, NP)
             Tp = pad_rows(Tp, W, NP, NP)
             VE = pad_rows(VE, W, PROBE_P, NP)

@@ -14,10 +14,14 @@ build's own segments) and the wrapper's routing rule.
   tables, reused from tests/test_torch_windowed_fused.py) at 5e-5·scale
   for probes and state: the per-step LU, the paired LU G=5 ``sub1``
   (width 8 ≥ G+2) and the Richardson solve (6 iterations), N ∈ {12, 24}.
-- :func:`k1_design` for every follower mode × ablation × solve.
+- :func:`k1_design` for every follower mode × ablation × solve, and
+  :func:`serving_unit`: the unit of the split serving source that
+  instantiates each NP.
 
 The CUDA kernel itself is held against the twin on the card
 (tests/test_torch_cuda.py, marked ``cuda``)."""
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -163,3 +167,26 @@ def test_card_entries_refuse_cpu_tensors():
     assert counts == (k1.online_sweep_windowed_fused.launches,
                       k1.online_sweep_windowed_fused.serving_launches,
                       k1.online_sweep_windowed_fused.first_design_launches)
+
+
+@pytest.mark.parametrize("NP", range(8, 72, 8))
+def test_serving_unit_instantiates_its_np(NP):
+    """The serving design's source is split by NP into units that build
+    in parallel: the unit ``serving_unit`` names for an NP instantiates
+    the dd step at that NP, no other unit does, and each CLOCKED NP
+    (SERVING_CLOCKED_NP) has its clocked instantiation in the same
+    unit."""
+    import re
+
+    csrc = Path(k1.__file__).resolve().parent.parent / "csrc"
+    plain = re.compile(r"launch_np<(\d+), false, false>")
+    clocked = re.compile(r"launch_np<(\d+), true, false>")
+    units = {name: (csrc / f"{name}.cu").read_text()
+             for _top, name in k1.SERVING_LIBRARIES}
+    owners = [name for name, text in units.items()
+              if str(NP) in plain.findall(text)]
+    assert owners == [k1.serving_unit(NP)]
+    if NP in k1.SERVING_CLOCKED_NP:
+        assert str(NP) in clocked.findall(units[owners[0]])
+    with pytest.raises(ValueError, match="NP 72"):
+        k1.serving_unit(72)

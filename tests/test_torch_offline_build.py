@@ -309,27 +309,34 @@ def test_served_kernels_on_the_built_rom(port_hrom):
     assert np.abs(k5["probes"] - k4["probes"]).max() <= 3e-6 * scale
 
 
-def test_device_sweep_matches_serial(port_hrom, tmp_path):
+def test_device_sweep_matches_serial(port_hrom, tmp_path, monkeypatch):
     """``run_offline_rom(device_sweep=True)`` (one ``solve_fom_batch``)
     against the serial ``fom.solve()`` per μ: the snapshots within
     1e-12 relative, the same bases and dofs; the serial path alone writes
-    the probe CSVs. The serial float64 solves take the native loop
-    (Thomas) and the sweep the eager one (PCR): the bases' projectors are
-    held at the reference's own limit for that pair, 1e-8
+    the probe CSVs. Against the serial eager loop (``ROMTIME_NATIVE_FOM=0``,
+    PCR like the sweep) the bases' projectors agree within 1e-10; against
+    the serial native loop (Thomas, the default for a float64 solve)
+    within the reference's own limit for that pair, 1e-8
     (tests/test_parallel.py:163-167)."""
     serial, serial_dir = port_hrom
     batch = port_build(tmp_path, device_sweep=True)
-    for a, b in zip(batch.srom.offline_snapshots,
-                    serial.srom.offline_snapshots):
-        assert np.linalg.norm(a - b) <= 1e-12 * np.linalg.norm(b)
-    np.testing.assert_allclose(_projector(batch.srom.basis),
-                               _projector(serial.srom.basis), rtol=0,
-                               atol=1e-8)
-    for attr in REDUCTORS:
-        assert sorted(getattr(batch.rom, attr).dofs) == sorted(
-            getattr(serial.rom, attr).dofs)
-    assert sorted(p.name for p in serial_dir.glob("probes_offline_fom_*"))\
-        == [f"probes_offline_fom_{i}.csv" for i in range(3)]
+    monkeypatch.setenv("ROMTIME_NATIVE_FOM", "0")
+    eager_dir = tmp_path / "eager"
+    eager_dir.mkdir()
+    eager = port_build(eager_dir)
+    for ref, atol in ((eager, 1e-10), (serial, 1e-8)):
+        for a, b in zip(batch.srom.offline_snapshots,
+                        ref.srom.offline_snapshots):
+            assert np.linalg.norm(a - b) <= 1e-12 * np.linalg.norm(b)
+        np.testing.assert_allclose(_projector(batch.srom.basis),
+                                   _projector(ref.srom.basis), rtol=0,
+                                   atol=atol)
+        for attr in REDUCTORS:
+            assert sorted(getattr(batch.rom, attr).dofs) == sorted(
+                getattr(ref.rom, attr).dofs)
+    for path in (serial_dir, eager_dir):
+        assert sorted(p.name for p in path.glob("probes_offline_fom_*"))\
+            == [f"probes_offline_fom_{i}.csv" for i in range(3)]
     assert not list(tmp_path.glob("probes_offline_fom_*"))
 
 
