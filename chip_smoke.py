@@ -38,6 +38,7 @@ Phases, in order; any failure raises and exits non-zero:
    and K5 over a whole global sweep (nt=1500): K4 at N=15, K5 at N=15 and
    N=20 (B=2048, the throughput ROM and S-ROM), each also at N=9 with
    BDF-1 and no trilinear term, and at B=1000 (not a multiple of 128),
+   these four over nt=750,
    each on both designs in turns as K2 and K3, with the phase clocks at
    N=15 (K4) and N=20 (K5). Errors against 5e-5·scale; ms per call of the
    kernel and of the twin, and the bound;
@@ -112,17 +113,17 @@ Phases, in order; any failure raises and exits non-zero:
    atol 1e-17) and, card against CPU, within the triangle bound of (b)'s
    gaps (tests/test_hrom.py:442-520); (d) ``estimate_batch_mulocal`` in
    float64 at B=16 on the synthetic fleet drawn at N+8
-   (``srom_extra=8``, every cell occupied; its time grid cut to nt=750,
-   the windows each half as wide): shapes, finite positive
+   (``srom_extra=8``, every cell occupied; its time grid cut to nt=450,
+   the windows each narrower): shapes, finite positive
    averages, each estimator row the coefficient-difference norm of its
    μ's merged trajectories (rtol 1e-12), a permuted batch's rows bit for
    bit, and the served fleet
    (``solve_batch_mulocal``) equal before and after bit for bit, with
    the per-cell seconds; (e) the chained lanes variant on a 50x32-recipe
-   cell with W=7 unequal windows (214 and 215 steps), float64, B=16,
+   cell with W=7 unequal windows (64 and 65 steps, nt=450), float64, B=16,
    ``mode="reduced"``: card against an explicit CPU run within
-   1e-9·scale, and called directly on the equal-width 50x32 cell within
-   1e-9·scale of the equal-width engine;
+   1e-9·scale, and called directly on the equal-width 50x32 cell (nt=450)
+   within 1e-9·scale of the equal-width engine;
 10. FOM phase, the full-order piston model at the flagship width
    (nx=1000, nt=1500, P1, BDF-2, regime "rest"; ``convert.piston_fom``)
    over 88 μ drawn from the μ box by the port's ``ParameterSampler``
@@ -131,10 +132,10 @@ Phases, in order; any failure raises and exits non-zero:
    outside Pallas). (a) ``solve_fom_batch`` in float32 at B=88, plain
    and with ``dd_sweep``: the reference's keys and shapes, finite, with
    seconds a sweep, ms a step, μ·steps/s and peak device memory; (b) the
-   same sweep in float64 on the card for the first 4 μ against an
+   same sweep in float64 on the card for the first 2 μ against an
    explicit CPU run (``device="cpu"``): ``uh``, ``uc``, ``probes`` and
    ``nonlinear_data`` within 1e-10 relative per μ; (c) (a)'s sweeps on
-   those 4 μ against (b)'s card sweep (tests/test_fom_dd.py:60-68, :90):
+   those 2 μ against (b)'s card sweep (tests/test_fom_dd.py:60-68, :90):
    the dd drift under 1e-4 and under 5× the plain drift, the low words
    0 < |lo| < 1e-5·|hi|; (d) in float64 the piston probe equals the
    Dirichlet value bL within 1e-12 (tests/test_fom_piston.py:54-59); (e)
@@ -194,11 +195,11 @@ Phases, in order; any failure raises and exits non-zero:
    PERF.md §6), and that launch held against K1's twin on the
    same inputs (ATOL_REL); (d) the
    float64 windowed lanes engine in ``mode="full"`` on bench's center μ
-   and 4 of its held-out μ against the float64 FOM on the card on each
+   and 2 of its held-out μ against the float64 FOM on the card on each
    lane's matched grid (T·d on a registered lane): the center under 1e-3
    (tests/test_windowed.py:398), a registered lane under 4e-3
    (tests/test_registration.py:490); (e) ``estimate_batch_mulocal`` in
-   float64 at B=16 by phase 9 (d)'s contract, each row also the
+   float64 at B=8 by phase 9 (d)'s contract, each row also the
    reconstruction-norm formula on its window's basis; (f) a fresh
    driver's ``start_from_existing_basis`` serving (c)'s last batch bit
    for bit, cell 0 rebuilt at 30x40 from the trajectory cache with
@@ -215,7 +216,7 @@ Phases, in order; any failure raises and exits non-zero:
    ``convert.estimator_to_arrays``); (b) the float32 solve (the
    double-word residual step) against (a), its drift and bench's
    ``serve_drift`` (bench.py:993-996, over the float64 FOM's norm); (c)
-   the vmap engine at B=4 on the ROM without its convection MDEIM (the
+   the vmap engine at B=2 on the ROM without its convection MDEIM (the
    projection stands in, ``_resolve_engine`` → "vmap"), each row within
    1e-12 of ``solve`` on its μ; (d) ``hrom.evaluate_validation()`` and
    ``evaluate_online({"num": 2})`` in float64 in a temporary directory:
@@ -244,6 +245,30 @@ Phases, in order; any failure raises and exits non-zero:
    ``engine="windowed"`` within 1e-4 of the FOM; (e) ``estimate_batch``
    in float64 at B=16, the card against the pair carried to the CPU, by
    phase 9's contract.
+15. multi-device phase, one controller over a ``parallel.DeviceMesh`` of
+   two shards on cuda:0, every launch counter set to 0 before it and
+   read after (none: the reference's sharded paths reach no Pallas
+   kernel): (a) ``solve_fom_sharded`` at the flagship FOM (nx=1000,
+   nt=1500) in float32 over phase 10's first 87 μ (the batch pads to
+   88) against phase 10's ``solve_fom_batch`` rows of the same μ within
+   1e-12 relative per μ (the same arithmetic a lane); (b) ``orth_distributed`` of (a)'s
+   snapshots in float64 on the card (TSQR) against the port's host
+   ``orth``: σ within 1e-10 of σ₁, the first 10 modes' spans by the sine
+   of their largest principal angle within 1e-8; (c)
+   ``solve_online_windowed_sharded`` on the synthetic fleet's 50x32 cell
+   0 (phase 9's nt=450) at B=9 in float64 against ``engine="windowed"``
+   within 1e-9·scale; (d) the μ-local composition on that fleet, two μ
+   in cell 0 and two in the registered cell 5, routed through the
+   sharded sweep: each cell's rows (probes, ``uN_final``, ``dil``)
+   within 1e-12·scale of its direct single-device rows
+   (tests/test_windowed.py:744-779); (e) a mixed mesh, the card and the
+   CPU, at tests/test_parallel.py's FOM (nx=64, nt=20) in float64: the
+   FOM and the online sweeps (the vmap engine, a seeded 4-mode basis)
+   within 1e-10·scale of one device, each shard's μ seen on its own
+   device (cuda:0, then cpu); (f) ``parallel.dryrun.dryrun_multichip``
+   on the two-shard mesh and on ``device_mesh()`` (the one card), its
+   tiny HROM and fleet built on the card once. Each item's seconds and
+   gaps beside the card's name and power limit.
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -252,8 +277,8 @@ both designs, in turns). Prints a JSON line of per-kernel results (K1-K5
 on the serving body with their first designs' times, the phase shares,
 the register and spill report, and K1's first design's modes, ablations
 and ledger; the fleet's numbers; the certification, FOM, offline build,
-fleet build, online single-μ and heat phases' numbers), then, as the
-last line,
+fleet build, online single-μ, heat and multi-device phases' numbers,
+the last under ``multi_device``), then, as the last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -307,12 +332,18 @@ KERNELS = ("K1", "K2", "K3", "K4", "K5")
 GLOBAL_NT = 1500
 GLOBAL_CALLS = 3
 GLOBAL_REPS = 3
-#: (kernel, N, B, options) of the global kernel phase.
+#: (kernel, N, B, nt, options) of the global kernel phase: the serving
+#: shapes over the whole grid; the BDF-1 and B=1000 variants over half
+#: of it (their twins' sweeps dominate the phase, and each step is the
+#: same step).
 NO_TRI_BDF1 = {"bdf2": False, "with_trilinear": False}
-GLOBAL_SHAPES = (("K4", 15, 2048, {}), ("K5", 15, 2048, {}),
-                 ("K5", 20, 2048, {}),
-                 ("K4", 9, 2048, NO_TRI_BDF1), ("K5", 9, 2048, NO_TRI_BDF1),
-                 ("K4", 15, 1000, {}), ("K5", 20, 1000, {}))
+GLOBAL_SHAPES = (("K4", 15, 2048, GLOBAL_NT, {}),
+                 ("K5", 15, 2048, GLOBAL_NT, {}),
+                 ("K5", 20, 2048, GLOBAL_NT, {}),
+                 ("K4", 9, 2048, GLOBAL_NT // 2, NO_TRI_BDF1),
+                 ("K5", 9, 2048, GLOBAL_NT // 2, NO_TRI_BDF1),
+                 ("K4", 15, 1000, GLOBAL_NT // 2, {}),
+                 ("K5", 20, 1000, GLOBAL_NT // 2, {}))
 #: Sources of the serving body: no instantiation may spill.
 SERVING_SOURCES = ("windowed_serving", "windowed_serving_np48",
                    "windowed_serving_np64", "global_serving",
@@ -343,20 +374,22 @@ CERT_F64_REL = 1e-9
 #: The synthetic cells' grid (the flagship FOM) and the S-ROM's extra
 #: modes (bench.py's BENCH_WINDOW_SROM_EXTRA default).
 CERT_GRID = {"nx": 1000, "nt": 1500}
-# (d)'s nested fleet at half the steps (the windows keep their count and
-# N, each half as wide): its two 6-cell float64 estimator calls were 122 s
-# of the phase at nt=1500, and the smoke run keeps within its clock.
-CERT_FLEET_GRID = {"nx": 1000, "nt": 750}
+# (d)'s nested fleet and (e)'s chained cells at 450 of the 1500 steps
+# (the windows keep their count and N, each narrower): (d)'s two 6-cell
+# float64 estimator calls were 122 s of the phase at nt=1500, and the
+# smoke run keeps within its clock (1,119-1,152 s of 1,200 at nt=750 with
+# phase 15; PERF.md §6, PR 18).
+CERT_FLEET_GRID = {"nx": 1000, "nt": 450}
 SROM_EXTRA = 8
-#: (e): unequal widths (W=7 on nt=1500: 214 and 215 steps) at N=32.
+#: (e): unequal widths (W=7 on nt=450: 64 and 65 steps) at N=32.
 CHAINED_W = 7
 #: Phase 10, the FOM: the flagship piston FOM (bench.py:121-122, :145)
 #: over the flagship fleet's offline batch (bench.py:113, 88 μ); (b)-(e)
-#: on its first 4 μ, at the limits of the reference tests named there.
+#: on its first 2 μ, at the limits of the reference tests named there.
 FOM_GRID = {"L0": 1.0, "nx": 1000, "tf": 1.0, "nt": 1500}
 FOM_B = 88
 FOM_SEED = 13
-FOM_CHECK_B = 4
+FOM_CHECK_B = 2
 FOM_KEYS = ("uh", "uc", "x", "t", "probes", "nonlinear_data")
 FOM_F64_REL = 1e-10
 FOM_DD_DRIFT = 1e-4
@@ -378,13 +411,16 @@ PEAK_BYTES = 3.35e12
 #: 0-4 (bench's 12,12,12,12,16) and bench's 24 in the top cell (6 left
 #: its served K1 1.4% over (c)'s limit), the top cell registered (bench's
 #: BENCH_REGISTER=top, bench.py:346-348; the flagship registers "auto"),
-#: 4 of bench's 16 held-out μ plus its center μ (bench.py:343, :518-521).
+#: 2 of bench's 16 held-out μ (the lowest and the highest Mach, in the
+#: registered top cell) plus its center μ (bench.py:343, :518-521).
 FLEET_BUILD_GRID = {"nx": 1000, "nt": 1500, "tf": 1.0}
 FLEET_BUILD_PER_CELL = (2, 2, 2, 2, 5, 24)
 FLEET_BUILD_REGISTER = [5]
 FLEET_BUILD_CELL_WN = ((50, 32),) * 4 + ((150, 48),) * 2
 FLEET_BUILD_B = 2048
-FLEET_BUILD_HELD_OUT = 4
+FLEET_BUILD_HELD_OUT = 2
+#: (e)'s estimator batch: this many of the certification μ and the center.
+FLEET_BUILD_EST_HELD_OUT = 7
 #: (d)'s limits on the matched grid: the center μ
 #: (tests/test_windowed.py:398), a registered lane
 #: (tests/test_registration.py:490).
@@ -398,7 +434,7 @@ AUTO_WN_TARGET = 1e-5
 # Phase 13: the single-μ path and the evaluation on phase 11's ROM.
 SINGLE_VS_LANES = 1e-12   # tests/test_rom.py:114
 F32_DRIFT_MAX = 1e-5      # a guard: a float32 solve that left float64
-VMAP_B = 4
+VMAP_B = 2
 EVAL_ONLINE = 2
 EVAL_ROM_MEAN = 5e-3      # tests/test_hrom.py:349
 NATIVE_VS_EAGER = 1e-12   # tests/test_native_fom.py:62-67
@@ -424,6 +460,19 @@ GLOBAL_PROBES_REL = 3e-5     # tests/test_rom.py:196-200
 GLOBAL_UN_REL = 1e-4
 WINDOWED_PROBES_REL = 5e-6   # tests/test_windowed.py:91-94
 WINDOWED_UN_ATOL = 5e-5
+# Phase 15: multi-device, one controller over a mesh of the card (two
+# shards on cuda:0) and, in (e), a mesh of the card and the CPU.
+MD_FOM_B = 87               # (a): pads to 88 over the two shards
+MD_FOM_REL = 1e-12          # (a): the same arithmetic per lane
+MD_SIGMA_REL = 1e-10        # (b): TSQR's σ against the host SVD, of σ₁
+MD_MODES = 10               # (b): the leading modes whose spans are held
+MD_SINE = 1e-8              # (b): sine of their largest principal angle
+MD_WINDOWED_B = 9           # (c): pads to 10
+MD_LANES_REL = 1e-9         # (c): the float64 lanes limit
+MD_ROUTED_CELLS = (0, 5)    # (d): one cell of each shape, 5 registered
+MD_ROUTED_REL = 1e-12       # (d): tests/test_windowed.py:744-779
+MD_TINY = {"L0": 1.0, "nx": 64, "tf": 0.2, "nt": 20}   # tests/test_parallel.py
+MD_MIXED_REL = 1e-10        # (e): card shard against the CPU, float64
 
 
 def fail(msg):
@@ -975,11 +1024,11 @@ def global_kernel_phase(mods, dev, power, errs):
 
     synth = mods["synth"]
     rows = []
-    for name, N, Bn, options in GLOBAL_SHAPES:
+    for name, N, Bn, nt, options in GLOBAL_SHAPES:
         bnd = GLOBAL_BOUND[name]
-        args, kw = synth.global_tables(N, GLOBAL_NT, Bn, seed=N, device=dev,
+        args, kw = synth.global_tables(N, nt, Bn, seed=N, device=dev,
                                        theta=name == "K5", **options)
-        label = (f"{name} N={N} nt={GLOBAL_NT} B={Bn}"
+        label = (f"{name} N={N} nt={nt} B={Bn}"
                  + (", BDF-1 without the trilinear term" if options else "")
                  + f" on {power}")
         bms, by = bnd(args, kw)
@@ -999,8 +1048,8 @@ def global_kernel_phase(mods, dev, power, errs):
         del sargs
         print(f"  bound {bms:.4f} ms ({by})")
         errs[name].append(row["max_abs_err"])
-        rows.append(dict(kernel=name, shape=f"N{N}", B=Bn, options=options,
-                         bound_ms=bms, bound_by=by, **row))
+        rows.append(dict(kernel=name, shape=f"N{N}", B=Bn, nt=nt,
+                         options=options, bound_ms=bms, bound_by=by, **row))
         torch.cuda.empty_cache()
     return rows
 
@@ -1853,7 +1902,7 @@ def certification_phase(mods, dev, power):
     # against the equal-width engine.
     cmus = synth.synthetic_mus(CERT_SMALL_B, seed=51)
     cells7 = {d: synth.synthetic_cell(seed=7, n_windows=CHAINED_W, N=32,
-                                      device=d, **CERT_GRID)
+                                      device=d, **CERT_FLEET_GRID)
               for d in (dev, "cpu")}
     widths = sorted(set(np.diff(cells7[dev].windows.bounds).tolist()))
     with compute_dtype_scope(torch.float64):
@@ -1864,7 +1913,7 @@ def certification_phase(mods, dev, power):
           f"B={CERT_SMALL_B}, float64: the card {runs[dev][1]:.2f} s, the "
           f"CPU run {runs['cpu'][1]:.2f} s")
     chained_gap = same_code("chained", runs[dev][0], runs["cpu"][0], power)
-    cell = synth.synthetic_cell(device=dev, **CERT_GRID)
+    cell = synth.synthetic_cell(device=dev, **CERT_FLEET_GRID)
     with compute_dtype_scope(torch.float64):
         equal, equal_s = timed(dev, lambda: cell.solve_batch(
             cmus, mode="reduced", engine="windowed", host=False))
@@ -1955,7 +2004,8 @@ def fom_phase(dev, power):
                                         which="rest"),
             "B": FOM_B, "seed": FOM_SEED, "nnz": nnz, "launches": None}
 
-    # (a) float32 at the full batch, plain and dd; the first 4 μ kept.
+    # (a) float32 at the full batch, plain and dd; the first μ kept, and
+    # the plain sweep's first MD_FOM_B rows for phase 15 (a).
     kept = {}
     for dd in (False, True):
         label = "dd" if dd else "plain"
@@ -1966,6 +2016,8 @@ def fom_phase(dev, power):
         peak = torch.cuda.max_memory_allocated()
         check_fom_outputs(f"(a) {label}", out, FOM_B, nnz, dd)
         kept[dd] = {k: v[:FOM_CHECK_B].copy() for k, v in out.items()}
+        if not dd:
+            batch = {k: v[:MD_FOM_B] for k, v in out.items()}
         del out
         info[f"f32_{label}"] = dict(
             seconds=sec, ms_per_step=sec / nt * 1e3,
@@ -1976,7 +2028,7 @@ def fom_phase(dev, power):
               f"{peak / 2**30:.2f} GiB; keys and shapes as the reference's, "
               f"finite, on {power} ok")
 
-    # (b) float64, the first 4 μ, the card against the CPU.
+    # (b) float64, the first μ, the card against the CPU.
     fom.dd_sweep = False
     fom_cpu = piston_fom(**FOM_GRID, device="cpu")
     with compute_dtype_scope(torch.float64):
@@ -2050,7 +2102,7 @@ def fom_phase(dev, power):
     if not ok:
         raise AssertionError("(e) solve() disagrees with its batch row")
     info["serial"] = dict(seconds=serial_s, rel_gaps=serial)
-    return info
+    return info, batch
 
 
 def estimator_contract(out, ref, V_srom, nt):
@@ -2737,7 +2789,7 @@ def fleet_build_phase(mods, dev, power):
 
         # (e) estimate_batch_mulocal, float64, B=16: phase 9 (d)'s
         # contract.
-        fmus = synth.certification_mus()
+        fmus = synth.certification_mus(FLEET_BUILD_EST_HELD_OUT)
         served_before = rom.solve_batch_mulocal(fmus, mode="probes")
         with compute_dtype_scope(torch.float64):
             fest, fest_s = timed(dev, lambda: hrom.estimate_batch_mulocal(
@@ -3402,6 +3454,229 @@ def heat_phase(mods, dev, power):
     return info
 
 
+def sine_largest_angle(Q, P):
+    """Sine of the largest principal angle between the spans of the
+    orthonormal columns of Q and of P."""
+    return float(np.linalg.norm(Q - P @ (P.T @ Q), 2))
+
+
+def spy_devices(obj, name, seen):
+    """Wrap ``obj.name`` (a method taking a μ batch first) to record the
+    device of each call's μ."""
+    real = getattr(obj, name)
+
+    def spy(mu, *args, **kwargs):
+        seen.append(str(next(iter(mu.values())).device))
+        return real(mu, *args, **kwargs)
+
+    setattr(obj, name, spy)
+
+
+def multi_device_phase(mods, dev, power, batch, fom_seconds):
+    """Phase 15 of the module doc: the sharded sweeps, TSQR and the dry
+    run over a mesh of two shards on the card and, in (e), over a mesh of
+    the card and the CPU, every launch counter set to 0 before the phase
+    and read after (none: the reference's sharded paths reach no
+    Pallas kernel). ``batch``: phase 10's float32 one-batch outputs of
+    the first MD_FOM_B μ, ``fom_seconds`` that sweep's seconds."""
+    from romtime_tpu_torch.convert import piston_fom
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.parallel import (
+        DeviceMesh,
+        device_mesh,
+        dryrun,
+        orth_distributed,
+        solve_fom_batch,
+        solve_fom_sharded,
+        solve_online_sharded,
+        solve_online_windowed_sharded,
+    )
+    from romtime_tpu_torch.rom import RomConstructorNonlinear
+    from romtime_tpu_torch.rom.pod import orth
+
+    synth = mods["synth"]
+    card0, cpu = torch.device(dev), torch.device("cpu")
+    two = DeviceMesh([card0, card0])
+    f64 = torch.float64
+    info = {"card": power, "mesh": str(two)}
+    for c in counters(mods):
+        c.launches = c.serving_launches = c.first_design_launches = 0
+
+    # (a) The sharded FOM sweep at the flagship width against phase 10's
+    # one batch on the same μ (its first MD_FOM_B rows), float32 on the
+    # card.
+    fom = piston_fom(**FOM_GRID, device=dev)
+    mus = fom_mus()[:MD_FOM_B]
+    sharded, sharded_s = timed(dev, lambda: solve_fom_sharded(fom, mus,
+                                                              mesh=two))
+    gaps = {}
+    for key in sorted(batch):
+        if sharded[key].shape != batch[key].shape:
+            raise AssertionError(f"(a) {key}: {sharded[key].shape} vs "
+                                 f"{batch[key].shape}")
+        gaps[key] = float(per_mu_rel(sharded[key], batch[key]).max())
+    worst = max(gaps.values())
+    print(f"  (a) solve_fom_sharded at nx={FOM_GRID['nx']}, "
+          f"nt={FOM_GRID['nt']}, B={MD_FOM_B} on {two}: {sharded_s:.2f} s "
+          f"(phase 10's one batch of {FOM_B}: {fom_seconds:.2f} s); worst "
+          f"per-μ relative gap to its rows {worst:.3e} (limit "
+          f"{MD_FOM_REL:.0e}) on {power}")
+    if worst > MD_FOM_REL:
+        raise AssertionError(f"(a) sharded FOM sweep disagrees: {gaps}")
+    info["fom"] = dict(B=MD_FOM_B, seconds=sharded_s,
+                       batch_seconds=fom_seconds, batch_B=FOM_B,
+                       rel_gaps=gaps)
+
+    # (b) TSQR POD of (a)'s snapshots, float64 on the card, against the
+    # host SVD of the same matrix.
+    nh = sharded["uh"].shape[-1]
+    S = sharded["uh"].reshape(-1, nh).T.astype(np.float64)
+    del sharded
+    (Q, s, _e), tsqr_s = timed(dev, lambda: orth_distributed(S, mesh=two))
+    t0 = time.perf_counter()
+    Q_h, s_h, _e_h = orth(S)
+    host_s = time.perf_counter() - t0
+    sig = float(np.abs(s[:len(s_h)] - s_h).max() / s_h[0])
+    k = MD_MODES
+    sine = sine_largest_angle(Q[:, :k], Q_h[:, :k])
+    gap_k = float((s_h[k - 1] - s_h[k]) / s_h[0])
+    print(f"  (b) orth_distributed of the {S.shape} snapshot matrix: "
+          f"{tsqr_s:.2f} s on {two}, host orth {host_s:.2f} s; σ gap "
+          f"{sig:.3e} of σ₁ (limit {MD_SIGMA_REL:.0e}), retained "
+          f"{Q.shape[1]} / {Q_h.shape[1]} modes, sine of the largest angle "
+          f"of the first {k} spans {sine:.3e} (limit {MD_SINE:.0e}; "
+          f"(σ_{k} − σ_{k + 1})/σ₁ = {gap_k:.3e}) on {power}")
+    if sig > MD_SIGMA_REL or sine > MD_SINE or Q.shape != Q_h.shape:
+        raise AssertionError("(b) TSQR disagrees with the host SVD")
+    info["tsqr"] = dict(shape=list(S.shape), seconds=tsqr_s,
+                        host_seconds=host_s, sigma_rel=sig, sine=sine,
+                        modes=Q.shape[1], gap=gap_k)
+    del S, Q, Q_h
+
+    # The synthetic fleet at phase 9's time grid: (c) on its 50x32 cell 0,
+    # (d) routed over cells 0 and 5.
+    fleet = synth.synthetic_fleet(device=dev, **CERT_FLEET_GRID)
+    ml = fleet.mulocal
+
+    # (c) The sharded windowed lanes engine against the single-device
+    # engine on one cell, float64.
+    wmus = synth.synthetic_mus(MD_WINDOWED_B, seed=15)
+    prev = fleet.windows
+    fleet._set_serving_windows(ml.cells[0])
+    with compute_dtype_scope(f64):
+        single, single_s = timed(dev, lambda: fleet.solve_batch(
+            wmus, mode="probes", engine="windowed"))
+        wsh, wsh_s = timed(dev, lambda: solve_online_windowed_sharded(
+            fleet, wmus, mesh=two, mode="probes"))
+    fleet._set_serving_windows(prev)
+    wgaps = {}
+    for key in ("probes", "uN_final"):
+        scale = max(np.abs(single[key]).max(), 1e-3)
+        wgaps[key] = float(np.abs(wsh[key] - single[key]).max() / scale)
+    print(f"  (c) solve_online_windowed_sharded, 50x32 cell (nt="
+          f"{CERT_FLEET_GRID['nt']}), B={MD_WINDOWED_B}, float64: "
+          f"{wsh_s:.2f} s against one device {single_s:.2f} s; gaps of "
+          f"scale {wgaps} (limit {MD_LANES_REL:.0e}) on {power}")
+    if max(wgaps.values()) > MD_LANES_REL:
+        raise AssertionError("(c) sharded windowed sweep disagrees")
+    info["windowed"] = dict(B=MD_WINDOWED_B, seconds=wsh_s,
+                            single_seconds=single_s, gaps=wgaps)
+
+    # (d) Routed and sharded: each cell's rows against its direct
+    # single-device rows.
+    pool = synth.synthetic_mus(256, seed=16)
+    cells = ml.cell_of([RomConstructorNonlinear.compute_piston_mach_number(m)
+                        for m in pool])
+    dmus = [pool[i] for c in MD_ROUTED_CELLS
+            for i in np.nonzero(np.asarray(cells) == c)[0][:2]]
+    dcells = [c for c in MD_ROUTED_CELLS for _ in range(2)]
+    with compute_dtype_scope(f64):
+        routed, routed_s = timed(dev, lambda: fleet.solve_batch_mulocal(
+            [dict(m) for m in dmus], sweep_fn=lambda sub: (
+                solve_online_windowed_sharded(fleet, sub, mesh=two,
+                                              mode="probes"))))
+        dgaps = {}
+        for c in MD_ROUTED_CELLS:
+            idx = [i for i, cc in enumerate(dcells) if cc == c]
+            sub = [dict(dmus[i]) for i in idx] * 2
+            fleet._set_serving_windows(ml.cells[c])
+            direct = fleet.solve_batch(sub, mode="probes", engine="windowed")
+            for key in ("probes", "uN_final", "dil"):
+                if key not in direct:
+                    continue
+                scale = max(np.abs(direct[key]).max(), 1e-3)
+                dgaps[f"{c}/{key}"] = max(
+                    float(np.abs(np.asarray(routed[key][i])
+                                 - direct[key][j]).max() / scale)
+                    for j, i in enumerate(idx))
+        fleet._set_serving_windows(prev)
+    print(f"  (d) routed + sharded on cells {MD_ROUTED_CELLS} (nt="
+          f"{CERT_FLEET_GRID['nt']}), 2 μ each: {routed_s:.2f} s; gaps to "
+          f"the direct rows of scale {dgaps} (limit {MD_ROUTED_REL:.0e}) "
+          f"on {power}")
+    if max(dgaps.values()) > MD_ROUTED_REL or "5/dil" not in dgaps:
+        raise AssertionError("(d) routed sharded rows disagree")
+    info["routed"] = dict(seconds=routed_s, gaps=dgaps)
+    del fleet, ml
+
+    # (e) A mixed mesh, the card and the CPU, at tests/test_parallel.py's
+    # size in float64: each shard where the mesh says.
+    mixed = DeviceMesh([card0, cpu])
+    tiny = piston_fom(**MD_TINY, device="cpu")
+    tmus = synth.synthetic_mus(8, seed=17)
+    rng = np.random.default_rng(0)
+    V = np.linalg.qr(rng.normal(size=(tiny.mesh.nh, 4)))[0]
+    trom = RomConstructorNonlinear(fom=tiny, grid=None, device="cpu")
+    trom.setup(rnd=0)
+    trom.basis = V
+    seen = {"fom": [], "online": []}
+    with compute_dtype_scope(f64):
+        one_fom = solve_fom_batch(tiny, tmus)
+        one_rom = solve_online_sharded(trom, tmus, mesh=DeviceMesh([cpu]))
+        spy_devices(tiny, "_solve_impl", seen["fom"])
+        spy_devices(trom, "_online_scan", seen["online"])
+        (mix_fom, mix_rom), mixed_s = timed(dev, lambda: (
+            solve_fom_sharded(tiny, tmus, mesh=mixed),
+            solve_online_sharded(trom, tmus, mesh=mixed)))
+    egaps = {}
+    for label, got, want in (("fom", mix_fom, one_fom),
+                             ("online", mix_rom, one_rom)):
+        for key in sorted(want):
+            scale = max(np.abs(want[key]).max(), 1e-30)
+            egaps[f"{label}/{key}"] = float(
+                np.abs(got[key] - want[key]).max() / scale)
+    print(f"  (e) mixed mesh {mixed}, nx={MD_TINY['nx']}, nt="
+          f"{MD_TINY['nt']}, float64: {mixed_s:.2f} s; shards ran on "
+          f"{seen}; worst gap to one device "
+          f"{max(egaps.values()):.3e} of scale (limit {MD_MIXED_REL:.0e}) "
+          f"on {power}")
+    want_where = [str(torch.empty(0, device=card0).device), "cpu"]
+    if (seen["fom"] != want_where or seen["online"] != want_where
+            or max(egaps.values()) > MD_MIXED_REL):
+        raise AssertionError(f"(e) mixed mesh: {seen}, {egaps}")
+    info["mixed"] = dict(seconds=mixed_s, devices=seen, gaps=egaps)
+
+    # (f) The dry run on the two-shard mesh and on every card, the
+    # serving HROM built on the card once.
+    hrom, build_s = timed(dev, lambda: dryrun.serving_hrom(dev))
+    runs = {}
+    for label, mesh in (("two_shards", two), ("device_mesh", device_mesh(device_type=card0.type))):
+        (value, served), secs = timed(
+            dev, lambda: dryrun.dryrun_multichip(mesh, rom=hrom.rom))
+        if not (np.isfinite(value) and np.isfinite(served)):
+            raise AssertionError(f"(f) {label}: not finite")
+        runs[label] = dict(mesh=str(mesh), seconds=secs, diagnostic=value,
+                           serving=served)
+    print(f"  (f) dry run: serving HROM built in {build_s:.2f} s; "
+          + "; ".join(f"{k} {v['mesh']} {v['seconds']:.2f} s, diagnostic "
+                      f"{v['diagnostic']:.6e}, serving {v['serving']:.6e}"
+                      for k, v in runs.items()) + f" on {power}")
+    info["dryrun"] = dict(build_seconds=build_s, runs=runs)
+
+    info["launches"] = [c.launches for c in counters(mods)]
+    return info
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -3476,7 +3751,7 @@ def main():
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         launches_before = [c.launches for c in counters(mods)]
-        fom = fom_phase(dev, power)
+        fom, fom_batch = fom_phase(dev, power)
         fom["launches"] = [c.launches - n for c, n in
                            zip(counters(mods), launches_before)]
         fom["seconds"] = time.perf_counter() - t0
@@ -3519,6 +3794,18 @@ def main():
             if not heat["launches"].get(k):
                 raise AssertionError(f"the heat phase never launched {k}")
             errs[k].append(heat["kernels"][k]["max_abs_err"])
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        multi = multi_device_phase(mods, dev, power, fom_batch,
+                                   fom["f32_plain"]["seconds"])
+        del fom_batch
+        multi["seconds_phase"] = time.perf_counter() - t0
+        print(f"multi-device phase: {multi['seconds_phase']:.1f} s, "
+              f"launches K1-K5 {multi['launches']} (none: no kernel on the "
+              f"sharded paths)")
+        if any(multi["launches"]):
+            raise AssertionError("the multi-device phase launched a serving "
+                                 "kernel")
     for k, v in gkernels.items():
         launches[k] = v.pop("launches")
         kernels[k] = v
@@ -3587,6 +3874,7 @@ def main():
         "offline_build": build, "fleet_build": fleet_build,
         "online_single": single,
         "heat": {k: v for k, v in heat.items() if k != "kernels"},
+        "multi_device": multi,
         "card": power}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

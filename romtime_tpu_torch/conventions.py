@@ -5,6 +5,9 @@ headers) depend on them. Only the namespaces the port reads are carried
 over.
 """
 
+#: ``savefig`` keywords of every saved plot.
+FIG_KWARGS = dict(dpi=300, bbox_inches="tight")
+
 
 class ProblemType:
     FOM = "fom"

@@ -522,3 +522,24 @@ class DiscreteEmpiricalInterpolation(Reductor):
         """Hook: MDEIM compares against the Dirichlet-consistent
         operator."""
         return truth
+
+    # ------------------------------------------------------------------
+    # Plots (reference deim.py:544-558), matplotlib at the first call
+    # ------------------------------------------------------------------
+    def plot_errors(self, new=True, save=None, show=False):
+        """The online error series of :meth:`evaluate`, one curve a μ."""
+        from ..utils.plotting import plot_deim_errors
+
+        plot_deim_errors(self, save=save, show=show)
+
+    def plot_spectrum(self, which="sigmas", save=None):
+        """The μ-stage spectrum of the offline report, with its
+        cumulative energy for ``which="energy"``."""
+        from ..utils.plotting import plot_spectrum
+
+        report = self.report[Stage.OFFLINE]
+        plot_spectrum(
+            report[self.SPECTRUM_MU],
+            energy=report[self.ENERGY_MU] if which == "energy" else None,
+            save=save,
+            title=f"(M)DEIM {str(self.name).title()} spectrum decay")

@@ -215,6 +215,7 @@ class OneDimensionalSolver(ABC):
         self.is_setup = False
         self._step_cache = None
         self._entry_map_cache = {}
+        self._scale = 1.0   # the scale that x and L report (move_mesh)
 
     def _make_mesh(self):
         return Mesh1D(L0=float(self.domain[self.L0]),
@@ -223,6 +224,31 @@ class OneDimensionalSolver(ABC):
     # ------------------------------------------------------------------
     # Geometry
     # ------------------------------------------------------------------
+    @property
+    def x(self):
+        """Dof coordinates (numpy) at the position :meth:`move_mesh` last
+        set (reference ``fom/base.py:187-191``)."""
+        return np.asarray(self.mesh.x_dofs) * self._scale
+
+    @property
+    def L(self):
+        """The domain length at that position (reference
+        ``fom/base.py:193-196``)."""
+        return float(self.domain[self.L0]) * self._scale
+
+    def move_mesh(self, mu=None, t=None, back=False):
+        """Set the scale that :attr:`x` and :attr:`L` report to Lt(μ, t),
+        or back to 1 (reference ``fom/base.py:216-221``); μ and t are
+        numbers or tensors, evaluated in float64 on the host. The
+        assembly applies its own pull-back and reads none of it."""
+        if back:
+            self._scale = 1.0
+            return
+        f64 = dict(dtype=torch.float64, device="cpu")
+        self._scale = float(self.scale_factor(
+            {k: torch.as_tensor(v, **f64) for k, v in (mu or {}).items()},
+            torch.as_tensor(t, **f64)))
+
     @property
     def scale_solutions(self):
         return 1.0
@@ -532,6 +558,12 @@ class OneDimensionalSolver(ABC):
         M = assemble_bilinear_band(self.mesh, torch.ones_like(xq), 0, 0, h)
         return self._solve_band(M, rhs)
 
+    def runtime_process(self, u):
+        """Per-step hook of the reference's serial loop (reference
+        ``fom/base.py:505-506``); the loop here records its per-step
+        outputs itself (:meth:`_step_outputs`)."""
+        pass
+
     def _solve_band(self, band, rhs):
         """Solve with a trailing-batch band (2p+1, nh, ...) and rhs (nh,
         ...): the banded solve sees the batch as leading axes (views)."""
@@ -783,6 +815,31 @@ class OneDimensionalSolver(ABC):
                              for d in range(self.mesh.nh)}
         return self.dof_to_cells
 
+    def find_cells_to_cover(self, entry):
+        """The cells that carry the basis functions of an entry's dofs
+        (reference ``fom/base.py:794-800``)."""
+        cells = set()
+        for dof in entry:
+            cells.update(self.mesh.dof_cells(int(dof)))
+        return cells
+
+    def create_algebraic_solver(self):
+        """The linear solver of a step, ``solver(band, rhs)``: the direct
+        banded solve of the time loop (reference ``fom/base.py:802-812``;
+        band (…, 2p+1, nh), rhs (…, nh), tensors)."""
+        p = self.mesh.degree
+
+        def solver(band, rhs):
+            return solve_banded(band, rhs, p)
+
+        return solver
+
+    @staticmethod
+    def dict_to_array(my_dict):
+        """The dict's values stacked as columns (reference
+        ``fom/base.py:845-847``)."""
+        return np.array([np.asarray(v) for v in my_dict.values()]).T
+
     # ------------------------------------------------------------------
     # Errors and point evaluation
     # ------------------------------------------------------------------
@@ -800,3 +857,27 @@ class OneDimensionalSolver(ABC):
     def evaluate_at(self, u, x_points, scale=1.0):
         return eval_function_at(torch.as_tensor(u), x_points, self.mesh,
                                 scale=scale)
+
+    # ------------------------------------------------------------------
+    # Plots (reference fom/base.py:852-871), matplotlib at the first call
+    # ------------------------------------------------------------------
+    def plot_solution(self, pics=6, save=None):
+        from ..utils.plotting import plot_solution
+
+        plot_solution(self.solutions, pics=pics, save=save,
+                      scale=self.scale_solutions)
+
+    def plot_errors(self, save=None, log=False, new=True, label=None):
+        from ..utils.plotting import plot_errors
+
+        plot_errors(self.timesteps, list(self.errors.values()), save=save,
+                    log=log, new=new, label=label)
+
+    def plot_snapshots(self, pics=6, save=None):
+        from types import SimpleNamespace
+
+        from ..utils.plotting import plot_solution
+
+        view = SimpleNamespace(domain=self.solutions.domain,
+                               fom=self.solutions.snapshots)
+        plot_solution(view, pics=pics, save=save, title="Snapshots")

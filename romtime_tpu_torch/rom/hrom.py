@@ -270,7 +270,8 @@ class HyperReducedOrderModelFixed:
     # ------------------------------------------------------------------
     def run_offline_rom(self, mu_space=None, device_sweep=False, mesh=None):
         """Build the S-ROM basis, then truncate it into the ROM;
-        ``device_sweep`` sweeps the FOM over the μ list as one batch
+        ``device_sweep`` sweeps the FOM over the μ list as one batch,
+        sharded over ``mesh`` where it has more than one shard
         (``RomConstructorNonlinear.build_reduced_basis``)."""
         rp = self.rom_params
         srom = self.srom
@@ -1032,15 +1033,15 @@ class HyperReducedPiston(HyperReducedOrderModelFixed):
         ``StorageNames.MULOCAL_SNAPSHOTS`` and reads them back where the
         edges, counts, sampling and precision fit. ``edges`` overrides the
         equal-width Mach edges over [PISTON_MACH_MIN, PISTON_MACH_MAX].
-        A multi-device ``mesh`` is not ported. ``fleet_seconds`` gets the
+        With ``device_sweep``, a ``mesh`` of more than one shard shards
+        the training sweep over it (``parallel.solve_fom_sharded``); the
+        registered re-solves stay one batch. ``fleet_seconds`` gets the
         seconds of each stage; ``cell_mus`` and ``cell_dilations`` each
         cell's training μ and registered training dilations."""
         from .pod import orth
         from .registration import fit_dilation_law
         from .windowed import MuLocalWindowed
 
-        if mesh is not None:
-            raise NotImplementedError("the sharded FOM sweep is not ported")
         rom = self.rom
         rnd = rnd if rnd is not None else np.random.RandomState(0)
         if edges is not None:
@@ -1114,7 +1115,7 @@ class HyperReducedPiston(HyperReducedOrderModelFixed):
             secs["pool_maximin"] = t1 - t0
             if device_sweep:
                 build_label = self._sweep_fleet(cell_mus, cell_snaps,
-                                                cell_nl, local_tri)
+                                                cell_nl, local_tri, mesh)
             else:
                 for c in range(n_cells):
                     for m in cell_mus[c]:
@@ -1228,19 +1229,26 @@ class HyperReducedPiston(HyperReducedOrderModelFixed):
         self.fleet_seconds = secs
         return ml
 
-    def _sweep(self, mus, dtype, want_nl, dilations=None):
+    def _sweep(self, mus, dtype, want_nl, dilations=None, mesh=None):
         """``mus`` in one ``solve_fom_batch`` on the FOM's device in
         ``dtype``, each μ on its own grid T·d where ``dilations`` gives d
-        (per-lane clocks over the same nt steps). Returns each μ's float64
-        trajectory (a ``dd_sweep`` FOM's low words recombined) and, with
+        (per-lane clocks over the same nt steps), or in one
+        ``solve_fom_sharded`` over ``mesh`` where it has more than one
+        shard (no dilations there). Returns each μ's float64 trajectory
+        (a ``dd_sweep`` FOM's low words recombined) and, with
         ``want_nl``, its nonlinear rows."""
-        from ..parallel.sweep import solve_fom_batch
+        from ..parallel.sweep import solve_fom_batch, solve_fom_sharded
 
         fom = self.fom
         if fom.is_setup is False:
             fom.setup()
         with compute_dtype_scope(dtype):
-            outs = solve_fom_batch(fom, mus, dilations=dilations)
+            if mesh is not None and mesh.size > 1:
+                if dilations is not None:
+                    raise ValueError("the sharded sweep takes no dilations")
+                outs = solve_fom_sharded(fom, mus, mesh=mesh)
+            else:
+                outs = solve_fom_batch(fom, mus, dilations=dilations)
         snaps, nls = [], []
         for b in range(len(mus)):
             uh = np.asarray(outs["uh"][b], np.float64).T
@@ -1251,16 +1259,20 @@ class HyperReducedPiston(HyperReducedOrderModelFixed):
                 nls.append(np.asarray(outs["nonlinear_data"][b], np.float64))
         return snaps, nls
 
-    def _sweep_fleet(self, cell_mus, cell_snaps, cell_nl, local_tri):
-        """Every cell's training μ in one :meth:`_sweep`: float32 on the
-        card, float64 on the CPU. Fills ``cell_snaps`` and ``cell_nl``;
-        returns the cache's build tag."""
+    def _sweep_fleet(self, cell_mus, cell_snaps, cell_nl, local_tri,
+                     mesh=None):
+        """Every cell's training μ in one :meth:`_sweep` (sharded over a
+        ``mesh`` of more than one shard): float32 on the card, float64 on
+        the CPU, as the FOM's device or the mesh's first device is. Fills
+        ``cell_snaps`` and ``cell_nl``; returns the cache's build tag."""
         order = [(c, j) for c in sorted(cell_mus)
                  for j in range(len(cell_mus[c]))]
-        on_card = self.fom._compute_device().type != "cpu"
+        home = (mesh.devices[0] if mesh is not None and mesh.size > 1
+                else self.fom._compute_device())
+        on_card = home.type != "cpu"
         snaps, nls = self._sweep([cell_mus[c][j] for c, j in order],
                                  torch.float32 if on_card else torch.float64,
-                                 local_tri)
+                                 local_tri, mesh=mesh)
         for b, (c, _j) in enumerate(order):
             cell_snaps[c].append(snaps[b])
             if local_tri:

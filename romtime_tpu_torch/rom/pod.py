@@ -53,25 +53,28 @@ def orth(snapshots, num=None, tol=None, normalize=True, return_VT=False):
         _snapshots = snapshots
 
     u, s, vt = _host_svd(_snapshots)
-    if not np.isfinite(s).all():
-        raise FloatingPointError(
-            f"the SVD of a {_snapshots.shape} {_snapshots.dtype} snapshot "
-            f"matrix returned non-finite singular values; refusing to "
-            f"truncate on them")
-
-    eigenvalues = np.power(s, 2)
-    energy = np.cumsum(eigenvalues) / np.sum(eigenvalues)
-
-    if tol:
-        keep = energy < tol
-    elif num:
-        keep = slice(0, num)
-    else:
-        eps = np.finfo(_snapshots.dtype).eps
-        threshold = max(DROP_TOLERANCE,
-                        50.0 * eps * (s[0] if s.size else 0.0))
-        keep = s > threshold
+    keep, energy = truncation(s, tol, num, _snapshots.dtype)
     Q = u[:, keep]
     if return_VT:
         return Q, s, energy, vt[keep, :]
     return Q, s, energy
+
+
+def truncation(s, tol=None, num=None, dtype=np.float64):
+    """(keep, energy) of the singular values ``s`` by :func:`orth`'s
+    rules: ``keep`` indexes the retained modes, ``energy`` is the
+    cumulative energy. Raises ``FloatingPointError`` on a non-finite
+    singular value."""
+    if not np.isfinite(s).all():
+        raise FloatingPointError(
+            f"the SVD of a {np.dtype(dtype)} snapshot matrix returned "
+            f"non-finite singular values; refusing to truncate on them")
+    eigenvalues = np.power(s, 2)
+    energy = np.cumsum(eigenvalues) / np.sum(eigenvalues)
+    if tol:
+        return energy < tol, energy
+    if num:
+        return slice(0, num), energy
+    eps = np.finfo(dtype).eps
+    threshold = max(DROP_TOLERANCE, 50.0 * eps * (s[0] if s.size else 0.0))
+    return s > threshold, energy

@@ -73,6 +73,7 @@ from ..dtypes import asarray, compute_dtype, compute_dtype_scope
 from ..ops.linalg import gauss_solve_lanes
 from ..ops.windowed_fused import _no_tf32
 from ..parameters import ParameterSampler
+from ..utils.progress import progress
 from .base import Reductor
 from .pod import orth
 from .engines.autotune import AutotuneMixin
@@ -440,11 +441,11 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
         device, each μ's probe CSV written under ``RUNTIME_PROCESS``), or
         with ``device_sweep=True`` as one ``solve_fom_batch`` of the
         whole μ list (a ``dd_sweep`` FOM's low words recombined in
-        float64). Both keep ``offline_snapshots`` and the σ-weighted
-        hierarchical POD (float64, on the host). A multi-device ``mesh``
-        (the reference's sharded sweep) is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("the sharded FOM sweep is not ported")
+        float64). A ``mesh`` of more than one shard
+        (:class:`~romtime_tpu_torch.parallel.mesh.DeviceMesh`) takes
+        ``solve_fom_sharded`` over it instead. Both keep
+        ``offline_snapshots`` and the σ-weighted hierarchical POD
+        (float64, on the host)."""
         if mu_space:
             space = mu_space
         elif num_snapshots:
@@ -493,13 +494,17 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
 
         t_start = time.perf_counter()
         if device_sweep:
-            from ..parallel.sweep import solve_fom_batch
+            from ..parallel.sweep import solve_fom_batch, solve_fom_sharded
 
             self.offline_snapshots_build = (
                 "f64" if compute_dtype() == torch.float64 else "device-f32")
             registered = [self.add_mu(mu=mu, step=Stage.OFFLINE)
                           for mu in space]
-            outs = solve_fom_batch(fom, [mu for _i, mu in registered])
+            mus = [mu for _i, mu in registered]
+            if mesh is not None and mesh.size > 1:
+                outs = solve_fom_sharded(fom, mus, mesh=mesh)
+            else:
+                outs = solve_fom_batch(fom, mus)
             t_sweep = time.perf_counter() - t_start
             for b, (mu_idx, _mu) in enumerate(registered):
                 uh = np.asarray(outs["uh"][b], np.float64).T
@@ -513,7 +518,7 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
                        if collect_nonlinear else None)
         else:
             self.offline_snapshots_build = "f64"
-            for mu in space:
+            for mu in progress(space, label="offline FOM sweep"):
                 mu_idx, mu = self.add_mu(mu=mu, step=Stage.OFFLINE)
                 fom.setup()
                 fom.update_parametrization(mu)
@@ -875,15 +880,15 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
         global basis and stays."""
         self.windows = win
 
-    def _cell_tables(self, win, key, build):
+    def _cell_tables(self, win, key, build, device=None):
         """``build()``'s device tables for the configuration ``win``,
-        cached on ``win`` under ``key`` with this object's device and dt,
-        as the solve policy memoizes on it; rebuilt when ``win``'s
-        dilation law was replaced since. A
+        cached on ``win`` under ``key`` with ``device`` (default this
+        object's) and dt, as the solve policy memoizes on it; rebuilt
+        when ``win``'s dilation law was replaced since. A
         :class:`~romtime_tpu_torch.rom.engines.global_fused.GlobalServing`
         caches its lanes tables the same way (it has no dilation law)."""
         cache = win.__dict__.setdefault("_serving_tables", {})
-        key = (str(self.device), float(self.fom.dt)) + key
+        key = (str(device or self.device), float(self.fom.dt)) + key
         dilation = getattr(win, "dilation", None)
         hit = cache.get(key)
         if hit is None or hit[0] is not dilation:
@@ -979,13 +984,14 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
                             stiffness_side(self._theta_sources()),
                             self.device)))
 
-    def _lanes_tables(self, mode):
-        """The lanes engine's tables of the active windows, per (mode,
-        compute dtype)."""
+    def _lanes_tables(self, mode, device=None):
+        """The lanes engine's tables of the active windows on ``device``
+        (default this object's), per (mode, compute dtype)."""
         win, dtype = self.windows, compute_dtype()
+        device = device or self.device
         return self._cell_tables(win, ("windowed", mode, dtype), lambda: (
             windowed_lanes_tables(win, self._theta_sources(), mode, dtype,
-                                  self.device)))
+                                  device)), device)
 
     def _global_lanes_tables(self, mode):
         """The global lanes engine's tables, cached on the global

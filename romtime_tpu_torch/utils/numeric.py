@@ -1,7 +1,23 @@
-"""Numeric helpers of the S-ROM estimator (counterpart of
-``romtime_tpu/utils/numeric.py:29-60``), host-side numpy."""
+"""Numeric helpers (counterpart of ``romtime_tpu/utils/numeric.py``),
+host-side numpy."""
 
 import numpy as np
+
+ZERO_TOLERANCE = 1e-15
+
+
+def project_dense(Ah, V):
+    """The Galerkin projection A_N = Vᵀ·A_h·V of any ``Ah`` that supports
+    ``@`` (reference ``numeric.py:8-14``)."""
+    return V.T @ (Ah @ V)
+
+
+def eliminate_zeros_vector(values, tolerance=ZERO_TOLERANCE):
+    """The keep-mask of a vector of stored nonzeros: False where a value
+    is zero at rtol = atol = ``tolerance`` (reference
+    ``numeric.py:17-26``)."""
+    values = np.asarray(values)
+    return ~np.isclose(values, 0.0, rtol=tolerance, atol=tolerance)
 
 
 def compute_rom_difference(uN, uN_srom, V_srom):
@@ -25,3 +41,19 @@ def time_average(ts, func):
     ``numeric.py:56-60``)."""
     integral = np.trapezoid(y=func, x=ts)
     return integral / np.max(ts)
+
+
+def singular_to_pod_error(sigmas):
+    """The POD truncation error √(Σ_{j>i} σ_j²) after each mode i
+    (reference ``numeric.py:63-71``); the last entry is guarded against a
+    tiny negative round-off before the root."""
+    eigenvalues = np.power(sigmas, 2)
+    pod_error = np.sum(eigenvalues) - np.cumsum(eigenvalues)
+    return np.sqrt(np.maximum(pod_error, 0.0))
+
+
+def singular_to_energy(sigmas):
+    """The cumulative energy fraction of a singular-value decay
+    (reference ``numeric.py:74-79``)."""
+    eigenvalues = np.power(sigmas, 2)
+    return np.cumsum(eigenvalues) / np.sum(eigenvalues)
