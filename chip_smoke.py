@@ -169,7 +169,7 @@ Phases, in order; any failure raises and exits non-zero:
    float64 lanes probes within 1e-9·scale.
 12. fleet build phase: the port builds the flagship μ-local fleet on the
    card from a global ROM it built itself, in float64 in a temporary
-   directory (``problems.joint_profile``/``joint_fleet``,
+   directory, kept for phase 16 (``problems.joint_profile``/``joint_fleet``,
    bench.py:64-115, at full width, its depth cut: 2,2,2,2,5 training μ
    in cells 0-4 and bench's 24 in the top cell, which is registered):
    (a) the global build (nx=1000, nt=1500, 8 offline μ, S-ROM N=96, ROM
@@ -269,6 +269,33 @@ Phases, in order; any failure raises and exits non-zero:
    on the two-shard mesh and on ``device_mesh()`` (the one card), its
    tiny HROM and fleet built on the card once. Each item's seconds and
    gaps beside the card's name and power limit.
+16. examples and diagnostics phase, the JAX repository's examples and
+   scripts as the port has them (romtime_tpu_torch/examples/,
+   romtime_tpu_torch/scripts/, ``parallel.entry``), every launch counter
+   read before and after (K1 from the ledger, K4 or K5 from the piston
+   example, both held > 0): (a) ``poisson_tutorial`` at nx 16/64/256
+   and its POD family on the card against the same functions on the CPU
+   (solutions 1e-12 relative, the rounding-level errors within 1e-12 of
+   the solution's scale, one mode, the unseen-α reconstruction ≤ 1e-12);
+   (b) ``heat_2d`` at nx 16 and 32 the same way; (c) ``piston_rom`` at
+   its defaults (nx=300, nt=300): the build, 128 lanes (one 128-lane
+   block, its Mach-stratified μ cycled) served through K4 or K5 within
+   3e-5·scale (``uN_final`` 1e-4·max(|uN|, 1)) of the float64 global
+   lanes engine, the estimator at B=16; then ``--windowed``: the windows
+   and two Mach cells, 16 μ routed through the windowed lanes engine,
+   routed ≡ direct bit for bit, the per-cell estimator; (d)
+   ``mpf1_convergence`` at nx=500, nts 10, 100, 1000 on the goldens' tf,
+   fixed and moving, the nt=1000 log10 errors within 1e-6 of the JAX
+   package's; (e) on phase 12's fleet directory, resumed warm
+   (``permu_diag.build_hrom``): ``permu_diag`` and ``multimu_diag`` on 2
+   held-out μ and the center (their rel-L2 rows within 1e-12 relative of
+   each other, rel² = floor² + in-span² to 1e-12), ``corner_attrib`` at
+   10 times, ``window_study`` (the 15:48 floor, then 50:32 served with
+   its float32 drift), and ``kernel_ledger`` on cell 0's real tables at
+   B=2048 (K1's ablation ledger and phase clocks, each variant against
+   its twin on 4 windows within 5e-5·scale); (f) ``entry()``'s forward
+   on the card within 1e-10 relative of the CPU's. Each item's seconds
+   and gaps beside the card's name and power limit.
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -277,8 +304,9 @@ both designs, in turns). Prints a JSON line of per-kernel results (K1-K5
 on the serving body with their first designs' times, the phase shares,
 the register and spill report, and K1's first design's modes, ablations
 and ledger; the fleet's numbers; the certification, FOM, offline build,
-fleet build, online single-μ, heat and multi-device phases' numbers,
-the last under ``multi_device``), then, as the last line,
+fleet build, online single-μ, heat, multi-device and examples phases'
+numbers, the last two under ``multi_device`` and ``examples``), then,
+as the last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -290,6 +318,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -473,6 +502,20 @@ MD_ROUTED_CELLS = (0, 5)    # (d): one cell of each shape, 5 registered
 MD_ROUTED_REL = 1e-12       # (d): tests/test_windowed.py:744-779
 MD_TINY = {"L0": 1.0, "nx": 64, "tf": 0.2, "nt": 20}   # tests/test_parallel.py
 MD_MIXED_REL = 1e-10        # (e): card shard against the CPU, float64
+# Phase 16: the examples and the diagnostic scripts.
+EX_EXACT_REL = 1e-12         # card against CPU, the same float64 code
+EX_HEAT2D_NX = (16, 32)      # examples/heat_2d.py:104
+EX_PISTON_GRID = {"nx": 300, "nt": 300}   # examples/piston_rom.py:40
+EX_PISTON_B = 128            # one 128-lane block: the K4/K5 gate
+EX_CERT_B = 16               # the example's estimator batch
+EX_HEAT_NTS = (10, 100, 1000)             # the goldens' refinement levels
+EX_DIAG_HELD_OUT = 2         # permu/multimu_diag's μ (theirs: 16)
+EX_CORNER_TIMES = 10         # corner_attrib's times (its own: 40)
+EX_STUDY_FLOOR = "15:48"     # window_study's default point
+EX_STUDY_SERVED = (50, 32)   # the fleet's 50x32 cell shape
+EX_LEDGER_B = 2048           # scripts/kernel_ledger.py's default B
+EX_LEDGER_REPS = 3
+EX_ENTRY_REL = 1e-10
 
 
 def fail(msg):
@@ -739,13 +782,6 @@ GLOBAL_BOUND = {"K4": k4_bound, "K5": k5_bound}
 # ----------------------------------------------------------------------
 # Kernel phase
 # ----------------------------------------------------------------------
-def first_windows(args, kw, n):
-    """K1's inputs cut to their first ``n`` windows."""
-    width = kw["widths"][0]
-    return ((args[0][:n * width], *(a[:n] for a in args[1:8]), args[8],
-             args[9]), dict(kw, widths=(width,) * n))
-
-
 def turns(a, b, args, kw, reps):
     """Two designs on the same inputs in turns (a, b, b, a): (a's ms, b's
     ms, a's outputs, b's outputs), each ms the mean of its two turns."""
@@ -868,6 +904,7 @@ def print_split(what, split):
 
 def kernel_phase(mods, dev, power, errs, rich_errs):
     from romtime_tpu_torch.kernel_ledger import body_phase_split, phase_split
+    from romtime_tpu_torch.scripts.kernel_ledger import first_windows
 
     k1, synth = mods["k1"], mods["synth"]
     rows, splits = [], {}
@@ -962,6 +999,7 @@ def k1_options_phase(mods, dev, power):
     (romtime_tpu_torch/kernel_ledger.py). Returns (modes, ablations,
     ledgers)."""
     from romtime_tpu_torch.kernel_ledger import kernel_ledger, ledger_lines
+    from romtime_tpu_torch.scripts.kernel_ledger import first_windows
 
     k1, synth = mods["k1"], mods["synth"]
     wrapper, twin = k1.online_sweep_windowed_fused, k1.windowed_fused_reference
@@ -2376,18 +2414,24 @@ def fom_references(fom, mus, dils):
         return list(solve_fom_batch(fom, mus, dilations=dils)["uc"])
 
 
-def routed_rows_equal_direct(rom, ml, out, mus, cells, Bb):
-    """Each occupied cell's direct ``solve_batch`` on its padded
-    sub-batch against the routed rows, bit for bit; the largest
-    difference (0)."""
+def routed_rows_equal_direct(rom, ml, out, mus, cells, Bb, engine=None):
+    """Each occupied cell's direct ``solve_batch`` (on ``engine``, default
+    the resolved one) on its padded sub-batch against the routed rows, bit
+    for bit; the largest difference (0)."""
     worst = 0.0
     for c in sorted(set(cells.tolist())):
         idx = np.nonzero(cells == c)[0]
         sub = [dict(mus[int(i)]) for i in idx]
         sub = (sub * -(-Bb // len(sub)))[:Bb]
         rom._set_serving_windows(ml.cells[c])
-        direct = rom.solve_batch(sub, mode="probes")
+        direct = rom.solve_batch(sub, mode="probes", engine=engine)
         for k, v in direct.items():
+            if len(v) != Bb and np.shape(out[k]) == np.shape(v):
+                # An output shared by the lanes (the lanes engine's t).
+                if not np.array_equal(np.asarray(out[k]), v):
+                    raise AssertionError(f"cell {c}: routed {k} differs "
+                                         f"from the direct solve")
+                continue
             for j, i in enumerate(idx):
                 row = np.asarray(out[k][int(i)])
                 want_row = v[j] if len(v) == Bb else v
@@ -2592,13 +2636,12 @@ def fom_unreachable(fom):
         sweep.solve_fom_batch = real
 
 
-def fleet_build_phase(mods, dev, power):
+def fleet_build_phase(mods, dev, power, workdir):
     """Phase 12 of the module doc: the port builds the flagship fleet on
     the card (its depth cut), serves it through K1, checks its accuracy
-    against the FOM, certifies it and persists it, in a temporary
-    directory. Nothing falls back to the CPU."""
-    import tempfile
-
+    against the FOM, certifies it and persists it, in ``workdir``, which
+    it leaves for phase 16's diagnostics. Nothing falls back to the
+    CPU."""
     from romtime_tpu_torch.conventions import Errors
     from romtime_tpu_torch.dtypes import compute_dtype_scope
     from romtime_tpu_torch.problems import (
@@ -2615,7 +2658,6 @@ def fleet_build_phase(mods, dev, power):
     info = {"card": power, "grid": dict(FLEET_BUILD_GRID),
             "per_cell": list(FLEET_BUILD_PER_CELL),
             "register": list(FLEET_BUILD_REGISTER)}
-    workdir = tempfile.mkdtemp()
     cwd = os.getcwd()
     try:
         # (a) The global build of the joint profile.
@@ -2876,7 +2918,6 @@ def fleet_build_phase(mods, dev, power):
         info["launches"] = launches
     finally:
         os.chdir(cwd)
-        shutil.rmtree(workdir, ignore_errors=True)
     return info
 
 
@@ -3078,40 +3119,6 @@ def online_single_phase(mods, dev, power, hrom):
 
 
 
-def heat_config(nx, nt, tf=10.0, L=2.0, moving=False):
-    """tests/test_hrom.py ``_heat_config`` with the port's callables: the
-    driver's keyword arguments (MFP1, 4 offline μ, S-ROM truncated by 2,
-    DEIM and MDEIM on 6 μ over every step)."""
-    from romtime_tpu_torch.conventions import OperatorType, RomParameters
-    from romtime_tpu_torch.parameters import get_uniform_dist
-    from romtime_tpu_torch.problems import define_mfp1_problem
-
-    domain, bcs, forcing, u0, ue, Lt, dLt_dt = define_mfp1_problem(L, nx, tf,
-                                                                   nt)
-    grid = {"delta": get_uniform_dist(min=0.01, max=2.0),
-            "beta": get_uniform_dist(min=1.0, max=10.0),
-            "alpha_0": get_uniform_dist(min=0.01, max=2.0)}
-    if moving:
-        omegas = [(1.0 / tf) * np.arcsin(1.0 - n) for n in (0.5, 0.8)]
-        grid["omega"] = get_uniform_dist(min=min(omegas), max=max(omegas))
-    fom_params = dict(domain=domain, dirichlet=bcs, forcing_term=forcing,
-                      u0=u0, exact_solution=ue,
-                      grid_params={k: "uniform" for k in grid})
-    if moving:
-        fom_params.update(Lt=Lt, dLt_dt=dLt_dt)
-    ts = np.linspace(tf / nt, tf, nt)
-    return dict(
-        grid=grid, fom_params=fom_params,
-        rom_params={RomParameters.NUM_SNAPSHOTS: 4,
-                    RomParameters.SROM_TRUNCATE: 2,
-                    RomParameters.TOL_TIME: None,
-                    RomParameters.TOL_MU: None},
-        deim_params={RomParameters.TS: ts, RomParameters.NUM_SNAPSHOTS: 6},
-        mdeim_params={RomParameters.TS: ts, RomParameters.NUM_SNAPSHOTS: 6},
-        models={OperatorType.MASS: True, OperatorType.STIFFNESS: True,
-                OperatorType.RHS: True, OperatorType.CONVECTION: moving})
-
-
 def heat_golden_fom(dev, power, moving):
     """(a): the MFP1 convergence study's nt=1000 row on the card in
     float64 (nx=500, tf to 99% decay), against the JAX package's value
@@ -3167,6 +3174,7 @@ def heat_build(dev, moving, workdir):
         HyperReducedOrderModelFixed,
         HyperReducedOrderModelMoving,
     )
+    from romtime_tpu_torch.scripts.generate_goldens import heat_config
 
     cls = HyperReducedOrderModelMoving if moving else HyperReducedOrderModelFixed
     cwd = os.getcwd()
@@ -3677,6 +3685,385 @@ def multi_device_phase(mods, dev, power, batch, fom_seconds):
     return info
 
 
+def launch_counts(mods):
+    """The launch counters of K1-K5 now, as a list."""
+    return [c.launches for c in counters(mods)]
+
+
+def launches_since(mods, before):
+    """Launches of K1-K5 since ``before`` (:func:`launch_counts`)."""
+    return [c - b for c, b in zip(launch_counts(mods), before)]
+
+
+def example_poisson(dev, power):
+    """(a): the Poisson tutorial's certification grids and POD family on
+    the card against the same functions on the CPU."""
+    from romtime_tpu_torch.examples import poisson_tutorial as pt
+
+    (card, pod), sec = timed(dev, lambda: (pt.certify(dev),
+                                           pt.pod_family(dev)))
+    cpu, pod_cpu = pt.certify("cpu"), pt.pod_family("cpu")
+    u_gap = err_gap = 0.0
+    for nx, (u, err) in card.items():
+        u_cpu, err_cpu = cpu[nx]
+        scale = np.abs(u_cpu).max()
+        u_gap = max(u_gap, float(np.abs(u - u_cpu).max() / scale))
+        err_gap = max(err_gap, abs(err - err_cpu) / scale)
+    sign = np.sign(pod["basis"][:, 0] @ pod_cpu["basis"][:, 0])
+    basis_gap = float(np.abs(pod["basis"] - sign * pod_cpu["basis"]).max())
+    rec = max(pod["reconstruction_rel"], pod_cpu["reconstruction_rel"])
+    ok = (u_gap <= EX_EXACT_REL and err_gap <= EX_EXACT_REL
+          and pod["basis"].shape == pod_cpu["basis"].shape
+          and pod["basis"].shape[1] == 1 and basis_gap <= EX_EXACT_REL
+          and rec <= EX_EXACT_REL)
+    print(f"  (a) poisson_tutorial: nx {list(card)} L2 errors "
+          + ", ".join(f"{card[nx][1]:.3e}" for nx in card)
+          + f" (the CPU's within {err_gap:.2e} of the solution's scale), "
+          f"solutions within {u_gap:.2e} relative of the CPU's; POD "
+          f"{pod['basis'].shape[1]} mode(s), basis within {basis_gap:.2e}, "
+          f"unseen-α reconstruction {pod['reconstruction_rel']:.2e} "
+          f"(limits {EX_EXACT_REL:.0e}); {sec:.2f} s on {power} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("poisson_tutorial: the card and the CPU differ")
+    return dict(seconds=sec, errors={nx: e for nx, (_u, e) in card.items()},
+                u_rel_gap=u_gap, error_gap=err_gap, modes=1,
+                basis_gap=basis_gap,
+                reconstruction_rel=pod["reconstruction_rel"])
+
+
+def example_heat_2d(dev, power):
+    """(b): the 2-D heat example at nx 16 and 32 (nt=50) on the card
+    against the CPU: the error series within 1e-12 of the field's scale,
+    the final field within 1e-12 relative."""
+    from romtime_tpu_torch.examples.heat_2d import solve_heat_2d
+
+    rows = {}
+    for nx in EX_HEAT2D_NX:
+        (_ts, errs, u), sec = timed(dev, lambda: solve_heat_2d(nx=nx, nt=50,
+                                                               device=dev))
+        _ts, errs_cpu, u_cpu = solve_heat_2d(nx=nx, nt=50, device="cpu")
+        scale = np.abs(u_cpu).max()
+        u_gap = float(np.abs(u - u_cpu).max() / scale)
+        e_gap = float(np.abs(errs - errs_cpu).max() / scale)
+        ok = u_gap <= EX_EXACT_REL and e_gap <= EX_EXACT_REL
+        print(f"  (b) heat_2d nx={nx}: max|u - u_e| at tf {errs[-1]:.3e} "
+              f"(over the run {errs.max():.3e}), error series within "
+              f"{e_gap:.2e} of the field's scale and the field within "
+              f"{u_gap:.2e} relative of the CPU's (limit "
+              f"{EX_EXACT_REL:.0e}); {sec:.2f} s on {power} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"heat_2d nx={nx}: the card and the CPU "
+                                 f"differ")
+        rows[nx] = dict(seconds=sec, error_tf=float(errs[-1]),
+                        error_max=float(errs.max()), u_rel_gap=u_gap,
+                        error_gap=e_gap)
+    return rows
+
+
+def example_piston(mods, dev, power):
+    """(c): the piston walkthrough at its defaults on the card: the build,
+    the served probes through K4 or K5 (B=128, one 128-lane block) held
+    against the float64 global lanes engine, the estimator; then the
+    ``--windowed`` configuration (two Mach cells), its routed rows ≡ each
+    cell's direct rows, its per-cell estimator."""
+    import tempfile
+
+    from romtime_tpu_torch.conventions import Errors
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.examples import piston_rom as pr
+
+    info = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        (hrom, build_s), sec = timed(dev, lambda: pr.build_pipeline(
+            workdir, device=dev, **EX_PISTON_GRID))
+        rom = hrom.rom
+        print(f"  (c) piston_rom build (nx={EX_PISTON_GRID['nx']}, nt="
+              f"{EX_PISTON_GRID['nt']}, float64): {build_s:.1f} s, ROM "
+              f"N={rom.N}, S-ROM N={hrom.srom.N} on {power}")
+        drawn = pr.serving_mus(rom, EX_PISTON_B)
+        mus = (drawn * -(-EX_PISTON_B // len(drawn)))[:EX_PISTON_B]
+        before = launch_counts(mods)
+        served, serve_s = pr.serve(rom, mus)
+        launches = launches_since(mods, before)
+        if launches[:3] != [0, 0, 0] or launches[3] + launches[4] != 2:
+            raise AssertionError(f"the example's two served calls launched "
+                                 f"{launches}, expected K4 or K5 twice")
+        with compute_dtype_scope(torch.float64):
+            lanes, lanes_s = timed(dev, lambda: rom.solve_batch(
+                mus, mode="probes", engine="lanes"))
+        perr = float(np.abs(served["probes"] - lanes["probes"]).max())
+        pscale = float(np.abs(lanes["probes"]).max())
+        uerr = float(np.abs(served["uN_final"] - lanes["uN_final"]).max())
+        uscale = max(float(np.abs(lanes["uN_final"]).max()), 1.0)
+        ok = perr <= CERT_PROBES_REL * pscale and uerr <= CERT_UN_REL * uscale
+        print(f"  (c) served B={EX_PISTON_B} ({len(drawn)} distinct μ "
+              f"cycled) through {'K4' if launches[3] else 'K5'}: "
+              f"{serve_s * 1e3:.1f} ms a call = "
+              f"{EX_PISTON_B / serve_s:.1f} solves/s, launches K1-K5 "
+              f"{launches}; against the float64 global lanes engine "
+              f"({lanes_s:.2f} s): probes {perr:.3e} (limit "
+              f"{CERT_PROBES_REL * pscale:.3e}), uN_final {uerr:.3e} (limit "
+              f"{CERT_UN_REL * uscale:.3e}) on {power} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the example's served probes miss the "
+                                 "float64 lanes engine")
+        cert_mus = drawn[:EX_CERT_B]
+        est, est_s = timed(dev, lambda: pr.certify(hrom, cert_mus))
+        avg = np.asarray(est[Errors.AVERAGE_ESTIMATOR])
+        e = np.asarray(est[Errors.ESTIMATOR])
+        if (e.shape[0] != len(cert_mus) or not np.isfinite(e).all()
+                or (avg < 0).any()):
+            raise AssertionError("the example's estimator is not finite "
+                                 "and ≥ 0")
+        print(f"  (c) certification B={len(cert_mus)}, float64: {est_s:.2f} "
+              f"s; median {np.median(avg):.2e}, worst {avg.max():.2e} on "
+              f"{power} ok")
+        info.update(build_s=build_s, build_phase_s=sec,
+                    build_stages=dict(hrom.build_seconds), N=rom.N,
+                    N_srom=hrom.srom.N, B=EX_PISTON_B,
+                    distinct_mus=len(drawn), serve_ms=serve_s * 1e3,
+                    solves_per_s=EX_PISTON_B / serve_s, launches=launches,
+                    kernel="K4" if launches[3] else "K5",
+                    probes_err=perr, probes_scale=pscale, uN_err=uerr,
+                    lanes_s=lanes_s, estimator_s=est_s,
+                    estimator_median=float(np.median(avg)),
+                    estimator_worst=float(avg.max()))
+
+        # --windowed: the windows, two Mach cells, routed serving through
+        # the windowed lanes engine, the per-cell estimator.
+        with pr.working_directory(workdir):
+            (ml, fleet_s), sec = timed(dev, lambda: pr.build_windowed_fleet(
+                hrom))
+        fmus = pr.serving_mus(rom, 16)
+        before = launch_counts(mods)
+        out, fserve_s = timed(dev, lambda: pr.serve_fleet(rom, fmus))
+        cells = ml.cell_of([rom.compute_piston_mach_number(m) for m in fmus])
+        worst = routed_rows_equal_direct(rom, ml, out, fmus, cells, len(fmus),
+                                         engine="windowed")
+        fest, fest_s = timed(dev, lambda: pr.certify(hrom, fmus,
+                                                     mulocal=True))
+        flaunch = launches_since(mods, before)
+        favg = np.asarray(fest[Errors.AVERAGE_ESTIMATOR])
+        if not np.isfinite(favg).all() or (favg <= 0).any() or any(flaunch):
+            raise AssertionError(f"--windowed: estimator not finite and > 0 "
+                                 f"or a kernel launched ({flaunch})")
+        print(f"  (c) --windowed: windows and two cells built in "
+              f"{sec:.1f} s (the cells {fleet_s:.1f}); {len(fmus)} μ routed "
+              f"(occupancy {np.bincount(cells, minlength=2).tolist()}) "
+              f"through the windowed lanes engine in {fserve_s:.2f} s, "
+              f"routed ≡ direct (max abs diff {worst}); per-cell estimator "
+              f"{fest_s:.2f} s, median {np.median(favg):.2e}, worst "
+              f"{favg.max():.2e}; launches K1-K5 {flaunch} on {power} ok")
+        info["windowed"] = dict(build_s=sec, cells_s=fleet_s, B=len(fmus),
+                                serve_s=fserve_s,
+                                routed_vs_direct_max_abs=worst,
+                                estimator_s=fest_s,
+                                estimator_median=float(np.median(favg)),
+                                estimator_worst=float(favg.max()))
+    return info
+
+
+def example_convergence(dev, power):
+    """(d): the MFP1 convergence study at the goldens' size on the card,
+    fixed and moving; the nt=1000 rows against the JAX package's values."""
+    from romtime_tpu_torch.scripts import mpf1_convergence as mc
+
+    tf = -np.log(1.0 - 0.99) / 5.0
+    out = {}
+    for moving in (False, True):
+        rows, sec = timed(dev, lambda: mc.convergence_rows(
+            EX_HEAT_NTS, nx=HEAT_GRID["nx"], tf=tf, L=HEAT_GRID["L"],
+            moving=moving, device=dev))
+        last = rows[-1]
+        gap = abs(last["log10_error"] - HEAT_REF_LOG10[moving])
+        ok = last["nt"] == HEAT_GRID["nt"] and gap <= HEAT_LOG10_ATOL
+        name = "moving" if moving else "fixed"
+        print(f"  (d) mpf1_convergence {name}, nx={HEAT_GRID['nx']}, nts "
+              f"{list(EX_HEAT_NTS)}: log10 errors "
+              + ", ".join(f"{r['log10_error']:.9f}" for r in rows)
+              + f"; rates {np.round(mc.observed_rates(rows), 4).tolist()}; "
+              f"nt={last['nt']} within {gap:.2e} of the JAX package's "
+              f"{HEAT_REF_LOG10[moving]:.9f} (limit {HEAT_LOG10_ATOL:.0e}); "
+              f"{sec:.2f} s on {power} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mpf1_convergence {name} missed the JAX "
+                                 f"package's nt=1000 row")
+        out[name] = dict(seconds=sec, rows=rows, vs_reference=gap)
+    return out
+
+
+def example_diagnostics(mods, dev, power, fleet_dir):
+    """(e): the diagnostic scripts, warm, on phase 12's fleet directory:
+    permu_diag and multimu_diag on EX_DIAG_HELD_OUT held-out μ and the
+    center, corner_attrib, window_study (a floor, then a served point
+    with its float32 drift), and the K1 ledger on cell 0's real
+    tables."""
+    import argparse
+
+    from romtime_tpu_torch.problems import joint_profile
+    from romtime_tpu_torch.scripts import (
+        corner_attrib,
+        kernel_ledger,
+        multimu_diag,
+        permu_diag,
+        window_study,
+    )
+
+    info = {}
+    hrom, resume_s = timed(dev, lambda: permu_diag.build_hrom(
+        fleet_dir, joint_profile(device=dev, **FLEET_BUILD_GRID), dev))
+    rom = hrom.rom
+    cache = os.path.join(fleet_dir, permu_diag.FOM_CACHE)
+    mus = (permu_diag.validation_mus(rom, EX_DIAG_HELD_OUT)
+           + [dict(multimu_diag.CENTER_MU)])
+    rows, permu_s = timed(dev, lambda: permu_diag.per_mu_rows(hrom, mus,
+                                                              cache))
+    split, multi_s = timed(dev, lambda: multimu_diag.diagnose(
+        hrom, mus, rom.mulocal, cache))
+    worst_same = worst_sum = 0.0
+    for r, s in zip(rows, split):
+        worst_same = max(worst_same, abs(s["rel"] - r["rel"]) / r["rel"])
+        worst_sum = max(worst_sum, abs(s["rel"] ** 2 - s["floor"] ** 2
+                                       - s["inspace"] ** 2) / s["rel"] ** 2)
+    ok = (worst_same <= EX_EXACT_REL and worst_sum <= EX_EXACT_REL
+          and all(np.isfinite(r["ratio"]) for r in rows))
+    print(f"  (e) resumed phase 12's fleet in {resume_s:.1f} s; permu_diag "
+          f"({permu_s:.1f} s) and multimu_diag ({multi_s:.1f} s) on "
+          f"{EX_DIAG_HELD_OUT} held-out μ and the center (cut from the "
+          f"scripts' 16): "
+          + "; ".join(f"Mach {r['mach']:.4f} cell {r['cell']} d "
+                      f"{r['dil']:.5f} rel-L2 {r['rel']:.3e} est/true "
+                      f"{r['ratio']:.2f} floor {s['floor']:.3e} in-span "
+                      f"{s['inspace']:.3e}" for r, s in zip(rows, split))
+          + f"; the two scripts' rel-L2 within {worst_same:.1e} relative, "
+          f"rel² = floor² + in-span² within {worst_sum:.1e} (limits "
+          f"{EX_EXACT_REL:.0e}) on {power} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("permu_diag and multimu_diag disagree")
+    info.update(resume_s=resume_s, permu_s=permu_s, multimu_s=multi_s,
+                rows=[dict({k: v for k, v in r.items() if k != "mu"},
+                           floor=s["floor"], inspace=s["inspace"])
+                      for r, s in zip(rows, split)],
+                rel_gap=worst_same, sum_gap=worst_sum)
+
+    errs, corner_s = timed(dev, lambda: corner_attrib.attribute(
+        hrom, n_times=EX_CORNER_TIMES))
+    print(f"  (e) corner_attrib at {EX_CORNER_TIMES} times (cut from 40), "
+          f"{corner_s:.2f} s: " + ", ".join(
+              f"{n} mean {e.mean():.3e} max {e.max():.3e}"
+              for n, e in errs.items()) + f" on {power}")
+    if not all(np.isfinite(e).all() for e in errs.values()):
+        raise AssertionError("corner_attrib: not finite")
+    info["corner"] = dict(seconds=corner_s, n_times=EX_CORNER_TIMES,
+                          mean={n: float(e.mean()) for n, e in errs.items()},
+                          max={n: float(e.max()) for n, e in errs.items()})
+
+    (uh_fom, uh_hom), fom_s = timed(dev, lambda: window_study.validation_fom(
+        hrom, cache=os.path.join(fleet_dir, window_study.FOM_CACHE)))
+    floors, floor_s = timed(dev, lambda: window_study.study(
+        hrom, argparse.Namespace(points=[EX_STUDY_FLOOR], floor_only=True,
+                                 f32=False), uh_fom, uh_hom))
+    W, N = EX_STUDY_SERVED
+    served, served_s = timed(dev, lambda: window_study.served_point(
+        hrom, W, N, uh_fom, uh_hom, f32=True))
+    floor = floors[EX_STUDY_FLOOR]["floor"]
+    ok = (np.isfinite(floor) and np.isfinite(served["drift"])
+          and served["rel"] < 1.0)
+    print(f"  (e) window_study --warm-dir: the FOM reference {fom_s:.2f} s; "
+          f"--floor-only {EX_STUDY_FLOOR}: floor {floor:.3e} ({floor_s:.2f} "
+          f"s); served {W}:{N} --f32: floor {served['floor']:.3e}, rel-L2 "
+          f"{served['rel']:.3e}, f32 drift {served['drift']:.3e}, f32 "
+          f"rel-L2 {served['rel32']:.3e} (build {served['build_s']:.1f} s, "
+          f"solves {served['solve_s']:.1f} s) on {power} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("window_study: not finite")
+    info["window_study"] = dict(fom_s=fom_s, floor_point=EX_STUDY_FLOOR,
+                                floor_only=floor, served_point=f"{W}:{N}",
+                                **served)
+
+    before = launch_counts(mods)
+    t0 = time.perf_counter()
+    args, kw = kernel_ledger.ledger_inputs(rom, EX_LEDGER_B)
+    costs, split = kernel_ledger.ledger(args, kw, EX_LEDGER_REPS)
+    gaps = kernel_ledger.twin_gaps(args, kw)
+    ledger_s = time.perf_counter() - t0
+    launches = launches_since(mods, before)
+    print(f"  (e) kernel_ledger on cell 0's real tables "
+          f"({rom.windows.n_windows}x{rom.windows.N}), B={EX_LEDGER_B}, "
+          f"reps {EX_LEDGER_REPS}, {ledger_s:.1f} s, launches K1-K5 "
+          f"{launches}, on {power}:")
+    from romtime_tpu_torch.kernel_ledger import ledger_lines, split_lines
+
+    for line in ledger_lines(costs, EX_LEDGER_B) + split_lines(split):
+        print("    " + line)
+    held = {n: g for n, g in gaps.items() if np.isfinite(g)}
+    print(f"    each variant against its twin on the first "
+          f"{kernel_ledger.TWIN_WINDOWS} windows: worst "
+          f"{max(held.values()):.3e} of scale (limit "
+          f"{kernel_ledger.TWIN_REL:.0e}); not finite in the twin and the "
+          f"kernel alike: {[n for n in gaps if n not in held]}")
+    if not launches[0] or any(launches[1:]):
+        raise AssertionError(f"the ledger launched {launches}, expected K1 "
+                             f"only")
+    info["kernel_ledger"] = dict(seconds=ledger_s, B=EX_LEDGER_B,
+                                 reps=EX_LEDGER_REPS, launches=launches,
+                                 ledger=costs, phase_split=split,
+                                 twin_gaps={n: g if n in held else None
+                                            for n, g in gaps.items()},
+                                 max_abs_err=max(held.values()))
+    return info
+
+
+def example_entry(dev, power):
+    """(f): the graft entry's forward on the card against the CPU's."""
+    from romtime_tpu_torch.parallel import entry
+
+    fwd, (mu,) = entry(dev)
+    got, sec = timed(dev, lambda: fwd(mu))
+    fwd_cpu, (mu_cpu,) = entry("cpu")
+    want = fwd_cpu(mu_cpu)
+    gap = float((got.cpu() - want).abs().max() / want.abs().max())
+    ok = got.shape == want.shape and gap <= EX_ENTRY_REL
+    print(f"  (f) entry(): the forward {tuple(got.shape)} float64 on the "
+          f"card in {sec * 1e3:.1f} ms, within {gap:.2e} relative of the "
+          f"CPU's (limit {EX_ENTRY_REL:.0e}) on {power} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("entry(): the card and the CPU differ")
+    return dict(ms=sec * 1e3, rel_gap=gap)
+
+
+def examples_phase(mods, dev, power, fleet_dir):
+    """Phase 16 of the module doc: the examples and the diagnostic
+    scripts on the card, every launch counter read before and after
+    (K1 from the ledger, K4 or K5 from the piston example)."""
+    print(f"examples and diagnostics on {power}:")
+    before = launch_counts(mods)
+    info = {}
+    for name, run in (
+            ("poisson", lambda: example_poisson(dev, power)),
+            ("heat_2d", lambda: example_heat_2d(dev, power)),
+            ("piston", lambda: example_piston(mods, dev, power)),
+            ("convergence", lambda: example_convergence(dev, power)),
+            ("diagnostics", lambda: example_diagnostics(mods, dev, power,
+                                                        fleet_dir)),
+            ("entry", lambda: example_entry(dev, power))):
+        t0 = time.perf_counter()
+        info[name] = run()
+        info[f"{name}_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    info["launches"] = launches_since(mods, before)
+    if not info["launches"][0] or not (info["launches"][3]
+                                       + info["launches"][4]):
+        raise AssertionError(f"phase 16 launched {info['launches']}: K1 and "
+                             f"one of K4, K5 expected")
+    return info
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -3730,82 +4117,96 @@ def main():
         kernels=[r for u in units.values() for r in u["kernels"]])
 
     errs = {k: [] for k in KERNELS}
-    with torch.inference_mode():
-        rich_errs = []
-        rows, splits = kernel_phase(mods, dev, power, errs, rich_errs)
-        modes, ablations, ledgers = k1_options_phase(mods, dev, power)
-        rows += global_kernel_phase(mods, dev, power, errs)
-        launches, kernels, serving = serving_phase(mods, dev, power, errs,
-                                                   rich_errs)
-        gkernels, gserving, rom15, mus = global_serving_phase(mods, dev,
-                                                              power, errs)
-        autotune = autotune_phase(rom15, mus, repo, power)
-        del rom15, mus
-        torch.cuda.empty_cache()
-        fleet = fleet_phase(mods, dev, power)
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        certification = certification_phase(mods, dev, power)
-        certification["seconds"] = time.perf_counter() - t0
-        print(f"certification phase: {certification['seconds']:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        launches_before = [c.launches for c in counters(mods)]
-        fom, fom_batch = fom_phase(dev, power)
-        fom["launches"] = [c.launches - n for c, n in
-                           zip(counters(mods), launches_before)]
-        fom["seconds"] = time.perf_counter() - t0
-        print(f"FOM phase: {fom['seconds']:.1f} s, launches K1-K5 "
-              f"{fom['launches']} (none: no kernel on the FOM path)")
-        if any(fom["launches"]):
-            raise AssertionError("the FOM phase launched a serving kernel")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        build, built = offline_build_phase(mods, dev, power)
-        build["seconds_phase"] = time.perf_counter() - t0
-        print(f"offline build phase: {build['seconds_phase']:.1f} s, "
-              f"launches K1-K5 {build['launches']}")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        fleet_build = fleet_build_phase(mods, dev, power)
-        fleet_build["seconds_phase"] = time.perf_counter() - t0
-        print(f"fleet build phase: {fleet_build['seconds_phase']:.1f} s, "
-              f"launches K1-K5 of its served calls "
-              f"{fleet_build['launches']}")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        single = online_single_phase(mods, dev, power, built)
-        single["seconds_phase"] = time.perf_counter() - t0
-        del built
-        print(f"online single-μ and evaluation phase: "
-              f"{single['seconds_phase']:.1f} s, launches K1-K5 "
-              f"{single['launches']} (none: no kernel on this path)")
-        if any(single["launches"]):
-            raise AssertionError("the single-μ phase launched a serving "
-                                 "kernel")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        heat = heat_phase(mods, dev, power)
-        heat["seconds_phase"] = time.perf_counter() - t0
-        print(f"heat phase: {heat['seconds_phase']:.1f} s, launches "
-              f"{heat['launches']} (K1 windowed, K4 and K5 global, "
-              f"with_trilinear=False, BDF-1)")
-        for k in ("K1", "K4", "K5"):
-            if not heat["launches"].get(k):
-                raise AssertionError(f"the heat phase never launched {k}")
-            errs[k].append(heat["kernels"][k]["max_abs_err"])
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        multi = multi_device_phase(mods, dev, power, fom_batch,
-                                   fom["f32_plain"]["seconds"])
-        del fom_batch
-        multi["seconds_phase"] = time.perf_counter() - t0
-        print(f"multi-device phase: {multi['seconds_phase']:.1f} s, "
-              f"launches K1-K5 {multi['launches']} (none: no kernel on the "
-              f"sharded paths)")
-        if any(multi["launches"]):
-            raise AssertionError("the multi-device phase launched a serving "
-                                 "kernel")
+    # Phase 12 builds its fleet in fleet_dir; phase 16 diagnoses it warm.
+    fleet_dir = tempfile.mkdtemp()
+    try:
+        with torch.inference_mode():
+            rich_errs = []
+            rows, splits = kernel_phase(mods, dev, power, errs, rich_errs)
+            modes, ablations, ledgers = k1_options_phase(mods, dev, power)
+            rows += global_kernel_phase(mods, dev, power, errs)
+            launches, kernels, serving = serving_phase(mods, dev, power, errs,
+                                                       rich_errs)
+            gkernels, gserving, rom15, mus = global_serving_phase(mods, dev,
+                                                                  power, errs)
+            autotune = autotune_phase(rom15, mus, repo, power)
+            del rom15, mus
+            torch.cuda.empty_cache()
+            fleet = fleet_phase(mods, dev, power)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            certification = certification_phase(mods, dev, power)
+            certification["seconds"] = time.perf_counter() - t0
+            print(f"certification phase: {certification['seconds']:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            launches_before = [c.launches for c in counters(mods)]
+            fom, fom_batch = fom_phase(dev, power)
+            fom["launches"] = [c.launches - n for c, n in
+                               zip(counters(mods), launches_before)]
+            fom["seconds"] = time.perf_counter() - t0
+            print(f"FOM phase: {fom['seconds']:.1f} s, launches K1-K5 "
+                  f"{fom['launches']} (none: no kernel on the FOM path)")
+            if any(fom["launches"]):
+                raise AssertionError("the FOM phase launched a serving kernel")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            build, built = offline_build_phase(mods, dev, power)
+            build["seconds_phase"] = time.perf_counter() - t0
+            print(f"offline build phase: {build['seconds_phase']:.1f} s, "
+                  f"launches K1-K5 {build['launches']}")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            fleet_build = fleet_build_phase(mods, dev, power, fleet_dir)
+            fleet_build["seconds_phase"] = time.perf_counter() - t0
+            print(f"fleet build phase: {fleet_build['seconds_phase']:.1f} s, "
+                  f"launches K1-K5 of its served calls "
+                  f"{fleet_build['launches']}")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            single = online_single_phase(mods, dev, power, built)
+            single["seconds_phase"] = time.perf_counter() - t0
+            del built
+            print(f"online single-μ and evaluation phase: "
+                  f"{single['seconds_phase']:.1f} s, launches K1-K5 "
+                  f"{single['launches']} (none: no kernel on this path)")
+            if any(single["launches"]):
+                raise AssertionError("the single-μ phase launched a serving "
+                                     "kernel")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            heat = heat_phase(mods, dev, power)
+            heat["seconds_phase"] = time.perf_counter() - t0
+            print(f"heat phase: {heat['seconds_phase']:.1f} s, launches "
+                  f"{heat['launches']} (K1 windowed, K4 and K5 global, "
+                  f"with_trilinear=False, BDF-1)")
+            for k in ("K1", "K4", "K5"):
+                if not heat["launches"].get(k):
+                    raise AssertionError(f"the heat phase never launched {k}")
+                errs[k].append(heat["kernels"][k]["max_abs_err"])
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            multi = multi_device_phase(mods, dev, power, fom_batch,
+                                       fom["f32_plain"]["seconds"])
+            del fom_batch
+            multi["seconds_phase"] = time.perf_counter() - t0
+            print(f"multi-device phase: {multi['seconds_phase']:.1f} s, "
+                  f"launches K1-K5 {multi['launches']} (none: no kernel on "
+                  f"the sharded paths)")
+            if any(multi["launches"]):
+                raise AssertionError("the multi-device phase launched a "
+                                     "serving kernel")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            examples = examples_phase(mods, dev, power, fleet_dir)
+            examples["seconds_phase"] = time.perf_counter() - t0
+            print(f"examples and diagnostics phase: "
+                  f"{examples['seconds_phase']:.1f} s, launches K1-K5 "
+                  f"{examples['launches']} (K1 the ledger's, K4/K5 the "
+                  f"piston example's)")
+    finally:
+        shutil.rmtree(fleet_dir, ignore_errors=True)
+    errs["K1"].append(examples["diagnostics"]["kernel_ledger"]["max_abs_err"])
     for k, v in gkernels.items():
         launches[k] = v.pop("launches")
         kernels[k] = v
@@ -3866,6 +4267,7 @@ def main():
         fleet_build_launches=fleet_build["launches"][i],
         online_single_launches=single["launches"][i],
         heat_launches=heat["launches"].get(k, 0),
+        examples_launches=examples["launches"][i],
         heat={n: v for n, v in heat["kernels"].get(k, {}).items()
               if n != "max_abs_err"}, **kernels[k])
         for i, k in enumerate(KERNELS)],
@@ -3875,6 +4277,7 @@ def main():
         "online_single": single,
         "heat": {k: v for k, v in heat.items() if k != "kernels"},
         "multi_device": multi,
+        "examples": examples,
         "card": power}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

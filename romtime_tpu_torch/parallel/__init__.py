@@ -3,8 +3,10 @@
 sharded over a :class:`DeviceMesh` (:mod:`.sweep`), and POD by TSQR over
 the mesh (:mod:`.tsqr`). One process drives every device (:mod:`.mesh`);
 :mod:`.dryrun` runs the offline step and the routed serving over a mesh
-on tiny shapes."""
+on tiny shapes, and has the scanned forward solve of the tiny piston
+(``entry``)."""
 
+from .dryrun import dryrun_multichip, entry
 from .mesh import MU_AXIS, DeviceMesh, device_mesh, mu_sharding, replicated
 from .sweep import (
     solve_fom_batch,
@@ -17,6 +19,8 @@ from .tsqr import orth_distributed, tsqr_svd
 __all__ = [
     "MU_AXIS",
     "DeviceMesh",
+    "dryrun_multichip",
+    "entry",
     "device_mesh",
     "mu_sharding",
     "replicated",

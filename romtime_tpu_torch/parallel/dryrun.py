@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..conventions import Stage
-from ..dtypes import compute_dtype, compute_dtype_scope
+from ..dtypes import compute_dtype, compute_dtype_scope, full_f32_matmul
 from ..ops.assembly import band_matvec
 from .mesh import device_mesh, replicated
 from .sweep import (
@@ -51,6 +51,27 @@ def tiny_piston(nx=32, nt=4, device="cuda"):
         forcing_term=forcing, u0=u0, Lt=Lt, dLt_dt=dLt_dt, device=device)
     solver.setup()
     return solver
+
+
+def entry(device="cuda"):
+    """(forward, (mu,)): the scanned BDF-2 forward solve of the piston
+    model (counterpart of ``__graft_entry__.py`` ``entry``): ``forward``
+    maps μ, a dict of 0-d float64 tensors on ``device``, to the
+    homogeneous trajectory ``uh`` (nt, nh) of :func:`tiny_piston` at
+    nx=64, nt=8 on ``device`` (the card unless asked for the CPU)."""
+    from ..utils.cli import resolve_device
+
+    device = resolve_device(device)
+    solver = tiny_piston(nx=64, nt=8, device=str(device))
+    mu = {k: torch.tensor(float(v), dtype=torch.float64, device=device)
+          for k, v in solver.mu.items()}
+
+    def forward(mu):
+        dtype = next(iter(mu.values())).dtype
+        with compute_dtype_scope(dtype), full_f32_matmul(), torch.no_grad():
+            return solver._solve_impl(mu)["uh"]
+
+    return forward, (mu,)
 
 
 def dryrun_batch(n):
