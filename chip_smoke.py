@@ -25,8 +25,9 @@ Phases, in order; any failure raises and exits non-zero:
    "sub1", the per-step LU and the Richardson solve (solve_iters=5) on
    the same damped tables, each timed on both designs in turns (first,
    serving, serving, first), the serving design held against the first
-   over the whole sweep, against the twin on the first 4 windows and,
-   for sub1 and Richardson, over the whole sweep; then the serving
+   over the whole sweep and against the twin on the first 4 windows
+   (phase 5 holds the served per-step LU and Richardson calls against
+   the twin over the whole sweep); then the serving
    design's phase clocks (its CLOCKED instantiation beside the plain
    one; shares reported where the totals agree within 3%); K2 (B=512 at
    50x32, B=128 at 150x48) and K3 (B=2048) over one window launch with
@@ -35,10 +36,11 @@ Phases, in order; any failure raises and exits non-zero:
    twin and the split twin, with the serving body's phase clocks (K2's
    serving body on lane-major tables, the conversion from the reference
    layout timed apart; at 50x32 also at 4, 8 and 16 lanes a block); K4
-   and K5 over a whole global sweep (nt=1500): K4 at N=15, K5 at N=15 and
-   N=20 (B=2048, the throughput ROM and S-ROM), each also at N=9 with
-   BDF-1 and no trilinear term, and at B=1000 (not a multiple of 128),
-   these four over nt=750,
+   and K5 over a global sweep of nt=750 (half the flagship grid; phase 6
+   sweeps the serving shapes over all 1500 steps): K4 at N=15, K5 at
+   N=15 and N=20 (B=2048, the throughput ROM and S-ROM), each also at N=9
+   with BDF-1 and no trilinear term, and at B=1000 (not a multiple of
+   128),
    each on both designs in turns as K2 and K3, with the phase clocks at
    N=15 (K4) and N=20 (K5). Errors against 5e-5·scale; ms per call of the
    kernel and of the twin, and the bound;
@@ -113,16 +115,16 @@ Phases, in order; any failure raises and exits non-zero:
    atol 1e-17) and, card against CPU, within the triangle bound of (b)'s
    gaps (tests/test_hrom.py:442-520); (d) ``estimate_batch_mulocal`` in
    float64 at B=16 on the synthetic fleet drawn at N+8
-   (``srom_extra=8``, every cell occupied; its time grid cut to nt=450,
+   (``srom_extra=8``, every cell occupied; its time grid cut to nt=150,
    the windows each narrower): shapes, finite positive
    averages, each estimator row the coefficient-difference norm of its
    μ's merged trajectories (rtol 1e-12), a permuted batch's rows bit for
    bit, and the served fleet
    (``solve_batch_mulocal``) equal before and after bit for bit, with
    the per-cell seconds; (e) the chained lanes variant on a 50x32-recipe
-   cell with W=7 unequal windows (64 and 65 steps, nt=450), float64, B=16,
+   cell with W=7 unequal windows (21 and 22 steps, nt=150), float64, B=16,
    ``mode="reduced"``: card against an explicit CPU run within
-   1e-9·scale, and called directly on the equal-width 50x32 cell (nt=450)
+   1e-9·scale, and called directly on the equal-width 50x32 cell (nt=150)
    within 1e-9·scale of the equal-width engine;
 10. FOM phase, the full-order piston model at the flagship width
    (nx=1000, nt=1500, P1, BDF-2, regime "rest"; ``convert.piston_fom``)
@@ -168,21 +170,28 @@ Phases, in order; any failure raises and exits non-zero:
    μ, the same dofs (as sets; their order printed), and the two builds'
    float64 lanes probes within 1e-9·scale.
 12. fleet build phase: the port builds the flagship μ-local fleet on the
-   card from a global ROM it built itself, in float64 in a temporary
-   directory, kept for phase 16 (``problems.joint_profile``/``joint_fleet``,
-   bench.py:64-115, at full width, its depth cut: 2,2,2,2,5 training μ
-   in cells 0-4 and bench's 24 in the top cell, which is registered):
-   (a) the global build (nx=1000, nt=1500, 8 offline μ, S-ROM N=96, ROM
-   N=88, N-MDEIM 96 modes) by phase 11's stages, with each stage's
-   seconds; (b) ``build_mulocal_serving(device_sweep=True,
-   srom_extra=8)``: six Mach cells (50x32 ×4, 150x48 ×2), the seconds of
-   each stage (``hrom.fleet_seconds``), each cell's training μ, law and
-   training dilations and its predicted floor, peak device memory; (c)
+   card from a global ROM it built itself, at bench.py's joint defaults
+   and uncut (``problems.joint_profile``/``joint_fleet``, bench.py:64-115,
+   :343-400: 12,12,12,12,16,24 training μ, ``register="auto"``), in
+   float64 as bench.py builds by default (BENCH_OFFLINE=cpu: every FOM
+   sweep of the build a float64 ``fom.solve()`` a μ on the native host
+   loop), in a temporary directory kept for phase 16: (a) the global
+   build (nx=1000, nt=1500, 8 offline μ, S-ROM N=96, ROM N=88, N-MDEIM 96
+   modes) by phase 11's stages, with each stage's seconds; (b)
+   ``build_mulocal_serving(**joint_fleet())``: six Mach cells (50x32 ×4,
+   150x48 ×2, ``srom_extra=8``), the seconds of each stage
+   (``hrom.fleet_seconds``), each cell's training μ, law and training
+   dilations, the registered cells beside
+   BENCH_r05.json's and their largest d, peak device memory; held: a
+   registered cell, one native float64 solve a training μ and one a
+   registered training μ on its dilated grid (the reference's
+   re-solves, hrom.py:947-975), the trajectory cache tagged "f64"; (c)
    ``solve_batch_mulocal(mus, mode="probes")`` at B=2048, a cold and 3
    warm calls, every counter set to 0 before the cold call and read
    after the last (one launch of K1's serving design per occupied cell
    and call, no other launch), routed ≡ direct bit for bit, registered
-   lanes on d > 1 and the others on 1, and on cells 0 and 5 at B=128 the
+   lanes on their law's d(μ) and the others on 1, and on cells 0 and 5
+   at B=128 the
    served K1 (the port's default schedule, the per-step LU) within
    5e-6·scale (``uN_final`` 5e-5) of the float32 lanes engine, and on
    cell 5 the reference's default schedule (``ROMTIME_PAIRED_LU=5``:
@@ -192,20 +201,32 @@ Phases, in order; any failure raises and exits non-zero:
    training μ and 40 more of its μ, cycled to 128): the served K1's
    gaps to the float32 and float64 lanes engines printed, not held (the
    reference's kernel misses the float32 limit there by the same amount,
-   PERF.md §6), and that launch held against K1's twin on the
-   same inputs (ATOL_REL); (d) the
-   float64 windowed lanes engine in ``mode="full"`` on bench's center μ
-   and 2 of its held-out μ against the float64 FOM on the card on each
-   lane's matched grid (T·d on a registered lane): the center under 1e-3
-   (tests/test_windowed.py:398), a registered lane under 4e-3
-   (tests/test_registration.py:490); (e) ``estimate_batch_mulocal`` in
-   float64 at B=8 by phase 9 (d)'s contract, each row also the
-   reconstruction-norm formula on its window's basis; (f) a fresh
+   PERF.md §6), and that launch's probes over its first 4 windows held
+   against K1's twin on the same inputs (ATOL_REL); then the batch
+   bench.py times
+   (bench.py:709-750: its 64-bin draws tiled to 2048) served on the
+   active cell (the center's) by ``solve_batch(mode="probes",
+   host=False)``, one K1 launch; (d) bench.py's certification
+   (``fleet_certification``, bench.py:442-705, :963-995) in float64: the
+   center μ, bench's 15 held-out μ routed through the windowed lanes
+   engine against the float64 FOM on each lane's matched grid, the
+   registered lanes also on the standard clock (``resample_to_standard``)
+   with the FOM dt-gap, ``estimate_batch_mulocal``'s estimator/true
+   ratios, the timed batch's first 16 probe rows against the float64
+   lanes engine and the center's float32 drift, each printed beside
+   BENCH_r05.json's figure and held at FLEET_CERT_LIMITS (center ≤ 3e-7,
+   held-out maxima ≤ 1e-6 on both clocks, ratios in [0.9, 1.1], probe
+   error ≤ 1e-5, drift ≤ 1e-5); (e) phase 9 (d)'s contract on that
+   estimator: each row the reconstruction-norm formula on its window's
+   basis, the served fleet equal before and after; (f) a fresh
    driver's ``start_from_existing_basis`` serving (c)'s last batch bit
-   for bit, cell 0 rebuilt at 30x40 from the trajectory cache with
-   ``fom.solve`` and ``solve_fom_batch`` unreachable (with the box-wide
-   N-MDEIM, ``local_nmdeim=False``), and ``auto_cell_wn``'s shapes and
-   floors on that cache.
+   for bit; from a cut of the trajectory cache (float64; its first
+   2,2,2,2,5,5 trajectories a cell, written beside it by the port's cache
+   writer) cell 0 rebuilt at 30x40 with ``fom.solve`` and
+   ``solve_fom_batch`` unreachable (unregistered, with the box-wide
+   N-MDEIM, ``local_nmdeim=False``; cell 1's bases the window POD of its
+   cached trajectories bit for bit), and ``auto_cell_wn``'s shapes and
+   floors on that cut.
 13. online single-μ and evaluation phase, on phase 11's built ROM (N=15,
    S-ROM N=20, nx=1000, nt=1500), every launch counter set to 0 before
    it and read after (none: the reference computes all of it outside
@@ -219,7 +240,7 @@ Phases, in order; any failure raises and exits non-zero:
    the vmap engine at B=2 on the ROM without its convection MDEIM (the
    projection stands in, ``_resolve_engine`` → "vmap"), each row within
    1e-12 of ``solve`` on its μ; (d) ``hrom.evaluate_validation()`` and
-   ``evaluate_online({"num": 2})`` in float64 in a temporary directory:
+   ``evaluate_online({"num": 1})`` in float64 in a temporary directory:
    each μ's ROM error mean under 5e-3 (tests/test_hrom.py:349), a finite
    estimator, the CSVs the reference names, and ``generate_summary``;
    with the ms of each call. The float64 ``fom.solve()`` of (b) and of
@@ -233,7 +254,8 @@ Phases, in order; any failure raises and exits non-zero:
    (1e-9·scale), its log10 error at tf against the JAX package's value
    (1e-6) and as close to the golden row as that value is; (b) the port
    builds the HROM on the card in float64 (tests/test_hrom.py
-   ``_heat_config`` at that grid, the offline μ in one batched sweep); (c) ``solve_batch(mode="probes")`` at
+   ``_heat_config`` at half that size each way, nx=250, nt=500, the
+   offline μ in one batched sweep); (c) ``solve_batch(mode="probes")`` at
    B=2048 in float32 through K4 (the default budget) and K5 (budget 0),
    ``with_trilinear=False`` and BDF-1, counters zeroed before each branch
    and read after, each launch against its twin (5e-5·scale), the served
@@ -249,14 +271,14 @@ Phases, in order; any failure raises and exits non-zero:
    two shards on cuda:0, every launch counter set to 0 before it and
    read after (none: the reference's sharded paths reach no Pallas
    kernel): (a) ``solve_fom_sharded`` at the flagship FOM (nx=1000,
-   nt=1500) in float32 over phase 10's first 87 μ (the batch pads to
-   88) against phase 10's ``solve_fom_batch`` rows of the same μ within
+   nt=1500) in float32 over phase 10's first 15 μ (the batch pads to
+   16) against phase 10's ``solve_fom_batch`` rows of the same μ within
    1e-12 relative per μ (the same arithmetic a lane); (b) ``orth_distributed`` of (a)'s
    snapshots in float64 on the card (TSQR) against the port's host
    ``orth``: σ within 1e-10 of σ₁, the first 10 modes' spans by the sine
    of their largest principal angle within 1e-8; (c)
    ``solve_online_windowed_sharded`` on the synthetic fleet's 50x32 cell
-   0 (phase 9's nt=450) at B=9 in float64 against ``engine="windowed"``
+   0 (phase 9's nt=150) at B=9 in float64 against ``engine="windowed"``
    within 1e-9·scale; (d) the μ-local composition on that fleet, two μ
    in cell 0 and two in the registered cell 5, routed through the
    sharded sweep: each cell's rows (probes, ``uN_final``, ``dil``)
@@ -287,8 +309,9 @@ Phases, in order; any failure raises and exits non-zero:
    ``mpf1_convergence`` at nx=500, nts 10, 100, 1000 on the goldens' tf,
    fixed and moving, the nt=1000 log10 errors within 1e-6 of the JAX
    package's; (e) on phase 12's fleet directory, resumed warm
-   (``permu_diag.build_hrom``): ``permu_diag`` and ``multimu_diag`` on 2
-   held-out μ and the center (their rel-L2 rows within 1e-12 relative of
+   (``permu_diag.build_hrom``): ``permu_diag`` and ``multimu_diag`` on
+   the center (phase 12 (d) certifies bench's 15 held-out μ on the same
+   fleet; their rel-L2 rows within 1e-12 relative of
    each other, rel² = floor² + in-span² to 1e-12), ``corner_attrib`` at
    10 times, ``window_study`` (the 15:48 floor, then 50:32 served with
    its float32 drift), and ``kernel_ledger`` on cell 0's real tables at
@@ -361,14 +384,15 @@ KERNELS = ("K1", "K2", "K3", "K4", "K5")
 GLOBAL_NT = 1500
 GLOBAL_CALLS = 3
 GLOBAL_REPS = 3
-#: (kernel, N, B, nt, options) of the global kernel phase: the serving
-#: shapes over the whole grid; the BDF-1 and B=1000 variants over half
-#: of it (their twins' sweeps dominate the phase, and each step is the
-#: same step).
+#: (kernel, N, B, nt, options) of the global kernel phase, each over
+#: half of the grid (the twins' sweeps dominate the phase, and each step
+#: is the same step): the serving shapes (phase 6 sweeps them over the
+#: whole grid against both designs, the twin and the split twin), and the
+#: BDF-1 and B=1000 variants.
 NO_TRI_BDF1 = {"bdf2": False, "with_trilinear": False}
-GLOBAL_SHAPES = (("K4", 15, 2048, GLOBAL_NT, {}),
-                 ("K5", 15, 2048, GLOBAL_NT, {}),
-                 ("K5", 20, 2048, GLOBAL_NT, {}),
+GLOBAL_SHAPES = (("K4", 15, 2048, GLOBAL_NT // 2, {}),
+                 ("K5", 15, 2048, GLOBAL_NT // 2, {}),
+                 ("K5", 20, 2048, GLOBAL_NT // 2, {}),
                  ("K4", 9, 2048, GLOBAL_NT // 2, NO_TRI_BDF1),
                  ("K5", 9, 2048, GLOBAL_NT // 2, NO_TRI_BDF1),
                  ("K4", 15, 1000, GLOBAL_NT // 2, {}),
@@ -403,14 +427,15 @@ CERT_F64_REL = 1e-9
 #: The synthetic cells' grid (the flagship FOM) and the S-ROM's extra
 #: modes (bench.py's BENCH_WINDOW_SROM_EXTRA default).
 CERT_GRID = {"nx": 1000, "nt": 1500}
-# (d)'s nested fleet and (e)'s chained cells at 450 of the 1500 steps
-# (the windows keep their count and N, each narrower): (d)'s two 6-cell
-# float64 estimator calls were 122 s of the phase at nt=1500, and the
-# smoke run keeps within its clock (1,119-1,152 s of 1,200 at nt=750 with
-# phase 15; PERF.md §6, PR 18).
-CERT_FLEET_GRID = {"nx": 1000, "nt": 450}
+# (d)'s nested fleet and (e)'s chained cells at 150 of the 1500 steps
+# (the windows keep their count and N, each narrower; the 150x48 cells
+# one step a window): (d)'s two 6-cell float64 estimator calls were 122 s
+# of the phase at nt=1500 and 36.6 s at nt=450, and the smoke run keeps
+# within its clock beside phase 12's uncut fleet (PERF.md §5). Phase 12
+# (e) holds the same estimator contract on the built fleet at nt=1500.
+CERT_FLEET_GRID = {"nx": 1000, "nt": 150}
 SROM_EXTRA = 8
-#: (e): unequal widths (W=7 on nt=450: 64 and 65 steps) at N=32.
+#: (e): unequal widths (W=7 on nt=150: 21 and 22 steps) at N=32.
 CHAINED_W = 7
 #: Phase 10, the FOM: the flagship piston FOM (bench.py:121-122, :145)
 #: over the flagship fleet's offline batch (bench.py:113, 88 μ); (b)-(e)
@@ -435,42 +460,68 @@ BUILD_B = 2048
 BUILD_CHECK_B = 16
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-#: Phase 12: the flagship fleet built by the port (bench.py:64-115,
-#: :343-400) at full width, its depth cut: 2,2,2,2,5 training μ in cells
-#: 0-4 (bench's 12,12,12,12,16) and bench's 24 in the top cell (6 left
-#: its served K1 1.4% over (c)'s limit), the top cell registered (bench's
-#: BENCH_REGISTER=top, bench.py:346-348; the flagship registers "auto"),
-#: 2 of bench's 16 held-out μ (the lowest and the highest Mach, in the
-#: registered top cell) plus its center μ (bench.py:343, :518-521).
+#: Phase 12: the flagship fleet built by the port at bench.py's joint
+#: defaults, uncut (bench.py:64-115, :343-400): 12,12,12,12,16,24
+#: training μ, every alignable cell registered ("auto"), the training
+#: sweep and the global build in float64 on the host's native loop, as
+#: bench.py builds by default (BENCH_OFFLINE=cpu, bench.py:231, :403-404).
 FLEET_BUILD_GRID = {"nx": 1000, "nt": 1500, "tf": 1.0}
-FLEET_BUILD_PER_CELL = (2, 2, 2, 2, 5, 24)
-FLEET_BUILD_REGISTER = [5]
+FLEET_BUILD_PER_CELL = (12, 12, 12, 12, 16, 24)
+FLEET_BUILD_REGISTER = "auto"
 FLEET_BUILD_CELL_WN = ((50, 32),) * 4 + ((150, 48),) * 2
 FLEET_BUILD_B = 2048
-FLEET_BUILD_HELD_OUT = 2
-#: (e)'s estimator batch: this many of the certification μ and the center.
-FLEET_BUILD_EST_HELD_OUT = 7
-#: (d)'s limits on the matched grid: the center μ
-#: (tests/test_windowed.py:398), a registered lane
-#: (tests/test_registration.py:490).
-FLEET_BUILD_CENTER_REL = 1e-3
-FLEET_BUILD_REGISTERED_REL = 4e-3
+#: (c)'s timed batch as bench.py times it (bench.py:709-716): the
+#: Mach-stratified draws of this many bins (RandomState(3)) tiled to B.
+FLEET_TIMED_SPACE = 64
+#: (d), bench.py's certification: its held-out μ, the draws of 16 Mach
+#: bins with RandomState(7) (15: the top bin lies above the box's largest
+#: Mach; bench.py:518-521), and the first rows of the timed batch held
+#: against the float64 lanes engine (bench.py:967).
+FLEET_CERT_BINS = 16
+FLEET_CERT_PROBE_ROWS = 16
+F32_DRIFT_MAX = 1e-5      # a guard: a float32 solve that left float64
+#: (d)'s limits, each tighter than BENCH_r05.json's figure needs: the
+#: center, the held-out maxima on the matched grid and on the standard
+#: clock (BASELINE.md:29), the estimator/true ratio range, the served
+#: engine's probe error and the float32 drift. A miss raises.
+FLEET_CERT_LIMITS = {"rel_l2_vs_fom": 3e-7, "multi_max": 1e-6,
+                     "std_max": 1e-6, "ratio_min": 0.9, "ratio_max": 1.1,
+                     "served_engine_probe_err": 1e-5,
+                     "f32_serving_drift": F32_DRIFT_MAX}
+#: The reference's figures for the same numbers (BENCH_r05.json: the JAX
+#: package on a TPU, the joint profile, the same fleet), printed beside.
+BENCH_R05 = {"rel_l2_vs_fom": 2.5268368645023236e-07,
+             "multi_max": 9.70009189913143e-07,
+             "std_max": 9.838497337794282e-07,
+             "ratio_min": 0.9188733229789863,
+             "ratio_max": 1.0392924618642259,
+             "served_engine_probe_err": 5.127823107266107e-06,
+             "f32_serving_drift": 8.879870612308402e-07,
+             "fom_dt_gap_max": 0.0008955800357241662,
+             "registered_cells": [0, 1, 2, 3, 4, 5]}
 #: (f): cell 0 rebuilt at another shape from the trajectory cache; the
-#: shape candidates and target of auto_cell_wn (bench.py:302-313).
+#: shape candidates and target of auto_cell_wn (bench.py:302-313). Both
+#: read a cut of the cache, its first trajectories a cell in these
+#: counts (the 150x48 windows' stacks need 5 for N=48+8): on the uncut
+#: cache they took 30-55 s and 48-78 s (PERF.md §5).
 FLEET_REBUILD_WN = (30, 40)
+FLEET_REBUILD_PER_CELL = (2, 2, 2, 2, 5, 5)
 AUTO_WN_CANDIDATES = ((50, 32), (30, 40), (150, 48))
 AUTO_WN_TARGET = 1e-5
 # Phase 13: the single-μ path and the evaluation on phase 11's ROM.
 SINGLE_VS_LANES = 1e-12   # tests/test_rom.py:114
-F32_DRIFT_MAX = 1e-5      # a guard: a float32 solve that left float64
 VMAP_B = 2
-EVAL_ONLINE = 2
+EVAL_ONLINE = 1           # μ of evaluate_online (cut from 2; PERF.md §5)
 EVAL_ROM_MEAN = 5e-3      # tests/test_hrom.py:349
 NATIVE_VS_EAGER = 1e-12   # tests/test_native_fom.py:62-67
 
 # Phase 14: the MFP1 heat family at the pinned heat size of
 # tests/goldens/mfp1_convergence_{fixed,moving}.csv (nx=500, nt=1000).
 HEAT_GRID = {"L": 2.0, "nx": 500, "nt": 1000}
+# (b)-(e): the HROMs built, served and certified at half the goldens'
+# size each way (their builds were 35-58 s of the phase at the full size;
+# PERF.md §5).
+HEAT_BUILD_GRID = {"L": 2.0, "nx": 250, "nt": 500}
 HEAT_GOLDEN = {False: -3.360653614949263, True: -4.72751886228184}
 # The JAX package's own log10 errors at that size on the CPU
 # (scripts/mfp1_golden_gap.py): the goldens predate it by 9.2e-6 and
@@ -491,7 +542,7 @@ WINDOWED_PROBES_REL = 5e-6   # tests/test_windowed.py:91-94
 WINDOWED_UN_ATOL = 5e-5
 # Phase 15: multi-device, one controller over a mesh of the card (two
 # shards on cuda:0) and, in (e), a mesh of the card and the CPU.
-MD_FOM_B = 87               # (a): pads to 88 over the two shards
+MD_FOM_B = 15               # (a): pads to 16 (cut from 87; PERF.md §5)
 MD_FOM_REL = 1e-12          # (a): the same arithmetic per lane
 MD_SIGMA_REL = 1e-10        # (b): TSQR's σ against the host SVD, of σ₁
 MD_MODES = 10               # (b): the leading modes whose spans are held
@@ -509,7 +560,9 @@ EX_PISTON_GRID = {"nx": 300, "nt": 300}   # examples/piston_rom.py:40
 EX_PISTON_B = 128            # one 128-lane block: the K4/K5 gate
 EX_CERT_B = 16               # the example's estimator batch
 EX_HEAT_NTS = (10, 100, 1000)             # the goldens' refinement levels
-EX_DIAG_HELD_OUT = 2         # permu/multimu_diag's μ (theirs: 16)
+# permu/multimu_diag's held-out μ beside the center (theirs: 16): phase
+# 12 (d) certifies bench's 15 on the same directory.
+EX_DIAG_HELD_OUT = 0
 EX_CORNER_TIMES = 10         # corner_attrib's times (its own: 40)
 EX_STUDY_FLOOR = "15:48"     # window_study's default point
 EX_STUDY_SERVED = (50, 32)   # the fleet's 50x32 cell shape
@@ -923,16 +976,10 @@ def kernel_phase(mods, dev, power, errs, rich_errs):
                 f"{label}, serving design vs twin (first {OPTION_WINDOWS} "
                 f"windows):", k1.online_sweep_windowed_fused(*a4, **kw4),
                 k1.windowed_fused_reference(*a4, **kw4)))
+            # The twin over the whole sweep runs in phase 5, on the served
+            # per-step LU and Richardson calls.
             row = dict(kernel="K1", solve=solve, shape=shape, B=B, ms=ms,
                        first_design_ms=first_ms)
-            if solve != "lu":
-                # The twin over the whole sweep (its time is plain_ms).
-                row["plain_ms"], want = cuda_ms(
-                    lambda: k1.windowed_fused_reference(*args, **kws), 1,
-                    warmup=False)
-                err = max(err, check_sweep(f"{label}, serving design vs "
-                                           f"twin (whole sweep):", got, want))
-                del want
             errs["K1"].append(err)
             if solve == "richardson":
                 rich_errs.append(err)
@@ -949,8 +996,7 @@ def kernel_phase(mods, dev, power, errs, rich_errs):
                          f"LU's by {row['vs_lu_rel']:.3e} of their scale")
             print(f"  serving design {ms:.3f} ms/sweep, first design "
                   f"{first_ms:.3f} ({first_ms / ms:.2f}×), "
-                  + (f"twin {row['plain_ms']:.1f}, " if "plain_ms" in row
-                     else "") + f"bound {bms:.3f} ms ({by}){extra}")
+                  f"bound {bms:.3f} ms ({by}){extra}")
             rows.append(row)
             del got, ref
         split = phase_split(args, kw, reps=K1_TURN_REPS)
@@ -2184,9 +2230,12 @@ def estimator_contract(out, ref, V_srom, nt):
     return formula_gap, bound_slack, (float(avg.min()), float(avg.max()))
 
 
-def build_pipeline(dev, grid, workdir, profile="throughput_profile"):
+def build_pipeline(dev, grid, workdir, profile="throughput_profile",
+                   device_sweep=True):
     """bench.py's offline sequence (bench.py:209-262) with the port on
-    ``dev`` in ``workdir`` for ``problems.<profile>``: returns the
+    ``dev`` in ``workdir`` for ``problems.<profile>``, the FOM sweep one
+    batch on the device (``device_sweep``, bench.py's BENCH_OFFLINE=device)
+    or a float64 ``fom.solve()`` a μ (bench.py's default): returns the
     pipeline, each stage's seconds and the calls of the snapshot assembly
     (one per μ and trained operator, the tree walk's times its trailing
     batch)."""
@@ -2209,7 +2258,7 @@ def build_pipeline(dev, grid, workdir, profile="throughput_profile"):
                                                               **grid))
         _, setup_s = timed(dev, lambda: (hrom.setup(),
                                          hrom.setup_hyperreduction()))
-        timed(dev, lambda: hrom.run_offline_rom(device_sweep=True))
+        timed(dev, lambda: hrom.run_offline_rom(device_sweep=device_sweep))
         timed(dev, lambda: hrom.run_offline_hyperreduction(
             mu_space=hrom.mu_space["offline"], evaluate=False))
         hrom.project_reductors()
@@ -2392,15 +2441,17 @@ def offline_build_phase(mods, dev, power):
     return info, hrom
 
 
-def held_out_mus(rom, n):
-    """``n`` of bench.py's 16 Mach-stratified held-out μ
-    (``build_sampling_space(16, RandomState(7))``, bench.py:518-521; the
-    bins above the box's largest Mach stay empty), evenly spaced in Mach
-    from the lowest to the highest."""
-    space = rom.build_sampling_space(num=16, rnd=np.random.RandomState(7))
-    pick = np.linspace(0, len(space) - 1, n).round().astype(int)
-    return [{k: float(v) for k, v in space[i].items()
-             if k != "piston_mach"} for i in pick]
+def bench_mus(rom, bins, seed, B=None):
+    """bench.py's Mach-stratified μ (``build_sampling_space(bins,
+    RandomState(seed))``, bench.py:518-521, :709-716): one draw a Mach bin
+    (the bins above the box's largest Mach stay empty), sorted by Mach,
+    the Mach tag dropped; tiled to ``B`` where given."""
+    mus = [{k: float(v) for k, v in m.items() if k != "piston_mach"}
+           for m in rom.build_sampling_space(
+               num=bins, rnd=np.random.RandomState(seed))]
+    if B is None:
+        return mus
+    return (mus * -(-B // len(mus)))[:B]
 
 
 def fom_references(fom, mus, dils):
@@ -2495,8 +2546,9 @@ def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=None):
     the gaps of the served K1 to the float32 and float64 lanes engines
     printed, not
     held (the reference's kernel misses the float32 limit there by the
-    same amount, PERF.md §6), and that launch held against K1's
-    twin on the same inputs (ATOL_REL)."""
+    same amount, PERF.md §6), and that launch's probes over its first
+    OPTION_WINDOWS windows held against K1's twin on the same inputs
+    (ATOL_REL)."""
     from romtime_tpu_torch.rom.engines import windowed_fused as engine
 
     k1 = mods["k1"]
@@ -2580,10 +2632,11 @@ def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=None):
 
 def served_vs_probe_lanes(rom, ml, c, mus, hrom, serve, k1, power, label):
     """Cell ``c`` on the paired-LU probe's lanes: the served K1's gaps to
-    the float32 and float64 lanes engines, printed; the launch against
-    K1's twin on
-    the same inputs, held (ATOL_REL)."""
+    the float32 and float64 lanes engines, printed; the launch's probes
+    over its first OPTION_WINDOWS windows against K1's twin on the same
+    inputs, held (ATOL_REL)."""
     from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.scripts.kernel_ledger import first_windows
 
     lanes_mus, distinct = probe_lanes(rom, ml, c, mus, hrom.cell_mus[c])
     cap = {}
@@ -2606,16 +2659,188 @@ def served_vs_probe_lanes(rom, ml, c, mus, hrom, serve, k1, power, label):
           f"{FLEET_PROBES_REL * scale:.3e}, not held here), vs the float64 "
           f"lanes engine {g64:.3e}; the two lanes engines {l_gap:.3e} apart "
           f"(lanes {s32:.1f} s float32, {s64:.1f} s float64) on {power}")
-    want, twin_s = timed(rom.device, lambda: k1.windowed_fused_reference(
-        *cap["args"], **cap["kw"]))
-    err = check_sweep(f"  {label} cell {c}: the served K1 launch on the "
-                      f"probe's lanes vs its twin on the same inputs "
-                      f"({twin_s:.1f} s) on {power}:", cap["out"], want)
+    # The twin on the launch's inputs over its first OPTION_WINDOWS
+    # windows (the whole 150-window sweep takes 18 s): the
+    # launch's probe rows of those windows.
+    a4, kw4 = first_windows(cap["args"], cap["kw"], OPTION_WINDOWS)
+    (want, _), twin_s = timed(rom.device, lambda: k1.windowed_fused_reference(
+        *a4, **kw4))
+    print(f"  {label} cell {c}: the served K1 launch on the probe's lanes "
+          f"vs its twin on the same inputs, the first {OPTION_WINDOWS} "
+          f"windows ({twin_s:.1f} s) on {power}:")
+    err = check("probes", cap["out"][0][:len(want)], want)
     return dict(probe_distinct=distinct, probe_vs_lanes_f32=g32,
                 probe_vs_lanes_f64=g64, probe_lanes_f32_vs_f64=l_gap,
                 probe_scale=scale, probe_limit=FLEET_PROBES_REL * scale,
                 probe_lanes_s=[s32, s64], twin_s=twin_s,
                 kernel_vs_twin=err)
+
+
+def fleet_certification(hrom, timed_mus, timed_probes):
+    """bench.py's certification of the μ-local fleet (bench.py:442-705,
+    :963-995), through the port's own calls on the device ``hrom`` serves
+    on, the active cell (the center's Mach cell, bench.py:431-432) on
+    the ROM while it runs and the serving windows restored after:
+
+    - the center μ through ``solve_batch(mode="full", engine="windowed")``
+      in float64 against the float64 FOM on its matched grid (T·d);
+    - bench's held-out μ (:func:`bench_mus`) routed through
+      ``solve_batch_mulocal(mode="full", engine="windowed")`` in float64,
+      each against the FOM on its lane's matched grid; on the registered
+      lanes both trajectories mapped to the standard clock by
+      ``resample_to_standard``, and the mapped FOM against a true
+      standard-grid FOM (the dt-gap); every FOM reference in one
+      ``solve_fom_batch`` with per-lane clocks;
+    - ``estimate_batch_mulocal`` in float64 on the same μ: each μ's ratio
+      of the time-RMS estimator to the true time-RMS error;
+    - the served batch's first FLEET_CERT_PROBE_ROWS probe rows
+      (``timed_probes``, the (nt, 2, B) output of ``solve_batch(timed_mus,
+      mode="probes", host=False)`` on the active cell) against the
+      float64 lanes engine on the same μ, over the latter's scale;
+    - the float32 drift of the center μ's lanes solve, over the FOM's
+      norm.
+
+    Returns a dict under bench.py's keys (``rel_l2_vs_fom``,
+    ``rel_l2_multi_mu`` with ``std``, ``windowed_estimator``,
+    ``served_engine_probe_err``, ``f32_serving_drift``) plus each held-out
+    μ's row, the active cell and the seconds of each step; and the
+    estimator's output."""
+    from romtime_tpu_torch.conventions import Errors
+    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    from romtime_tpu_torch.problems import JOINT_CENTER_MU
+    from romtime_tpu_torch.rom.registration import resample_to_standard
+
+    rom, fom, ml = hrom.rom, hrom.fom, hrom.rom.mulocal
+    dev = rom.device
+    mu_val = dict(JOINT_CENTER_MU)
+    mus_val = bench_mus(rom, FLEET_CERT_BINS, 7)
+    n = len(mus_val)
+    active = int(ml.cell_of(rom.compute_piston_mach_number(mu_val)))
+    prev = rom.windows
+    secs = {}
+    rom._set_serving_windows(ml.cells[active])
+    try:
+        with compute_dtype_scope(torch.float64):
+            outs_v, secs["center_lanes"] = timed(dev, lambda: rom.solve_batch(
+                [dict(mu_val)], mode="full", engine="windowed"))
+            outs_m, secs["held_out_lanes"] = timed(
+                dev, lambda: rom.solve_batch_mulocal(
+                    [dict(m) for m in mus_val], mode="full",
+                    engine="windowed"))
+            est, secs["estimator"] = timed(
+                dev, lambda: hrom.estimate_batch_mulocal(
+                    [dict(m) for m in mus_val]))
+            n_chk = min(FLEET_CERT_PROBE_ROWS, len(timed_mus))
+            ref, secs["probe_lanes"] = timed(dev, lambda: rom.solve_batch(
+                [dict(m) for m in timed_mus[:n_chk]], mode="probes",
+                engine="windowed"))
+        with compute_dtype_scope(torch.float32):
+            outs32, secs["f32_lanes"] = timed(dev, lambda: rom.solve_batch(
+                [dict(mu_val)], mode="full", engine="windowed"))
+    finally:
+        rom._set_serving_windows(prev)
+    uh_rom = np.asarray(outs_v["uc"][0], np.float64)
+    dil_val = float(np.asarray(outs_v.get("dil", [1.0]))[0])
+    dils_m = np.asarray(outs_m.get("dil", np.ones(n)), np.float64)
+    reg_idx = [i for i in range(n) if dils_m[i] != 1.0]
+    refs, secs["fom_references"] = timed(dev, lambda: fom_references(
+        fom, [mu_val] + mus_val + [mus_val[i] for i in reg_idx],
+        [dil_val] + dils_m.tolist() + [1.0] * len(reg_idx)))
+    uh_fom, fom_refs, fom_std = refs[0], refs[1:n + 1], refs[n + 1:]
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    uc = [np.asarray(outs_m["uc"][i], np.float64) for i in range(n)]
+    rels = [rel(uc[i], fom_refs[i]) for i in range(n)]
+    multi = {"n": n, "mean": float(np.mean(rels)),
+             "max": float(np.max(rels)),
+             "n_registered": len(reg_idx),
+             "dil_max": float(np.max(dils_m)),
+             "n_dil_flagged": (int(np.sum(np.asarray(
+                 outs_m["dil_oor"], np.float64) > 0.5))
+                 if "dil_oor" in outs_m else None)}
+    rels_std, dt_gaps = {}, {}
+    for j, i in enumerate(reg_idx):
+        ref_std = resample_to_standard(fom_refs[i], dils_m[i], axis=0)
+        rels_std[i] = rel(resample_to_standard(uc[i], dils_m[i], axis=0),
+                          ref_std)
+        dt_gaps[i] = rel(ref_std, fom_std[j])
+    if reg_idx:
+        multi["std"] = {
+            "n": len(reg_idx),
+            "mean": float(np.mean(list(rels_std.values()))),
+            "max": float(np.max(list(rels_std.values()))),
+            "fom_dt_gap_mean": float(np.mean(list(dt_gaps.values()))),
+            "fom_dt_gap_max": float(np.max(list(dt_gaps.values())))}
+    e = np.asarray(est[Errors.ESTIMATOR], np.float64)
+    ratios = []
+    for i in range(n):
+        true_rms = np.linalg.norm(uc[i] - fom_refs[i]) / np.sqrt(uc[i].size)
+        ratios.append(float(np.sqrt(np.mean(e[i] ** 2)))
+                      / max(true_rms, 1e-300))
+    p_ref = np.asarray(ref["probes"], np.float64)
+    p_timed = np.moveaxis(timed_probes.detach().cpu().numpy(), -1,
+                          0)[:n_chk].astype(np.float64)
+    scale = max(float(np.abs(p_ref).max()), 1e-12)
+    cells = ml.cell_of([rom.compute_piston_mach_number(m) for m in mus_val])
+    rows = [dict(mach=rom.compute_piston_mach_number(m), cell=int(c),
+                 dil=float(d), rel_l2=r, rel_l2_std=rels_std.get(i),
+                 fom_dt_gap=dt_gaps.get(i), ratio=q)
+            for i, (m, c, d, r, q) in enumerate(
+                zip(mus_val, cells, dils_m, rels, ratios))]
+    cert = {
+        "rel_l2_vs_fom": rel(uh_rom, uh_fom),
+        "rel_l2_multi_mu": multi,
+        "rel_l2_multi_mu_std": multi.get("std"),
+        "windowed_estimator": {
+            "avg_estimator_mean": float(np.mean(
+                est[Errors.AVERAGE_ESTIMATOR])),
+            "ratio_min": float(np.min(ratios)),
+            "ratio_max": float(np.max(ratios))},
+        "served_engine_probe_err": float(np.abs(p_timed - p_ref).max()
+                                         / scale),
+        "f32_serving_drift": float(np.linalg.norm(
+            np.asarray(outs32["uc"][0], np.float64) - uh_rom)
+            / np.linalg.norm(uh_fom)),
+        "active_cell": active, "center_dil": dil_val, "rows": rows,
+        "seconds": secs}
+    return cert, est
+
+
+def certified_numbers(cert):
+    """name → value of the numbers FLEET_CERT_LIMITS holds."""
+    multi = cert["rel_l2_multi_mu"]
+    std = multi.get("std") or {}
+    return {"rel_l2_vs_fom": cert["rel_l2_vs_fom"],
+            "multi_max": multi["max"], "std_max": std.get("max"),
+            "ratio_min": cert["windowed_estimator"]["ratio_min"],
+            "ratio_max": cert["windowed_estimator"]["ratio_max"],
+            "served_engine_probe_err": cert["served_engine_probe_err"],
+            "f32_serving_drift": cert["f32_serving_drift"]}
+
+
+def hold_certification(cert, power, limits=None):
+    """Each certified number printed beside its limit (``limits``,
+    default FLEET_CERT_LIMITS: a ``ratio_min`` from below, every other an
+    upper bound), BENCH_r05.json's figure and the card; raises
+    AssertionError naming every miss. A standard-clock maximum without a
+    registered lane is a miss."""
+    limits = FLEET_CERT_LIMITS if limits is None else limits
+    misses = []
+    for name, value in certified_numbers(cert).items():
+        limit = limits[name]
+        ok = value is not None and (value >= limit if name == "ratio_min"
+                                    else value <= limit)
+        print(f"    {name} {value if value is None else f'{value:.4e}'} "
+              f"({'≥' if name == 'ratio_min' else '≤'} {limit:g}; "
+              f"BENCH_r05 {BENCH_R05[name]:.4e}) on {power} "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            misses.append(f"{name} {value} (limit {limit})")
+    if misses:
+        raise AssertionError("the fleet misses the certification bar: "
+                             + "; ".join(misses))
 
 
 @contextlib.contextmanager
@@ -2638,36 +2863,37 @@ def fom_unreachable(fom):
 
 def fleet_build_phase(mods, dev, power, workdir):
     """Phase 12 of the module doc: the port builds the flagship fleet on
-    the card (its depth cut), serves it through K1, checks its accuracy
-    against the FOM, certifies it and persists it, in ``workdir``, which
-    it leaves for phase 16's diagnostics. Nothing falls back to the
-    CPU."""
+    the card at bench.py's joint defaults (float64, uncut), serves it
+    through K1, certifies it as bench.py does (:func:`fleet_certification`,
+    held at FLEET_CERT_LIMITS) and persists it, in ``workdir``, which it
+    leaves for phase 16's diagnostics. Nothing falls back to the CPU."""
     from romtime_tpu_torch.conventions import Errors
-    from romtime_tpu_torch.dtypes import compute_dtype_scope
     from romtime_tpu_torch.problems import (
         JOINT_CENTER_MU,
         joint_fleet,
         joint_profile,
     )
     from romtime_tpu_torch.rom.hrom import HyperReducedPiston
-    from romtime_tpu_torch.rom.windowed import predict_window_floor
     from romtime_tpu_torch.utils import compute_rom_difference
 
     synth = mods["synth"]
     nt = FLEET_BUILD_GRID["nt"]
     info = {"card": power, "grid": dict(FLEET_BUILD_GRID),
             "per_cell": list(FLEET_BUILD_PER_CELL),
-            "register": list(FLEET_BUILD_REGISTER)}
+            "register": FLEET_BUILD_REGISTER}
     cwd = os.getcwd()
     try:
-        # (a) The global build of the joint profile.
+        # (a) The global build of the joint profile, its FOM sweep a
+        # float64 fom.solve() a μ.
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         hrom, seconds, calls = build_pipeline(dev, FLEET_BUILD_GRID, workdir,
-                                              profile="joint_profile")
+                                              profile="joint_profile",
+                                              device_sweep=False)
         rom = hrom.rom
         print(f"fleet build: the joint profile's global build (nx="
-              f"{FLEET_BUILD_GRID['nx']}, nt={nt}, float64) on the card: ROM "
+              f"{FLEET_BUILD_GRID['nx']}, nt={nt}, float64, the FOM sweep a "
+              f"float64 fom.solve() a μ) on the card: ROM "
               f"N={rom.N}, S-ROM N={hrom.srom.N}; seconds "
               + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
               + f"; {calls} snapshot-assembly calls; peak device memory "
@@ -2677,63 +2903,80 @@ def fleet_build_phase(mods, dev, power, workdir):
                               N=rom.N, N_srom=hrom.srom.N,
                               peak_bytes=torch.cuda.max_memory_allocated())
 
-        # (b) The fleet build: one device sweep, the top cell registered.
+        # (b) The fleet build at bench's defaults: the training sweep a
+        # float64 fom.solve() a μ (the native host loop), every alignable
+        # cell registered.
         kwargs = joint_fleet(
             per_cell=FLEET_BUILD_PER_CELL, register=FLEET_BUILD_REGISTER,
             cell_wn=FLEET_BUILD_CELL_WN)
         os.chdir(workdir)
         torch.cuda.reset_peak_memory_stats()
-        ml, build_s = timed(dev, lambda: hrom.build_mulocal_serving(
-            device_sweep=True, **kwargs))
+        native_calls = mods["native"].calls["piston_fom_solve"]
+        ml, build_s = timed(dev, lambda: hrom.build_mulocal_serving(**kwargs))
+        native_calls = mods["native"].calls["piston_fom_solve"] - native_calls
         peak = torch.cuda.max_memory_allocated()
         secs = hrom.fleet_seconds
-        print(f"  (b) build_mulocal_serving(device_sweep=True, srom_extra="
-              f"{kwargs['srom_extra']}): {build_s:.1f} s; per stage "
+        print(f"  (b) build_mulocal_serving(per_cell "
+              f"{list(FLEET_BUILD_PER_CELL)}, register="
+              f"{FLEET_BUILD_REGISTER!r}, srom_extra={kwargs['srom_extra']}):"
+              f" {build_s:.1f} s; per stage "
               + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
-              + f"; fleet {ml.cell_wn} over S-ROM cells "
+              + f"; {native_calls} native float64 FOM solves (the "
+              f"training μ, then the registered ones on their dilated "
+              f"grids); fleet "
+              f"{ml.cell_wn} over S-ROM cells "
               f"{[(w.n_windows, w.N) for w in ml.cells_srom]}, Mach edges "
               f"{np.round(ml.edges, 6).tolist()}; peak device memory "
               f"{peak / 2**30:.3f} GiB on {power}")
-        with np.load(os.path.join(workdir, "mulocal_snapshots.npz")) as d:
+        cache_path = os.path.join(workdir, "mulocal_snapshots.npz")
+        with np.load(cache_path) as d:
             build_tag = str(d["build"])
-            cached = {c: [d[f"snap_{c}_{j}"] for j in range(int(n))]
-                      for c, n in enumerate(d["per_cell"])}
         cells_info = []
         for c, win in enumerate(ml.cells):
             law = win.dilation
-            floor = predict_window_floor(cached[c], win.n_windows, win.N)
             mach = [rom.compute_piston_mach_number(m)
                     for m in hrom.cell_mus[c]]
             row = dict(cell=c, shape=f"{win.n_windows}x{win.N}",
                        mach=mach, mus=hrom.cell_mus[c],
-                       predicted_floor=floor,
                        law=None if law is None else dict(
                            names=list(law.names),
                            coef=np.asarray(law.coef).tolist(),
                            training_dilations=np.asarray(
                                hrom.cell_dilations[c]).tolist()))
             cells_info.append(row)
-            print(f"    cell {c} {row['shape']}: training μ at Mach "
-                  + ", ".join(f"{x:.4f}" for x in mach)
-                  + f"; predicted floor {floor:.3e} (its standard-clock "
-                  f"trajectories); "
+            print(f"    cell {c} {row['shape']}: {len(mach)} training μ at "
+                  f"Mach {min(mach):.4f}..{max(mach):.4f}; "
                   + ("unregistered" if law is None else
                      f"law {law.names} coef "
                      f"{np.array2string(np.asarray(law.coef), precision=6)}"
                      f", training dilations "
-                     f"{np.round(hrom.cell_dilations[c], 5).tolist()}"))
-        want_tag = ("device-f32" if torch.device(dev).type == "cuda"
-                    else "f64")
+                     f"{np.min(hrom.cell_dilations[c]):.5f}.."
+                     f"{np.max(hrom.cell_dilations[c]):.5f}"))
         registered = [c for c, w in enumerate(ml.cells)
                       if w.dilation is not None]
-        if registered != list(FLEET_BUILD_REGISTER) or build_tag != want_tag:
-            raise AssertionError(f"registered cells or cache tag "
-                                 f"({build_tag}) not as asked")
+        d_max = max((float(np.max(hrom.cell_dilations[c]))
+                     for c in registered), default=1.0)
+        print(f"  (b) registered cells {registered} (BENCH_r05: "
+              f"{BENCH_R05['registered_cells']}), the largest training d "
+              f"{d_max:.5f}; the trajectory cache's build tag {build_tag!r}"
+              f" (float64)")
+        # A native float64 solve a training μ, and one a registered
+        # training μ on its dilated grid.
+        want_native = sum(FLEET_BUILD_PER_CELL) + sum(
+            len(hrom.cell_dilations[c]) for c in registered)
+        if (not registered or build_tag != "f64"
+                or native_calls != want_native):
+            raise AssertionError(f"no registered cell, or the training "
+                                 f"sweep and re-solves were not float64 a μ"
+                                 f" (tag {build_tag}, {native_calls} native "
+                                 f"solves of {want_native})")
         info.update(build_s=build_s, stages=secs, peak_bytes=peak,
                     cells=cells_info, cache_build=build_tag,
-                    edges=np.asarray(ml.edges).tolist())
+                    native_solves=native_calls, registered=registered,
+                    d_max=d_max, edges=np.asarray(ml.edges).tolist())
 
         # (c) Serving at B=2048: a cold call and warm calls through K1.
+        t_c = time.perf_counter()
         Bb = FLEET_BUILD_B
         batches = [synth.synthetic_mus(Bb, seed=61 + r)
                    for r in range(FLEET_CALLS + 1)]
@@ -2774,8 +3017,7 @@ def fleet_build_phase(mods, dev, power, workdir):
         clamped = int((reg & (law_d == 1.0)).sum())
         if (not np.allclose(dil, law_d, rtol=1e-6, atol=0)
                 or (dil[reg & (law_d > 1.0)] <= 1.0).any()
-                or (dil[~reg] != 1.0).any()
-                or clamped):
+                or (dil[~reg] != 1.0).any()):
             raise AssertionError("dilations: registered lanes must carry "
                                  "their law's d > 1, the others 1")
         worst = routed_rows_equal_direct(rom, ml, out, batches[-1], cells, Bb)
@@ -2786,69 +3028,84 @@ def fleet_build_phase(mods, dev, power, workdir):
         serve["routed_vs_direct_max_abs"] = worst
         serve["served_vs_lanes"] = served_vs_lanes(
             rom, ml, batches[-1], cells, mods, power, "(c)", built=hrom)
+        # The batch bench.py times (bench.py:709-750): its 64-bin draws
+        # tiled to B, served on the active cell, the center's.
+        active = int(ml.cell_of(rom.compute_piston_mach_number(
+            JOINT_CENTER_MU)))
+        timed_mus = bench_mus(rom, FLEET_TIMED_SPACE, 3, Bb)
+        before = launch_counts(mods)
+        rom._set_serving_windows(ml.cells[active])
+        try:
+            timed_out = rom.solve_batch(timed_mus, mode="probes", host=False)
+        finally:
+            rom._set_serving_windows(ml.cells[0])
+        timed_launches = launches_since(mods, before)
+        print(f"  (c) bench's timed batch ({len(set(map(id, timed_mus)))} "
+              f"distinct μ tiled to {Bb}) on the active cell {active} "
+              f"{ml.cell_wn[active][0]}x{ml.cell_wn[active][1]}: "
+              f"solve_batch(mode='probes', host=False) launches K1-K5 "
+              f"{timed_launches}")
+        if timed_launches != [1, 0, 0, 0, 0]:
+            raise AssertionError(f"the timed batch launched "
+                                 f"{timed_launches}, expected one K1")
+        serve.update(timed_active_cell=active, timed_launches=timed_launches,
+                     seconds=time.perf_counter() - t_c)
+        print(f"  (c) in {serve['seconds']:.1f} s")
+        # K1's launches on the main path: the fleet's calls and the timed
+        # batch.
+        launches = [a + b for a, b in zip(launches, timed_launches)]
         info["serve"] = serve
         last_mus, last_out = batches[-1], out
 
-        # (d) Accuracy against the FOM on the matched grid, float64.
-        acc_mus = [dict(JOINT_CENTER_MU)] + held_out_mus(
-            rom, FLEET_BUILD_HELD_OUT)
-        with compute_dtype_scope(torch.float64):
-            full, lanes_s = timed(dev, lambda: rom.solve_batch_mulocal(
-                acc_mus, mode="full", engine="windowed"))
-        dils = [float(d) for d in np.asarray(full["dil"], np.float64)]
-        refs, fom_s = timed(dev, lambda: fom_references(hrom.fom, acc_mus,
-                                                        dils))
-        acc_cells = ml.cell_of([rom.compute_piston_mach_number(m)
-                                for m in acc_mus])
-        rels = [float(np.linalg.norm(np.asarray(full["uc"][i]) - refs[i])
-                      / np.linalg.norm(refs[i]))
-                for i in range(len(acc_mus))]
-        rows = [dict(mach=rom.compute_piston_mach_number(m), cell=int(c),
-                     dil=d, rel_l2=r)
-                for m, c, d, r in zip(acc_mus, acc_cells, dils, rels)]
-        print(f"  (d) rel-L2 against the float64 FOM on the matched grid "
-              f"(f64 windowed lanes {lanes_s:.1f} s, FOM references "
-              f"{fom_s:.1f} s): "
-              + "; ".join(f"{'center' if i == 0 else 'held-out'} Mach "
-                          f"{r['mach']:.4f} cell {r['cell']} d "
-                          f"{r['dil']:.5f}: {r['rel_l2']:.3e}"
-                          for i, r in enumerate(rows)))
-        bad = [r for i, r in enumerate(rows)
-               if (i == 0 and r["rel_l2"] >= FLEET_BUILD_CENTER_REL)
-               or (r["dil"] != 1.0
-                   and r["rel_l2"] >= FLEET_BUILD_REGISTERED_REL)]
-        if bad or not any(r["dil"] != 1.0 for r in rows):
-            raise AssertionError(f"(d) the center μ (limit "
-                                 f"{FLEET_BUILD_CENTER_REL:.0e}) or a "
-                                 f"registered lane (limit "
-                                 f"{FLEET_BUILD_REGISTERED_REL:.0e}) missed, "
-                                 f"or no registered lane: {bad}")
-        print(f"  (d) the center μ under {FLEET_BUILD_CENTER_REL:.0e} and "
-              f"the registered lanes under {FLEET_BUILD_REGISTERED_REL:.0e} "
-              f"on {power} ok")
-        info["accuracy"] = dict(rows=rows, lanes_s=lanes_s, fom_s=fom_s)
-        del full, refs
-
-        # (e) estimate_batch_mulocal, float64, B=16: phase 9 (d)'s
-        # contract.
-        fmus = synth.certification_mus(FLEET_BUILD_EST_HELD_OUT)
-        served_before = rom.solve_batch_mulocal(fmus, mode="probes")
-        with compute_dtype_scope(torch.float64):
-            fest, fest_s = timed(dev, lambda: hrom.estimate_batch_mulocal(
-                fmus))
-        served_after = rom.solve_batch_mulocal(fmus, mode="probes")
-        fe, favg = fest[Errors.ESTIMATOR], fest[Errors.AVERAGE_ESTIMATOR]
-        if (fe.shape != (len(fmus), nt) or not np.isfinite(favg).all()
-                or (favg <= 0).any()):
-            raise AssertionError(f"fleet estimator {fe.shape}: not finite "
-                                 f"and > 0")
+        # (d) bench.py's certification, held at FLEET_CERT_LIMITS; (e)
+        # phase 9 (d)'s contract on its estimator: each row the
+        # reconstruction-norm formula on its window's basis, the served
+        # fleet equal before and after.
+        cert_mus = bench_mus(rom, FLEET_CERT_BINS, 7)
+        served_before = rom.solve_batch_mulocal(cert_mus, mode="probes")
+        (cert, fest), cert_s = timed(dev, lambda: fleet_certification(
+            hrom, timed_mus, timed_out["probes"]))
+        served_after = rom.solve_batch_mulocal(cert_mus, mode="probes")
+        del timed_out
+        sec = cert["seconds"]
+        multi = cert["rel_l2_multi_mu"]
+        std = multi.get("std") or {}
+        print(f"  (d) bench's certification in {cert_s:.1f} s (float64 lanes"
+              f": the center {sec['center_lanes']:.1f} s, {multi['n']} "
+              f"held-out μ {sec['held_out_lanes']:.1f} s, the probe rows "
+              f"{sec['probe_lanes']:.1f} s; the FOM references "
+              f"{sec['fom_references']:.1f} s; estimate_batch_mulocal "
+              f"{sec['estimator']:.1f} s; float32 lanes "
+              f"{sec['f32_lanes']:.1f} s); active cell "
+              f"{cert['active_cell']}, the center's d "
+              f"{cert['center_dil']:.5f}")
+        for r in cert["rows"]:
+            print(f"    Mach {r['mach']:.4f} cell {r['cell']} d "
+                  f"{r['dil']:.5f}: rel-L2 {r['rel_l2']:.4e}"
+                  + ("" if r["rel_l2_std"] is None else
+                     f", standard clock {r['rel_l2_std']:.4e} (FOM dt-gap "
+                     f"{r['fom_dt_gap']:.3e})")
+                  + f", estimator/true {r['ratio']:.4f}")
+        print(f"  (d) center rel-L2 {cert['rel_l2_vs_fom']:.4e}; {multi['n']}"
+              f" μ mean {multi['mean']:.4e} max {multi['max']:.4e}, "
+              f"{multi['n_registered']} registered, d max "
+              f"{multi['dil_max']:.5f}, n_dil_flagged "
+              f"{multi['n_dil_flagged']}; standard clock mean "
+              f"{std.get('mean', float('nan')):.4e} max "
+              f"{std.get('max', float('nan')):.4e}, FOM dt-gap mean "
+              f"{std.get('fom_dt_gap_mean', float('nan')):.3e} max "
+              f"{std.get('fom_dt_gap_max', float('nan')):.3e} (BENCH_r05 "
+              f"{BENCH_R05['fom_dt_gap_max']:.3e}); avg_estimator_mean "
+              f"{cert['windowed_estimator']['avg_estimator_mean']:.4e}")
+        hold_certification(cert, power)
         for k, v in served_before.items():
             if not all(np.array_equal(a, b)
                        for a, b in zip(v, served_after[k])):
                 raise AssertionError(f"served {k} changed across the "
                                      f"estimator")
+        fe = fest[Errors.ESTIMATOR]
         fcells = ml.cell_of([rom.compute_piston_mach_number(m)
-                             for m in fmus])
+                             for m in cert_mus])
         formula = 0.0
         for b, c in enumerate(fcells):
             V_srom = np.asarray(ml.cells_srom[int(c)].Vs)
@@ -2862,16 +3119,12 @@ def fleet_build_phase(mods, dev, power, workdir):
                                      f"not the reconstruction-norm formula")
             formula = max(formula, float(np.max(
                 np.abs(fe[b] - same) / np.maximum(np.abs(same), 1e-300))))
-        print(f"  (e) estimate_batch_mulocal, B={len(fmus)}, float64: "
-              f"{fest_s:.2f} s a call; averages {float(favg.min()):.4e}.."
-              f"{float(favg.max()):.4e}; each row the reconstruction-norm "
-              f"formula on its window's basis (largest relative gap "
-              f"{formula:.2e}, limit 1e-10); the served fleet equal before "
-              f"and after on {power} ok")
-        info["estimator"] = dict(B=len(fmus), seconds=fest_s,
-                                 formula_rel_gap=formula,
-                                 average_min=float(favg.min()),
-                                 average_max=float(favg.max()))
+        print(f"  (e) each estimator row the reconstruction-norm formula on "
+              f"its window's basis (largest relative gap {formula:.2e}, "
+              f"limit 1e-10); the served fleet equal before and after on "
+              f"{power} ok")
+        cert.update(seconds_total=cert_s, formula_rel_gap=formula)
+        info["certification"] = cert
         del fest
 
         # (f) Persistence: a fresh driver resumes the directory; a rebuild
@@ -2879,42 +3132,81 @@ def fleet_build_phase(mods, dev, power, workdir):
         # shapes auto_cell_wn picks from it.
         fresh = HyperReducedPiston(**joint_profile(device=dev,
                                                    **FLEET_BUILD_GRID))
-        fresh.setup()
-        fresh.setup_hyperreduction()
-        fresh.start_from_existing_basis()
-        fresh.project_reductors()
+        _, fresh_s = timed(dev, lambda: (
+            fresh.setup(), fresh.setup_hyperreduction(),
+            fresh.start_from_existing_basis(), fresh.project_reductors()))
         resumed, resume_s = timed(dev, lambda: fresh.rom.solve_batch_mulocal(
             last_mus, mode="probes"))
         for k, v in last_out.items():
             if not all(np.array_equal(a, b) for a, b in zip(v, resumed[k])):
                 raise AssertionError(f"the resumed fleet serves another {k}")
         del fresh, resumed
+        # The rebuild and auto_cell_wn read a cut of (b)'s trajectory
+        # cache, its first FLEET_REBUILD_PER_CELL trajectories a cell,
+        # written beside it by the port's own cache writer.
         rebuild_wn = [tuple(FLEET_REBUILD_WN)] + list(kwargs["cell_wn"][1:])
+        per_cut = list(FLEET_REBUILD_PER_CELL)
+        with np.load(cache_path) as d:
+            keys = [str(k) for k in d["mu_keys"]]
+            cut_mus = {c: [dict(zip(keys, map(float, row)))
+                           for row in d[f"mus_{c}"][:k]]
+                       for c, k in enumerate(per_cut)}
+            cut_snaps = {c: [np.asarray(d[f"snap_{c}_{j}"], np.float64)
+                             for j in range(k)]
+                         for c, k in enumerate(per_cut)}
+        cut_dir = os.path.join(workdir, "cache_cut")
+        os.makedirs(cut_dir)
+        os.chdir(cut_dir)
+        HyperReducedPiston._write_snapshot_cache(
+            ml.edges, per_cut, False, build_tag, cut_mus, cut_snaps, None)
         with fom_unreachable(hrom.fom):
             rebuilt, rebuild_s = timed(dev, lambda: hrom.build_mulocal_serving(
-                device_sweep=True, dump=False, snapshot_cache=True,
+                dump=False, snapshot_cache=True,
                 local_nmdeim=False,
-                **dict(kwargs, cell_wn=rebuild_wn, register=None)))
+                **dict(kwargs, cell_wn=rebuild_wn, register=None,
+                       snapshots_per_cell=per_cut)))
+        os.chdir(workdir)
         rom.mulocal = ml
+        # The cache holds the standard-clock training trajectories (the
+        # registered cells' re-solves are not cached): the rebuild's
+        # unregistered cell 1 is the window POD of cell 1's cached
+        # trajectories, bit for bit.
+        w1, n1 = kwargs["cell_wn"][1]
+        prev = rom.windows
+        try:
+            direct, direct_s = timed(dev, lambda: rom.build_windowed_serving(
+                n_windows=w1, num_basis=n1 + kwargs["srom_extra"],
+                snapshots=cut_snaps[1]))
+        finally:
+            rom._set_serving_windows(prev)
         if (rebuilt.cell_wn != rebuild_wn
-                or not np.array_equal(rebuilt.cells[1].Vs, ml.cells[1].Vs)):
+                or not np.array_equal(rebuilt.cells[1].Vs,
+                                      direct.truncate(n1).Vs)):
             raise AssertionError("the cached rebuild differs")
-        auto_wn, floors = hrom.auto_cell_wn(
+        del direct, cut_snaps
+        (auto_wn, floors), auto_s = timed(dev, lambda: hrom.auto_cell_wn(
             [tuple(w) for w in AUTO_WN_CANDIDATES], AUTO_WN_TARGET,
-            expect_n_cells=ml.n_cells, expect_edges=ml.edges)
-        print(f"  (f) a fresh driver resumed the directory and served the "
-              f"last batch bit for bit ({resume_s:.2f} s, cold); cell 0 "
-              f"rebuilt at {FLEET_REBUILD_WN[0]}x{FLEET_REBUILD_WN[1]} from "
-              f"the cache with the FOM unreachable in {rebuild_s:.1f} s "
-              f"(cell 1's bases bit for bit); auto_cell_wn(candidates "
+            path=os.path.join(cut_dir, "mulocal_snapshots.npz"),
+            expect_n_cells=ml.n_cells, expect_edges=ml.edges))
+        print(f"  (f) a fresh HyperReducedPiston resumed the directory "
+              f"({fresh_s:.1f} s)"
+              f" and served the last batch bit for bit ({resume_s:.2f} s, "
+              f"cold); from the cache cut to {per_cut} trajectories a "
+              f"cell, cell 0 rebuilt at {FLEET_REBUILD_WN[0]}x"
+              f"{FLEET_REBUILD_WN[1]} with the FOM "
+              f"unreachable in {rebuild_s:.1f} s (cell 1's bases bit for bit"
+              f" the window POD of its cached trajectories, {direct_s:.1f} "
+              f"s); auto_cell_wn(candidates "
               f"{[f'{w}x{n}' for w, n in AUTO_WN_CANDIDATES]}, target "
-              f"{AUTO_WN_TARGET:.0e}): {auto_wn}, floors "
+              f"{AUTO_WN_TARGET:.0e}) in {auto_s:.1f} s: {auto_wn}, "
+              f"predicted floors "
               + ", ".join(f"{f:.2e}" for f in floors) + f" on {power} ok")
-        info["persistence"] = dict(resume_cold_s=resume_s,
+        info["persistence"] = dict(resume_cold_s=resume_s, fresh_s=fresh_s,
+                                   direct_pod_s=direct_s, auto_s=auto_s,
                                    rebuild_s=rebuild_s,
                                    rebuild_stages=hrom.fleet_seconds,
                                    auto_cell_wn=[list(w) for w in auto_wn],
-                                   auto_floors=floors)
+                                   auto_floors=floors, cache_cut=per_cut)
         info["launches"] = launches
     finally:
         os.chdir(cwd)
@@ -3183,7 +3475,7 @@ def heat_build(dev, moving, workdir):
         seconds = {}
         with compute_dtype_scope(torch.float64):
             hrom, seconds["setup"] = timed(dev, lambda: cls(
-                **heat_config(HEAT_GRID["nx"], HEAT_GRID["nt"],
+                **heat_config(HEAT_BUILD_GRID["nx"], HEAT_BUILD_GRID["nt"],
                               moving=moving),
                 rnd=np.random.RandomState(0), device=dev))
             for stage, fn in (
@@ -3227,7 +3519,7 @@ def heat_global(mods, dev, power, hrom, name, kernels):
         if budget is not None:
             rom.ONLINE_PRECOMPUTE_BUDGET = budget
         try:
-            branch = engine.global_branch(HEAT_GRID["nt"],
+            branch = engine.global_branch(HEAT_BUILD_GRID["nt"],
                                           mods["k1"].pad_dim(rom.N), HEAT_B,
                                           rom.precompute_choice)
             if branch != ("matrices" if kname == "K4" else "thetas"):
@@ -3245,7 +3537,7 @@ def heat_global(mods, dev, power, hrom, name, kernels):
                                      f"instantiation ({kw})")
             if kname == "K4":
                 args = (*engine.window_operators_lanes(
-                    tables, 0, THm, THk, THf, 0, HEAT_GRID["nt"]), g,
+                    tables, 0, THm, THk, THf, 0, HEAT_BUILD_GRID["nt"]), g,
                     tables["T0"][0], tables["VE"][0], b0)
                 kw = dict(kw, lane_major=True)
                 wrapper = mods["gs"].online_sweep_pallas
@@ -3253,7 +3545,8 @@ def heat_global(mods, dev, power, hrom, name, kernels):
                 # The bound counts the reference layout's bytes, as the
                 # kernel phases do.
                 bound_args = (*products.window_operators(
-                    tables, 0, THm, THk, THf, 0, HEAT_GRID["nt"]), *args[3:])
+                    tables, 0, THm, THk, THf, 0, HEAT_BUILD_GRID["nt"]),
+                    *args[3:])
             else:
                 args = (THm, THk, THf, g, tables["Bm"][0], tables["Bk"][0],
                         tables["Bf"][0], tables["T0"][0], tables["VE"][0], b0)
@@ -3413,7 +3706,7 @@ def heat_certify(dev, power, hrom, name):
     gaps = [max_gap(out[k]["uN"], ref[k]["uN"]) for k in ("rom", "srom")]
     sweep_gap = max(g / s for g, s in gaps)
     formula, slack, avg = estimator_contract(
-        out, ref, np.asarray(hrom.srom.basis), HEAT_GRID["nt"])
+        out, ref, np.asarray(hrom.srom.basis), HEAT_BUILD_GRID["nt"])
     ok = sweep_gap <= CERT_F64_REL
     print(f"  (e) heat {name} estimate_batch float64, B={HEAT_SMALL_B}: card "
           f"{card_s:.2f} s, CPU {cpu_s:.2f} s; the sweeps {sweep_gap:.3e} "
@@ -3434,9 +3727,11 @@ def heat_phase(mods, dev, power):
     run and read after."""
     import tempfile
 
-    info = {"card": power, "grid": HEAT_GRID}
+    info = {"card": power, "grid": HEAT_GRID, "build_grid": HEAT_BUILD_GRID}
     kernels = {}
-    print(f"heat phase: MFP1 at nx={HEAT_GRID['nx']}, nt={HEAT_GRID['nt']}")
+    print(f"heat phase: MFP1 at nx={HEAT_GRID['nx']}, nt={HEAT_GRID['nt']}"
+          f" (the HROMs at nx={HEAT_BUILD_GRID['nx']}, "
+          f"nt={HEAT_BUILD_GRID['nt']})")
     for moving in (False, True):
         name = "moving" if moving else "fixed"
         part = info[name] = {"fom": heat_golden_fom(dev, power, moving)}
@@ -3898,7 +4193,8 @@ def example_convergence(dev, power):
 def example_diagnostics(mods, dev, power, fleet_dir):
     """(e): the diagnostic scripts, warm, on phase 12's fleet directory:
     permu_diag and multimu_diag on EX_DIAG_HELD_OUT held-out μ and the
-    center, corner_attrib, window_study (a floor, then a served point
+    center (the center alone at 0), corner_attrib, window_study (a
+    floor, then a served point
     with its float32 drift), and the K1 ledger on cell 0's real
     tables."""
     import argparse
@@ -3917,8 +4213,8 @@ def example_diagnostics(mods, dev, power, fleet_dir):
         fleet_dir, joint_profile(device=dev, **FLEET_BUILD_GRID), dev))
     rom = hrom.rom
     cache = os.path.join(fleet_dir, permu_diag.FOM_CACHE)
-    mus = (permu_diag.validation_mus(rom, EX_DIAG_HELD_OUT)
-           + [dict(multimu_diag.CENTER_MU)])
+    mus = ((permu_diag.validation_mus(rom, EX_DIAG_HELD_OUT)
+            if EX_DIAG_HELD_OUT else []) + [dict(multimu_diag.CENTER_MU)])
     rows, permu_s = timed(dev, lambda: permu_diag.per_mu_rows(hrom, mus,
                                                               cache))
     split, multi_s = timed(dev, lambda: multimu_diag.diagnose(
@@ -3932,8 +4228,9 @@ def example_diagnostics(mods, dev, power, fleet_dir):
           and all(np.isfinite(r["ratio"]) for r in rows))
     print(f"  (e) resumed phase 12's fleet in {resume_s:.1f} s; permu_diag "
           f"({permu_s:.1f} s) and multimu_diag ({multi_s:.1f} s) on "
-          f"{EX_DIAG_HELD_OUT} held-out μ and the center (cut from the "
-          f"scripts' 16): "
+          + (f"{EX_DIAG_HELD_OUT} held-out μ and " if EX_DIAG_HELD_OUT
+             else "") + "the center (the scripts' own: 16 held-out μ; "
+          "phase 12 (d) certifies bench's 15 on this fleet): "
           + "; ".join(f"Mach {r['mach']:.4f} cell {r['cell']} d "
                       f"{r['dil']:.5f} rel-L2 {r['rel']:.3e} est/true "
                       f"{r['ratio']:.2f} floor {s['floor']:.3e} in-span "
@@ -4117,23 +4414,40 @@ def main():
         kernels=[r for u in units.values() for r in u["kernels"]])
 
     errs = {k: [] for k in KERNELS}
+    # Each phase's seconds since the last lap (phases 3-8; 9-16 also
+    # print their own).
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+        print(f"{name}: {phase_s[name]:.1f} s", flush=True)
+
     # Phase 12 builds its fleet in fleet_dir; phase 16 diagnoses it warm.
     fleet_dir = tempfile.mkdtemp()
     try:
         with torch.inference_mode():
             rich_errs = []
             rows, splits = kernel_phase(mods, dev, power, errs, rich_errs)
+            lap("kernel phase")
             modes, ablations, ledgers = k1_options_phase(mods, dev, power)
+            lap("K1 options phase")
             rows += global_kernel_phase(mods, dev, power, errs)
+            lap("global kernel phase")
             launches, kernels, serving = serving_phase(mods, dev, power, errs,
                                                        rich_errs)
+            lap("windowed serving phase")
             gkernels, gserving, rom15, mus = global_serving_phase(mods, dev,
                                                                   power, errs)
+            lap("global serving phase")
             autotune = autotune_phase(rom15, mus, repo, power)
             del rom15, mus
             torch.cuda.empty_cache()
+            lap("autotune phase")
             fleet = fleet_phase(mods, dev, power)
             torch.cuda.empty_cache()
+            lap("fleet phase")
             t0 = time.perf_counter()
             certification = certification_phase(mods, dev, power)
             certification["seconds"] = time.perf_counter() - t0
@@ -4204,6 +4518,7 @@ def main():
                   f"{examples['seconds_phase']:.1f} s, launches K1-K5 "
                   f"{examples['launches']} (K1 the ledger's, K4/K5 the "
                   f"piston example's)")
+            lap("phases 9-16")
     finally:
         shutil.rmtree(fleet_dir, ignore_errors=True)
     errs["K1"].append(examples["diagnostics"]["kernel_ledger"]["max_abs_err"])
@@ -4277,7 +4592,7 @@ def main():
         "online_single": single,
         "heat": {k: v for k, v in heat.items() if k != "kernels"},
         "multi_device": multi,
-        "examples": examples,
+        "examples": examples, "phase_seconds": phase_s,
         "card": power}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,9 +23,10 @@ A serving configuration travels as a flat ``dict[str, np.ndarray]``:
   float64 serving on the global basis needs (the PᵀU θ-solve);
 - ``dofs_<source>`` for every θ source: the reductor's interpolation
   entries, (k, 2) for MDEIM, (k, 1) for DEIM;
-- ``grid_<name>`` for every μ parameter: its box (lo, hi), in the
-  serving object's parameter order (the guard and the solve policy
-  probe the box's corners);
+- ``grid_<name>`` for every μ parameter: the box (lo, hi) its sampler
+  draws from (a fixed parameter as (value, value)), in the serving
+  object's parameter order; read back as frozen uniforms, which the
+  object samples and whose box the guard and the solve policy probe;
 - the FOM configuration: ``fom_L0``, ``fom_nx``, ``fom_tf``, ``fom_nt``,
   ``fom_degree``, ``fom_bdf``, the problem ``fom_which`` (the piston
   regimes "rest" and "sudden", or the MFP1 heat problem, "mfp1" on the
@@ -57,6 +58,7 @@ from .fom import (
     HeatEquationSolver,
     OneDimensionalBurgers,
 )
+from .parameters import get_uniform_dist
 from .problems import define_mfp1_problem, define_piston_problem
 from .rom.engines.global_fused import GlobalServing
 from .rom.hrom import HyperReducedPiston
@@ -65,6 +67,7 @@ from .rom.rom import (
     RomConstructorMoving,
     RomConstructorNonlinear,
     make_reductors,
+    sampling_box,
 )
 from .rom.windowed import MuLocalWindowed, WindowedServing
 
@@ -186,9 +189,13 @@ def _fom_and_reductors(payload, reduced=None, device="cuda"):
 
 
 def _grid(payload):
-    """The μ box, name → (lo, hi), from the ``grid_<name>`` keys."""
-    grid = {k[len("grid_"):]: tuple(float(v) for v in np.asarray(payload[k]))
-            for k in payload if k.startswith("grid_")}
+    """The μ distributions, name → frozen U[lo, hi], of the
+    ``grid_<name>`` boxes: the serving object samples its box
+    (``build_sampling_space``) as the build that wrote it did, and its
+    guard and policy probe the box the build's distributions give."""
+    grid = {k[len("grid_"):]: get_uniform_dist(
+        *(float(v) for v in np.asarray(payload[k])))
+        for k in payload if k.startswith("grid_")}
     if not grid:
         raise KeyError("serving payload lacks the μ box: one "
                        "'grid_<name>' key, (lo, hi), per μ parameter")
@@ -253,7 +260,7 @@ def _fom_and_dofs_arrays(rom, which):
     payload = {f"dofs_{name}": red.dofs_array()
                for name, red in rom._theta_sources().items()}
     payload.update({f"grid_{k}": np.array(box, np.float64)
-                    for k, box in rom.grid.items()})
+                    for k, box in sampling_box(rom.sampling_grid).items()})
     payload.update(
         fom_L0=np.float64(fom.domain[fom.L0]), fom_nx=np.int64(fom.mesh.nx),
         fom_tf=np.float64(fom.domain[fom.T]),
@@ -323,7 +330,7 @@ def estimator_from_arrays(payload, device="cuda"):
         srom = RomConstructorNonlinear.from_artifacts(
             rom.fom, reductors, device=device,
             global_serving=GlobalServing.from_arrays(srom_arrays),
-            grid=rom.grid)
+            grid=rom.sampling_grid)
     elif "bounds" in srom_arrays:
         windows_srom = WindowedServing.from_arrays(srom_arrays)
     elif srom_arrays:

@@ -156,7 +156,7 @@ class HyperReducedOrderModelFixed:
         ROM's) or None, ``windows_srom`` the
         :class:`~romtime_tpu_torch.rom.windowed.WindowedServing` at N+Δ
         whose windows nest the ROM's, or None."""
-        hrom = cls(grid=rom.grid, fom_params=None, rom_params=None,
+        hrom = cls(grid=rom.sampling_grid, fom_params=None, rom_params=None,
                    deim_params=None, mdeim_params=None, models=None,
                    device=rom.device)
         hrom.fom = rom.fom
@@ -1024,9 +1024,9 @@ class HyperReducedPiston(HyperReducedOrderModelFixed):
         ``register`` (a list of cells, ``"all"`` or ``"auto"``): fit the
         cell's dilation law on its standard-clock trajectories
         (``rom/registration.py``) and re-solve them in float64 on their
-        dilated grids (``T·d_j``, the same nt steps; one batched sweep on
-        per-lane clocks); under ``"auto"`` a cell that does not
-        phase-align builds unregistered.
+        dilated grids (``T·d_j``, the same nt steps; a ``fom.solve()`` a
+        μ, :meth:`_solve_registered_cell`); under ``"auto"`` a cell that
+        does not phase-align builds unregistered.
         ``augment_global`` appends the retained box-wide trajectories
         (weighted) to every cell's stack; it refuses ``register``.
         ``snapshot_cache`` (default ``dump``) writes the trajectories to
@@ -1034,10 +1034,10 @@ class HyperReducedPiston(HyperReducedOrderModelFixed):
         edges, counts, sampling and precision fit. ``edges`` overrides the
         equal-width Mach edges over [PISTON_MACH_MIN, PISTON_MACH_MAX].
         With ``device_sweep``, a ``mesh`` of more than one shard shards
-        the training sweep over it (``parallel.solve_fom_sharded``); the
-        registered re-solves stay one batch. ``fleet_seconds`` gets the
-        seconds of each stage; ``cell_mus`` and ``cell_dilations`` each
-        cell's training μ and registered training dilations."""
+        the training sweep over it (``parallel.solve_fom_sharded``).
+        ``fleet_seconds`` gets the seconds of each stage; ``cell_mus`` and
+        ``cell_dilations`` each cell's training μ and registered training
+        dilations."""
         from .pod import orth
         from .registration import fit_dilation_law
         from .windowed import MuLocalWindowed
@@ -1175,12 +1175,8 @@ class HyperReducedPiston(HyperReducedOrderModelFixed):
                     secs["law_fit"] += time.perf_counter() - t0
                     if law is not None:
                         t0 = time.perf_counter()
-                        # Re-solved in float64, each μ on its own grid
-                        # T·d_j: one batch with per-lane clocks, where the
-                        # reference solves each μ alone (hrom.py:947-975).
-                        snaps_c, nl_c = self._sweep(
-                            cell_mus[c], torch.float64, local_tri,
-                            dilations=dils)
+                        snaps_c, nl_c = self._solve_registered_cell(
+                            cell_mus[c], dils, local_tri)
                         secs["registered_resolves"] += (
                             time.perf_counter() - t0)
                         self.cell_dilations[c] = np.asarray(dils)
@@ -1229,14 +1225,34 @@ class HyperReducedPiston(HyperReducedOrderModelFixed):
         self.fleet_seconds = secs
         return ml
 
-    def _sweep(self, mus, dtype, want_nl, dilations=None, mesh=None):
+    def _solve_registered_cell(self, mus, dils, want_nl):
+        """A registered cell's training μ re-solved each on its dilated
+        grid (T·d_j, the same nt steps: the serving clock), a float64
+        ``fom.solve()`` a μ (the native host loop where eligible), as the
+        reference does (``hrom.py:947-975``). Returns the trajectories
+        and, with ``want_nl``, their nonlinear rows."""
+        fom = self.fom
+        t_orig = fom.domain[fom.T]
+        snaps, nls = [], []
+        try:
+            for m, d in zip(mus, dils):
+                fom.domain[fom.T] = float(t_orig) * float(d)
+                fom.setup()
+                fom.update_parametrization(m)
+                fom.solve()
+                snaps.append(np.asarray(fom.solutions.snapshots, np.float64))
+                if want_nl:
+                    nls.append(list(fom.nonlinear_snapshots))
+        finally:
+            fom.domain[fom.T] = t_orig
+        return snaps, nls
+
+    def _sweep(self, mus, dtype, want_nl, mesh=None):
         """``mus`` in one ``solve_fom_batch`` on the FOM's device in
-        ``dtype``, each μ on its own grid T·d where ``dilations`` gives d
-        (per-lane clocks over the same nt steps), or in one
-        ``solve_fom_sharded`` over ``mesh`` where it has more than one
-        shard (no dilations there). Returns each μ's float64 trajectory
-        (a ``dd_sweep`` FOM's low words recombined) and, with
-        ``want_nl``, its nonlinear rows."""
+        ``dtype``, or in one ``solve_fom_sharded`` over ``mesh`` where it
+        has more than one shard. Returns each μ's float64 trajectory (a
+        ``dd_sweep`` FOM's low words recombined) and, with ``want_nl``,
+        its nonlinear rows."""
         from ..parallel.sweep import solve_fom_batch, solve_fom_sharded
 
         fom = self.fom
@@ -1244,11 +1260,9 @@ class HyperReducedPiston(HyperReducedOrderModelFixed):
             fom.setup()
         with compute_dtype_scope(dtype):
             if mesh is not None and mesh.size > 1:
-                if dilations is not None:
-                    raise ValueError("the sharded sweep takes no dilations")
                 outs = solve_fom_sharded(fom, mus, mesh=mesh)
             else:
-                outs = solve_fom_batch(fom, mus, dilations=dilations)
+                outs = solve_fom_batch(fom, mus)
         snaps, nls = [], []
         for b in range(len(mus)):
             uh = np.asarray(outs["uh"][b], np.float64).T

@@ -176,6 +176,24 @@ def grid_box(grid):
     return box
 
 
+def sampling_box(grid):
+    """The box, name → (lo, hi), that a sampler over ``grid`` draws from:
+    a frozen uniform's loc and loc + scale (a fixed parameter's too, whose
+    ``support()`` scipy gives as nan), a (lo, hi) pair or a value list's
+    extremes as they are; None for None."""
+    if grid is None:
+        return None
+    box = {}
+    for k, v in grid.items():
+        kwds = getattr(v, "kwds", None)
+        if kwds is not None:
+            loc = float(kwds.get("loc", 0.0))
+            box[k] = (loc, loc + float(kwds.get("scale", 1.0)))
+        else:
+            box[k] = (float(min(v)), float(max(v)))
+    return box
+
+
 class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
                      Reductor):
     """The base (fixed-domain heat) ROM on one device (the card unless

@@ -390,3 +390,30 @@ def test_register_auto_skips_unalignable_cells(builds, monkeypatch):
         assert port.rom.windows is prev_windows
     finally:
         port.rom.mulocal = prev
+
+
+def test_optimal_dilation_matches_the_plain_search():
+    """The search's time-major error evaluation returns the plain
+    evaluation's d bit for bit: ‖resample_time(u[::s], d) − a[::s]‖ on the
+    reference's coarse and refine grids (rom/registration.py:180-205)."""
+    def plain(u, anchor, lo, hi, coarse=161, refine=33, stride=8):
+        u, anchor = u[::stride], anchor[::stride]
+
+        def err(d):
+            return float(np.linalg.norm(reg.resample_time(u, d) - anchor))
+
+        grid = np.linspace(lo, hi, coarse)
+        d0 = grid[int(np.argmin([err(d) for d in grid]))]
+        step = grid[1] - grid[0]
+        fine = np.linspace(d0 - step, d0 + step, refine)
+        return float(fine[int(np.argmin([err(d) for d in fine]))])
+
+    rng = np.random.default_rng(3)
+    anchor = _wave(90, 700, speed=1.0) + 1e-3 * rng.standard_normal((90, 700))
+    for speed in (0.9, 1.0, 1.07):
+        u = _wave(90, 700, speed=speed) + 1e-3 * rng.standard_normal(
+            (90, 700))
+        assert reg.optimal_dilation(u, anchor, lo=0.82, hi=1.22) == plain(
+            u, anchor, 0.82, 1.22)
+    u, a = rng.standard_normal((37, 211)), rng.standard_normal((37, 211))
+    assert reg.optimal_dilation(u, a) == plain(u, a, 0.9, 1.1)

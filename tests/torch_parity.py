@@ -15,6 +15,7 @@ import torch
 
 from romtime_tpu.conventions import Stage
 from romtime_tpu.dtypes import compute_dtype_scope
+from romtime_tpu_torch.rom.rom import sampling_box
 
 # One intra-op thread per test process: the tier-1 run puts six xdist
 # workers on the machine's cores, and torch's default (a thread per core,
@@ -155,11 +156,11 @@ def _dofs_payload(rom):
 
 
 def grid_payload(rom):
-    """The ``grid_<name>`` keys: the reference's μ box, (min, max) of each
-    distribution's support, in its grid order."""
-    return {f"grid_{k}": np.array([float(min(d.support())),
-                                   float(max(d.support()))])
-            for k, d in rom.grid.items()}
+    """The ``grid_<name>`` keys: the box each of the reference's μ
+    distributions draws from, (loc, loc + scale), in its grid order (a
+    fixed parameter as (value, value), where scipy's support is nan)."""
+    return {f"grid_{k}": np.array(box) for k, box in
+            sampling_box(rom.grid).items()}
 
 
 def _global_arrays(rom, with_trilinear=True):
