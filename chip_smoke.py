@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, in order (but for phase 12, which runs after phase 15: its
+cold build, (a)-(b), runs in a process of its own, this script with
+``--fleet-build DIR`` at nice 10, from the start of phase 9, beside phases 9-11 and
+13-15, whose host-clock seconds are taken under its load; (c)-(f) run on
+its directory resumed); any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every kernel of the serving paths with nvcc for sm_90a, one
@@ -127,7 +131,8 @@ Phases, in order; any failure raises and exits non-zero:
    1e-9·scale, and called directly on the equal-width 50x32 cell (nt=150)
    within 1e-9·scale of the equal-width engine;
 10. FOM phase, the full-order piston model at the flagship width
-   (nx=1000, nt=1500, P1, BDF-2, regime "rest"; ``convert.piston_fom``)
+   (nx=1000; nt=750, half the flagship's steps; P1, BDF-2, regime
+   "rest"; ``convert.piston_fom``)
    over 88 μ drawn from the μ box by the port's ``ParameterSampler``
    (seed 13; the flagship fleet's offline batch, bench.py:113). It runs
    no kernel of K1-K5 (plain torch, as the reference computes the FOM
@@ -168,14 +173,21 @@ Phases, in order; any failure raises and exits non-zero:
    (``convert.estimator_to_arrays``), by phase 9's contract; (d) the
    same build on the CPU (``device="cpu"``, full width): the same offline
    μ, the same dofs (as sets; their order printed), and the two builds'
-   float64 lanes probes within 1e-9·scale.
+   float64 lanes probes within 1e-9·scale; (e) the bench entry's
+   throughput path on the built ROM (romtime_tpu_torch/bench.py
+   ``measure``, BENCH_PROFILE=throughput, B=2048): the served call through
+   K4 or K5 timed by bench.py's chained marginal, the center's float64
+   rel-L2 against the float64 FOM and the float32 drift (≤ 1e-5), its
+   payload printed, counters read before and after (K4 or K5 alone).
 12. fleet build phase: the port builds the flagship μ-local fleet on the
    card from a global ROM it built itself, at bench.py's joint defaults
    and uncut (``problems.joint_profile``/``joint_fleet``, bench.py:64-115,
    :343-400: 12,12,12,12,16,24 training μ, ``register="auto"``), in
    float64 as bench.py builds by default (BENCH_OFFLINE=cpu: every FOM
    sweep of the build a float64 ``fom.solve()`` a μ on the native host
-   loop), in a temporary directory kept for phase 16: (a) the global
+   loop), in a temporary directory kept for phase 16, in a process of
+   its own (the build is bound by the host: the float64 FOM solves on
+   the native loop and the SVDs on the CPU): (a) the global
    build (nx=1000, nt=1500, 8 offline μ, S-ROM N=96, ROM N=88, N-MDEIM 96
    modes) by phase 11's stages, with each stage's seconds; (b)
    ``build_mulocal_serving(**joint_fleet())``: six Mach cells (50x32 ×4,
@@ -185,7 +197,11 @@ Phases, in order; any failure raises and exits non-zero:
    BENCH_r05.json's and their largest d, peak device memory; held: a
    registered cell, one native float64 solve a training μ and one a
    registered training μ on its dilated grid (the reference's
-   re-solves, hrom.py:947-975), the trajectory cache tagged "f64"; (c)
+   re-solves, hrom.py:947-975), the trajectory cache tagged "f64"; that
+   process then serves (c)'s last batch on the fleet just built and
+   ends; this one waits for it, replays its output and resumes the
+   directory with a fresh driver's ``start_from_existing_basis``, which
+   serves (c)-(f); (c)
    ``solve_batch_mulocal(mus, mode="probes")`` at B=2048, a cold and 3
    warm calls, every counter set to 0 before the cold call and read
    after the last (one launch of K1's serving design per occupied cell
@@ -198,16 +214,18 @@ Phases, in order; any failure raises and exits non-zero:
    paired LU G=5, ``sub1`` followers) served beside it, its gap
    measured; on cell 5 also the paired-LU probe's lanes
    (scripts/paired_lu_probe.py: the batch's μ of the cell, its 24
-   training μ and 40 more of its μ, cycled to 128): the served K1's
-   gaps to the float32 and float64 lanes engines printed, not held (the
-   reference's kernel misses the float32 limit there by the same amount,
-   PERF.md §6), and that launch's probes over its first 4 windows held
-   against K1's twin on the same inputs (ATOL_REL); then the batch
-   bench.py times
-   (bench.py:709-750: its 64-bin draws tiled to 2048) served on the
-   active cell (the center's) by ``solve_batch(mode="probes",
-   host=False)``, one K1 launch; (d) bench.py's certification
-   (``fleet_certification``, bench.py:442-705, :963-995) in float64: the
+   training μ and 40 more of its μ, cycled to 128): that launch's
+   probes over its first 4 windows held against K1's twin on the same
+   inputs (ATOL_REL; its gaps to the lanes engines there, printed through
+   PR 20, are in PERF.md); (d) the bench
+   entry's ``measure`` (romtime_tpu_torch/bench.py) on the built fleet,
+   the active cell (the center's) attached, counters read before and
+   after (K1 alone), its payload printed: bench.py's timed batch
+   (bench.py:709-750: its 64-bin draws tiled to 2048) served by the
+   chained marginal, the fetch-inclusive variant, the routed fleet call,
+   and bench.py's certification (``fleet_certification``,
+   bench.py:442-705, :963-995; its FOM references cached in the
+   directory) in float64: the
    center μ, bench's 15 held-out μ routed through the windowed lanes
    engine against the float64 FOM on each lane's matched grid, the
    registered lanes also on the standard clock (``resample_to_standard``)
@@ -218,9 +236,10 @@ Phases, in order; any failure raises and exits non-zero:
    held-out maxima ≤ 1e-6 on both clocks, ratios in [0.9, 1.1], probe
    error ≤ 1e-5, drift ≤ 1e-5); (e) phase 9 (d)'s contract on that
    estimator: each row the reconstruction-norm formula on its window's
-   basis, the served fleet equal before and after; (f) a fresh
-   driver's ``start_from_existing_basis`` serving (c)'s last batch bit
-   for bit; from a cut of the trajectory cache (float64; its first
+   basis, the served fleet equal before and after; (f) the resumed
+   directory serving (c)'s last batch bit for bit as the building
+   process served it on the fleet just built; from a cut of the
+   trajectory cache (float64; its first
    2,2,2,2,5,5 trajectories a cell, written beside it by the port's cache
    writer) cell 0 rebuilt at 30x40 with ``fom.solve`` and
    ``solve_fom_batch`` unreachable (unregistered, with the box-wide
@@ -270,8 +289,8 @@ Phases, in order; any failure raises and exits non-zero:
 15. multi-device phase, one controller over a ``parallel.DeviceMesh`` of
    two shards on cuda:0, every launch counter set to 0 before it and
    read after (none: the reference's sharded paths reach no Pallas
-   kernel): (a) ``solve_fom_sharded`` at the flagship FOM (nx=1000,
-   nt=1500) in float32 over phase 10's first 15 μ (the batch pads to
+   kernel): (a) ``solve_fom_sharded`` at phase 10's FOM (nx=1000,
+   nt=750) in float32 over phase 10's first 15 μ (the batch pads to
    16) against phase 10's ``solve_fom_batch`` rows of the same μ within
    1e-12 relative per μ (the same arithmetic a lane); (b) ``orth_distributed`` of (a)'s
    snapshots in float64 on the card (TSQR) against the port's host
@@ -314,11 +333,19 @@ Phases, in order; any failure raises and exits non-zero:
    fleet; their rel-L2 rows within 1e-12 relative of
    each other, rel² = floor² + in-span² to 1e-12), ``corner_attrib`` at
    10 times, ``window_study`` (the 15:48 floor, then 50:32 served with
-   its float32 drift), and ``kernel_ledger`` on cell 0's real tables at
-   B=2048 (K1's ablation ledger and phase clocks, each variant against
-   its twin on 4 windows within 5e-5·scale); (f) ``entry()``'s forward
-   on the card within 1e-10 relative of the CPU's. Each item's seconds
-   and gaps beside the card's name and power limit.
+   its float32 drift), and ``kernel_ledger``'s inputs on cell 0's real
+   tables at B=2048 (K1's phase clocks; each ablation variant against
+   its twin on 4 windows within 5e-5·scale; the ablation ledger itself
+   runs in (g)); (f) ``entry()``'s forward
+   on the card within 1e-10 relative of the CPU's; (g) ``python -m
+   romtime_tpu_torch.bench`` in a subprocess, warm on phase 12's
+   directory with BENCH_MULTI_MU=0, BENCH_REPEAT=2: its last line
+   bench.py's payload keys
+   and ``extra.device``, its center rel-L2 phase 12's within 1e-12
+   relative, its probe error ≤ 1e-5, its ledger's ``full_us_per_step``
+   (the served per-step LU on the serving design) within 25% of (e)'s
+   serving LU µs a step. Each item's seconds and gaps beside the card's
+   name and power limit.
 
 Every serving branch and the fleet report solves/s (median of the calls,
 synchronized) beside the card name, where the time goes, and each
@@ -337,6 +364,7 @@ it exits non-zero before printing any result. Imports nothing of JAX.
 import contextlib
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -440,7 +468,10 @@ CHAINED_W = 7
 #: Phase 10, the FOM: the flagship piston FOM (bench.py:121-122, :145)
 #: over the flagship fleet's offline batch (bench.py:113, 88 μ); (b)-(e)
 #: on its first 2 μ, at the limits of the reference tests named there.
-FOM_GRID = {"L0": 1.0, "nx": 1000, "tf": 1.0, "nt": 1500}
+# At half the flagship's 1500 steps (its width kept): the sweeps are
+# launch-bound, a step a launch sequence, and phases 10 and 15 (a) took
+# 55-66 s at nt=1500 (PERF.md §5, PR 21).
+FOM_GRID = {"L0": 1.0, "nx": 1000, "tf": 1.0, "nt": 750}
 FOM_B = 88
 FOM_SEED = 13
 FOM_CHECK_B = 2
@@ -470,35 +501,15 @@ FLEET_BUILD_PER_CELL = (12, 12, 12, 12, 16, 24)
 FLEET_BUILD_REGISTER = "auto"
 FLEET_BUILD_CELL_WN = ((50, 32),) * 4 + ((150, 48),) * 2
 FLEET_BUILD_B = 2048
-#: (c)'s timed batch as bench.py times it (bench.py:709-716): the
-#: Mach-stratified draws of this many bins (RandomState(3)) tiled to B.
-FLEET_TIMED_SPACE = 64
-#: (d), bench.py's certification: its held-out μ, the draws of 16 Mach
-#: bins with RandomState(7) (15: the top bin lies above the box's largest
-#: Mach; bench.py:518-521), and the first rows of the timed batch held
-#: against the float64 lanes engine (bench.py:967).
-FLEET_CERT_BINS = 16
-FLEET_CERT_PROBE_ROWS = 16
-F32_DRIFT_MAX = 1e-5      # a guard: a float32 solve that left float64
-#: (d)'s limits, each tighter than BENCH_r05.json's figure needs: the
-#: center, the held-out maxima on the matched grid and on the standard
-#: clock (BASELINE.md:29), the estimator/true ratio range, the served
-#: engine's probe error and the float32 drift. A miss raises.
-FLEET_CERT_LIMITS = {"rel_l2_vs_fom": 3e-7, "multi_max": 1e-6,
-                     "std_max": 1e-6, "ratio_min": 0.9, "ratio_max": 1.1,
-                     "served_engine_probe_err": 1e-5,
-                     "f32_serving_drift": F32_DRIFT_MAX}
-#: The reference's figures for the same numbers (BENCH_r05.json: the JAX
-#: package on a TPU, the joint profile, the same fleet), printed beside.
-BENCH_R05 = {"rel_l2_vs_fom": 2.5268368645023236e-07,
-             "multi_max": 9.70009189913143e-07,
-             "std_max": 9.838497337794282e-07,
-             "ratio_min": 0.9188733229789863,
-             "ratio_max": 1.0392924618642259,
-             "served_engine_probe_err": 5.127823107266107e-06,
-             "f32_serving_drift": 8.879870612308402e-07,
-             "fom_dt_gap_max": 0.0008955800357241662,
-             "registered_cells": [0, 1, 2, 3, 4, 5]}
+#: (a)-(b) run in a process of their own (this script with the flag),
+#: their output and results in the fleet's directory.
+FLEET_BUILD_FLAG = "--fleet-build"
+FLEET_BUILD_LOG = "fleet_build.out"
+FLEET_BUILD_ERR = "fleet_build.err"
+FLEET_BUILD_INFO = "fleet_build.json"
+FLEET_BUILD_SERVED = "fleet_build_served.pkl"
+FLEET_BUILD_WAIT_S = 900
+FLEET_BUILD_NICE = 10
 #: (f): cell 0 rebuilt at another shape from the trajectory cache; the
 #: shape candidates and target of auto_cell_wn (bench.py:302-313). Both
 #: read a cut of the cache, its first trajectories a cell in these
@@ -569,6 +580,13 @@ EX_STUDY_SERVED = (50, 32)   # the fleet's 50x32 cell shape
 EX_LEDGER_B = 2048           # scripts/kernel_ledger.py's default B
 EX_LEDGER_REPS = 3
 EX_ENTRY_REL = 1e-10
+#: (g): the bench entry warm on phase 12's directory: its center against
+#: phase 12's (the same resumed fleet and cached FOM reference), its
+#: ledger's served row against the serving LU of (e)'s phase clocks.
+EX_BENCH_CENTER_REL = 1e-12
+EX_BENCH_LEDGER_REL = 0.25
+EX_BENCH_TIMEOUT_S = 600
+EX_BENCH_REPEAT = 2          # bench.py's 3 cut: the chains and the ledger
 
 
 def fail(msg):
@@ -2290,6 +2308,7 @@ def offline_build_phase(mods, dev, power):
     are explicit comparison runs (``device="cpu"``); nothing falls back."""
     import tempfile
 
+    from romtime_tpu_torch import bench as pb
     from romtime_tpu_torch.convert import (
         estimator_from_arrays,
         estimator_to_arrays,
@@ -2438,31 +2457,45 @@ def offline_build_phase(mods, dev, power):
                              stages=cpu_seconds, same_mu=same_mu,
                              dofs_same_sets=sets, dofs_same_order=order,
                              probes_gap=gap, probes_scale=scale)
+
+    # (e) The bench entry's throughput path (romtime_tpu_torch/bench.py
+    # ``measure``, BENCH_PROFILE=throughput) on the built ROM: the served
+    # call through K4 or K5 timed by bench.py's chained marginal, the
+    # center's float64 accuracy and the float32 drift, every counter read
+    # before and after (K4 or K5, no other).
+    cfg = pb.settings({"BENCH_PROFILE": "throughput",
+                       "BENCH_NX": str(BUILD_GRID["nx"]), "BENCH_NT": str(nt),
+                       "BENCH_ONLINE_MU": str(BUILD_B)})
+    before = launch_counts(mods)
+    entry, entry_s = timed(dev, lambda: pb.measure(
+        hrom, cfg, dict(offline_wall=sum(seconds.values()), n_windows=0,
+                        window_n=0), card=power))
+    entry_launches = launches_since(mods, before)
+    payload = entry["payload"]
+    extra = payload["extra"]
+    ok = (tuple(payload) == pb.PAYLOAD_KEYS
+          and tuple(extra) == pb.EXTRA_KEYS and extra["engine"] == "pallas"
+          and not any(entry_launches[:3])
+          and entry_launches[3] + entry_launches[4] > 0
+          and np.isfinite(payload["rel_l2_vs_fom"])
+          and extra["f32_serving_drift"] <= pb.F32_DRIFT_MAX)
+    print(f"  (e) the bench entry's throughput path on the built ROM in "
+          f"{entry_s:.1f} s: {payload['value']} solves/s (engine "
+          f"{extra['engine']!r}, B={BUILD_B}, "
+          f"{extra['online_sweep_wall_s']} s a served call, fetch-inclusive "
+          f"{extra['fetch_inclusive']['solves_per_sec']} solves/s), center "
+          f"rel-L2 {payload['rel_l2_vs_fom']:.4e}, float32 drift "
+          f"{extra['f32_serving_drift']:.3e} (limit {pb.F32_DRIFT_MAX:g}); "
+          f"launches K1-K5 {entry_launches} on {power} "
+          f"{'ok' if ok else 'FAIL'}; its payload:")
+    print("    " + json.dumps(payload, default=float))
+    if not ok:
+        raise AssertionError("the entry's throughput path failed")
+    info["entry"] = dict(payload=payload, launches=entry_launches,
+                         seconds=entry_s)
+    info["launches"] = [a + b for a, b in zip(info["launches"],
+                                              entry_launches)]
     return info, hrom
-
-
-def bench_mus(rom, bins, seed, B=None):
-    """bench.py's Mach-stratified μ (``build_sampling_space(bins,
-    RandomState(seed))``, bench.py:518-521, :709-716): one draw a Mach bin
-    (the bins above the box's largest Mach stay empty), sorted by Mach,
-    the Mach tag dropped; tiled to ``B`` where given."""
-    mus = [{k: float(v) for k, v in m.items() if k != "piston_mach"}
-           for m in rom.build_sampling_space(
-               num=bins, rnd=np.random.RandomState(seed))]
-    if B is None:
-        return mus
-    return (mus * -(-B // len(mus)))[:B]
-
-
-def fom_references(fom, mus, dils):
-    """Each μ's float64 FOM trajectory (uc, (nt, nh)) on its matched grid
-    (T·d, the same nt steps), in one ``solve_fom_batch`` on the FOM's
-    device with per-lane clocks."""
-    from romtime_tpu_torch.dtypes import compute_dtype_scope
-    from romtime_tpu_torch.parallel import solve_fom_batch
-
-    with compute_dtype_scope(torch.float64):
-        return list(solve_fom_batch(fom, mus, dilations=dils)["uc"])
 
 
 def routed_rows_equal_direct(rom, ml, out, mus, cells, Bb, engine=None):
@@ -2543,12 +2576,8 @@ def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=None):
     ``sub1`` followers) is served beside it, its gap to the lanes engine
     measured, not held (the port does not serve it by default); and the
     cell is served on the paired-LU probe's lanes (:func:`probe_lanes`),
-    the gaps of the served K1 to the float32 and float64 lanes engines
-    printed, not
-    held (the reference's kernel misses the float32 limit there by the
-    same amount, PERF.md §6), and that launch's probes over its first
-    OPTION_WINDOWS windows held against K1's twin on the same inputs
-    (ATOL_REL)."""
+    that launch's probes over its first OPTION_WINDOWS windows held
+    against K1's twin on the same inputs (ATOL_REL)."""
     from romtime_tpu_torch.rom.engines import windowed_fused as engine
 
     k1 = mods["k1"]
@@ -2631,216 +2660,29 @@ def served_vs_lanes(rom, ml, mus, cells, mods, power, label, built=None):
 
 
 def served_vs_probe_lanes(rom, ml, c, mus, hrom, serve, k1, power, label):
-    """Cell ``c`` on the paired-LU probe's lanes: the served K1's gaps to
-    the float32 and float64 lanes engines, printed; the launch's probes
-    over its first OPTION_WINDOWS windows against K1's twin on the same
-    inputs, held (ATOL_REL)."""
-    from romtime_tpu_torch.dtypes import compute_dtype_scope
+    """Cell ``c`` on the paired-LU probe's lanes: the served K1 launch's
+    probes over its first OPTION_WINDOWS windows against K1's twin on the
+    same inputs, held (ATOL_REL). (Its gaps to the lanes engines on these
+    lanes, measured through PR 20, are in PERF.md.)"""
     from romtime_tpu_torch.scripts.kernel_ledger import first_windows
 
     lanes_mus, distinct = probe_lanes(rom, ml, c, mus, hrom.cell_mus[c])
     cap = {}
-    served = serve(lanes_mus, cap)
+    serve(lanes_mus, cap)
     assert cap["kw"]["paired_lu"] is None, cap["kw"]
-    l32, s32 = timed(rom.device, lambda: rom.solve_batch(
-        lanes_mus, mode="probes", engine="windowed"))
-    with compute_dtype_scope(torch.float64):
-        l64, s64 = timed(rom.device, lambda: rom.solve_batch(
-            lanes_mus, mode="probes", engine="windowed"))
-    scale = float(np.abs(l32["probes"]).max())
-    g32 = float(np.abs(served["probes"] - l32["probes"]).max())
-    g64 = float(np.abs(served["probes"] - l64["probes"]).max())
-    l_gap = float(np.abs(l32["probes"] - l64["probes"]).max())
-    print(f"  {label} cell {c}, the paired-LU probe's lanes ({distinct} "
-          f"distinct μ: the batch's, the {len(hrom.cell_mus[c])} training "
-          f"μ and {FLEET_PROBE_EXTRA} more, cycled to {FLEET_LANES_B}): "
-          f"served K1 "
-          f"vs the float32 lanes engine {g32:.3e} (the float32 limit "
-          f"{FLEET_PROBES_REL * scale:.3e}, not held here), vs the float64 "
-          f"lanes engine {g64:.3e}; the two lanes engines {l_gap:.3e} apart "
-          f"(lanes {s32:.1f} s float32, {s64:.1f} s float64) on {power}")
     # The twin on the launch's inputs over its first OPTION_WINDOWS
     # windows (the whole 150-window sweep takes 18 s): the
     # launch's probe rows of those windows.
     a4, kw4 = first_windows(cap["args"], cap["kw"], OPTION_WINDOWS)
     (want, _), twin_s = timed(rom.device, lambda: k1.windowed_fused_reference(
         *a4, **kw4))
-    print(f"  {label} cell {c}: the served K1 launch on the probe's lanes "
-          f"vs its twin on the same inputs, the first {OPTION_WINDOWS} "
-          f"windows ({twin_s:.1f} s) on {power}:")
+    print(f"  {label} cell {c}: the served K1 launch on the paired-LU "
+          f"probe's lanes ({distinct} distinct μ: the batch's, the "
+          f"{len(hrom.cell_mus[c])} training μ and {FLEET_PROBE_EXTRA} more, "
+          f"cycled to {FLEET_LANES_B}) vs its twin on the same inputs, the "
+          f"first {OPTION_WINDOWS} windows ({twin_s:.1f} s) on {power}:")
     err = check("probes", cap["out"][0][:len(want)], want)
-    return dict(probe_distinct=distinct, probe_vs_lanes_f32=g32,
-                probe_vs_lanes_f64=g64, probe_lanes_f32_vs_f64=l_gap,
-                probe_scale=scale, probe_limit=FLEET_PROBES_REL * scale,
-                probe_lanes_s=[s32, s64], twin_s=twin_s,
-                kernel_vs_twin=err)
-
-
-def fleet_certification(hrom, timed_mus, timed_probes):
-    """bench.py's certification of the μ-local fleet (bench.py:442-705,
-    :963-995), through the port's own calls on the device ``hrom`` serves
-    on, the active cell (the center's Mach cell, bench.py:431-432) on
-    the ROM while it runs and the serving windows restored after:
-
-    - the center μ through ``solve_batch(mode="full", engine="windowed")``
-      in float64 against the float64 FOM on its matched grid (T·d);
-    - bench's held-out μ (:func:`bench_mus`) routed through
-      ``solve_batch_mulocal(mode="full", engine="windowed")`` in float64,
-      each against the FOM on its lane's matched grid; on the registered
-      lanes both trajectories mapped to the standard clock by
-      ``resample_to_standard``, and the mapped FOM against a true
-      standard-grid FOM (the dt-gap); every FOM reference in one
-      ``solve_fom_batch`` with per-lane clocks;
-    - ``estimate_batch_mulocal`` in float64 on the same μ: each μ's ratio
-      of the time-RMS estimator to the true time-RMS error;
-    - the served batch's first FLEET_CERT_PROBE_ROWS probe rows
-      (``timed_probes``, the (nt, 2, B) output of ``solve_batch(timed_mus,
-      mode="probes", host=False)`` on the active cell) against the
-      float64 lanes engine on the same μ, over the latter's scale;
-    - the float32 drift of the center μ's lanes solve, over the FOM's
-      norm.
-
-    Returns a dict under bench.py's keys (``rel_l2_vs_fom``,
-    ``rel_l2_multi_mu`` with ``std``, ``windowed_estimator``,
-    ``served_engine_probe_err``, ``f32_serving_drift``) plus each held-out
-    μ's row, the active cell and the seconds of each step; and the
-    estimator's output."""
-    from romtime_tpu_torch.conventions import Errors
-    from romtime_tpu_torch.dtypes import compute_dtype_scope
-    from romtime_tpu_torch.problems import JOINT_CENTER_MU
-    from romtime_tpu_torch.rom.registration import resample_to_standard
-
-    rom, fom, ml = hrom.rom, hrom.fom, hrom.rom.mulocal
-    dev = rom.device
-    mu_val = dict(JOINT_CENTER_MU)
-    mus_val = bench_mus(rom, FLEET_CERT_BINS, 7)
-    n = len(mus_val)
-    active = int(ml.cell_of(rom.compute_piston_mach_number(mu_val)))
-    prev = rom.windows
-    secs = {}
-    rom._set_serving_windows(ml.cells[active])
-    try:
-        with compute_dtype_scope(torch.float64):
-            outs_v, secs["center_lanes"] = timed(dev, lambda: rom.solve_batch(
-                [dict(mu_val)], mode="full", engine="windowed"))
-            outs_m, secs["held_out_lanes"] = timed(
-                dev, lambda: rom.solve_batch_mulocal(
-                    [dict(m) for m in mus_val], mode="full",
-                    engine="windowed"))
-            est, secs["estimator"] = timed(
-                dev, lambda: hrom.estimate_batch_mulocal(
-                    [dict(m) for m in mus_val]))
-            n_chk = min(FLEET_CERT_PROBE_ROWS, len(timed_mus))
-            ref, secs["probe_lanes"] = timed(dev, lambda: rom.solve_batch(
-                [dict(m) for m in timed_mus[:n_chk]], mode="probes",
-                engine="windowed"))
-        with compute_dtype_scope(torch.float32):
-            outs32, secs["f32_lanes"] = timed(dev, lambda: rom.solve_batch(
-                [dict(mu_val)], mode="full", engine="windowed"))
-    finally:
-        rom._set_serving_windows(prev)
-    uh_rom = np.asarray(outs_v["uc"][0], np.float64)
-    dil_val = float(np.asarray(outs_v.get("dil", [1.0]))[0])
-    dils_m = np.asarray(outs_m.get("dil", np.ones(n)), np.float64)
-    reg_idx = [i for i in range(n) if dils_m[i] != 1.0]
-    refs, secs["fom_references"] = timed(dev, lambda: fom_references(
-        fom, [mu_val] + mus_val + [mus_val[i] for i in reg_idx],
-        [dil_val] + dils_m.tolist() + [1.0] * len(reg_idx)))
-    uh_fom, fom_refs, fom_std = refs[0], refs[1:n + 1], refs[n + 1:]
-
-    def rel(a, b):
-        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
-    uc = [np.asarray(outs_m["uc"][i], np.float64) for i in range(n)]
-    rels = [rel(uc[i], fom_refs[i]) for i in range(n)]
-    multi = {"n": n, "mean": float(np.mean(rels)),
-             "max": float(np.max(rels)),
-             "n_registered": len(reg_idx),
-             "dil_max": float(np.max(dils_m)),
-             "n_dil_flagged": (int(np.sum(np.asarray(
-                 outs_m["dil_oor"], np.float64) > 0.5))
-                 if "dil_oor" in outs_m else None)}
-    rels_std, dt_gaps = {}, {}
-    for j, i in enumerate(reg_idx):
-        ref_std = resample_to_standard(fom_refs[i], dils_m[i], axis=0)
-        rels_std[i] = rel(resample_to_standard(uc[i], dils_m[i], axis=0),
-                          ref_std)
-        dt_gaps[i] = rel(ref_std, fom_std[j])
-    if reg_idx:
-        multi["std"] = {
-            "n": len(reg_idx),
-            "mean": float(np.mean(list(rels_std.values()))),
-            "max": float(np.max(list(rels_std.values()))),
-            "fom_dt_gap_mean": float(np.mean(list(dt_gaps.values()))),
-            "fom_dt_gap_max": float(np.max(list(dt_gaps.values())))}
-    e = np.asarray(est[Errors.ESTIMATOR], np.float64)
-    ratios = []
-    for i in range(n):
-        true_rms = np.linalg.norm(uc[i] - fom_refs[i]) / np.sqrt(uc[i].size)
-        ratios.append(float(np.sqrt(np.mean(e[i] ** 2)))
-                      / max(true_rms, 1e-300))
-    p_ref = np.asarray(ref["probes"], np.float64)
-    p_timed = np.moveaxis(timed_probes.detach().cpu().numpy(), -1,
-                          0)[:n_chk].astype(np.float64)
-    scale = max(float(np.abs(p_ref).max()), 1e-12)
-    cells = ml.cell_of([rom.compute_piston_mach_number(m) for m in mus_val])
-    rows = [dict(mach=rom.compute_piston_mach_number(m), cell=int(c),
-                 dil=float(d), rel_l2=r, rel_l2_std=rels_std.get(i),
-                 fom_dt_gap=dt_gaps.get(i), ratio=q)
-            for i, (m, c, d, r, q) in enumerate(
-                zip(mus_val, cells, dils_m, rels, ratios))]
-    cert = {
-        "rel_l2_vs_fom": rel(uh_rom, uh_fom),
-        "rel_l2_multi_mu": multi,
-        "rel_l2_multi_mu_std": multi.get("std"),
-        "windowed_estimator": {
-            "avg_estimator_mean": float(np.mean(
-                est[Errors.AVERAGE_ESTIMATOR])),
-            "ratio_min": float(np.min(ratios)),
-            "ratio_max": float(np.max(ratios))},
-        "served_engine_probe_err": float(np.abs(p_timed - p_ref).max()
-                                         / scale),
-        "f32_serving_drift": float(np.linalg.norm(
-            np.asarray(outs32["uc"][0], np.float64) - uh_rom)
-            / np.linalg.norm(uh_fom)),
-        "active_cell": active, "center_dil": dil_val, "rows": rows,
-        "seconds": secs}
-    return cert, est
-
-
-def certified_numbers(cert):
-    """name → value of the numbers FLEET_CERT_LIMITS holds."""
-    multi = cert["rel_l2_multi_mu"]
-    std = multi.get("std") or {}
-    return {"rel_l2_vs_fom": cert["rel_l2_vs_fom"],
-            "multi_max": multi["max"], "std_max": std.get("max"),
-            "ratio_min": cert["windowed_estimator"]["ratio_min"],
-            "ratio_max": cert["windowed_estimator"]["ratio_max"],
-            "served_engine_probe_err": cert["served_engine_probe_err"],
-            "f32_serving_drift": cert["f32_serving_drift"]}
-
-
-def hold_certification(cert, power, limits=None):
-    """Each certified number printed beside its limit (``limits``,
-    default FLEET_CERT_LIMITS: a ``ratio_min`` from below, every other an
-    upper bound), BENCH_r05.json's figure and the card; raises
-    AssertionError naming every miss. A standard-clock maximum without a
-    registered lane is a miss."""
-    limits = FLEET_CERT_LIMITS if limits is None else limits
-    misses = []
-    for name, value in certified_numbers(cert).items():
-        limit = limits[name]
-        ok = value is not None and (value >= limit if name == "ratio_min"
-                                    else value <= limit)
-        print(f"    {name} {value if value is None else f'{value:.4e}'} "
-              f"({'≥' if name == 'ratio_min' else '≤'} {limit:g}; "
-              f"BENCH_r05 {BENCH_R05[name]:.4e}) on {power} "
-              f"{'ok' if ok else 'MISS'}")
-        if not ok:
-            misses.append(f"{name} {value} (limit {limit})")
-    if misses:
-        raise AssertionError("the fleet misses the certification bar: "
-                             + "; ".join(misses))
+    return dict(probe_distinct=distinct, twin_s=twin_s, kernel_vs_twin=err)
 
 
 @contextlib.contextmanager
@@ -2861,22 +2703,24 @@ def fom_unreachable(fom):
         sweep.solve_fom_batch = real
 
 
-def fleet_build_phase(mods, dev, power, workdir):
-    """Phase 12 of the module doc: the port builds the flagship fleet on
-    the card at bench.py's joint defaults (float64, uncut), serves it
-    through K1, certifies it as bench.py does (:func:`fleet_certification`,
-    held at FLEET_CERT_LIMITS) and persists it, in ``workdir``, which it
-    leaves for phase 16's diagnostics. Nothing falls back to the CPU."""
-    from romtime_tpu_torch.conventions import Errors
-    from romtime_tpu_torch.problems import (
-        JOINT_CENTER_MU,
-        joint_fleet,
-        joint_profile,
-    )
-    from romtime_tpu_torch.rom.hrom import HyperReducedPiston
-    from romtime_tpu_torch.utils import compute_rom_difference
+def fleet_batches(synth):
+    """(c)'s batches of the fleet phase: a cold call's μ, then
+    FLEET_CALLS warm calls' (the build's process serves the last)."""
+    return [synth.synthetic_mus(FLEET_BUILD_B, seed=61 + r)
+            for r in range(FLEET_CALLS + 1)]
 
-    synth = mods["synth"]
+
+def fleet_cold_build(mods, dev, power, workdir):
+    """Phase 12 (a)-(b) of the module doc, in the process that
+    :func:`start_fleet_build` starts: the flagship fleet's cold build on
+    the card at bench.py's joint defaults (float64, uncut) in
+    ``workdir``, held as the module doc says, then (c)'s last batch
+    served on the fleet just built. Writes FLEET_BUILD_INFO (each
+    stage's seconds, the cells, the registered ones) and
+    FLEET_BUILD_SERVED (that call's rows) into ``workdir``."""
+    from romtime_tpu_torch import bench as pb
+    from romtime_tpu_torch.problems import joint_fleet
+
     nt = FLEET_BUILD_GRID["nt"]
     info = {"card": power, "grid": dict(FLEET_BUILD_GRID),
             "per_cell": list(FLEET_BUILD_PER_CELL),
@@ -2957,7 +2801,7 @@ def fleet_build_phase(mods, dev, power, workdir):
         d_max = max((float(np.max(hrom.cell_dilations[c]))
                      for c in registered), default=1.0)
         print(f"  (b) registered cells {registered} (BENCH_r05: "
-              f"{BENCH_R05['registered_cells']}), the largest training d "
+              f"{pb.BENCH_R05['registered_cells']}), the largest training d "
               f"{d_max:.5f}; the trajectory cache's build tag {build_tag!r}"
               f" (float64)")
         # A native float64 solve a training μ, and one a registered
@@ -2974,12 +2818,112 @@ def fleet_build_phase(mods, dev, power, workdir):
                     cells=cells_info, cache_build=build_tag,
                     native_solves=native_calls, registered=registered,
                     d_max=d_max, edges=np.asarray(ml.edges).tolist())
+        info["offline_wall"] = sum(seconds.values()) + build_s
+        # (f)'s yardstick: (c)'s last batch on the fleet as built.
+        last = fleet_batches(mods["synth"])[-1]
+        out, info["served_s"] = timed(dev, lambda: rom.solve_batch_mulocal(
+            last, mode="probes"))
+        with open(os.path.join(workdir, FLEET_BUILD_SERVED), "wb") as f:
+            pickle.dump(out, f)
+        with open(os.path.join(workdir, FLEET_BUILD_INFO), "w") as f:
+            json.dump(info, f, default=float)
+    finally:
+        os.chdir(cwd)
+
+
+def start_fleet_build(workdir):
+    """Phase 12 (a)-(b) started in a process of its own (this script with
+    FLEET_BUILD_FLAG, which runs :func:`fleet_cold_build`), its standard
+    output and error into ``workdir``. The build is bound by the host
+    (the float64 FOM solves on the native loop, the SVDs on the CPU), so
+    it runs beside phases 9-11 and 13-15, at a lower priority
+    (FLEET_BUILD_NICE). Returns the process."""
+    with open(os.path.join(workdir, FLEET_BUILD_LOG), "w") as out, \
+            open(os.path.join(workdir, FLEET_BUILD_ERR), "w") as err:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             FLEET_BUILD_FLAG, workdir], stdout=out, stderr=err, cwd=workdir)
+
+
+def fleet_build_phase(mods, dev, power, workdir, builder):
+    """Phase 12 of the module doc: the flagship fleet that ``builder``
+    (:func:`start_fleet_build`) built on the card at bench.py's joint
+    defaults (float64, uncut) in ``workdir``, resumed here from that
+    directory, served through K1, timed and certified as bench.py does
+    (the bench entry's ``measure``, held at its FLEET_CERT_LIMITS); the
+    directory stays for phase 16. Nothing falls back to the CPU."""
+    from romtime_tpu_torch import bench as pb
+    from romtime_tpu_torch.conventions import Errors
+    from romtime_tpu_torch.problems import (
+        JOINT_CENTER_MU,
+        joint_fleet,
+        joint_profile,
+    )
+    from romtime_tpu_torch.rom.hrom import HyperReducedPiston
+    from romtime_tpu_torch.utils import compute_rom_difference
+
+    synth = mods["synth"]
+    nt = FLEET_BUILD_GRID["nt"]
+    t_w = time.perf_counter()
+    try:
+        rc = builder.wait(timeout=FLEET_BUILD_WAIT_S)
+    except subprocess.TimeoutExpired:
+        builder.kill()
+        builder.wait()
+        rc = f"killed after {FLEET_BUILD_WAIT_S} s"
+    waited = time.perf_counter() - t_w
+    with open(os.path.join(workdir, FLEET_BUILD_LOG)) as f:
+        print(f.read(), end="", flush=True)
+    with open(os.path.join(workdir, FLEET_BUILD_ERR)) as f:
+        err = f.read()
+    sys.stderr.write(err)
+    sys.stderr.flush()
+    if rc != 0:
+        raise AssertionError(f"the fleet build's process ended with {rc}:"
+                             f" {err[-3000:]}")
+    with open(os.path.join(workdir, FLEET_BUILD_INFO)) as f:
+        info = json.load(f)
+    kwargs = joint_fleet(
+        per_cell=FLEET_BUILD_PER_CELL, register=FLEET_BUILD_REGISTER,
+        cell_wn=FLEET_BUILD_CELL_WN)
+    cwd = os.getcwd()
+    try:
+        # The build's directory resumed by a fresh driver, as the bench
+        # entry resumes it warm; its training μ from the trajectory cache.
+        os.chdir(workdir)
+        hrom = HyperReducedPiston(**joint_profile(device=dev,
+                                                  **FLEET_BUILD_GRID))
+        _, resume_s = timed(dev, lambda: (
+            hrom.setup(), hrom.setup_hyperreduction(),
+            hrom.start_from_existing_basis(), hrom.project_reductors()))
+        rom = hrom.rom
+        ml = rom.mulocal
+        registered = ([] if ml is None else
+                      [c for c, w in enumerate(ml.cells)
+                       if w.dilation is not None])
+        if (ml is None or ml.cell_wn != [tuple(w) for w in kwargs["cell_wn"]]
+                or registered != info["registered"]):
+            raise AssertionError(f"the resumed fleet is not the one built "
+                                 f"({None if ml is None else ml.cell_wn}, "
+                                 f"registered {registered})")
+        cache_path = os.path.join(workdir, "mulocal_snapshots.npz")
+        with np.load(cache_path) as d:
+            keys = [str(k) for k in d["mu_keys"]]
+            hrom.cell_mus = {c: [dict(zip(keys, map(float, row)))
+                                 for row in d[f"mus_{c}"]]
+                             for c in range(ml.n_cells)}
+        build_tag = info["cache_build"]
+        info.update(wait_s=waited, resume_s=resume_s)
+        print(f"  (b) built in a process of its own beside phases 9-11 and "
+              f"13-15 (phase 12 waited {waited:.1f} s for it); its directory "
+              f"resumed here by a fresh HyperReducedPiston in "
+              f"{resume_s:.1f} s: fleet {ml.cell_wn}, registered "
+              f"{registered}")
 
         # (c) Serving at B=2048: a cold call and warm calls through K1.
         t_c = time.perf_counter()
         Bb = FLEET_BUILD_B
-        batches = [synth.synthetic_mus(Bb, seed=61 + r)
-                   for r in range(FLEET_CALLS + 1)]
+        batches = fleet_batches(synth)
         cell_lists = [ml.cell_of([rom.compute_piston_mach_number(m)
                                   for m in mus]) for mus in batches]
         for c in counters(mods):
@@ -3028,49 +2972,63 @@ def fleet_build_phase(mods, dev, power, workdir):
         serve["routed_vs_direct_max_abs"] = worst
         serve["served_vs_lanes"] = served_vs_lanes(
             rom, ml, batches[-1], cells, mods, power, "(c)", built=hrom)
-        # The batch bench.py times (bench.py:709-750): its 64-bin draws
-        # tiled to B, served on the active cell, the center's.
-        active = int(ml.cell_of(rom.compute_piston_mach_number(
-            JOINT_CENTER_MU)))
-        timed_mus = bench_mus(rom, FLEET_TIMED_SPACE, 3, Bb)
-        before = launch_counts(mods)
-        rom._set_serving_windows(ml.cells[active])
-        try:
-            timed_out = rom.solve_batch(timed_mus, mode="probes", host=False)
-        finally:
-            rom._set_serving_windows(ml.cells[0])
-        timed_launches = launches_since(mods, before)
-        print(f"  (c) bench's timed batch ({len(set(map(id, timed_mus)))} "
-              f"distinct μ tiled to {Bb}) on the active cell {active} "
-              f"{ml.cell_wn[active][0]}x{ml.cell_wn[active][1]}: "
-              f"solve_batch(mode='probes', host=False) launches K1-K5 "
-              f"{timed_launches}")
-        if timed_launches != [1, 0, 0, 0, 0]:
-            raise AssertionError(f"the timed batch launched "
-                                 f"{timed_launches}, expected one K1")
-        serve.update(timed_active_cell=active, timed_launches=timed_launches,
-                     seconds=time.perf_counter() - t_c)
+        serve["seconds"] = time.perf_counter() - t_c
         print(f"  (c) in {serve['seconds']:.1f} s")
-        # K1's launches on the main path: the fleet's calls and the timed
-        # batch.
-        launches = [a + b for a, b in zip(launches, timed_launches)]
         info["serve"] = serve
-        last_mus, last_out = batches[-1], out
+        last_out = out
 
-        # (d) bench.py's certification, held at FLEET_CERT_LIMITS; (e)
+        # (d) bench.py's timing and certification through the bench
+        # entry's measure (romtime_tpu_torch/bench.py) on this fleet, the
+        # active cell (the center's) attached, every counter read before
+        # and after (K1 alone), its FOM references cached in the
+        # directory for phase 16 (g); held at FLEET_CERT_LIMITS. (e)
         # phase 9 (d)'s contract on its estimator: each row the
         # reconstruction-norm formula on its window's basis, the served
         # fleet equal before and after.
-        cert_mus = bench_mus(rom, FLEET_CERT_BINS, 7)
+        active = int(ml.cell_of(rom.compute_piston_mach_number(
+            JOINT_CENTER_MU)))
+        cfg = pb.settings({"BENCH_NX": str(FLEET_BUILD_GRID["nx"]),
+                           "BENCH_NT": str(nt), "BENCH_LEDGER": "0",
+                           "BENCH_ONLINE_MU": str(Bb)})
+        cert_mus = pb.bench_mus(rom, pb.FLEET_CERT_BINS, 7)
         served_before = rom.solve_batch_mulocal(cert_mus, mode="probes")
-        (cert, fest), cert_s = timed(dev, lambda: fleet_certification(
-            hrom, timed_mus, timed_out["probes"]))
+        before = launch_counts(mods)
+        rom._set_serving_windows(ml.cells[active])
+        try:
+            entry, cert_s = timed(dev, lambda: pb.measure(
+                hrom, cfg, dict(offline_wall=info["offline_wall"],
+                                n_windows=ml.cell_wn[active][0],
+                                window_n=ml.cell_wn[active][1]),
+                cache_dir=workdir, card=power))
+        finally:
+            rom._set_serving_windows(ml.cells[0])
+        entry_launches = launches_since(mods, before)
         served_after = rom.solve_batch_mulocal(cert_mus, mode="probes")
-        del timed_out
+        payload, cert, fest = entry["payload"], entry["cert"], entry["est"]
+        extra = payload["extra"]
+        print(f"  (d) the bench entry's measure on the built fleet in "
+              f"{cert_s:.1f} s, launches K1-K5 {entry_launches}: "
+              f"{payload['value']} solves/s on the active cell {active} "
+              f"({extra['n_windows']}x{extra['window_n']}, B={Bb}, "
+              f"{extra['online_sweep_wall_s']} s a served call), "
+              f"fetch-inclusive {extra['fetch_inclusive']['solves_per_sec']}"
+              f" solves/s, the routed fleet call "
+              f"{entry['fleet']['warm_median_s'] * 1e3:.1f} ms (first "
+              f"{entry['fleet']['cold_s'] * 1e3:.1f} ms) on {power}; its "
+              f"payload:")
+        print("    " + json.dumps(payload, default=float))
+        if not entry_launches[0] or any(entry_launches[1:]):
+            raise AssertionError(f"the entry launched {entry_launches}, "
+                                 f"expected K1 only")
+        # K1's launches on the main path: the fleet's calls and the entry's.
+        launches = [a + b for a, b in zip(launches, entry_launches)]
+        info["entry"] = dict(payload=payload, launches=entry_launches,
+                             seconds=cert_s, fleet=entry["fleet"])
+        del entry
         sec = cert["seconds"]
         multi = cert["rel_l2_multi_mu"]
         std = multi.get("std") or {}
-        print(f"  (d) bench's certification in {cert_s:.1f} s (float64 lanes"
+        print(f"  (d) bench's certification (float64 lanes"
               f": the center {sec['center_lanes']:.1f} s, {multi['n']} "
               f"held-out μ {sec['held_out_lanes']:.1f} s, the probe rows "
               f"{sec['probe_lanes']:.1f} s; the FOM references "
@@ -3095,9 +3053,9 @@ def fleet_build_phase(mods, dev, power, workdir):
               f"{std.get('max', float('nan')):.4e}, FOM dt-gap mean "
               f"{std.get('fom_dt_gap_mean', float('nan')):.3e} max "
               f"{std.get('fom_dt_gap_max', float('nan')):.3e} (BENCH_r05 "
-              f"{BENCH_R05['fom_dt_gap_max']:.3e}); avg_estimator_mean "
+              f"{pb.BENCH_R05['fom_dt_gap_max']:.3e}); avg_estimator_mean "
               f"{cert['windowed_estimator']['avg_estimator_mean']:.4e}")
-        hold_certification(cert, power)
+        pb.hold_certification(cert, power)
         for k, v in served_before.items():
             if not all(np.array_equal(a, b)
                        for a, b in zip(v, served_after[k])):
@@ -3127,20 +3085,21 @@ def fleet_build_phase(mods, dev, power, workdir):
         info["certification"] = cert
         del fest
 
-        # (f) Persistence: a fresh driver resumes the directory; a rebuild
-        # at another shape for cell 0 from the trajectory cache; the
-        # shapes auto_cell_wn picks from it.
-        fresh = HyperReducedPiston(**joint_profile(device=dev,
-                                                   **FLEET_BUILD_GRID))
-        _, fresh_s = timed(dev, lambda: (
-            fresh.setup(), fresh.setup_hyperreduction(),
-            fresh.start_from_existing_basis(), fresh.project_reductors()))
-        resumed, resume_s = timed(dev, lambda: fresh.rom.solve_batch_mulocal(
-            last_mus, mode="probes"))
-        for k, v in last_out.items():
-            if not all(np.array_equal(a, b) for a, b in zip(v, resumed[k])):
-                raise AssertionError(f"the resumed fleet serves another {k}")
-        del fresh, resumed
+        # (f) Persistence: the fleet served here (the directory resumed)
+        # against the building process's own call on the fleet it had
+        # just built; a rebuild at another shape for cell 0 from the
+        # trajectory cache; the shapes auto_cell_wn picks from it.
+        with open(os.path.join(workdir, FLEET_BUILD_SERVED), "rb") as f:
+            built_out = pickle.load(f)
+        if set(built_out) != set(last_out):
+            raise AssertionError(f"the resumed fleet serves {set(last_out)}"
+                                 f", the build {set(built_out)}")
+        for k, v in built_out.items():
+            if len(v) != len(last_out[k]) or not all(
+                    np.array_equal(a, b) for a, b in zip(v, last_out[k])):
+                raise AssertionError(f"the resumed fleet serves another {k}"
+                                     f" than the fleet as built")
+        del built_out
         # The rebuild and auto_cell_wn read a cut of (b)'s trajectory
         # cache, its first FLEET_REBUILD_PER_CELL trajectories a cell,
         # written beside it by the port's own cache writer.
@@ -3188,10 +3147,10 @@ def fleet_build_phase(mods, dev, power, workdir):
             [tuple(w) for w in AUTO_WN_CANDIDATES], AUTO_WN_TARGET,
             path=os.path.join(cut_dir, "mulocal_snapshots.npz"),
             expect_n_cells=ml.n_cells, expect_edges=ml.edges))
-        print(f"  (f) a fresh HyperReducedPiston resumed the directory "
-              f"({fresh_s:.1f} s)"
-              f" and served the last batch bit for bit ({resume_s:.2f} s, "
-              f"cold); from the cache cut to {per_cut} trajectories a "
+        print(f"  (f) the resumed directory ({resume_s:.1f} s) served (c)'s "
+              f"last batch bit for bit as the building process served it on"
+              f" the fleet just built ({info['served_s']:.2f} s, cold); "
+              f"from the cache cut to {per_cut} trajectories a "
               f"cell, cell 0 rebuilt at {FLEET_REBUILD_WN[0]}x"
               f"{FLEET_REBUILD_WN[1]} with the FOM "
               f"unreachable in {rebuild_s:.1f} s (cell 1's bases bit for bit"
@@ -3201,7 +3160,8 @@ def fleet_build_phase(mods, dev, power, workdir):
               f"{AUTO_WN_TARGET:.0e}) in {auto_s:.1f} s: {auto_wn}, "
               f"predicted floors "
               + ", ".join(f"{f:.2e}" for f in floors) + f" on {power} ok")
-        info["persistence"] = dict(resume_cold_s=resume_s, fresh_s=fresh_s,
+        info["persistence"] = dict(built_serve_s=info["served_s"],
+                                   resume_s=resume_s,
                                    direct_pod_s=direct_s, auto_s=auto_s,
                                    rebuild_s=rebuild_s,
                                    rebuild_stages=hrom.fleet_seconds,
@@ -3221,6 +3181,7 @@ def online_single_phase(mods, dev, power, hrom):
     all of it outside Pallas)."""
     import tempfile
 
+    from romtime_tpu_torch.bench import F32_DRIFT_MAX
     from romtime_tpu_torch.conventions import Errors, OperatorType, Stage
     from romtime_tpu_torch.convert import (
         estimator_from_arrays,
@@ -4195,8 +4156,9 @@ def example_diagnostics(mods, dev, power, fleet_dir):
     permu_diag and multimu_diag on EX_DIAG_HELD_OUT held-out μ and the
     center (the center alone at 0), corner_attrib, window_study (a
     floor, then a served point
-    with its float32 drift), and the K1 ledger on cell 0's real
-    tables."""
+    with its float32 drift), and on cell 0's real tables K1's phase
+    clocks (the ablation ledger runs in (g), the entry's) and each ledger
+    variant against its twin."""
     import argparse
 
     from romtime_tpu_torch.problems import joint_profile
@@ -4282,20 +4244,21 @@ def example_diagnostics(mods, dev, power, fleet_dir):
                                 floor_only=floor, served_point=f"{W}:{N}",
                                 **served)
 
+    from romtime_tpu_torch.kernel_ledger import phase_split, split_lines
+
     before = launch_counts(mods)
     t0 = time.perf_counter()
     args, kw = kernel_ledger.ledger_inputs(rom, EX_LEDGER_B)
-    costs, split = kernel_ledger.ledger(args, kw, EX_LEDGER_REPS)
+    split = phase_split(args, kw, EX_LEDGER_REPS)
     gaps = kernel_ledger.twin_gaps(args, kw)
     ledger_s = time.perf_counter() - t0
     launches = launches_since(mods, before)
-    print(f"  (e) kernel_ledger on cell 0's real tables "
+    print(f"  (e) kernel_ledger's inputs on cell 0's real tables "
           f"({rom.windows.n_windows}x{rom.windows.N}), B={EX_LEDGER_B}, "
-          f"reps {EX_LEDGER_REPS}, {ledger_s:.1f} s, launches K1-K5 "
-          f"{launches}, on {power}:")
-    from romtime_tpu_torch.kernel_ledger import ledger_lines, split_lines
-
-    for line in ledger_lines(costs, EX_LEDGER_B) + split_lines(split):
+          f"reps {EX_LEDGER_REPS}: the phase clocks (the ablation ledger "
+          f"runs in (g)) and the variants against their twins, "
+          f"{ledger_s:.1f} s, launches K1-K5 {launches}, on {power}:")
+    for line in split_lines(split):
         print("    " + line)
     held = {n: g for n, g in gaps.items() if np.isfinite(g)}
     print(f"    each variant against its twin on the first "
@@ -4308,7 +4271,7 @@ def example_diagnostics(mods, dev, power, fleet_dir):
                              f"only")
     info["kernel_ledger"] = dict(seconds=ledger_s, B=EX_LEDGER_B,
                                  reps=EX_LEDGER_REPS, launches=launches,
-                                 ledger=costs, phase_split=split,
+                                 phase_split=split,
                                  twin_gaps={n: g if n in held else None
                                             for n, g in gaps.items()},
                                  max_abs_err=max(held.values()))
@@ -4334,10 +4297,73 @@ def example_entry(dev, power):
     return dict(ms=sec * 1e3, rel_gap=gap)
 
 
-def examples_phase(mods, dev, power, fleet_dir):
+def example_bench_entry(power, fleet_dir, center, diagnostics):
+    """(g): ``python -m romtime_tpu_torch.bench`` in a subprocess on phase
+    12's directory, warm, with ``BENCH_MULTI_MU=0`` and EX_BENCH_REPEAT
+    calls a chain: its last line
+    bench.py's payload with ``extra.device``, its center rel-L2 phase 12's
+    ``center`` within EX_BENCH_CENTER_REL relative, its probe error within
+    the fleet's limit, and its ledger's ``full_us_per_step`` within
+    EX_BENCH_LEDGER_REL of the serving LU's µs/step that (e)'s phase
+    clocks measured on a cell of the same shape (``diagnostics``: (e)'s
+    result)."""
+    from romtime_tpu_torch import bench as pb
+
+    env = dict(os.environ, BENCH_DIR=fleet_dir, BENCH_MULTI_MU="0",
+               BENCH_REPEAT=str(EX_BENCH_REPEAT))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "romtime_tpu_torch.bench"],
+                          env=env, cwd=str(Path(__file__).resolve().parent),
+                          capture_output=True, text=True,
+                          timeout=EX_BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        print("    " + line)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode or not lines:
+        raise AssertionError(f"the bench entry exited {proc.returncode}")
+    payload = json.loads(lines[-1])
+    extra = payload["extra"]
+    center_gap = abs(payload["rel_l2_vs_fom"] - center) / center
+    ledger = extra["kernel_ledger"] or {}
+    split = diagnostics["kernel_ledger"]["phase_split"]["lu"]
+    lu_us = split["ms"] * 1e3 / FLEET_BUILD_GRID["nt"]
+    ledger_gap = abs(ledger.get("full_us_per_step", np.inf) - lu_us) / lu_us
+    probe = extra["served_engine_probe_err"]
+    ok = (tuple(payload) == pb.PAYLOAD_KEYS
+          and tuple(extra) == pb.EXTRA_KEYS and extra["device"] == power
+          and extra["rel_l2_multi_mu"] is None
+          and center_gap <= EX_BENCH_CENTER_REL
+          and probe is not None
+          and probe <= pb.FLEET_CERT_LIMITS["served_engine_probe_err"]
+          and ledger_gap <= EX_BENCH_LEDGER_REL)
+    print(f"  (g) python -m romtime_tpu_torch.bench, warm on phase 12's "
+          f"directory, BENCH_MULTI_MU=0, BENCH_REPEAT={EX_BENCH_REPEAT}: "
+          f"exit {proc.returncode} in "
+          f"{seconds:.1f} s; {payload['value']} solves/s on the active cell "
+          f"({extra['n_windows']}x{extra['window_n']}); keys bench.py's and "
+          f"extra.device; center rel-L2 {payload['rel_l2_vs_fom']:.4e}, "
+          f"{center_gap:.1e} relative from phase 12's (limit "
+          f"{EX_BENCH_CENTER_REL:.0e}); served_engine_probe_err "
+          f"{probe:.4e} (limit "
+          f"{pb.FLEET_CERT_LIMITS['served_engine_probe_err']:g}); the "
+          f"ledger's full_us_per_step {ledger.get('full_us_per_step')} µs "
+          f"against the serving LU's {lu_us:.2f} µs a step in (e), "
+          f"{ledger_gap:.1%} apart (limit {EX_BENCH_LEDGER_REL:.0%}) on "
+          f"{power} {'ok' if ok else 'FAIL'}; its payload:")
+    print("    " + lines[-1])
+    if not ok:
+        raise AssertionError("the bench entry's line misses its checks")
+    return dict(seconds=seconds, payload=payload, center_gap=center_gap,
+                serving_lu_us=lu_us, ledger_gap=ledger_gap)
+
+
+def examples_phase(mods, dev, power, fleet_dir, center):
     """Phase 16 of the module doc: the examples and the diagnostic
     scripts on the card, every launch counter read before and after
-    (K1 from the ledger, K4 or K5 from the piston example)."""
+    (K1 from the ledger, K4 or K5 from the piston example; (g)'s entry
+    runs in a process of its own). ``center``: phase 12's certified
+    center rel-L2."""
     print(f"examples and diagnostics on {power}:")
     before = launch_counts(mods)
     info = {}
@@ -4348,7 +4374,9 @@ def examples_phase(mods, dev, power, fleet_dir):
             ("convergence", lambda: example_convergence(dev, power)),
             ("diagnostics", lambda: example_diagnostics(mods, dev, power,
                                                         fleet_dir)),
-            ("entry", lambda: example_entry(dev, power))):
+            ("entry", lambda: example_entry(dev, power)),
+            ("bench_entry", lambda: example_bench_entry(
+                power, fleet_dir, center, info["diagnostics"]))):
         t0 = time.perf_counter()
         info[name] = run()
         info[f"{name}_s"] = time.perf_counter() - t0
@@ -4380,6 +4408,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
     mods = {"k1": k1, "rs": rs, "gs": gs, "synth": synth, "native": native}
+    if sys.argv[1:2] == [FLEET_BUILD_FLAG]:
+        # Below the main process's priority: the build is off the run's
+        # critical path, the phases beside it are on it.
+        os.nice(FLEET_BUILD_NICE)
+        with torch.inference_mode():
+            fleet_cold_build(mods, dev, card(), sys.argv[2])
+        return
 
     power = card()
     print(power)
@@ -4424,8 +4459,10 @@ def main():
         last[0] = now
         print(f"{name}: {phase_s[name]:.1f} s", flush=True)
 
-    # Phase 12 builds its fleet in fleet_dir; phase 16 diagnoses it warm.
+    # Phase 12 builds its fleet in fleet_dir, in a process of its own from
+    # the start of phase 9; phase 16 diagnoses it warm.
     fleet_dir = tempfile.mkdtemp()
+    builder = None
     try:
         with torch.inference_mode():
             rich_errs = []
@@ -4448,6 +4485,7 @@ def main():
             fleet = fleet_phase(mods, dev, power)
             torch.cuda.empty_cache()
             lap("fleet phase")
+            builder = start_fleet_build(fleet_dir)
             t0 = time.perf_counter()
             certification = certification_phase(mods, dev, power)
             certification["seconds"] = time.perf_counter() - t0
@@ -4469,13 +4507,6 @@ def main():
             build["seconds_phase"] = time.perf_counter() - t0
             print(f"offline build phase: {build['seconds_phase']:.1f} s, "
                   f"launches K1-K5 {build['launches']}")
-            torch.cuda.empty_cache()
-            t0 = time.perf_counter()
-            fleet_build = fleet_build_phase(mods, dev, power, fleet_dir)
-            fleet_build["seconds_phase"] = time.perf_counter() - t0
-            print(f"fleet build phase: {fleet_build['seconds_phase']:.1f} s, "
-                  f"launches K1-K5 of its served calls "
-                  f"{fleet_build['launches']}")
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             single = online_single_phase(mods, dev, power, built)
@@ -4512,7 +4543,17 @@ def main():
                                      "serving kernel")
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            examples = examples_phase(mods, dev, power, fleet_dir)
+            fleet_build = fleet_build_phase(mods, dev, power, fleet_dir,
+                                            builder)
+            fleet_build["seconds_phase"] = time.perf_counter() - t0
+            print(f"fleet build phase: {fleet_build['seconds_phase']:.1f} s, "
+                  f"launches K1-K5 of its served calls "
+                  f"{fleet_build['launches']}")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            examples = examples_phase(
+                mods, dev, power, fleet_dir,
+                fleet_build["certification"]["rel_l2_vs_fom"])
             examples["seconds_phase"] = time.perf_counter() - t0
             print(f"examples and diagnostics phase: "
                   f"{examples['seconds_phase']:.1f} s, launches K1-K5 "
@@ -4520,6 +4561,9 @@ def main():
                   f"piston example's)")
             lap("phases 9-16")
     finally:
+        if builder is not None and builder.poll() is None:
+            builder.kill()
+            builder.wait()
         shutil.rmtree(fleet_dir, ignore_errors=True)
     errs["K1"].append(examples["diagnostics"]["kernel_ledger"]["max_abs_err"])
     for k, v in gkernels.items():

@@ -15,13 +15,25 @@ backend did not block on a result; a CUDA event does).
 Variants with the LU schedule: ``full`` (per-step LU), ``full_paired5``
 (paired LU G=5, ``sub1``), ``no_solve``, ``no_dots``, ``no_boundary``,
 ``empty`` and ``no_trilinear`` (on tables built without the trilinear
-term); with the Richardson solve: ``full``, ``no_solve``, ``no_dots``,
+term); with the Richardson solve (5 iterations, or the served count when
+the served solve is Richardson): ``full``, ``no_solve``, ``no_dots``,
 ``no_boundary``, ``empty``. The components, in µs per step of the whole
 batch and clamped at 0 as ``bench.py`` clamps them: θ dots = full −
 no_dots, solve = full − no_solve, trilinear = full − no_trilinear (LU
-only), boundary dd = full − no_boundary, floor = empty. ``bench.py``'s
-four keys come from the ``full_paired5`` row (the serving solve), as its
-ablations time the served engine's paired setting.
+only), boundary dd = full − no_boundary, floor = empty.
+
+**``bench.py``'s four keys** describe the served solve (``served``, the
+triple ``rom.windowed_solve()`` returns: the per-step LU, the paired LU
+at its group and follower mode, or Richardson at its iterations), as
+``bench.py`` :900-915 times the timed engine's own setting.
+``full_us_per_step`` is the unablated sweep at that setting through
+:func:`~romtime_tpu_torch.ops.windowed_fused.online_sweep_windowed_fused`,
+the design ``solve_batch`` launches (the serving design, but for the
+paired follower modes other than ``sub1``). ``solve_us_per_step``,
+``overhead_us_per_step`` and ``dd_transfer_frac`` are differences of the
+first design's rows at the same setting (its unablated row against
+``no_solve``, ``empty`` and ``no_boundary``), the only design with an
+``ablate`` path. :func:`bench_sources` names each key's rows and design.
 
 **The serving body's phase split** (``csrc/serving_body.cuh``): its
 CLOCKED instantiation (the same compiled body with clock() reads by
@@ -42,14 +54,19 @@ import torch
 
 from .ops import global_sweep, resid_sweep
 from .ops.windowed_fused import (
+    GJ_FORI_MIN,
     SERVING_PHASES,
     _first_design_sweep,
     _serving_sweep_clocked,
+    k1_design,
     online_sweep_windowed_fused,
 )
 
 GROUP = 5
 SOLVE_ITERS = 5
+#: The port's served solve by default: the per-step LU
+#: (``rom/engines/policy.py``), as ``rom.windowed_solve()`` returns it.
+PER_STEP_LU = (None, None, "sub1")
 #: (variant, K1 options) with the LU schedule; "no_trilinear" runs the
 #: unablated kernel on the tables built without the trilinear term.
 LU_VARIANTS = (("full", {}),
@@ -112,15 +129,36 @@ def _solve_ledger(variants, args, kw, no_trilinear, reps):
             "components_us_per_step": components}
 
 
-def kernel_ledger(args, kw, no_trilinear=None, reps=3):
-    """The ablation ledger of K1's first design on ``args``/``kw`` (its inputs and options as
+def served_rows(served):
+    """(the first design's ledger, its unablated row at the served
+    setting, that row's K1 options) for ``served`` = (solve_iters,
+    paired-LU group, follower mode): Richardson's ``full`` at its
+    iterations, the LU ledger's ``full`` for the per-step LU, or its
+    ``full_paired5`` (``full_paired{G}``, with ``_{mode}`` for a mode
+    other than ``sub1``) for the paired LU."""
+    iters, group, mode = served
+    if iters:
+        return "richardson", "full", {"solve_iters": int(iters)}
+    if not group or group < 2:
+        return "lu", "full", {}
+    name = f"full_paired{group}" + ("" if mode == "sub1" else f"_{mode}")
+    return "lu", name, {"paired_lu": int(group), "paired_mode": mode}
+
+
+def kernel_ledger(args, kw, no_trilinear=None, reps=3, served=PER_STEP_LU):
+    """The ablation ledger of K1's first design on ``args``/``kw`` (its
+    inputs and options as
     :func:`~romtime_tpu_torch.ops.windowed_fused.online_sweep_windowed_fused`
     takes them; the solve options in ``kw`` are replaced by each
-    variant's). ``no_trilinear`` is the (args, kw) pair of the same inputs
-    built without the trilinear term, or None to skip that row. Returns
-    {"lu": ..., "richardson": ..., "bench": ...}: per solve the ms per
-    sweep and µs per step of each variant and the derived components;
-    ``bench`` holds ``bench.py``'s four ledger keys."""
+    variant's), and ``bench.py``'s four keys at the served solve
+    ``served`` (``rom.windowed_solve()``'s triple; default the per-step
+    LU). ``no_trilinear`` is the (args, kw) pair of the same inputs built
+    without the trilinear term, or None to skip that row. Returns
+    {"lu": ..., "richardson": ..., "served": ..., "bench": ...}: per solve
+    the ms per sweep and µs per step of each variant and the derived
+    components; ``served`` the unablated sweep at the served setting
+    through the wrapper (its design, ms and µs) and the first design's row
+    at that setting; ``bench`` holds ``bench.py``'s four keys."""
     for a in (args, no_trilinear[0] if no_trilinear else args):
         _check_cuda(a)
     base = dict(kw, paired_lu=None, paired_mode="sub1", solve_iters=None,
@@ -130,18 +168,66 @@ def kernel_ledger(args, kw, no_trilinear=None, reps=3):
         tri = (no_trilinear[0], dict(no_trilinear[1], **{
             k: base[k] for k in ("paired_lu", "paired_mode", "solve_iters",
                                  "ablate")}))
-    lu = _solve_ledger(LU_VARIANTS, args, base, tri, reps)
-    rich = _solve_ledger(RICHARDSON_VARIANTS, args, base, None, reps)
-    us = lu["us_per_step"]
-    full = us["full_paired5"]
+    part, row, opts = served_rows(served)
+    lu_variants = LU_VARIANTS
+    if part == "lu" and row not in dict(LU_VARIANTS):
+        lu_variants = LU_VARIANTS + ((row, opts),)
+    rich_variants = RICHARDSON_VARIANTS
+    if part == "richardson":
+        rich_variants = tuple((name, dict(o, **opts))
+                              for name, o in RICHARDSON_VARIANTS)
+    lu = _solve_ledger(lu_variants, args, base, tri, reps)
+    rich = _solve_ledger(rich_variants, args, base, None, reps)
+    nt = args[0].shape[0]
+    sopts = dict(base, **opts)
+    served_ms = time_sweep(args, sopts, reps, online_sweep_windowed_fused)
+    group = sopts["paired_lu"] or 0
+    if (sopts["solve_iters"] is not None or group < 2
+            or sopts["n_real"] <= GJ_FORI_MIN):
+        group = 0
+    us = ({"lu": lu, "richardson": rich}[part])["us_per_step"]
+    first = us[row]
+    full = served_ms * 1e3 / nt
     bench = {
         "full_us_per_step": full,
-        "solve_us_per_step": max(full - us["no_solve"], 0.0),
+        "solve_us_per_step": max(first - us["no_solve"], 0.0),
         "overhead_us_per_step": max(us["empty"], 0.0),
-        "dd_transfer_frac": max(full - us["no_boundary"], 0.0)
-        / max(full, 1e-9),
+        "dd_transfer_frac": max(first - us["no_boundary"], 0.0)
+        / max(first, 1e-9),
     }
-    return {"lu": lu, "richardson": rich, "bench": bench}
+    return {"lu": lu, "richardson": rich,
+            "served": {"setting": list(served), "ledger": part, "row": row,
+                       "design": k1_design(group, sopts["paired_mode"],
+                                           None),
+                       "ms_per_sweep": served_ms, "us_per_step": full,
+                       "first_design_us_per_step": first},
+            "bench": bench}
+
+
+def bench_sources(ledger):
+    """bench key → the rows and the design it comes from, for
+    :func:`kernel_ledger`'s result."""
+    s = ledger["served"]
+    part, row = s["ledger"], s["row"]
+    return {
+        "full_us_per_step": f"the {s['design']} design, the served call "
+                            f"({solve_name(s['setting'])})",
+        "solve_us_per_step": f"the first design, {part} {row} − {part} "
+                             f"no_solve",
+        "overhead_us_per_step": f"the first design, {part} empty",
+        "dd_transfer_frac": f"the first design, ({part} {row} − {part} "
+                            f"no_boundary) / {part} {row}",
+    }
+
+
+def solve_name(served):
+    """A served setting (solve_iters, group, mode) in words."""
+    iters, group, mode = served
+    if iters:
+        return f"Richardson, {iters} iterations"
+    if group and group >= 2:
+        return f"paired LU G={group} {mode}"
+    return "per-step LU"
 
 
 def _check_cuda(args):
@@ -236,6 +322,11 @@ def ledger_lines(ledger, B):
                      f"B={B}): " + ", ".join(
                          f"{k} {v:.2f}" for k, v in
                          part["components_us_per_step"].items()))
-    lines.append("[ledger] bench.py keys (full_paired5 row): " + ", ".join(
-        f"{k} {v:.4g}" for k, v in ledger["bench"].items()))
+    s = ledger["served"]
+    lines.append(f"[ledger] served {solve_name(s['setting'])}: "
+                 f"{s['ms_per_sweep']:9.3f} ms/sweep {s['us_per_step']:8.2f} "
+                 f"us/step on the {s['design']} design")
+    sources = bench_sources(ledger)
+    lines.append("[ledger] bench.py keys at the served setting: " + "; ".join(
+        f"{k} {v:.4g} ({sources[k]})" for k, v in ledger["bench"].items()))
     return lines

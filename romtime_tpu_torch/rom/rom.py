@@ -1037,7 +1037,11 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
     def prep(self, mus, engine="windowed-pallas"):
         """Stage 1 of ``engine`` for a list of μ dicts: the θ/probe tables
         on the device."""
-        mu = self._mu_batch(mus)
+        return self._prep_batch(self._mu_batch(mus), engine)
+
+    def _prep_batch(self, mu, engine="windowed-pallas"):
+        """:meth:`prep` on a μ batch (name → (B,) tensor, as
+        :meth:`_mu_batch` makes it)."""
         if engine == "pallas":
             return global_prep(self.fom, self._theta_sources(),
                                self.global_serving,
@@ -1068,6 +1072,12 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
     def _serve(self, mus, engine, mode="probes"):
         """Stages 1 and 2 of ``engine`` on the device: (nt, …, B) tensors
         (the pivot-free guard runs once per instance first)."""
+        return self._serve_batch(self._mu_batch(mus), engine, mode)
+
+    def _serve_batch(self, mu, engine, mode="probes"):
+        """:meth:`_serve` on a μ batch (name → (B,) tensor, as
+        :meth:`_mu_batch` makes it): the callable a benchmark chains (the
+        reference's ``_get_online_fn``)."""
         if engine == "windowed":
             if self.windows is None:
                 raise ValueError("no windowed serving configuration "
@@ -1075,7 +1085,7 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
             self._ensure_pivot_free_certified()
             return online_sweep_windowed(
                 self.fom, self.windows, self._theta_sources(),
-                self._lanes_tables(mode), self._mu_batch(mus), mode)
+                self._lanes_tables(mode), mu, mode)
         if engine == "lanes":
             gs = self.global_serving
             if gs is None:
@@ -1083,13 +1093,13 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
             self._ensure_pivot_free_certified()
             return online_scan_batch(
                 self.fom, gs, self._theta_sources(),
-                self._global_lanes_tables(mode), self._mu_batch(mus), mode,
+                self._global_lanes_tables(mode), mu, mode,
                 self.precompute_choice, self._compensated_active())
         if engine == "vmap":
             if self.basis is None:
                 raise ValueError("the vmap engine needs the global basis")
             self._ensure_pivot_free_certified()
-            return self._online_scan(self._mu_batch(mus), mode)
+            return self._online_scan(mu, mode)
         if mode != "probes":
             raise NotImplementedError(
                 f"engine {engine!r} serves mode='probes'; mode {mode!r} is "
@@ -1100,7 +1110,7 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
                                  "attached")
             self._ensure_pivot_free_certified()
             tables = self._windowed_tables()
-            prepped = self.prep(mus)
+            prepped = self._prep_batch(mu)
             return windowed_sweep(self.fom, self.windows, prepped, tables,
                                   self)
         if engine == "pallas":
@@ -1109,7 +1119,7 @@ class RomConstructor(AutotuneMixin, PrecomputePolicy, SolvePolicy,
                 raise ValueError("no global serving configuration attached")
             self._ensure_pivot_free_certified()
             tables = self._global_serving_tables()
-            prepped = self.prep(mus, engine="pallas")
+            prepped = self._prep_batch(mu, "pallas")
             return global_sweep(self.fom, gs, prepped, tables,
                                 self.precompute_choice)
         raise ValueError(

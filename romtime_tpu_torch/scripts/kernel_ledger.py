@@ -132,12 +132,15 @@ def twin_gaps(args, kw, n_windows=TWIN_WINDOWS):
     return gaps
 
 
-def ledger(args, kw, reps=3):
+def ledger(args, kw, reps=3, served=None):
     """The ablation ledger and the phase split of K1 on ``args``/``kw``
-    (``romtime_tpu_torch/kernel_ledger.py``); raises on CPU tensors."""
-    from ..kernel_ledger import kernel_ledger, phase_split
+    (``romtime_tpu_torch/kernel_ledger.py``), ``bench.py``'s keys at the
+    served solve ``served`` (``rom.windowed_solve()``'s triple; default
+    the per-step LU); raises on CPU tensors."""
+    from ..kernel_ledger import PER_STEP_LU, kernel_ledger, phase_split
 
-    return kernel_ledger(args, kw, reps=reps), phase_split(args, kw, reps)
+    return (kernel_ledger(args, kw, reps=reps, served=served or PER_STEP_LU),
+            phase_split(args, kw, reps))
 
 
 def main(argv=None):
@@ -158,7 +161,8 @@ def main(argv=None):
                       joint_profile(nx=nx, nt=nt), device)
     with torch.inference_mode():
         kargs, kw = ledger_inputs(hrom.rom, args.B)
-        costs, split = ledger(kargs, kw, args.reps)
+        costs, split = ledger(kargs, kw, args.reps,
+                              served=hrom.rom.windowed_solve())
         gaps = twin_gaps(kargs, kw)
     for line in ledger_lines(costs, args.B) + split_lines(split):
         print(line)

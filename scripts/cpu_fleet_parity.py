@@ -67,6 +67,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
+from romtime_tpu_torch import bench as pb  # noqa: E402
 from romtime_tpu_torch.problems import joint_fleet, joint_profile  # noqa
 
 T0 = time.perf_counter()
@@ -74,7 +75,7 @@ CELL = 5
 #: phase 12's cut fleet (chip_smoke.py FLEET_BUILD_*).
 GRID = dict(cs.FLEET_BUILD_GRID)
 PER_CELL = tuple(cs.FLEET_BUILD_PER_CELL)
-REGISTER = list(cs.FLEET_BUILD_REGISTER)
+REGISTER = cs.FLEET_BUILD_REGISTER
 CELL_WN = tuple(cs.FLEET_BUILD_CELL_WN)
 N_LANES = 128
 OUT = os.path.join(REPO, "build", "cpu_fleet_parity.json")
@@ -641,10 +642,9 @@ def f9_stage(port_dir, ref_dir, port32_dir=None):
             sin_max_angle_median=float(np.median(sines)),
             worst_window=int(np.argmax(sines)))
     log("f9 build", out)
-    mus = [dict(JOINT_CENTER_MU)] + cs.held_out_mus(
-        prom, cs.FLEET_BUILD_HELD_OUT)
+    mus = [dict(JOINT_CENTER_MU)] + pb.bench_mus(prom, pb.FLEET_CERT_BINS, 7)
     out["held_out_port"] = held_out_rel(
-        "port", port, mus, cs.fom_references, compute_dtype_scope,
+        "port", port, mus, pb.fom_references, compute_dtype_scope,
         torch.float64)
     out["held_out_ref"] = held_out_rel(
         "ref", ref, mus, ref_fom_references, ref_scope, jnp.float64)
@@ -654,7 +654,7 @@ def f9_stage(port_dir, ref_dir, port32_dir=None):
         out["port_f32_law_coef"] = np.asarray(
             p32.rom.mulocal.cells[CELL].dilation.coef).tolist()
         out["held_out_port_f32_sweep"] = held_out_rel(
-            "port (float32 training sweep)", p32, mus, cs.fom_references,
+            "port (float32 training sweep)", p32, mus, pb.fom_references,
             compute_dtype_scope, torch.float64)
     return out
 

@@ -64,27 +64,47 @@ def test_kernel_ledger_refuses_cpu_tensors():
         kernel_ledger([torch.from_numpy(a) for a in args], kw)
 
 
-def test_kernel_ledger_components(monkeypatch):
+#: served setting → (rom.windowed_solve()'s triple, the first design's
+#: ledger and unablated row at that setting, the Richardson ledger's
+#: iterations).
+SERVED = {"lu": ((None, None, "sub1"), "lu", "full", 5),
+          "paired5_sub1": ((None, 5, "sub1"), "lu", "full_paired5", 5),
+          "richardson3": ((3, None, "sub1"), "richardson", "full", 3)}
+
+
+@pytest.mark.parametrize("solve", sorted(SERVED))
+def test_kernel_ledger_components(monkeypatch, solve):
     """The ledger's variants, its components (clamped at 0 as bench.py
-    clamps them) and bench.py's four keys from the full_paired5 row, with
-    the sweep times replaced by fixed numbers."""
+    clamps them) and bench.py's four keys at the served setting, with the
+    sweep times replaced by fixed numbers: ``full_us_per_step`` from the
+    unablated call through the wrapper at that setting (the serving
+    design), the other three from the first design's rows at the same
+    setting (bench.py:900-956), and ledger_lines naming each key's rows
+    and design."""
     import types
 
     from romtime_tpu_torch import kernel_ledger as kl
 
+    served, part, row, R = SERVED[solve]
     ms = {("full", None): 150.0, ("full_paired5", None): 120.0,
           ("no_solve", None): 60.0, ("no_dots", None): 90.0,
           ("no_boundary", None): 123.0, ("empty", None): 15.0,
-          ("no_trilinear", None): 100.0, ("full", 5): 100.0,
-          ("no_solve", 5): 70.0, ("no_dots", 5): 40.0,
-          ("no_boundary", 5): 95.0, ("empty", 5): 15.0}
+          ("no_trilinear", None): 100.0, ("full", R): 100.0,
+          ("no_solve", R): 70.0, ("no_dots", R): 40.0,
+          ("no_boundary", R): 95.0, ("empty", R): 15.0,
+          ("served", served[0]): 45.0}
     seen = []
 
-    def fake_time(args, kw, reps):
-        name = ("full_paired5" if kw["paired_lu"] else
-                kw["ablate"] or ("no_trilinear" if args[0].no_tri
-                                 else "full"))
-        seen.append((name, kw["solve_iters"], kw["paired_mode"]))
+    def fake_time(args, kw, reps, sweep=kl._first_design_sweep):
+        if sweep is kl.online_sweep_windowed_fused:
+            name = "served"
+        elif kw["paired_lu"]:
+            name = "full_paired5"
+        else:
+            name = kw["ablate"] or ("no_trilinear" if args[0].no_tri
+                                    else "full")
+        seen.append((name, kw["solve_iters"], kw["paired_lu"],
+                     kw["paired_mode"]))
         return ms[(name, kw["solve_iters"])]
 
     monkeypatch.setattr(kl, "time_sweep", fake_time)
@@ -93,9 +113,12 @@ def test_kernel_ledger_components(monkeypatch):
     th_nt = types.SimpleNamespace(is_cuda=True, shape=(1500, 40, 2048),
                                   no_tri=True)
     kw = dict(paired_lu=5, paired_mode="warm1", solve_iters=3,
-              ablate="empty")
-    led = kl.kernel_ledger([th], kw, no_trilinear=([th_nt], dict(kw)))
-    assert len(seen) == 12 and all(m == "sub1" for *_x, m in seen)
+              ablate="empty", n_real=32)
+    led = kl.kernel_ledger([th], kw, no_trilinear=([th_nt], dict(kw)),
+                           served=served)
+    assert len(seen) == 13 and all(m == "sub1" for *_x, m in seen)
+    assert seen[-1] == ("served", served[0], served[1], "sub1")
+    assert all(it == R for name, it, *_x in seen[7:12])
     assert led["lu"]["ms_per_sweep"]["no_trilinear"] == 100.0
     us = 1e3 / 1500
     lu = led["lu"]["components_us_per_step"]
@@ -105,7 +128,20 @@ def test_kernel_ledger_components(monkeypatch):
     rich = led["richardson"]["components_us_per_step"]
     assert rich == pytest.approx({"theta_dots": 60 * us, "solve": 30 * us,
                                   "boundary_dd": 5 * us, "floor": 15 * us})
+    first = {("lu", "full"): (150.0, 123.0), ("lu", "full_paired5"):
+             (120.0, 123.0), ("richardson", "full"): (100.0, 95.0)}
+    full, no_boundary = first[(part, row)]
+    no_solve = {"lu": 60.0, "richardson": 70.0}[part]
+    assert led["served"]["design"] == "serving"
+    assert (led["served"]["ledger"], led["served"]["row"]) == (part, row)
     assert led["bench"] == pytest.approx({
-        "full_us_per_step": 120 * us, "solve_us_per_step": 60 * us,
-        "overhead_us_per_step": 15 * us, "dd_transfer_frac": 0.0})
-    assert any("bench.py keys" in line for line in kl.ledger_lines(led, 2048))
+        "full_us_per_step": 45 * us,
+        "solve_us_per_step": (full - no_solve) * us,
+        "overhead_us_per_step": 15 * us,
+        "dd_transfer_frac": max(full - no_boundary, 0.0) / full})
+    line = [ln for ln in kl.ledger_lines(led, 2048)
+            if "bench.py keys" in ln]
+    assert len(line) == 1
+    assert "the serving design, the served call" in line[0]
+    assert f"the first design, {part} {row} − {part} no_solve" in line[0]
+    assert f"{part} empty" in line[0]

@@ -1,7 +1,7 @@
-"""``chip_smoke.py``'s fleet certification (``fleet_certification``,
-``hold_certification``: phase 12 (d), bench.py:442-705 and :963-995) on
-the CPU against the same bench.py arithmetic applied to the JAX
-package's outputs.
+"""The bench entry's fleet certification (``romtime_tpu_torch/bench.py``
+``fleet_certification``, ``hold_certification``: bench.py:442-705 and
+:963-995, run by ``chip_smoke.py``'s phase 12 (d)) on the CPU against
+the same bench.py arithmetic applied to the JAX package's outputs.
 
 The fleet: a registered two-cell fleet built by the JAX package on the
 conftest piston pipeline (nx=150, nt=96; tests/torch_parity.py's shared
@@ -32,7 +32,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke as cs
 from romtime_tpu.conventions import Errors as RefErrors
 from romtime_tpu.conventions import Stage as RefStage
 from romtime_tpu.dtypes import compute_dtype_scope as ref_dtype_scope
@@ -40,6 +39,7 @@ from romtime_tpu.rom.registration import (
     resample_to_standard as ref_resample,
 )
 from romtime_tpu.utils import time_average as ref_time_average
+from romtime_tpu_torch import bench as pb
 from romtime_tpu_torch import estimator_from_arrays
 from romtime_tpu_torch.dtypes import compute_dtype_scope
 from torch_parity import (
@@ -172,7 +172,7 @@ def certified(tmp_path_factory):
     port = estimator_from_arrays(
         estimator_payload_from_hrom(hrom, fleet=ml), device="cpu")
     prom, rom = port.rom, hrom.rom
-    timed_mus = cs.bench_mus(prom, cs.FLEET_TIMED_SPACE, 3, TIMED_B)
+    timed_mus = pb.bench_mus(prom, pb.TIMED_SPACE, 3, TIMED_B)
     active = int(prom.mulocal.cell_of(prom.compute_piston_mach_number(
         CENTER)))
     prom._set_serving_windows(prom.mulocal.cells[active])
@@ -188,7 +188,7 @@ def certified(tmp_path_factory):
     finally:
         rom._set_serving_windows(ml.cells[0])
         clear_serving_caches(rom)
-    cert, est = cs.fleet_certification(port, timed_mus, served["probes"])
+    cert, est = pb.fleet_certification(port, timed_mus, served["probes"])
     ref = _bench_reference(hrom, timed_mus, ref_served["probes"])
     return cert, est, ref
 
@@ -278,20 +278,20 @@ def test_probe_error_and_drift(certified):
     assert 0 < cert["f32_serving_drift"] < 1e-3
 
 
-@pytest.mark.parametrize("name", sorted(cs.FLEET_CERT_LIMITS))
+@pytest.mark.parametrize("name", sorted(pb.FLEET_CERT_LIMITS))
 def test_limit_below_the_measured_value_raises(certified, name):
     """hold_certification passes at limits that hold every number and
     raises, naming it, when one limit is moved past the measured value."""
     cert = certified[0]
-    numbers = cs.certified_numbers(cert)
+    numbers = pb.certified_numbers(cert)
     holding = {k: (0.5 * v if k == "ratio_min" else 2.0 * v)
                for k, v in numbers.items()}
-    cs.hold_certification(cert, "cpu", limits=holding)
+    pb.hold_certification(cert, "cpu", limits=holding)
     missed = dict(holding, **{name: (2.0 * numbers[name]
                                      if name == "ratio_min"
                                      else 0.5 * numbers[name])})
     with pytest.raises(AssertionError, match=name):
-        cs.hold_certification(cert, "cpu", limits=missed)
+        pb.hold_certification(cert, "cpu", limits=missed)
 
 
 def test_carried_rom_samples_as_the_build(tmp_path):
